@@ -11,6 +11,15 @@ Phases, each of which exits non-zero on failure:
   2. kernels: each kernel against its plain PyTorch version on the card,
      with timings; noise_torch against the numpy oracle's noise; sin at
      every NCO grid angle on the card against the CPU (reported only).
+     The prefix sum and max also: from 128 up to 2^26 lanes and on a
+     misaligned input (x[1:]); exactly one CUDA kernel per call, no
+     memset (torch.profiler); the same bits on every call of the sum (up
+     to 2^26 lanes); two captured CUDA graphs per op on one stream, at
+     two lengths, each replayed three times over new data; back-to-back
+     calls on a second stream interleaved with the first.  Each is timed
+     three ways: events around back-to-back calls
+     (cuda_ms, which reads the slower of host and device), device time
+     alone (replays of a captured graph) and host time per call.
   3. main path: the batch CLI (python -m tuun_tpu_torch) renders W1-W3 at
      48 kHz in 65536-sample blocks (W1 also with the default
      --precompute true, as W1p).  The valid samples the engine itself
@@ -71,6 +80,13 @@ PREFIX_SECONDS = 2.0
 # the spread.  The float16 control errs 1e-3 (J=1) to 0.25 (J=3) of scale.
 AFFINE_TOL = {1: 1e-6, 2: 1e-5, 3: 1e-3, 4: 1e-3, 8: 2e-4}
 
+# Prefix-scan lengths of phase 2: up to 2^26 lanes, where the look-back
+# runs over many waves of blocks (16,384 tiles of 4096 lanes on 132 SMs).
+PREFIX_SIZES = (128, MAIN_N, 1 << 20, 3 * (1 << 20) + 37, 1 << 26)
+# Lengths whose time is also split into device time and host time.
+SPLIT_SIZES = (MAIN_N, 1 << 20)
+GRAPH_CALLS = 50
+
 REPLACES = {
     "prefix_sum_f32": "tuun_tpu/engine/pallas_ops.py:149",
     "prefix_max_f32": "tuun_tpu/engine/pallas_ops.py:156",
@@ -92,8 +108,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA
-    events around the run, after one warm-up call)."""
+    """Mean time of fn() over `iters` back-to-back calls: CUDA events
+    around the run, after one warm-up call.  Where the host issues calls
+    more slowly than the device runs them, this times the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -104,6 +121,44 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """Device time of one fn() alone: CUDA events around replays of a
+    CUDA graph that holds `calls` captured calls, so that no host work is
+    timed.  One call on the capture stream first, outside the capture."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one fn() call: the wall time of issuing `calls` calls
+    back to back, without waiting for the device (which drains after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def stable_feedback(J: int):
@@ -125,48 +180,51 @@ def stable_feedback(J: int):
 def phase_kernels(torch, np, scan_ops, results):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    eps = float(np.finfo(np.float32).eps)
 
     # -- prefix sum and max --------------------------------------------
-    for n in (128, 65536, 1 << 20, 3 * (1 << 20) + 37):
+    for n in PREFIX_SIZES:
         x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-        got = scan_ops.prefix_sum_f32(x)
-        ref64 = torch.cumsum(x.double(), 0)
-        plain = scan_ops.prefix_sum_ref(x)
-        torch.cuda.synchronize()
-        # Tolerance: any summation order is within (#roundings) * eps *
-        # sum|x| of the exact prefix; the kernel rounds a lane's value at
-        # most ~40 times (8 in-thread, 11 in-block, carry chain), so
-        # 16 eps * running sum|x| is a strict bound in practice.
-        bound = 16 * eps * torch.cumsum(x.double().abs(), 0)
-        err = (got.double() - ref64).abs()
-        plain_err = float((plain.double() - ref64).abs().max())
-        check(bool((err <= bound).all()),
-              f"prefix_sum n={n}: error {float(err.max()):.3e} above "
-              f"16 eps sum|x|")
-        iters = 200 if n <= 65536 else 50
-        ms = cuda_ms(torch, lambda: scan_ops.prefix_sum_f32(x), iters)
-        pms = cuda_ms(torch, lambda: scan_ops.prefix_sum_ref(x), iters)
-        log(f"prefix_sum_f32 n={n}: max_abs_err={float(err.max()):.3e} "
-            f"(plain cumsum {plain_err:.3e}) kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
-        results["prefix_sum_f32"].append((n, float(err.max()), ms, pms))
+        err = check_prefix(torch, np, scan_ops, "sum", x,
+                           scan_ops.prefix_sum_f32(x), f"n={n}")
+        plain_err = float((scan_ops.prefix_sum_ref(x).double()
+                           - torch.cumsum(x.double(), 0)).abs().max())
+        iters = 200 if n <= 65536 else 50 if n <= 4 << 20 else 10
+        split = n in SPLIT_SIZES
+        row = prefix_times(torch, scan_ops.prefix_sum_f32,
+                           scan_ops.prefix_sum_ref, x, iters, split)
+        log(f"prefix_sum_f32 n={n}: max_abs_err={err:.3e} (plain cumsum "
+            f"{plain_err:.3e}) {format_times(row)}")
+        results["prefix_sum_f32"].append((n, err) + row)
 
-        got = scan_ops.prefix_max_f32(x)
-        plain = scan_ops.prefix_max_ref(x)
-        torch.cuda.synchronize()
-        check(torch.equal(got.view(torch.int32), plain.view(torch.int32)),
-              f"prefix_max n={n}: not bit-identical to torch.cummax")
-        ms = cuda_ms(torch, lambda: scan_ops.prefix_max_f32(x), iters)
-        pms = cuda_ms(torch, lambda: scan_ops.prefix_max_ref(x), iters)
-        log(f"prefix_max_f32 n={n}: bit-identical to cummax, kernel "
-            f"{ms:.4f} ms, plain {pms:.4f} ms")
-        results["prefix_max_f32"].append((n, 0.0, ms, pms))
+        for xm in (x, prefix_input(torch, np, rng, "max", n)):
+            check_prefix(torch, np, scan_ops, "max", xm,
+                         scan_ops.prefix_max_f32(xm), f"n={n}")
+        row = prefix_times(torch, scan_ops.prefix_max_f32,
+                           scan_ops.prefix_max_ref, x, iters, split)
+        log(f"prefix_max_f32 n={n}: bit-identical to cummax (also on a "
+            f"rising input) {format_times(row)}")
+        results["prefix_max_f32"].append((n, 0.0) + row)
+        del x, xm
+    # Misaligned inputs (x[1:] of a fresh tensor: 4 bytes past a 16-byte
+    # boundary) take the kernel's scalar loads.
+    for n in (1000, 1 << 20):
+        errs = []
+        for op, fn in prefix_ops(scan_ops):
+            x = prefix_input(torch, np, rng, op, n + 1)[1:]
+            check(x.data_ptr() % 16 != 0, "the x[1:] input is 16-byte aligned")
+            errs.append(check_prefix(torch, np, scan_ops, op, x, fn(x),
+                                     f"x[1:], n={n}"))
+        log(f"prefix sum/max on x[1:] of {n + 1} lanes: sum max_abs_err="
+            f"{errs[0]:.3e}, max bit-identical to cummax")
     # The sentinel case of the reset edge scan.
     x = torch.full((5000,), -3.0e18, device=dev)
     x[5], x[4100] = 7.0, 9.0
     check(torch.equal(scan_ops.prefix_max_f32(x), torch.cummax(x, 0).values),
           "prefix_max: -3e18 sentinel case differs from cummax")
+    check_one_launch(torch, np, scan_ops, rng)
+    check_prefix_repeatable(torch, np, scan_ops, rng)
+    check_prefix_graph(torch, np, scan_ops, rng, (3 * (1 << 20) + 37, 1 << 22))
+    check_prefix_streams(torch, np, scan_ops, rng, 1 << 22)
 
     # -- affine scan ----------------------------------------------------
     for J in (1, 2, 3, 4, 8):
@@ -215,6 +273,165 @@ def phase_kernels(torch, np, scan_ops, results):
                 f"{ms:.4f} ms, plain {pms:.4f} ms")
             results["affine_scan_f32"].append((n, err, ms, pms, J))
             del a, ff, live, plain_h, ref
+
+
+def check_prefix(torch, np, scan_ops, op, x, got, what) -> float:
+    """Holds `got`, the "sum" or "max" scan of x, to its reference: the
+    sum within 16 eps * running sum|x| of the float64 prefix, the max
+    bit-identical to torch.cummax.  Returns the sum's largest error."""
+    if op == "max":
+        check(torch.equal(got.view(torch.int32),
+                          scan_ops.prefix_max_ref(x).view(torch.int32)),
+              f"prefix_max {what}: not bit-identical to torch.cummax")
+        return 0.0
+    # Any summation order is within (#roundings) * eps * sum|x| of the
+    # exact prefix.  A lane's value takes 16 in-thread roundings, 8 in
+    # the block scan and 2 for the folds, plus the carry's: 8 in its tree
+    # and one per anchor tile passed (one per 256 tiles), at the scale of
+    # the running sum, where they mostly cancel: 16 eps * running sum|x|
+    # is a strict bound in practice (tests/test_torch_scan_ops.py holds a
+    # model of this order to it at up to 3*2^20+37 lanes).
+    eps = float(np.finfo(np.float32).eps)
+    bound = 16 * eps * torch.cumsum(x.double().abs(), 0)
+    err = (got.double() - torch.cumsum(x.double(), 0)).abs()
+    check(bool((err <= bound).all()),
+          f"prefix_sum {what}: error {float(err.max()):.3e} above "
+          f"16 eps sum|x|")
+    return float(err.max())
+
+
+def prefix_times(torch, fn, ref, x, iters, split):
+    """(ms, plain_ms) by cuda_ms; with split, also (device_ms,
+    plain_device_ms, host_us, plain_host_us)."""
+    row = (cuda_ms(torch, lambda: fn(x), iters),
+           cuda_ms(torch, lambda: ref(x), iters))
+    if split:
+        row += (graph_ms(torch, lambda: fn(x)), graph_ms(torch, lambda: ref(x)),
+                host_us(torch, lambda: fn(x)), host_us(torch, lambda: ref(x)))
+    return row
+
+
+def format_times(row) -> str:
+    text = f"kernel {row[0]:.4f} ms, plain {row[1]:.4f} ms"
+    if len(row) > 2:
+        text += (f"; device alone (graph of {GRAPH_CALLS}) kernel "
+                 f"{row[2]:.4f} ms, plain {row[3]:.4f} ms; host per call "
+                 f"kernel {row[4]:.1f} us, plain {row[5]:.1f} us")
+    return text
+
+
+def check_one_launch(torch, np, scan_ops, rng) -> None:
+    """Every prefix call, at every length phase 2 runs, is exactly one
+    CUDA kernel: no memset, no set-up or second kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+          for n in PREFIX_SIZES]
+    xs.append(torch.from_numpy(
+        rng.standard_normal(4097).astype(np.float32)).cuda()[1:])
+    fns = ((scan_ops.prefix_sum_f32, "SumOp"),
+           (scan_ops.prefix_max_f32, "MaxOp"))
+    for x in xs:  # each stream's scratch exists before the window
+        for fn, _ in fns:
+            fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            for fn, _ in fns:
+                fn(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _, op in fns:
+        mine = [k for k in names if "scan_single_pass" in k and op in k]
+        check(len(mine) == len(xs), f"prefix {op}: {len(mine)} kernels for "
+              f"{len(xs)} calls")
+    check(len(names) == len(xs) * len(fns),
+          f"prefix calls ran other device work: {sorted(set(names))}")
+    log(f"prefix sum/max: {len(names)} calls at {len(xs)} lengths (128 to "
+        f"2^26, and x[1:]) ran exactly one kernel each, no memset")
+
+
+def check_prefix_repeatable(torch, np, scan_ops, rng) -> None:
+    """The prefix sum gives the same bits on every call of one input: the
+    look-back's grouping is fixed, not set by which tiles finish first."""
+    for n, calls in ((MAIN_N, 200), (3 * (1 << 20) + 37, 200), (1 << 26, 20)):
+        x = prefix_input(torch, np, rng, "sum", n)
+        first = scan_ops.prefix_sum_f32(x).view(torch.int32)
+        differ = sum(not torch.equal(scan_ops.prefix_sum_f32(x).view(
+            torch.int32), first) for _ in range(calls - 1))
+        check(differ == 0, f"prefix_sum n={n}: {differ} of {calls - 1} "
+              f"repeats differ from the first call")
+        log(f"prefix_sum n={n}: {calls} calls on one input, all the same bits")
+        del x, first
+
+
+def check_prefix_graph(torch, np, scan_ops, rng, sizes) -> None:
+    """Each prefix op captured into one CUDA graph per length, all on one
+    stream, each capture after a plain call at its length on that stream.
+    The graphs are replayed in turns, three times each, over new data
+    copied into their static inputs: each replay finds the scratch the
+    run before it left, and no later call or capture freed memory that
+    an earlier graph uses."""
+    s = torch.cuda.Stream()
+    for op, fn in prefix_ops(scan_ops):
+        graphs = []
+        for n in sizes:
+            static_x = torch.zeros(n, device="cuda")
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                fn(static_x)  # the stream's scratch, outside the capture
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                static_out = fn(static_x)
+            graphs.append((n, g, static_x, static_out))
+        for r in range(3):
+            for n, g, static_x, _ in graphs:
+                static_x.copy_(prefix_input(torch, np, rng, op, n))
+                g.replay()
+            torch.cuda.synchronize()
+            for n, _, static_x, static_out in graphs:
+                check_prefix(torch, np, scan_ops, op, static_x, static_out,
+                             f"graph replay {r}, n={n}")
+        del graphs
+    log(f"prefix sum/max captured in CUDA graphs on one stream at n={sizes}: "
+        f"3 replays each, in turns, over new data match the plain versions")
+
+
+def check_prefix_streams(torch, np, scan_ops, rng, n) -> None:
+    """Two back-to-back calls on a second stream, interleaved with two on
+    the first: each stream has its own scratch, so all four are right."""
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    for op, fn in prefix_ops(scan_ops):
+        xs = [prefix_input(torch, np, rng, op, n) for _ in range(4)]
+        side.wait_stream(main)
+        outs = []
+        for i in range(2):
+            outs.append(fn(xs[2 * i]))
+            with torch.cuda.stream(side):
+                outs.append(fn(xs[2 * i + 1]))
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        for i, (x, got) in enumerate(zip(xs, outs)):
+            check_prefix(torch, np, scan_ops, op, x, got,
+                         f"{'second' if i % 2 else 'first'} stream, call "
+                         f"{i // 2}")
+    log(f"prefix sum/max: two calls on a second stream interleaved with two "
+        f"on the first, n={n}: all right")
+
+
+def prefix_ops(scan_ops):
+    return (("sum", scan_ops.prefix_sum_f32), ("max", scan_ops.prefix_max_f32))
+
+
+def prefix_input(torch, np, rng, op, n):
+    """Unit normal noise for the sum (as its bound assumes); for the max,
+    the same on a ramp from 0 to 50, so that the running max changes in
+    every tile and each tile's carry from the look-back decides lanes."""
+    x = rng.standard_normal(n)
+    if op == "max":
+        x += np.linspace(0, 50, n)
+    return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
 def phase_noise(torch, np):
@@ -531,7 +748,9 @@ def main(argv) -> int:
             "source": "tuun_tpu_torch/csrc/scan.cu",
             "replaces": REPLACES[k], "launches": counts[k],
             "max_abs_err": max(r[1] for r in rows),
-            "ms": main_row[2], "plain_ms": main_row[3]})
+            "ms": main_row[2], "plain_ms": main_row[3],
+            **({"device_ms": main_row[4], "plain_device_ms": main_row[5]}
+               if k != "affine_scan_f32" else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

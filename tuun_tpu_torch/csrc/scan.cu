@@ -9,27 +9,73 @@
 //
 // The TPU kernels walk a sequential grid and carry the running total (or
 // the running affine map) from one grid step to the next in SMEM scratch.
-// Blocks on this card run in parallel and in no order, so nothing can be
-// carried between them: every scan here is three launches instead --
-// (1) each block scans or reduces its own tile and writes the tile's
-// aggregate, (2) one block scans the aggregates, (3) each block folds its
-// tile's exclusive prefix in.
+// Blocks on this card run in parallel and in no order.
 //
-// What bounds them: all three move a few bytes per lane and do little
-// arithmetic (the affine scan O(J^2) per lane sequentially plus O(J^3) per
-// thread in the block scan), so they are bound by device-memory traffic
-// and by launch latency at small N.  The design answers with coalesced
-// tile loads through shared memory (prefix kernels), each thread owning a
-// contiguous run of lanes (sequential work in registers, one value or one
-// J x J map per thread entering the warp-shuffle scan), and a single small
-// aggregate pass whose traffic is 1/2048 of the data.  A single-pass
-// decoupled look-back would save the re-read of pass (3); that is later
-// work.
+// Prefix sum and max: one launch per call, a single-pass scan with
+// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", NVIDIA 2016).  What bounds them on this
+// card: at the main path's 65536 lanes, launch latency and the host's
+// dispatch (the data is 0.5 MB, ~0.2 us of HBM time); at large N, HBM
+// bytes, 8 per lane (read once, written once).  The design answers both:
+//   * one kernel, no set-up launch or memset, so a call is one launch;
+//   * each block takes its tile index from an atomic counter, scans its
+//     4096 lanes (float4 loads, coalesced and transposed through padded
+//     shared memory, 16 lanes per thread in registers, then a
+//     warp-shuffle block scan) and publishes a 64-bit status word {flag,
+//     value}.  Flag and value are one word, written and read whole, so no
+//     fence orders them.  Every lane is read once and written once; no
+//     pass re-reads the output;
+//   * the grouping is fixed, so a result is the same bits on every call:
+//     every kScanThreads-th tile (256) is an anchor.  Tile t's carry is
+//     the inclusive prefix of the anchor a at or before t - 1, combined
+//     with the aggregates of tiles a + 1 .. t - 1: thread k reads tile
+//     a + k's word, all at once, each warp folds its words by a shuffle
+//     tree, and thread 0 combines the warp totals in order.  Up to 32
+//     words (the main path's 16 tiles) warp 0 alone reads and folds them,
+//     with no extra barrier.  Only anchors publish an inclusive prefix,
+//     only other tiles an aggregate.  The anchors form a chain, one link
+//     per 256 tiles (8 MB of traffic); up to 2^20 lanes every tile reads
+//     tile 0 and nothing waits on a chain;
+//   * the tile index comes from the counter, not blockIdx, so a block
+//     waits only on tiles that have already started: forward progress
+//     holds however many waves the grid takes;
+//   * the scratch (tile counter, done counter, status words) is the
+//     caller's persistent buffer for its (device, stream), of
+//     tuun_scan_scratch_words() words (enough for kMaxN), zeroed once when
+//     allocated.  After its look-back each block adds one to the done
+//     counter, with release and acquire semantics in place of a full
+//     __threadfence(); the block that sees nb - 1 clears what the call
+//     used, so the next call, or the next replay of a captured CUDA graph,
+//     finds it clean.  No epoch comes from the host: graph capture would
+//     freeze it;
+//   * N <= one tile skips the counter and the look-back.
+// Measured on an H100 (PERF.md): the tile, 256 threads x 16 lanes, was
+// chosen for the main path's 65536 lanes, where no tile measured was
+// faster (256x8, 128x16 and 512x8 tied it; 128x32, 256x32 and 512x16
+// were 3-10% slower).  Against the look-back it replaced, which folded
+// back to the first inclusive prefix it found and so grouped tiles by
+// timing, this fixed grouping was level at 65536 lanes and 4-10% faster
+// at 2^20 and 2^26.  Two other fixed groupings lost 0.4-0.6 us a call at
+// 65536 lanes: all threads folding through the block scan, and warp 0
+// polling 8 words per lane (also 35% slower at 2^20).  A pointer that is
+// not 16-byte aligned, and the ragged last tile, take coalesced scalar
+// loads.
+//
+// Affine scan: three launches -- (1) each block reduces its own tile to
+// the composed map, (2) one block scans the maps, (3) each block runs the
+// recurrence from its entering history.  It moves a few bytes per lane
+// and does O(J^2) work per lane sequentially plus O(J^3) per thread in the
+// block scan, so it is bound by device-memory traffic and by launch
+// latency at small N.  Each thread owns a contiguous run of lanes
+// (sequential work in registers, one J x J map per thread entering the
+// warp-shuffle scan), and the single aggregate pass moves 1/2048 of the
+// data.  It keeps no state between calls.
 //
 // C interface, bound with ctypes (tuun_tpu_torch/engine/scan_ops.py).
-// Every entry launches on the given stream, allocates nothing (the caller
-// passes outputs and scratch) and returns cudaGetLastError().  Lengths are
-// 64-bit: any N from 1 to 2^31 - 1 is covered, the ragged last tile masked.
+// Every entry launches one grid per pass on the given stream, allocates
+// nothing (the caller passes outputs and scratch) and returns
+// cudaGetLastError().  Lengths are 64-bit: any N from 1 to 2^31 - 1 is
+// covered, the ragged last tile masked.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,13 +89,27 @@ constexpr unsigned kFull = 0xffffffffu;
 // ---------------------------------------------------------------------------
 
 constexpr int kScanThreads = 256;
-constexpr int kScanItems = 8;
-constexpr int kScanTile = kScanThreads * kScanItems;  // 2048 lanes per block
+constexpr int kScanItems = 16;                        // lanes per thread
+constexpr int kScanTile = kScanThreads * kScanItems;  // 4096 lanes per block
+constexpr int kScanVecs = kScanItems / 4;             // float4 per thread
 
-// Shared-memory index with one pad word per 32: both the coalesced
-// (stride-1) and the per-thread (stride-kScanItems) accesses are then free
-// of bank conflicts.
-__device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
+// Status word of a tile: flag in the high half, the value's bits in the
+// low half, written and read as one 64-bit word.
+constexpr unsigned long long kNotReady = 0;
+constexpr unsigned long long kAggregate = 1;
+constexpr unsigned long long kPrefix = 2;
+
+// Scratch words: [0] tile counter, [1] done counter, [2 + t] tile t's
+// status.  Sized once for the longest scan, so a buffer never grows.
+constexpr int64_t kMaxN = 2147483647;  // 2^31 - 1
+constexpr int kScratchHead = 2;
+constexpr int64_t kScratchWords = kScratchHead + (kMaxN + kScanTile - 1) / kScanTile;
+
+// Shared-memory index of lane j of the tile: 4 pad words after every 32.
+// Coalesced stores (scalar or float4) and each thread's float4 reads of
+// its own 16 lanes are then free of bank conflicts, and every float4
+// stays 16-byte aligned.
+__device__ __forceinline__ int pad(int j) { return j + ((j >> 5) << 2); }
 
 struct SumOp {
   __device__ static float identity() { return 0.0f; }
@@ -105,26 +165,114 @@ __device__ float block_exclusive_scan(float v, float* warp_tot, float* total) {
   return excl;
 }
 
-// Pass 1: inclusive scan of each 2048-lane tile; the tile's aggregate goes
-// to agg[blockIdx.x].  Lanes past n read as the identity.
+__device__ __forceinline__ unsigned long long pack_status(unsigned long long flag,
+                                                          float v) {
+  return (flag << 32) | (unsigned long long)__float_as_uint(v);
+}
+
+__device__ __forceinline__ unsigned long long status_flag(unsigned long long s) {
+  return s >> 32;
+}
+
+// One add on a scratch counter, ordered after this thread's earlier
+// accesses and before its later ones (release and acquire at GPU scope),
+// without a full fence.
+__device__ __forceinline__ unsigned long long count_acq_rel(
+    unsigned long long* p) {
+  unsigned long long old;
+  asm volatile("atom.add.acq_rel.gpu.u64 %0, [%1], 1;"
+               : "=l"(old) : "l"(p) : "memory");
+  return old;
+}
+
+// Run by the whole block of tile t > 0; the result is thread 0's.  The
+// combine of every earlier tile, in sequence order and a fixed grouping:
+// the inclusive prefix of anchor a = the last multiple of kScanThreads
+// below t, then the aggregates of tiles a + 1 .. t - 1.  Thread k waits
+// for tile a + k's word; each warp's shuffle tree folds lane l + d into
+// lane l, and thread 0 combines the warp totals in order.  With at most
+// 32 words, only warp 0 takes part and no barrier is needed.
+template <class Op>
+__device__ float look_back(volatile unsigned long long* status, int64_t t,
+                           float* warp_tot) {
+  const int64_t a = (t - 1) / kScanThreads * kScanThreads;
+  const int words = (int)(t - a);
+  const int lane = threadIdx.x & 31;
+  if (words <= 32 && threadIdx.x >= 32) return Op::identity();
+  // The warp spins as one: a divergent spin per lane cost 0.35 us a call
+  // at 65536 lanes on an H100.
+  const bool mine = (int)threadIdx.x < words;
+  unsigned long long s =
+      mine ? status[a + threadIdx.x] : pack_status(kAggregate, Op::identity());
+  while (__any_sync(kFull, status_flag(s) == kNotReady)) {
+    if (status_flag(s) == kNotReady) s = status[a + threadIdx.x];
+  }
+  float v = __uint_as_float((unsigned)s);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_down_sync(kFull, v, d);
+    if (lane + d < 32) v = Op::combine(v, o);
+  }
+  if (words <= 32) return v;
+  if (lane == 0) warp_tot[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (words + 31) / 32; ++w) v = Op::combine(v, warp_tot[w]);
+  }
+  return v;
+}
+
+// Single-pass inclusive scan.  Lanes past n read as the identity.
 template <class Op>
 __global__ void __launch_bounds__(kScanThreads)
-scan_tiles(const float* __restrict__ x, float* __restrict__ out,
-           float* __restrict__ agg, int64_t n) {
-  __shared__ float tile[kScanTile + kScanTile / 32];
+scan_single_pass(const float* __restrict__ x, float* __restrict__ out,
+                 unsigned long long* scratch, int64_t n) {
+  __shared__ __align__(16) float tile[kScanTile + kScanTile / 8];
   __shared__ float warp_tot[32];
-  const int64_t base = (int64_t)blockIdx.x * kScanTile;
+  __shared__ unsigned long long tile_index;
+  __shared__ float tile_prefix;
+  __shared__ bool last_block;
+  const int64_t nb = (n + kScanTile - 1) / kScanTile;
+  volatile unsigned long long* status = scratch + kScratchHead;
+  int64_t t = 0;
+  if (nb > 1) {
+    if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1ull);
+    __syncthreads();
+    t = (int64_t)tile_index;
+  }
+  const int64_t base = t * kScanTile;
+  const bool vec = base + kScanTile <= n &&
+      (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
+
+  // Load: coalesced, into the padded tile.
+  if (vec) {
+    const float4* src = reinterpret_cast<const float4*>(x + base);
 #pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    const int j = k * kScanThreads + threadIdx.x;
-    const int64_t g = base + j;
-    tile[pad(j)] = g < n ? x[g] : Op::identity();
+    for (int k = 0; k < kScanVecs; ++k) {
+      const int v = k * kScanThreads + threadIdx.x;
+      *reinterpret_cast<float4*>(&tile[pad(4 * v)]) = src[v];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      const int j = k * kScanThreads + threadIdx.x;
+      const int64_t g = base + j;
+      tile[pad(j)] = g < n ? x[g] : Op::identity();
+    }
   }
   __syncthreads();
+
+  // Each thread scans its own 16 lanes in registers.
   float items[kScanItems];
   const int first = threadIdx.x * kScanItems;
 #pragma unroll
-  for (int k = 0; k < kScanItems; ++k) items[k] = tile[pad(first + k)];
+  for (int q = 0; q < kScanVecs; ++q) {
+    const float4 f = *reinterpret_cast<const float4*>(&tile[pad(first + 4 * q)]);
+    items[4 * q] = f.x;
+    items[4 * q + 1] = f.y;
+    items[4 * q + 2] = f.z;
+    items[4 * q + 3] = f.w;
+  }
 #pragma unroll
   for (int k = 1; k < kScanItems; ++k) {
     items[k] = Op::combine(items[k - 1], items[k]);
@@ -132,63 +280,83 @@ scan_tiles(const float* __restrict__ x, float* __restrict__ out,
   float total;
   const float excl =
       block_exclusive_scan<Op>(items[kScanItems - 1], warp_tot, &total);
-  if (threadIdx.x > 0) {
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) items[k] = Op::combine(excl, items[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) tile[pad(first + k)] = items[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    const int j = k * kScanThreads + threadIdx.x;
-    const int64_t g = base + j;
-    if (g < n) out[g] = tile[pad(j)];
-  }
-  if (threadIdx.x == 0) agg[blockIdx.x] = total;
-}
 
-// Pass 2 (one block): agg[t] <- exclusive prefix of the tile aggregates,
-// walked in chunks of kScanThreads with a running carry.
-template <class Op>
-__global__ void __launch_bounds__(kScanThreads)
-scan_aggregates(float* __restrict__ agg, int64_t nb) {
-  __shared__ float warp_tot[32];
-  float carry = Op::identity();
-  for (int64_t base = 0; base < nb; base += kScanThreads) {
-    const int64_t g = base + threadIdx.x;
-    const float v = g < nb ? agg[g] : Op::identity();
-    float total;
-    const float excl = block_exclusive_scan<Op>(v, warp_tot, &total);
-    if (g < nb) agg[g] = threadIdx.x == 0 ? carry : Op::combine(carry, excl);
-    carry = Op::combine(carry, total);
-  }
-}
-
-// Pass 3: tile t >= 1 folds in its exclusive prefix agg[t].
-template <class Op>
-__global__ void __launch_bounds__(kScanThreads)
-add_prefix(float* __restrict__ out, const float* __restrict__ agg, int64_t n) {
-  const int64_t t = (int64_t)blockIdx.x + 1;
-  const float p = agg[t];
-  const int64_t base = t * kScanTile;
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    const int64_t g = base + k * kScanThreads + threadIdx.x;
-    if (g < n) out[g] = Op::combine(p, out[g]);
-  }
-}
-
-template <class Op>
-int run_prefix(const float* x, float* out, float* agg, int64_t n,
-               cudaStream_t stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t nb = (n + kScanTile - 1) / kScanTile;
-  scan_tiles<Op><<<(unsigned)nb, kScanThreads, 0, stream>>>(x, out, agg, n);
   if (nb > 1) {
-    scan_aggregates<Op><<<1, kScanThreads, 0, stream>>>(agg, nb);
-    add_prefix<Op><<<(unsigned)(nb - 1), kScanThreads, 0, stream>>>(out, agg, n);
+    float prefix = Op::identity();
+    const bool anchor = t % kScanThreads == 0;
+    if (t == 0) {
+      if (threadIdx.x == 0) status[0] = pack_status(kPrefix, total);
+    } else {
+      if (threadIdx.x == 0 && !anchor) status[t] = pack_status(kAggregate, total);
+      prefix = look_back<Op>(status, t, warp_tot);
+      if (threadIdx.x == 0 && anchor) {
+        status[t] = pack_status(kPrefix, Op::combine(prefix, total));
+      }
+    }
+    if (threadIdx.x == 0) {
+      tile_prefix = prefix;
+      // The look-back's shuffles or barrier have ordered every read of
+      // the status words before this count, and this block's word is
+      // final.
+      last_block = count_acq_rel(&scratch[1]) == (unsigned long long)(nb - 1);
+    }
+    __syncthreads();
   }
+
+  // Fold in the thread's prefix within the tile, then the tile's prefix.
+  bool fold = threadIdx.x > 0;
+  float carry = excl;
+  if (t > 0) {
+    carry = fold ? Op::combine(tile_prefix, excl) : tile_prefix;
+    fold = true;
+  }
+  if (fold) {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) items[k] = Op::combine(carry, items[k]);
+  }
+#pragma unroll
+  for (int q = 0; q < kScanVecs; ++q) {
+    *reinterpret_cast<float4*>(&tile[pad(first + 4 * q)]) =
+        make_float4(items[4 * q], items[4 * q + 1], items[4 * q + 2],
+                    items[4 * q + 3]);
+  }
+  __syncthreads();
+
+  // Store: coalesced, from the padded tile.
+  if (vec) {
+    float4* dst = reinterpret_cast<float4*>(out + base);
+#pragma unroll
+    for (int k = 0; k < kScanVecs; ++k) {
+      const int v = k * kScanThreads + threadIdx.x;
+      dst[v] = *reinterpret_cast<const float4*>(&tile[pad(4 * v)]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      const int j = k * kScanThreads + threadIdx.x;
+      const int64_t g = base + j;
+      if (g < n) out[g] = tile[pad(j)];
+    }
+  }
+
+  // The last block to finish its look-back leaves the scratch clean.
+  if (nb > 1 && last_block) {
+    for (int64_t i = threadIdx.x; i < nb; i += kScanThreads) status[i] = 0;
+    if (threadIdx.x == 0) {
+      scratch[0] = 0;
+      scratch[1] = 0;
+    }
+  }
+}
+
+template <class Op>
+int run_prefix(const float* x, float* out, unsigned long long* scratch,
+               int64_t n, cudaStream_t stream) {
+  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  const int64_t nb = (n + kScanTile - 1) / kScanTile;
+  if (nb > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  scan_single_pass<Op><<<(unsigned)nb, kScanThreads, 0, stream>>>(
+      x, out, scratch, n);
   return (int)cudaGetLastError();
 }
 
@@ -485,19 +653,24 @@ int run_affine(const float* a, const float* ff, const uint8_t* live,
 extern "C" {
 
 int tuun_scan_tile() { return kScanTile; }
+long long tuun_scan_scratch_words() { return kScratchWords; }
 int tuun_affine_tile() { return kAffTile; }
 int tuun_affine_max_j() { return kMaxJ; }
 
-// out[i] = x[0] + ... + x[i].  agg: ceil(n / tuun_scan_tile()) floats.
-int tuun_prefix_sum_f32(const float* x, float* out, float* agg, long long n,
-                        void* stream) {
-  return run_prefix<SumOp>(x, out, agg, n, (cudaStream_t)stream);
+// out[i] = x[0] + ... + x[i], the same bits on every call.  scratch: the
+// caller's persistent, zeroed buffer of tuun_scan_scratch_words() 64-bit
+// words for this stream (null when n <= one tile); the kernel leaves it
+// zeroed.  Calls that share a scratch buffer must not overlap.
+int tuun_prefix_sum_f32(const float* x, float* out, unsigned long long* scratch,
+                        long long n, void* stream) {
+  return run_prefix<SumOp>(x, out, scratch, n, (cudaStream_t)stream);
 }
 
-// out[i] = max(x[0..i]) with torch.cummax's NaN and tie rules.
-int tuun_prefix_max_f32(const float* x, float* out, float* agg, long long n,
-                        void* stream) {
-  return run_prefix<MaxOp>(x, out, agg, n, (cudaStream_t)stream);
+// out[i] = max(x[0..i]) with torch.cummax's NaN and tie rules; scratch as
+// for tuun_prefix_sum_f32.
+int tuun_prefix_max_f32(const float* x, float* out, unsigned long long* scratch,
+                        long long n, void* stream) {
+  return run_prefix<MaxOp>(x, out, scratch, n, (cudaStream_t)stream);
 }
 
 // a f32[n, J] row-major, ff f32[n], live u8[n], h0 f32[J].

@@ -13,6 +13,18 @@ by a hash of the source and flags, and bind through ctypes.  Each entry
 point counts its kernel launches in `launches` (reset with
 `reset_launches`), so a run can show which kernels its path reached.
 
+The prefix sum and max are one launch per call: a single-pass scan with
+decoupled look-back over 4096-lane tiles, in a fixed grouping, so a call
+gives the same bits every time.  Its scratch (two counters and one status
+word per tile) is a persistent buffer for each (device, stream), sized
+once for the longest scan (4 MiB) and zeroed once when it is allocated;
+it is never freed or grown, and each call leaves it zeroed again, so
+calls and replays of a captured CUDA graph need no set-up.  Call a
+prefix scan once on a stream before capturing it there, so that its
+scratch exists outside the capture.  A graph keeps the scratch of the
+stream it was captured on, so replays of graphs captured on one stream
+must not overlap one another or calls on that stream.
+
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit) and the affine scan any J from 1 to
 MAX_J = 8, so the engine never needs a plain path on the card.
@@ -43,6 +55,12 @@ launches: Dict[str, int] = {"prefix_sum_f32": 0, "prefix_max_f32": 0,
                             "affine_scan_f32": 0}
 
 _lib = None
+# Read from the library once: lanes per prefix-scan tile, and the 64-bit
+# words of a stream's prefix-scan scratch.
+_scan_tile = 0
+_scratch_words = 0
+# Persistent prefix-scan scratch, keyed by (device index, raw stream).
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -84,6 +102,8 @@ def load_library() -> ctypes.CDLL:
     for name in ("tuun_scan_tile", "tuun_affine_tile", "tuun_affine_max_j"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
+    lib.tuun_scan_scratch_words.argtypes = []
+    lib.tuun_scan_scratch_words.restype = i64
     for name in ("tuun_prefix_sum_f32", "tuun_prefix_max_f32"):
         getattr(lib, name).argtypes = [p, p, p, i64, p]
         getattr(lib, name).restype = i32
@@ -91,6 +111,9 @@ def load_library() -> ctypes.CDLL:
     lib.tuun_affine_scan_f32.restype = i32
     if lib.tuun_affine_max_j() != MAX_J:
         raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
+    global _scan_tile, _scratch_words
+    _scan_tile = lib.tuun_scan_tile()
+    _scratch_words = lib.tuun_scan_scratch_words()
     _lib = lib
     return lib
 
@@ -110,13 +133,18 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _check_vector(x: torch.Tensor, name: str) -> None:
-    _require(x.dtype == torch.float32, f"{name}: expected float32, got {x.dtype}")
-    _require(x.dim() == 1, f"{name}: expected a 1-D tensor, got {tuple(x.shape)}")
-    _require(1 <= x.shape[0] <= MAX_N, f"{name}: length {x.shape[0]} "
-             f"outside [1, {MAX_N}]")
-    _require(x.is_contiguous(), f"{name}: expected a contiguous tensor")
-    _require(x.device.type in ("cpu", "cuda"),
-             f"{name}: unsupported device {x.device}")
+    # Runs on every call, so each message is formatted only when its
+    # check fails.
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {x.dtype}")
+    if x.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(x.shape)}")
+    if not 1 <= x.shape[0] <= MAX_N:
+        raise ValueError(f"{name}: length {x.shape[0]} outside [1, {MAX_N}]")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if not (x.is_cuda or x.is_cpu):
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -132,16 +160,41 @@ def prefix_max_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, 0).values
 
 
-def _prefix_launch(entry: str, x: torch.Tensor) -> torch.Tensor:
-    lib = load_library()
+def _zeroed_scratch(device: int) -> torch.Tensor:
+    # torch.zeros runs on the current stream, the one the buffer is keyed
+    # by, so it is ordered before the kernel that first uses it.
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "prefix scan: this stream has no scratch yet; call the scan "
+            "once on it before capturing")
+    return torch.zeros(_scratch_words, dtype=torch.int64, device=device)
+
+
+def prefix_scratch(device: int, stream: int,
+                   alloc=_zeroed_scratch) -> torch.Tensor:
+    """The persistent scratch of (device, stream), made on first use.
+
+    Each (device, stream) has its own buffer, so scans on different
+    streams may run at the same time.  It comes zeroed from
+    `alloc(device)`, at the size of the longest scan, and is kept for the
+    life of the process: a captured graph holds its raw pointer, so it
+    must never be freed.  The kernel leaves it zeroed after each call."""
+    key = (device, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = alloc(device)
+    return buf
+
+
+def _prefix_launch(fn, entry: str, x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
-    tile = lib.tuun_scan_tile()
+    dev = x.get_device()
+    # torch.cuda.current_stream(dev).cuda_stream without building a Stream
+    # object, which cost ~2 us of host time per call.
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    scratch = prefix_scratch(dev, stream).data_ptr() if n > _scan_tile else 0
     out = torch.empty_like(x)
-    agg = torch.empty((n + tile - 1) // tile, dtype=torch.float32,
-                      device=x.device)
-    _check(getattr(lib, f"tuun_{entry}")(
-        x.data_ptr(), out.data_ptr(), agg.data_ptr(), n,
-        _stream(x.device)), entry)
+    _check(fn(x.data_ptr(), out.data_ptr(), scratch, n, stream), entry)
     launches[entry] += 1
     return out
 
@@ -149,23 +202,30 @@ def _prefix_launch(entry: str, x: torch.Tensor) -> torch.Tensor:
 def prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a 1-D float32 tensor.
 
-    The CUDA kernel sums each 2048-lane tile and then adds the tile's
-    prefix, an order that differs from torch.cumsum's: results agree
-    within a bound that grows with the running magnitude (one rounding of
-    the carry per lane on top of the tile's own)."""
+    The CUDA kernel scans each 4096-lane tile (16 lanes in sequence per
+    thread, then a shuffle scan across the block) and adds the sum of all
+    earlier tiles: the inclusive prefix of the nearest earlier anchor
+    tile (every 256th) plus the aggregates of the tiles between, summed by
+    a fixed shuffle tree.  That order differs from torch.cumsum's: results
+    agree within a bound that grows with the running magnitude (the
+    tile's own roundings, the carry's tree, and one rounding per anchor
+    passed).  The grouping does not depend on timing, so every call
+    gives the same bits."""
     _check_vector(x, "prefix_sum_f32")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return prefix_sum_ref(x)
-    return _prefix_launch("prefix_sum_f32", x)
+    return _prefix_launch(load_library().tuun_prefix_sum_f32,
+                          "prefix_sum_f32", x)
 
 
 def prefix_max_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive running max of a 1-D float32 tensor, bit-identical to
     torch.cummax(x, 0).values (NaN propagates; ties take the later lane)."""
     _check_vector(x, "prefix_max_f32")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return prefix_max_ref(x)
-    return _prefix_launch("prefix_max_f32", x)
+    return _prefix_launch(load_library().tuun_prefix_max_f32,
+                          "prefix_max_f32", x)
 
 
 # ---------------------------------------------------------------------------
