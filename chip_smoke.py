@@ -11,20 +11,24 @@ Phases, each of which exits non-zero on failure:
   2. kernels: each kernel against its plain PyTorch version on the card,
      with timings; noise_torch against the numpy oracle's noise; sin at
      every NCO grid angle on the card against the CPU (reported only).
-     The prefix sum and max also: from 128 up to 2^26 lanes and on a
-     misaligned input (x[1:]); exactly one CUDA kernel per call, no
-     memset (torch.profiler); the same bits on every call of the sum (up
-     to 2^26 lanes); two captured CUDA graphs per op on one stream, at
-     two lengths, each replayed three times over new data; back-to-back
-     calls on a second stream interleaved with the first.  Each is timed
-     three ways: events around back-to-back calls
-     (cuda_ms, which reads the slower of host and device), device time
-     alone (replays of a captured graph) and host time per call.
+     The prefix sum and max from 128 up to 2^26 lanes, the affine scan
+     at J = 1, 2, 3, 4, 8 and up to 2^20 + 5 lanes, each also: on
+     misaligned inputs (x[1:]; a[1:], ff[1:], live[1:]); exactly one CUDA
+     kernel per call, no memset (torch.profiler); the same bits on every
+     call (the sum up to 2^26 lanes, the affine scan at 65536 and 2^20 + 5
+     lanes); captured CUDA graphs on one stream, one per op (per J of the
+     affine scan) at each of two lengths, each replayed three times in
+     turns over new data; back-to-back calls on a second stream
+     interleaved with the first.  At the main path's shapes each is timed
+     three ways: events around back-to-back calls (cuda_ms, which reads
+     the slower of host and device), device time alone (replays of a
+     captured graph) and host time per call.
   3. main path: the batch CLI (python -m tuun_tpu_torch) renders W1-W3 at
      48 kHz in 65536-sample blocks (W1 also with the default
      --precompute true, as W1p).  The valid samples the engine itself
      reported, and the WAV's length, must equal the native oracle's
-     length; the first 2 s must match tuun_tpu.oracle within the
+     length; the first 2 s must match the port's numpy oracle (a copy of
+     tuun_tpu's, held equal to it by tests/test_torch_frontend.py) within the
      fast-mode tolerances stated below.  Every kernel must have launched
      in this phase: its counts are the `launches` of the kernels line.
   4. cross-device: W1's first 2 s rendered on the CPU (plain scans, CPU
@@ -35,10 +39,19 @@ Phases, each of which exits non-zero on failure:
 
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2.
+
+`--phase times [--tree DIR]` runs only the affine scan at the shapes
+whose time is split (AFFINE_SPLIT): held to AFFINE_TOL, kernels per call
+(torch.profiler) and the three times of phase 2, one JSON line per shape.
+With --tree, the kernels are those of the checkout at DIR (its
+tuun_tpu_torch/engine/scan_ops.py, loaded on its own), so that two
+commits are compared with one set of inputs and clocks, each in its own
+process and in turns (parent, change, change, parent).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -72,9 +85,11 @@ PREFIX_SECONDS = 2.0
 
 # Affine-scan error bound per feedback depth J, as a fraction of the
 # output's scale max(1, max|y|), f32 kernel against the f64 recurrence.
-# Each is about 10x the largest error the kernel showed over N = 65536,
-# 2^20 and 2^20+5 on an H100 (700 W): J=1 6.4e-8, J=2 7.9e-7, J=3 2.0e-4,
-# J=4 1.1e-4, J=8 1.9e-5 (J=3 is held at 5x).  Composing companion maps
+# Each is about 10x the largest error the first (three-launch) kernel
+# showed over N = 65536, 2^20 and 2^20+5 on an H100 (700 W): J=1 6.4e-8,
+# J=2 7.9e-7, J=3 2.0e-4, J=4 1.1e-4, J=8 1.9e-5 (J=3 is held at 5x).  The
+# single-pass kernel that replaced it errs as much: 6.9e-8, 7.2e-7, 2.1e-4
+# (on a[1:]), 1.1e-4 and 1.8e-5 in one run.  Composing companion maps
 # amplifies rounding by the maps' transient growth, large for
 # filter_4_3's near-repeated pole pair (|p| = 0.896, 0.896, 0.801), hence
 # the spread.  The float16 control errs 1e-3 (J=1) to 0.25 (J=3) of scale.
@@ -85,7 +100,16 @@ AFFINE_TOL = {1: 1e-6, 2: 1e-5, 3: 1e-3, 4: 1e-3, 8: 2e-4}
 PREFIX_SIZES = (128, MAIN_N, 1 << 20, 3 * (1 << 20) + 37, 1 << 26)
 # Lengths whose time is also split into device time and host time.
 SPLIT_SIZES = (MAIN_N, 1 << 20)
+# Affine-scan depths and lengths of phase 2 (2^20: filter_4_3's blocks;
+# + 5: a ragged last tile), and the (J, N) whose time is split.
+AFFINE_JS = (1, 2, 3, 4, 8)
+AFFINE_SIZES = (MAIN_N, 1 << 20, (1 << 20) + 5)
+AFFINE_SPLIT = ((2, MAIN_N), (2, 1 << 20), (3, 1 << 20))
 GRAPH_CALLS = 50
+# H100 SXM memory rate (NVIDIA data sheet): each kernel's bound is the
+# bytes it must move over it (8 a lane for the prefix scans, 8J + 5 for
+# the affine scan).
+HBM_BYTES_PER_S = 3.35e12
 
 REPLACES = {
     "prefix_sum_f32": "tuun_tpu/engine/pallas_ops.py:149",
@@ -194,7 +218,7 @@ def phase_kernels(torch, np, scan_ops, results):
                            scan_ops.prefix_sum_ref, x, iters, split)
         log(f"prefix_sum_f32 n={n}: max_abs_err={err:.3e} (plain cumsum "
             f"{plain_err:.3e}) {format_times(row)}")
-        results["prefix_sum_f32"].append((n, err) + row)
+        results["prefix_sum_f32"].append(dict(row, n=n, err=err))
 
         for xm in (x, prefix_input(torch, np, rng, "max", n)):
             check_prefix(torch, np, scan_ops, "max", xm,
@@ -203,7 +227,7 @@ def phase_kernels(torch, np, scan_ops, results):
                            scan_ops.prefix_max_ref, x, iters, split)
         log(f"prefix_max_f32 n={n}: bit-identical to cummax (also on a "
             f"rising input) {format_times(row)}")
-        results["prefix_max_f32"].append((n, 0.0) + row)
+        results["prefix_max_f32"].append(dict(row, n=n, err=0.0))
         del x, xm
     # Misaligned inputs (x[1:] of a fresh tensor: 4 bytes past a 16-byte
     # boundary) take the kernel's scalar loads.
@@ -221,58 +245,222 @@ def phase_kernels(torch, np, scan_ops, results):
     x[5], x[4100] = 7.0, 9.0
     check(torch.equal(scan_ops.prefix_max_f32(x), torch.cummax(x, 0).values),
           "prefix_max: -3e18 sentinel case differs from cummax")
-    check_one_launch(torch, np, scan_ops, rng)
     check_prefix_repeatable(torch, np, scan_ops, rng)
     check_prefix_graph(torch, np, scan_ops, rng, (3 * (1 << 20) + 37, 1 << 22))
     check_prefix_streams(torch, np, scan_ops, rng, 1 << 22)
 
     # -- affine scan ----------------------------------------------------
-    for J in (1, 2, 3, 4, 8):
-        a1 = stable_feedback(J)
-        for n in (65536, 1 << 20, (1 << 20) + 5):
-            a = torch.from_numpy(np.broadcast_to(
-                a1.astype(np.float32), (n, J)).copy()).to(dev)
-            ff = torch.from_numpy(
-                rng.standard_normal(n).astype(np.float32)).to(dev)
-            live = torch.from_numpy(rng.random(n) > 0.1).to(dev)
-            h0 = torch.from_numpy(
-                rng.standard_normal(J).astype(np.float32)).to(dev)
-            h, hist = scan_ops.affine_scan_f32(a, ff, live, h0)
-            ref, ref_hist = scan_ops.affine_scan_ref(
-                a.double(), ff.double(), live, h0.double())
-            torch.cuda.synchronize()
-            scale = max(1.0, float(ref.abs().max()))
-            err = float((h.double() - ref).abs().max())
-            herr = float((hist.double() - ref_hist).abs().max())
-            plain_h, _ = scan_ops.affine_scan_ref(a, ff, live, h0)
+    for J in AFFINE_JS:
+        for n in AFFINE_SIZES:
+            args = affine_input(torch, np, rng, J, n)
+            h, hist = scan_ops.affine_scan_f32(*args)
+            err, scale, ref = check_affine(torch, scan_ops, args, h, hist,
+                                           f"n={n}")
+            plain_h, _ = scan_ops.affine_scan_ref(*args)
             plain_err = float((plain_h.double() - ref).abs().max())
-            bound = AFFINE_TOL[J] * scale
-            check(err <= bound and herr <= bound,
-                  f"affine_scan J={J} n={n}: error {err:.3e} "
-                  f"(hist {herr:.3e}, plain {plain_err:.3e}) above "
-                  f"{AFFINE_TOL[J]:g} * {scale:.3g}")
+            del plain_h
             # Control: the same scan with maps and history in float16
             # must fail the bound, or the bound could not tell a
             # half-precision kernel from a right one.
+            a, ff, live, h0 = args
             ctl, _ = scan_ops.affine_scan_ref(a.half(), ff.half(), live,
                                               h0.half())
             ctl_err = float((ctl.double() - ref).abs().max())
+            bound = AFFINE_TOL[J] * scale
             check(not ctl_err <= bound,
                   f"affine_scan J={J} n={n}: the float16 control "
                   f"({ctl_err:.3e}) passes the bound {bound:.3e}")
-            del ctl
-            iters = 50 if n <= 65536 else 10
-            ms = cuda_ms(torch, lambda: scan_ops.affine_scan_f32(
-                a, ff, live, h0), iters)
-            pms = cuda_ms(torch, lambda: scan_ops.affine_scan_ref(
-                a, ff, live, h0), max(iters // 5, 2))
+            del ctl, ref
+            row = affine_times(torch, scan_ops, args,
+                               split=(J, n) in AFFINE_SPLIT)
             log(f"affine_scan_f32 J={J} n={n}: max_abs_err={err:.3e} "
                 f"= {err / scale:.2e} of scale {scale:.3g} (bound "
                 f"{AFFINE_TOL[J]:g}; plain {plain_err:.3e}, float16 "
-                f"control {ctl_err / scale:.2e} of scale) kernel "
-                f"{ms:.4f} ms, plain {pms:.4f} ms")
-            results["affine_scan_f32"].append((n, err, ms, pms, J))
-            del a, ff, live, plain_h, ref
+                f"control {ctl_err / scale:.2e} of scale) "
+                f"{format_times(row)}")
+            results["affine_scan_f32"].append(dict(row, n=n, err=err, J=J))
+            del args, a, ff, live, h0
+    # Misaligned inputs (a[1:], ff[1:], live[1:] of fresh tensors) take
+    # the kernel's scalar loads.
+    for J in (2, 3):
+        for n in (1000, 1 << 20):
+            args = affine_input(torch, np, rng, J, n, offset=1)
+            check(all(x.data_ptr() % 16 != 0 for x in args[:3]),
+                  "the a[1:] / ff[1:] / live[1:] inputs are 16-byte aligned")
+            err, scale, _ = check_affine(torch, scan_ops, args,
+                                         *scan_ops.affine_scan_f32(*args),
+                                         f"a[1:], ff[1:], n={n}")
+            log(f"affine_scan_f32 J={J} on a[1:], ff[1:], live[1:] of {n + 1} "
+                f"lanes: max_abs_err={err:.3e} = {err / scale:.2e} of scale")
+    check_one_launch(torch, np, scan_ops, rng)
+    check_affine_repeatable(torch, np, scan_ops, rng)
+    check_affine_graph(torch, np, scan_ops, rng, (MAIN_N, (1 << 20) + 5))
+    check_affine_streams(torch, np, scan_ops, rng, (1 << 20) + 5)
+
+
+def affine_input(torch, np, rng, J, n, offset=0):
+    """(a, ff, live, h0) on the card: a stable all-pole section's
+    coefficients on every lane, unit normal ff, 10% dead lanes, and a
+    random entering history.  With offset=1, a, ff and live are views
+    [1:] of tensors one lane longer (4J, 4 and 1 bytes past a 16-byte
+    boundary)."""
+    a = np.broadcast_to(stable_feedback(J).astype(np.float32),
+                        (n + offset, J)).copy()
+    ff = rng.standard_normal(n + offset).astype(np.float32)
+    live = rng.random(n + offset) > 0.1
+    h0 = rng.standard_normal(J).astype(np.float32)
+    a, ff, live = (torch.from_numpy(x).cuda()[offset:] for x in (a, ff, live))
+    return a, ff, live, torch.from_numpy(h0).cuda()
+
+
+def check_affine(torch, scan_ops, args, h, hist, what):
+    """Holds (h, hist) to the float64 recurrence on the same inputs, within
+    AFFINE_TOL[J] of the output's scale.  Returns (max error, scale, the
+    float64 h)."""
+    a, ff, live, h0 = args
+    J = a.shape[1]
+    ref, ref_hist = scan_ops.affine_scan_ref(a.double(), ff.double(), live,
+                                             h0.double())
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((h.double() - ref).abs().max())
+    herr = float((hist.double() - ref_hist).abs().max())
+    bound = AFFINE_TOL[J] * scale
+    check(err <= bound and herr <= bound,
+          f"affine_scan J={J} {what}: error {err:.3e} (hist {herr:.3e}) "
+          f"above {AFFINE_TOL[J]:g} * {scale:.3g}")
+    return err, scale, ref
+
+
+def affine_times(torch, scan_ops, args, split):
+    """As prefix_times, for the affine scan; the plain version (a doubling
+    composition, ~55 ms a call at 2^20 lanes) is timed over fewer calls."""
+    n = args[0].shape[0]
+    big = n > MAIN_N
+    fn = lambda: scan_ops.affine_scan_f32(*args)  # noqa: E731
+    ref = lambda: scan_ops.affine_scan_ref(*args)  # noqa: E731
+    row = {"ms": cuda_ms(torch, fn, 10 if big else 50),
+           "plain_ms": cuda_ms(torch, ref, 2 if big else 10)}
+    if split:
+        row.update(device_ms=graph_ms(torch, fn),
+                   plain_device_ms=graph_ms(torch, ref, calls=2 if big else 10,
+                                            replays=2),
+                   host_us=host_us(torch, fn),
+                   plain_host_us=host_us(torch, ref, calls=5 if big else 50))
+    return row
+
+
+def phase_times(torch, np, scan_ops, label: str) -> None:
+    """The affine scan alone at AFFINE_SPLIT's shapes, for comparing two
+    trees: each shape held to AFFINE_TOL, kernels per call counted over
+    all shapes in this process's one profiler session, then affine_times
+    with the split.  Logs one JSON line per shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(0)
+    inputs = [affine_input(torch, np, rng, J, n) for J, n in AFFINE_SPLIT]
+    for args in inputs:
+        check_affine(torch, scan_ops, args, *scan_ops.affine_scan_f32(*args),
+                     "(--phase times)")
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            for _ in range(calls):
+                scan_ops.affine_scan_f32(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per_call = len(names) / (calls * len(inputs))
+    for (J, n), args in zip(AFFINE_SPLIT, inputs):
+        row = affine_times(torch, scan_ops, args, split=True)
+        bound_us = (8 * J + 5) * n / HBM_BYTES_PER_S * 1e6
+        log(json.dumps(dict(
+            row, tree=label, J=J, n=n, kernels_per_call=per_call,
+            kernels=sorted(set(names)), bound_us=bound_us,
+            share_of_bound=bound_us / (row["device_ms"] * 1e3))))
+
+
+def tree_scan_ops(tree: Path):
+    """engine/scan_ops.py of the checkout at `tree`, loaded on its own
+    (it imports only torch); it builds that checkout's csrc/scan.cu."""
+    import importlib.util
+    path = tree / "tuun_tpu_torch" / "engine" / "scan_ops.py"
+    spec = importlib.util.spec_from_file_location("tree_scan_ops", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_affine_repeatable(torch, np, scan_ops, rng) -> None:
+    """The affine scan gives the same bits on every call of one input: the
+    look-back's grouping is fixed, not set by which tiles finish first."""
+    for J, n in ((2, MAIN_N), (3, (1 << 20) + 5)):
+        args = affine_input(torch, np, rng, J, n)
+        h1, hist1 = scan_ops.affine_scan_f32(*args)
+        first = torch.cat([h1.view(-1), hist1]).view(torch.int32)
+        differ = sum(not torch.equal(torch.cat(
+            [x.view(-1) for x in scan_ops.affine_scan_f32(*args)]).view(
+            torch.int32), first) for _ in range(199))
+        check(differ == 0, f"affine_scan J={J} n={n}: {differ} of 199 "
+              f"repeats differ from the first call")
+        log(f"affine_scan J={J} n={n}: 200 calls on one input, all the same "
+            f"bits (h and hist)")
+
+
+def check_affine_graph(torch, np, scan_ops, rng, sizes) -> None:
+    """For J = 2 and 3, one CUDA graph per length, all captured on one
+    stream, each after a plain call at its length on that stream (the
+    longest first, so that the stream's scratch holds it).  Replayed in
+    turns, three times each, over new ff, live and h0 copied into the
+    static inputs; each replay is held to AFFINE_TOL."""
+    s = torch.cuda.Stream()
+    graphs = []
+    for J in (2, 3):
+        for n in sorted(sizes, reverse=True):
+            static = affine_input(torch, np, rng, J, n)
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                scan_ops.affine_scan_f32(*static)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                out = scan_ops.affine_scan_f32(*static)
+            graphs.append((J, n, g, static, out))
+    for r in range(3):
+        for J, n, g, static, _ in graphs:
+            for dst, src in zip(static[1:], affine_input(torch, np, rng, J,
+                                                         n)[1:]):
+                dst.copy_(src)
+            g.replay()
+        torch.cuda.synchronize()
+        for J, n, _, static, out in graphs:
+            check_affine(torch, scan_ops, static, *out,
+                         f"graph replay {r}, n={n}")
+    del graphs
+    log(f"affine_scan J=2, 3 captured in CUDA graphs on one stream at "
+        f"n={sizes}: 3 replays each, in turns, over new data within "
+        f"AFFINE_TOL")
+
+
+def check_affine_streams(torch, np, scan_ops, rng, n) -> None:
+    """Two back-to-back calls on a second stream interleaved with two on
+    the first: each stream has its own scratch, so all four are right."""
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    for J in (2, 3):
+        inputs = [affine_input(torch, np, rng, J, n) for _ in range(4)]
+        side.wait_stream(main)
+        outs = []
+        for i in range(2):
+            outs.append(scan_ops.affine_scan_f32(*inputs[2 * i]))
+            with torch.cuda.stream(side):
+                outs.append(scan_ops.affine_scan_f32(*inputs[2 * i + 1]))
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        for i, (args, got) in enumerate(zip(inputs, outs)):
+            check_affine(torch, scan_ops, args, *got,
+                         f"{'second' if i % 2 else 'first'} stream, call "
+                         f"{i // 2}")
+    log(f"affine_scan J=2, 3: two calls on a second stream interleaved with "
+        f"two on the first, n={n}: all within AFFINE_TOL")
 
 
 def check_prefix(torch, np, scan_ops, op, x, got, what) -> float:
@@ -301,55 +489,71 @@ def check_prefix(torch, np, scan_ops, op, x, got, what) -> float:
 
 
 def prefix_times(torch, fn, ref, x, iters, split):
-    """(ms, plain_ms) by cuda_ms; with split, also (device_ms,
-    plain_device_ms, host_us, plain_host_us)."""
-    row = (cuda_ms(torch, lambda: fn(x), iters),
-           cuda_ms(torch, lambda: ref(x), iters))
+    """{ms, plain_ms} by cuda_ms; with split, also device_ms,
+    plain_device_ms (graph_ms), host_us and plain_host_us."""
+    row = {"ms": cuda_ms(torch, lambda: fn(x), iters),
+           "plain_ms": cuda_ms(torch, lambda: ref(x), iters)}
     if split:
-        row += (graph_ms(torch, lambda: fn(x)), graph_ms(torch, lambda: ref(x)),
-                host_us(torch, lambda: fn(x)), host_us(torch, lambda: ref(x)))
+        row.update(device_ms=graph_ms(torch, lambda: fn(x)),
+                   plain_device_ms=graph_ms(torch, lambda: ref(x)),
+                   host_us=host_us(torch, lambda: fn(x)),
+                   plain_host_us=host_us(torch, lambda: ref(x)))
     return row
 
 
 def format_times(row) -> str:
-    text = f"kernel {row[0]:.4f} ms, plain {row[1]:.4f} ms"
-    if len(row) > 2:
+    text = f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+    if "device_ms" in row:
         text += (f"; device alone (graph of {GRAPH_CALLS}) kernel "
-                 f"{row[2]:.4f} ms, plain {row[3]:.4f} ms; host per call "
-                 f"kernel {row[4]:.1f} us, plain {row[5]:.1f} us")
+                 f"{row['device_ms']:.4f} ms, plain "
+                 f"{row['plain_device_ms']:.4f} ms; host per call kernel "
+                 f"{row['host_us']:.1f} us, plain "
+                 f"{row['plain_host_us']:.1f} us")
     return text
 
 
 def check_one_launch(torch, np, scan_ops, rng) -> None:
-    """Every prefix call, at every length phase 2 runs, is exactly one
-    CUDA kernel: no memset, no set-up or second kernel (torch.profiler)."""
+    """Every call, at every length phase 2 runs, is exactly one CUDA
+    kernel: no memset, no set-up or second kernel (torch.profiler).  The
+    prefix scans from 128 to 2^26 lanes and on x[1:]; the affine scan at
+    J = 2 and 8 at every length of phase 2, on one tile (1000 lanes), and
+    on a[1:], ff[1:], live[1:]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
           for n in PREFIX_SIZES]
     xs.append(torch.from_numpy(
         rng.standard_normal(4097).astype(np.float32)).cuda()[1:])
-    fns = ((scan_ops.prefix_sum_f32, "SumOp"),
-           (scan_ops.prefix_max_f32, "MaxOp"))
-    for x in xs:  # each stream's scratch exists before the window
-        for fn, _ in fns:
-            fn(x)
+    prefix = ((scan_ops.prefix_sum_f32, "SumOp"),
+              (scan_ops.prefix_max_f32, "MaxOp"))
+    calls = [(fn, (x,), "scan_single_pass", op)
+             for x in xs for fn, op in prefix]
+    for J in (2, 8):
+        for n, offset in [(n, 0) for n in AFFINE_SIZES + (1000,)] + [
+                (1000, 1), (1 << 20, 1)]:
+            calls.append((scan_ops.affine_scan_f32,
+                          affine_input(torch, np, rng, J, n, offset),
+                          "affine_single_pass", f"<{J}>"))
+    for fn, args, _, _ in calls:  # each stream's scratch exists before
+        fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            for fn, _ in fns:
-                fn(x)
+        for fn, args, _, _ in calls:
+            fn(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    for _, op in fns:
-        mine = [k for k in names if "scan_single_pass" in k and op in k]
-        check(len(mine) == len(xs), f"prefix {op}: {len(mine)} kernels for "
-              f"{len(xs)} calls")
-    check(len(names) == len(xs) * len(fns),
-          f"prefix calls ran other device work: {sorted(set(names))}")
-    log(f"prefix sum/max: {len(names)} calls at {len(xs)} lengths (128 to "
-        f"2^26, and x[1:]) ran exactly one kernel each, no memset")
+    for kernel, tag in sorted({(k, t) for _, _, k, t in calls}):
+        want = sum(k == kernel and t == tag for _, _, k, t in calls)
+        mine = [k for k in names if kernel in k and tag in k]
+        check(len(mine) == want, f"{kernel} {tag}: {len(mine)} kernels for "
+              f"{want} calls")
+    check(len(names) == len(calls),
+          f"scan calls ran other device work: {sorted(set(names))}")
+    log(f"one launch per call: {len(names)} calls (prefix sum/max at "
+        f"{len(xs)} lengths from 128 to 2^26 and x[1:]; affine scan at "
+        f"J = 2, 8 from 1000 to 2^20 + 5 lanes and on a[1:]) ran exactly "
+        f"one kernel each, no memset")
 
 
 def check_prefix_repeatable(torch, np, scan_ops, rng) -> None:
@@ -435,8 +639,9 @@ def prefix_input(torch, np, rng, op, n):
 
 
 def phase_noise(torch, np):
-    from tuun_tpu.noisegen import noise_np
-    from tuun_tpu_torch.noisegen import noise_torch
+    # noise_np is the port's copy of the oracle's noise, held bit-identical
+    # to tuun_tpu's by tests/test_torch_noise.py.
+    from tuun_tpu_torch.noisegen import noise_np, noise_torch
     idx = np.arange(1 << 20, dtype=np.int64) + (2 ** 31 - 1000)
     seed, uid = 0xDEADBEEF, 0x9E3779B9
     got = noise_torch(seed, uid, torch.from_numpy(idx).cuda()).cpu().numpy()
@@ -555,12 +760,11 @@ class ValidEnds:
 
 
 def phase_main_path(torch, np, scan_ops, tmp: Path):
-    from tuun_tpu import native, optimizer, oracle
-    from tuun_tpu.evaluator import Evaluator
-    from tuun_tpu.expr import ESeq
-    from tuun_tpu.wav import read_wav
-    from tuun_tpu_torch import cli
+    from tuun_tpu_torch import cli, native, optimizer, oracle
+    from tuun_tpu_torch.evaluator import Evaluator
+    from tuun_tpu_torch.expr import ESeq
     from tuun_tpu_torch.player import build_top_level_waveform
+    from tuun_tpu_torch.wav import read_wav
 
     ev = Evaluator(SR, 90, cli.DEFAULT_LIBRARY)
     summary = []
@@ -632,8 +836,8 @@ def phase_cross_device(torch, np, tmp: Path):
     samples differ, by at most 1.3e-6).  A reset edge moved by either
     would show as a sample off by > 5% of peak.  Bound: no such sample,
     and max |diff| <= 1e-4 of peak."""
-    from tuun_tpu.wav import read_wav
     from tuun_tpu_torch import cli
+    from tuun_tpu_torch.wav import read_wav
     out = tmp / "W1_cpu.wav"
     t0 = time.perf_counter()
     rc = cli.main(["--expr", W1_EXPR, "--sample_rate", str(SR),
@@ -660,7 +864,7 @@ def phase_cross_device(torch, np, tmp: Path):
 def phase_engine(torch, np):
     """filter_4_3 (bench.py:80-83) through CompiledVoice.render_block in
     8 blocks of 2^20 lanes on the card."""
-    from tuun_tpu import ir, native
+    from tuun_tpu_torch import ir, native
     from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
     C = ir.Const
     w = ir.Filter(ir.Time(),
@@ -696,12 +900,25 @@ def phase_engine(torch, np):
 
 
 def main(argv) -> int:
+    ap = argparse.ArgumentParser(description="Drives the port on one card.")
+    ap.add_argument("--phase", choices=("kernels", "times"),
+                    help="kernels: stop after phase 2; times: only the "
+                    "affine scan's times (see the module docstring)")
+    ap.add_argument("--tree", type=Path,
+                    help="with --phase times: time the kernels of the "
+                    "checkout at this directory")
+    args = ap.parse_args(argv)
+    if args.tree is not None and args.phase != "times":
+        ap.error("--tree needs --phase times")
     import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     import numpy as np
-    from tuun_tpu_torch.engine import scan_ops
+    if args.tree is not None:
+        scan_ops = tree_scan_ops(args.tree.resolve())
+    else:
+        from tuun_tpu_torch.engine import scan_ops
 
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} (torch {torch.__version__}, cuda "
@@ -715,12 +932,15 @@ def main(argv) -> int:
     lib = scan_ops.build_library()
     scan_ops.load_library()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    if args.phase == "times":
+        phase_times(torch, np, scan_ops, str(args.tree or "."))
+        return 0
 
     results = {k: [] for k in scan_ops.launches}
     phase_kernels(torch, np, scan_ops, results)
     phase_noise(torch, np)
     phase_sin(torch)
-    if "--phase" in argv and argv[argv.index("--phase") + 1] == "kernels":
+    if args.phase == "kernels":
         return 0
 
     # The launches of the main path, and only those, make the counts.
@@ -741,16 +961,27 @@ def main(argv) -> int:
     kernels = []
     for k in scan_ops.launches:
         rows = results[k]
-        main_row = next(r for r in rows if r[0] == MAIN_N
-                        and (k != "affine_scan_f32" or r[4] == 2))
+        affine = k == "affine_scan_f32"
+        # The main path's shape: MAIN_N lanes (J = 2, lpf, for the affine
+        # scan).  Bytes each input read once, each output written once.
+        main_row = next(r for r in rows if r["n"] == MAIN_N
+                        and r.get("J", 2) == 2)
+        lane_bytes = 8 * 2 + 5 if affine else 8
         kernels.append({
             "name": k, "route": "cuda",
             "source": "tuun_tpu_torch/csrc/scan.cu",
             "replaces": REPLACES[k], "launches": counts[k],
-            "max_abs_err": max(r[1] for r in rows),
-            "ms": main_row[2], "plain_ms": main_row[3],
-            **({"device_ms": main_row[4], "plain_device_ms": main_row[5]}
-               if k != "affine_scan_f32" else {})})
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "device_ms": main_row["device_ms"],
+            "plain_device_ms": main_row["plain_device_ms"],
+            "host_us": main_row["host_us"],
+            "bound_ms": lane_bytes * MAIN_N / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            # The plain versions of the prefix scans are single PyTorch
+            # calls (torch.cumsum, torch.cummax); no single call computes
+            # the affine scan.
+            "library_ms": None if affine else main_row["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

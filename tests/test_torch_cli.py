@@ -1,6 +1,6 @@
 """The port's batch CLI (tuun_tpu_torch.cli) -- the slice as a whole --
 against the JAX package's CLI, both on the CPU in fast precision, and a
-check that the port never loads jax."""
+check that the port never loads jax or tuun_tpu."""
 
 import subprocess
 import sys
@@ -71,7 +71,9 @@ def test_port_never_imports_jax(tmp_path):
             "'--device', 'cpu', '--sample_rate', '800', '--quiet', "
             f"'--render-out', {str(tmp_path / 'o.wav')!r}]); "
             "assert rc == 0; "
-            "assert 'jax' not in sys.modules, 'jax was imported'")
+            "assert 'jax' not in sys.modules, 'jax was imported'; "
+            "ref = [m for m in sys.modules if m.split('.')[0] == 'tuun_tpu']; "
+            "assert not ref, ref")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,6 +1,7 @@
 """noise_torch (the port's counter-hash noise) against the numpy oracle's
-noise_np and the JAX engine's noise_jnp: bit-identical, including seeds
-and uids with high bits set and indices near 2^31 and 2^32."""
+noise_np and the JAX engine's noise_jnp, and the port's own copy of
+noise_np (its oracle's) against tuun_tpu's: bit-identical, including
+seeds and uids with high bits set and indices near 2^31 and 2^32."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import torch
 import jax.numpy as jnp
 
 from tuun_tpu.noisegen import noise_jnp, noise_np
+from tuun_tpu_torch.noisegen import noise_np as port_noise_np
 from tuun_tpu_torch.noisegen import noise_torch
 
 torch.set_num_threads(1)
@@ -35,6 +37,14 @@ def test_noise_torch_bit_identical_to_numpy_and_jax(seed, uid):
     jx = noise_jnp(jnp.uint32(seed), jnp.uint32(uid),
                    jnp.asarray(idx.astype(np.uint32)))
     np.testing.assert_array_equal(_bits(got), _bits(jx))
+
+
+@pytest.mark.parametrize("seed,uid", CASES)
+def test_port_noise_np_bit_identical_to_tuun_tpu(seed, uid):
+    idx = _indices().astype(np.uint32)
+    got = port_noise_np(seed, uid, idx)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(_bits(got), _bits(noise_np(seed, uid, idx)))
 
 
 @pytest.mark.parametrize("seed,uid", CASES[:3])

@@ -408,3 +408,344 @@ def test_prefix_scratch_sized_once_from_the_library(monkeypatch):
     with pytest.raises(RuntimeError, match="before capturing"):
         scan_ops._zeroed_scratch(3)
     assert len(made) == 1
+
+
+# ---------------------------------------------------------------------------
+# The CUDA affine scan's tiles, anchors and look-back, modelled on the CPU.
+# ---------------------------------------------------------------------------
+#
+# csrc/scan.cu runs the affine scan in tiles of T threads x K lanes.  Each
+# thread composes its lanes' companion maps; a shuffle Kogge-Stone gives
+# each thread its exclusive map within the tile and the tile's map.  Every
+# T-th tile is an anchor that publishes its exit history once it knows
+# its entering one; every other tile publishes its map at once.  Tile t's
+# entering history: anchor a's exit history (a constant map), then the
+# maps of tiles a + 1 .. t - 1, thread k reading record a + k, each warp
+# folding its threads by a shuffle tree (lane l + d into lane l), thread
+# 0 folding the warp totals in order.  Each thread then runs the recurrence over its lanes from its
+# entering history.  The model runs the tiles as coroutines over a model
+# of the scratch (counters, flags, records), in any order of finishing.
+
+
+def _aff_geometry():
+    src = scan_ops.SOURCE.read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kAffThreads", "kAffItems"))
+
+
+def _aff_scratch_words(tiles):
+    """tuun_affine_scratch_words: 2 counters, a flag per tile, then from a
+    4-word boundary a record of 8 * 8 + 8 floats per tile."""
+    return (2 + tiles + 3) // 4 * 4 + tiles * 72
+
+
+def _compose(cur, prev):
+    """cur after prev, batched: maps are (A [..., J, J], b [..., J])."""
+    return cur[0] @ prev[0], (cur[0] @ prev[1][..., None])[..., 0] + cur[1]
+
+
+def _identity(shape, J, dtype):
+    return (np.broadcast_to(np.eye(J, dtype=dtype), shape + (J, J)).copy(),
+            np.zeros(shape + (J,), dtype))
+
+
+def _take(m, idx):
+    return m[0][idx], m[1][idx]
+
+
+def _kogge_stone_maps(m, axis_len):
+    """Inclusive scan along the second-last map axis: lane l takes
+    compose(lane l, lane l - d) for d = 1, 2, 4, ... (__shfl_up_sync)."""
+    A, b = m
+    d = 1
+    while d < axis_len:
+        nA, nb_ = A.copy(), b.copy()
+        nA[..., d:, :, :], nb_[..., d:, :] = _compose(
+            (A[..., d:, :, :], b[..., d:, :]),
+            (A[..., :-d, :, :], b[..., :-d, :]))
+        A, b = nA, nb_
+        d *= 2
+    return A, b
+
+
+def _tree_fold(m):
+    """The look-back's per-warp shuffle tree over [..., 32] maps: lane l
+    takes compose(lane l + d, lane l) for d = 1, 2, 4, ...; lane 0's."""
+    A, b = m
+    for d in (1, 2, 4, 8, 16):
+        nA, nb_ = A.copy(), b.copy()
+        nA[..., :-d, :, :], nb_[..., :-d, :] = _compose(
+            (A[..., d:, :, :], b[..., d:, :]),
+            (A[..., :-d, :, :], b[..., :-d, :]))
+        A, b = nA, nb_
+    return A[..., 0, :, :], b[..., 0, :]
+
+
+def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64):
+    """(h, hist, scratch) as the CUDA kernel computes them, with tile
+    geometry geom = (T, K), finishing its steps in the order given by
+    `order` (a function that picks the next runnable tile), in `dtype`."""
+    T, K = geom
+    tile, nw = T * K, T // 32
+    n, J = a.shape
+    nb = -(-n // tile)
+    pad = nb * tile - n
+    a = np.concatenate([a, np.zeros((pad, J))]).astype(dtype)
+    ff = np.concatenate([ff, np.zeros(pad)]).astype(dtype)
+    live = np.concatenate([live, np.zeros(pad, bool)])
+    h0 = h0.astype(dtype)
+    # Lane maps: the companion form (row 0 = -a, rows 1.. shift the
+    # history down, b = (ff, 0, ...)), or the identity on a dead lane.
+    comp = np.zeros((nb * tile, J, J), dtype)
+    comp[:, 0, :] = -a
+    comp[:, np.arange(1, J), np.arange(J - 1)] = 1
+    eye = _identity((nb * tile,), J, dtype)
+    lane = (np.where(live[:, None, None], comp, eye[0]),
+            np.where(live[:, None], np.pad(ff[:, None], ((0, 0), (0, J - 1))),
+                     0).astype(dtype))
+    lane = (lane[0].reshape(nb, T, K, J, J), lane[1].reshape(nb, T, K, J))
+    # Each thread composes its lanes in order (skipping dead ones).
+    P = _identity((nb, T), J, dtype)
+    lv = live.reshape(nb, T, K)
+    for k in range(K):
+        C = _compose(_take(lane, (slice(None), slice(None), k)), P)
+        P = (np.where(lv[:, :, k, None, None], C[0], P[0]),
+             np.where(lv[:, :, k, None], C[1], P[1]))
+    # Block exclusive scan of the thread maps.
+    P = (P[0].reshape(nb, nw, 32, J, J), P[1].reshape(nb, nw, 32, J))
+    incl = _kogge_stone_maps(P, 32)
+    wt = _kogge_stone_maps(_take(incl, (slice(None), slice(None), 31)), nw)
+    excl = _identity((nb, nw, 32), J, dtype)
+    excl[0][:, :, 1:] = incl[0][:, :, :-1]
+    excl[1][:, :, 1:] = incl[1][:, :, :-1]
+    if nw > 1:
+        before = (wt[0][:, :-1, None], wt[1][:, :-1, None])
+        e = _compose(
+            _take(excl, (slice(None), slice(1, None), slice(1, None))), before)
+        excl[0][:, 1:, 1:], excl[1][:, 1:, 1:] = e
+        excl[0][:, 1:, 0], excl[1][:, 1:, 0] = wt[0][:, :-1], wt[1][:, :-1]
+    excl = (excl[0].reshape(nb, T, J, J), excl[1].reshape(nb, T, J))
+    total = _take(wt, (slice(None), nw - 1))
+
+    # The look-back, each tile a coroutine over the model scratch.
+    flags = np.zeros(nb, np.int64)
+    records = np.zeros((nb, 72), dtype)
+    counters = [0, 0]
+    h_tile = np.zeros((nb, J), dtype)
+
+    def look_back(t):
+        a0 = (t - 1) // T * T
+        words = t - a0
+        recs = _identity((T,), J, dtype)
+        for i in range(words):
+            rec = records[a0 + i]
+            if i == 0:  # the anchor's exit history, a constant map
+                recs[0][i] = 0
+                recs[1][i] = rec[:J]
+            else:
+                recs[0][i] = rec[:J * J].reshape(J, J)
+                recs[1][i] = rec[J * J:J * J + J]
+        warps = _tree_fold((recs[0].reshape(nw, 32, J, J),
+                            recs[1].reshape(nw, 32, J)))
+        out = _take(warps, 0)
+        for w in range(1, -(-words // 32)):
+            out = _compose(_take(warps, w), out)
+        return out[1]
+
+    def run(t):
+        # Yields True after a step that may unblock another tile, False
+        # while it waits.
+        anchor = t % T == 0
+        if nb > 1 and not anchor:
+            records[t, :J * J] = total[0][t].reshape(-1)
+            records[t, J * J:J * J + J] = total[1][t]
+            flags[t] = 1
+        yield True
+        if t == 0 or nb == 1:
+            h_tile[t] = h0
+        else:
+            a0 = (t - 1) // T * T
+            while not flags[a0:t].all():
+                yield False
+            h_tile[t] = look_back(t)
+        if nb > 1:
+            if anchor:
+                records[t, :J] = total[0][t] @ h_tile[t] + total[1][t]
+                flags[t] = 2
+            counters[1] += 1
+            if counters[1] == nb:  # the last block leaves the scratch clean
+                flags[:] = 0
+                counters[:] = [0, 0]
+
+    runnable = {t: run(t) for t in range(nb)}
+    waiting = set()
+    while runnable:
+        ready = sorted(set(runnable) - waiting)
+        t = order(ready) if order else ready[0]
+        try:
+            progressed = next(runnable[t])
+        except StopIteration:
+            del runnable[t]
+            progressed = True
+        if progressed:
+            waiting.clear()
+        else:
+            waiting.add(t)
+
+    # The recurrence over each thread's lanes from its entering history.
+    hv = (excl[0] @ h_tile[:, None, :, None])[..., 0] + excl[1]
+    a3, f3 = a.reshape(nb, T, K, J), ff.reshape(nb, T, K)
+    h = np.zeros((nb, T, K, J), dtype)
+    for k in range(K):
+        y = f3[:, :, k].copy()
+        for j in range(J):
+            y = y - a3[:, :, k, j] * hv[:, :, j]
+        shifted = np.concatenate([y[..., None], hv[..., :-1]], axis=-1)
+        hv = np.where(lv[:, :, k, None], shifted, hv)
+        h[:, :, k] = hv
+    h = h.reshape(-1, J)[:n]
+    return h, h[-1].copy(), (counters, flags)
+
+
+def _stable_inputs(n, J, seed):
+    """Time-varying all-pole sections near a stable one (real poles 0.9,
+    0.8, 0.7, -0.6, ...), 20% dead lanes."""
+    rng = np.random.default_rng(seed)
+    base = np.poly([0.9, 0.8, 0.7, -0.6, 0.5, -0.4, 0.3, -0.2][:J])[1:]
+    a = (base + 1e-3 * rng.standard_normal((n, J))).astype(np.float32)
+    ff = rng.standard_normal(n).astype(np.float32)
+    live = rng.random(n) > 0.2
+    h0 = rng.standard_normal(J).astype(np.float32)
+    return a, ff, live, h0
+
+
+# The kernel's own geometry, and a small one whose anchors (every 64
+# tiles of 256 lanes) and two-warp look-backs (over 33-63 records) a test
+# can reach.
+KERNEL_GEOMETRY = _aff_geometry()
+SMALL_GEOMETRY = (64, 4)
+
+
+def _aff_lengths(geom):
+    T, K = geom
+    tile = T * K
+    # One lane, one tile, one tile + 1, and for the small geometry five
+    # anchor groups with a ragged tail.
+    out = [1, tile, tile + 1, 3 * tile + 37]
+    if geom == SMALL_GEOMETRY:
+        out.append(4 * T * tile + 3 * tile + 37)
+    return out
+
+
+AFFINE_MODEL_CASES = [(J, geom, n) for J in (1, 2, 3, 8)
+                      for geom in (KERNEL_GEOMETRY, SMALL_GEOMETRY)
+                      for n in _aff_lengths(geom)]
+
+
+@pytest.mark.parametrize("J,geom,n", AFFINE_MODEL_CASES)
+def test_affine_kernel_model_matches_reference(J, geom, n):
+    # Tolerances: in float64 the model and the doubling reference differ
+    # only by rounding (1e-9 of the output's scale).  The Pallas kernel
+    # (interpret mode; n % 128 == 0 and J <= 3 only) composes in float32,
+    # which these near-repeated poles amplify: it is held to chip_smoke.py's
+    # per-J bounds for a float32 kernel, as fractions of the scale (it errs
+    # 1.5e-7, 2.4e-6 and 1.0e-4 at J = 1, 2, 3 here).
+    a, ff, live, h0 = _stable_inputs(n, J, 7 * J + n)
+    h, hist, (counters, flags) = _affine_model(a, ff, live, h0, geom)
+    ref, ref_hist = scan_ops.affine_scan_ref(
+        t(a).double(), t(ff).double(), t(live), t(h0).double())
+    scale = max(1.0, float(ref.abs().max()))
+    np.testing.assert_allclose(h, ref.numpy(), rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(hist, ref_hist.numpy(), rtol=0,
+                               atol=1e-9 * scale)
+    assert counters == [0, 0] and not flags.any()
+    if J <= 3 and n % LANE == 0 and n <= 4096:
+        ph, phist = po.affine_scan_f32(jnp.asarray(a), jnp.asarray(ff),
+                                       jnp.asarray(live), jnp.asarray(h0),
+                                       interpret=True)
+        bound = {1: 1e-6, 2: 1e-5, 3: 1e-3}[J] * scale
+        np.testing.assert_allclose(h, np.asarray(ph), rtol=0, atol=bound)
+        np.testing.assert_allclose(hist, np.asarray(phist), rtol=0,
+                                   atol=bound)
+
+
+@pytest.mark.parametrize("J", [2, 3])
+def test_affine_kernel_grouping_independent_of_finish_order(J):
+    # float32, so that any change of grouping would change bits: tiles
+    # stepping in order, in reverse, and in two random orders.
+    n = 4 * SMALL_GEOMETRY[0] * 256 + 3 * 256 + 37
+    a, ff, live, h0 = _stable_inputs(n, J, 5)
+    rng = np.random.default_rng(1)
+    orders = [None, max, lambda ts: ts[rng.integers(len(ts))],
+              lambda ts: ts[-1 - rng.integers(min(len(ts), 3))]]
+    outs = [_affine_model(a, ff, live, h0, SMALL_GEOMETRY, order,
+                          np.float32)[:2] for order in orders]
+    for h, hist in outs[1:]:
+        assert h.tobytes() == outs[0][0].tobytes()
+        assert hist.tobytes() == outs[0][1].tobytes()
+
+
+def test_affine_scratch_words_hold_every_tile():
+    # The scratch for `tiles` tiles: counters, flags and 72-float records
+    # (J up to 8), the records on a 16-byte boundary.
+    for tiles in (1, 2, 3, 4, 5, 1000):
+        words = _aff_scratch_words(tiles)
+        off = (2 + tiles + 3) // 4 * 4
+        assert off % 4 == 0 and off >= 2 + tiles
+        assert words == off + tiles * 72
+    T, K = KERNEL_GEOMETRY
+    for n, J in ((65536, 2), (1 << 20, 3), ((1 << 20) + 5, 8)):
+        tiles = -(-n // (T * K))
+        assert _aff_scratch_words(tiles) * 4 >= tiles * (4 + 4 * (J * J + J))
+
+
+def test_affine_scratch_grows_by_a_new_buffer_and_keeps_the_old(monkeypatch):
+    monkeypatch.setattr(scan_ops, "_affine_scratch", {})
+    monkeypatch.setattr(scan_ops, "_affine_retired", [])
+    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
+    made = []
+
+    def alloc(device, tiles):
+        made.append((device, tiles))
+        return torch.zeros(4, dtype=torch.int32)
+
+    first = (1 << 22) // 2048  # the first buffer covers 2^22 lanes
+    buf, cap = scan_ops.affine_scratch(0, 7, 32, alloc)
+    assert cap == first and made == [(0, first)]
+    assert scan_ops.affine_scratch(0, 7, first, alloc) == (buf, cap)
+    buf2, cap2 = scan_ops.affine_scratch(0, 7, first + 1, alloc)
+    assert cap2 == 2 * first and buf2 is not buf
+    assert scan_ops._affine_retired == [buf]  # kept, never freed
+    buf3, cap3 = scan_ops.affine_scratch(0, 7, 5 * first, alloc)
+    assert cap3 == 5 * first and scan_ops._affine_retired == [buf, buf2]
+    other, _ = scan_ops.affine_scratch(0, 8, 2, alloc)  # another stream
+    assert other is not buf3 and made[-1] == (0, first)
+    assert set(scan_ops._affine_scratch) == {(0, 7), (0, 8)}
+    # A CPU tensor takes the plain version and touches no scratch.
+    a, ff, live, h0 = _stable_inputs(5000, 2, 3)
+    scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
+    assert len(made) == 4
+
+
+def test_affine_scratch_made_during_capture_raises(monkeypatch):
+    monkeypatch.setattr(scan_ops, "_affine_scratch", {})
+    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
+
+    class Lib:
+        @staticmethod
+        def tuun_affine_scratch_words(tiles):
+            return _aff_scratch_words(tiles)
+
+    monkeypatch.setattr(scan_ops, "load_library", lambda: Lib)
+    made = []
+    monkeypatch.setattr(torch, "zeros", lambda *a, **k: made.append((a, k)))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    scan_ops.affine_scratch(3, 9, 10)
+    assert made == [((_aff_scratch_words(2048),),
+                     {"dtype": torch.int32, "device": 3})]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="before capturing"):
+        scan_ops.affine_scratch(3, 9, 1 << 20)
+    assert len(made) == 1

@@ -22,20 +22,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import tuun_tpu
-from tuun_tpu import eval as eval_mod
-from tuun_tpu import ir, optimizer, parser
-from tuun_tpu.diagnostics import Source
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import BOpen, ESeq, EWaveform, SourceBinding
-from tuun_tpu.ids import WaveformId
-from tuun_tpu.programs import ProgramSet
-from tuun_tpu.wav import write_wav_f32
-
+from . import eval as eval_mod
+from . import ir, optimizer, parser
+from .diagnostics import Source
+from .evaluator import Evaluator
+from .expr import BOpen, ESeq, EWaveform, SourceBinding
+from .ids import WaveformId
 from .player import Player
+from .programs import ProgramSet
 from .tracker import Tracker
+from .wav import write_wav_f32
 
-DEFAULT_LIBRARY = Path(tuun_tpu.__file__).resolve().parent / "stdlib" / "v0"
+DEFAULT_LIBRARY = Path(__file__).resolve().parent / "stdlib" / "v0"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:

@@ -1,7 +1,7 @@
 // Cross-lane scans of the render engine, written by hand for Hopper (sm_90a).
 //
-// Three kernels, each the counterpart of one Pallas TPU kernel in
-// tuun_tpu/engine/pallas_ops.py:
+// Three entry points, each the counterpart of one Pallas TPU kernel in
+// tuun_tpu/engine/pallas_ops.py and each one kernel launch per call:
 //
 //   tuun_prefix_sum_f32   <- prefix_sum_f32 / _prefix_sum_kernel
 //   tuun_prefix_max_f32   <- prefix_max_f32 / _prefix_max_kernel
@@ -61,19 +61,61 @@
 // not 16-byte aligned, and the ragged last tile, take coalesced scalar
 // loads.
 //
-// Affine scan: three launches -- (1) each block reduces its own tile to
-// the composed map, (2) one block scans the maps, (3) each block runs the
-// recurrence from its entering history.  It moves a few bytes per lane
-// and does O(J^2) work per lane sequentially plus O(J^3) per thread in the
-// block scan, so it is bound by device-memory traffic and by launch
-// latency at small N.  Each thread owns a contiguous run of lanes
-// (sequential work in registers, one J x J map per thread entering the
-// warp-shuffle scan), and the single aggregate pass moves 1/2048 of the
-// data.  It keeps no state between calls.
-//
+// Affine scan (IIR feedback, h_i = A_i h_{i-1} + b_i over the J-deep
+// history, companion form): one launch per call, the same single-pass
+// scheme with a look-back over maps (Maleki, Yang & Burtscher,
+// "Higher-Order and Tuple-Based Massively-Parallel Prefix Sums", PLDI
+// 2016, on top of Merrill & Garland).  Replaces affine_scan_f32 /
+// _affine_scan_kernel (tuun_tpu/engine/pallas_ops.py:301).  What bounds
+// it on this card: HBM bytes, 8J + 5 per lane (a 4J and ff 4 and live 1
+// read once, h 4J written once; 1.4 MB at J = 2 and 65536 lanes, 0.41 us
+// at 3.35 TB/s), and below ~2^20 lanes launch latency and the chain of
+// dependent memory trips in a block.  Arithmetic (O(J^2) a lane) does
+// not bound it.  The design:
+//   * one kernel, no set-up launch or memset;
+//   * a block takes its tile index from an atomic counter, loads the
+//     tile's a, ff and live coalesced (float4 / 16-byte loads; scalar for
+//     a misaligned pointer or the ragged tail) into shared rows padded so
+//     that each thread reads its own lanes as float4s without bank
+//     conflicts;
+//   * each thread composes its lanes' companion maps (push_lane, O(J^2) a
+//     lane), and a warp-shuffle scan gives each thread its exclusive map
+//     within the tile and the tile's map;
+//   * status: one flag word per tile and one record of J^2 + J floats.
+//     Unlike the prefix scan's 64-bit {flag, value} word, the record does
+//     not fit in one word, so a tile writes its record first and then the
+//     flag with st.release; a reader loads the flag with ld.acquire and
+//     only then the record, from L2 (ld.cg).  Every kAffThreads-th tile
+//     (one per thread of a block) is an anchor and publishes its exit
+//     history (J floats) once it knows its entering one; every other
+//     tile publishes its map at once, before its own look-back;
+//   * fixed grouping, so a call gives the same bits every time: tile t's
+//     entering history is anchor a's exit history (a = the last multiple
+//     of kAffThreads below t) with the maps of tiles a + 1 .. t - 1 applied
+//     in sequence order, folded by a fixed shuffle tree (the anchor's
+//     history enters it as a constant map);
+//   * accuracy as in the three-launch kernel this replaced: composed maps
+//     only carry the history across tiles and threads; each thread then
+//     runs the recurrence itself over its lanes from its entering
+//     history, in the reference's op order (y = ff - sum_j a_j y_{-1-j}),
+//     and h goes back out through the same shared rows, coalesced;
+//   * the scratch is the caller's persistent buffer for its (device,
+//     stream), tuun_affine_scratch_words(cap) words for up to cap tiles,
+//     zeroed once; the last block to count itself done (acquire-release)
+//     clears the flags and counters, so the next call or graph replay
+//     finds it clean.  The records need no clearing;
+//   * N <= one tile skips the counter and the look-back; the block that
+//     holds lane N - 1 writes hist.
+// Tile: 128 threads x 16 lanes, one look-back record per thread, so an
+// anchor every 128 tiles.  It was chosen on an H100 for the main path's
+// 65536 lanes (32 tiles), where no tile tried was faster.  At 2^20 lanes
+// smaller tiles (128 x 4, 64 x 8, 32 x 16) lost to the longer chain of
+// anchors.  Reading 2-4 records per thread (no anchor chain up to 2^20
+// lanes) was slower at 65536 lanes and mixed at 2^20 (PERF.md).
+
 // C interface, bound with ctypes (tuun_tpu_torch/engine/scan_ops.py).
-// Every entry launches one grid per pass on the given stream, allocates
-// nothing (the caller passes outputs and scratch) and returns
+// Every entry launches one grid on the given stream, allocates nothing
+// (the caller passes outputs and scratch) and returns
 // cudaGetLastError().  Lengths are 64-bit: any N from 1 to 2^31 - 1 is
 // covered, the ragged last tile masked.
 
@@ -366,19 +408,43 @@ int run_prefix(const float* x, float* out, unsigned long long* scratch,
 //
 // Lane i is the companion-form map of y[i] = ff[i] - sum_j a[i,j] y[i-1-j]
 // (row 0 = -a[i,:], rows 1.. shift the history down; b = (ff[i], 0, ...)),
-// or the identity on a dead lane.  Each thread owns kAffItems contiguous
-// lanes and composes their maps in registers; pushing one companion map
-// onto a running map costs O(J^2) because only row 0 is new.  Thread maps
-// then enter a block scan with full J x J composition.  The last pass does
-// not apply the composed maps lane by lane: it applies the thread's
-// exclusive prefix map to the history entering its block once, then runs
-// the recurrence itself over its lanes (O(J) per lane, in the reference op
-// order), writing h[i, :] = (y[i], y[i-1], ..., y[i-J+1]).
+// or the identity on a dead lane.  h[i, :] = (y[i], y[i-1], ..., y[i-J+1]).
 
+// Tile: kAffThreads threads x kAffItems lanes.  Every kAffThreads-th tile
+// is an anchor, so a look-back reads at most one status record per thread.
 constexpr int kAffThreads = 128;
 constexpr int kAffItems = 16;
 constexpr int kAffTile = kAffThreads * kAffItems;  // 2048 lanes per block
 constexpr int kMaxJ = 8;
+
+// Scratch, in 32-bit words, for a capacity of `cap` tiles: [0] tile
+// counter, [1] done counter, [2, 2 + cap) one flag per tile, then from
+// aff_payload_offset(cap) one record of kAffRecord floats per tile.  Only
+// the counters and flags must be zero when a call starts.
+constexpr int kAffHead = 2;
+constexpr int kAffRecord = kMaxJ * kMaxJ + kMaxJ;
+constexpr unsigned kAffNotReady = 0;
+constexpr unsigned kAffAggregate = 1;  // the record holds the tile's map
+constexpr unsigned kAffHistory = 2;    // the record holds its exit history
+
+__host__ __device__ constexpr int64_t aff_payload_offset(int64_t cap) {
+  return (kAffHead + cap + 3) / 4 * 4;
+}
+
+// Shared-memory row of a thread's lanes, in floats: padded so that the
+// row stride is an odd number of float4s.  A warp's float4 reads of one
+// offset in each thread's row are then free of bank conflicts, and every
+// row stays 16-byte aligned.
+__host__ __device__ constexpr int aff_row(int floats) {
+  return (floats / 4) % 2 ? floats : floats + 4;
+}
+
+template <int J>
+__host__ __device__ constexpr size_t aff_smem_bytes() {
+  return (size_t)kAffThreads *
+         (aff_row(kAffItems * J) + aff_row(kAffItems)) * sizeof(float) +
+         kAffTile;
+}
 
 template <int J>
 struct Map {
@@ -430,6 +496,20 @@ __device__ __forceinline__ Map<J> shfl_up_map(const Map<J>& m, int d) {
   return r;
 }
 
+template <int J>
+__device__ __forceinline__ Map<J> shfl_down_map(const Map<J>& m, int d) {
+  Map<J> r;
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+      r.A[i][k] = __shfl_down_sync(kFull, m.A[i][k], d);
+    }
+    r.b[i] = __shfl_down_sync(kFull, m.b[i], d);
+  }
+  return r;
+}
+
 // out = m(h) = m.A h + m.b
 template <int J>
 __device__ __forceinline__ void apply_map(const Map<J>& m, const float* h,
@@ -445,8 +525,7 @@ __device__ __forceinline__ void apply_map(const Map<J>& m, const float* h,
 
 // P <- (companion map of lane a, f) after P.
 template <int J>
-__device__ __forceinline__ void push_lane(Map<J>& P, const float* __restrict__ a,
-                                          float f) {
+__device__ __forceinline__ void push_lane(Map<J>& P, const float* a, float f) {
   float row[J];
   float b0 = f;
 #pragma unroll
@@ -469,23 +548,8 @@ __device__ __forceinline__ void push_lane(Map<J>& P, const float* __restrict__ a
   P.b[0] = b0;
 }
 
-// The composed map of the thread's kAffItems lanes starting at `start`.
-template <int J>
-__device__ __forceinline__ Map<J> thread_map(const float* __restrict__ a,
-                                             const float* __restrict__ ff,
-                                             const uint8_t* __restrict__ live,
-                                             int64_t start, int64_t n) {
-  Map<J> P;
-  set_identity<J>(P);
-  for (int k = 0; k < kAffItems; ++k) {
-    const int64_t i = start + k;
-    if (i < n && live[i]) push_lane<J>(P, a + i * J, ff[i]);
-  }
-  return P;
-}
-
 // Exclusive scan of one map per thread across the block; same shape as
-// block_exclusive_scan.  *total (when not null) receives the block's map.
+// block_exclusive_scan.  *total receives the block's map.
 template <int J>
 __device__ Map<J> block_exclusive_scan_maps(const Map<J>& v, Map<J>* warp_maps,
                                             Map<J>* total) {
@@ -525,126 +589,324 @@ __device__ Map<J> block_exclusive_scan_maps(const Map<J>& v, Map<J>* warp_maps,
   } else if (lane == 0) {
     set_identity<J>(excl);
   }
-  if (total != nullptr) *total = warp_maps[nwarps - 1];
+  *total = warp_maps[nwarps - 1];
   __syncthreads();
   return excl;
 }
 
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned count_acq_rel(unsigned* p) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+               : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+
+// A status record as a map: an anchor's exit history is the constant map
+// (A = 0, b = history).
 template <int J>
-__device__ __forceinline__ void store_map(const Map<J>& m, float* dst) {
+__device__ __forceinline__ Map<J> load_record(const float* rec, bool history) {
+  Map<J> m;
 #pragma unroll
   for (int i = 0; i < J; ++i) {
 #pragma unroll
-    for (int k = 0; k < J; ++k) dst[i * J + k] = m.A[i][k];
-    dst[J * J + i] = m.b[i];
+    for (int k = 0; k < J; ++k) {
+      m.A[i][k] = history ? 0.0f : __ldcg(rec + i * J + k);
+    }
+    m.b[i] = __ldcg(rec + (history ? i : J * J + i));
   }
+  return m;
 }
 
+// Run by the whole block of tile t > 0; thread 0 writes the history
+// entering the tile to h_in.  Fixed grouping: the exit history of anchor
+// a = the last multiple of kAffThreads below t, as a constant map, then
+// the maps of tiles a + 1 .. t - 1, composed in sequence order.  Thread k
+// waits for tile a + k's flag (acquire) and reads its record from L2;
+// each warp's shuffle tree then folds lane l + d into lane l (the later
+// map after the earlier), and thread 0 folds the warp totals in order.
+// The fold's b is the entering history.  With at most 32 records, only
+// warp 0 takes part and no barrier is needed.
 template <int J>
-__device__ __forceinline__ void load_map(Map<J>& m, const float* src) {
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-#pragma unroll
-    for (int k = 0; k < J; ++k) m.A[i][k] = src[i * J + k];
-    m.b[i] = src[J * J + i];
+__device__ void affine_look_back(const unsigned* flags, const float* records,
+                                 int64_t t, Map<J>* warp_maps, float* h_in) {
+  const int64_t a = (t - 1) / kAffThreads * kAffThreads;
+  const int words = (int)(t - a);
+  const int lane = threadIdx.x & 31;
+  if (words <= 32 && threadIdx.x >= 32) return;
+  const bool mine = (int)threadIdx.x < words;
+  bool ready = !mine;
+  // The warp spins as one, as the prefix scan's look-back does.
+  while (__any_sync(kFull, !ready)) {
+    if (!ready) ready = load_acquire(&flags[a + threadIdx.x]) != kAffNotReady;
   }
-}
-
-// Pass 1: each block's composed map over its tile -> agg[blockIdx.x].
-template <int J>
-__global__ void __launch_bounds__(kAffThreads)
-affine_tile_maps(const float* __restrict__ a, const float* __restrict__ ff,
-                 const uint8_t* __restrict__ live, int64_t n,
-                 float* __restrict__ agg) {
-  __shared__ Map<J> warp_maps[32];
-  const int64_t start =
-      (int64_t)blockIdx.x * kAffTile + (int64_t)threadIdx.x * kAffItems;
-  const Map<J> P = thread_map<J>(a, ff, live, start, n);
-  Map<J> total;
-  block_exclusive_scan_maps<J>(P, warp_maps, &total);
-  if (threadIdx.x == 0) store_map<J>(total, agg + (int64_t)blockIdx.x * (J * J + J));
-}
-
-// Pass 2 (one block): hin[t] = history entering tile t, hin[0] = h0.
-template <int J>
-__global__ void __launch_bounds__(kAffThreads)
-affine_scan_aggregates(const float* __restrict__ agg,
-                       const float* __restrict__ h0, float* __restrict__ hin,
-                       int64_t nb) {
-  __shared__ Map<J> warp_maps[32];
-  float hv[J];
+  Map<J> v;
+  if (mine) {
+    v = load_record<J>(records + (a + threadIdx.x) * kAffRecord,
+                       threadIdx.x == 0);
+  } else {
+    set_identity<J>(v);
+  }
 #pragma unroll
-  for (int i = 0; i < J; ++i) hv[i] = h0[i];
+  for (int d = 1; d < 32; d <<= 1) {
+    const Map<J> o = shfl_down_map<J>(v, d);
+    if (lane + d < 32) v = compose<J>(o, v);
+  }
+  if (words > 32) {
+    if (lane == 0) warp_maps[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < (words + 31) / 32; ++w) {
+        v = compose<J>(warp_maps[w], v);
+      }
+    }
+  }
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < J; ++i) hin[i] = hv[i];
-  }
-  for (int64_t base = 0; base < nb; base += kAffThreads) {
-    const int64_t g = base + threadIdx.x;
-    Map<J> m;
-    if (g < nb) {
-      load_map<J>(m, agg + g * (J * J + J));
-    } else {
-      set_identity<J>(m);
-    }
-    Map<J> total;
-    const Map<J> excl = block_exclusive_scan_maps<J>(m, warp_maps, &total);
-    float t[J], o[J];
-    apply_map<J>(excl, hv, t);
-    apply_map<J>(m, t, o);
-    if (g < nb) {
-#pragma unroll
-      for (int i = 0; i < J; ++i) hin[(g + 1) * J + i] = o[i];
-    }
-    apply_map<J>(total, hv, t);
-#pragma unroll
-    for (int i = 0; i < J; ++i) hv[i] = t[i];
+    for (int i = 0; i < J; ++i) h_in[i] = v.b[i];
   }
 }
 
-// Pass 3: the recurrence over each thread's lanes from its entering history.
+// Copies `count` floats of a tile from global memory into the padded
+// shared rows (lane group e / per_row of row_floats per thread).  float4
+// when the source is 16-byte aligned and whole, else masked scalars.
+template <int kPerRow>
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          int64_t avail, bool vec,
+                                          float* dst) {
+  constexpr int kRow = aff_row(kPerRow);
+  constexpr int kCount = kAffThreads * kPerRow;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+    for (int k = 0; k < kCount / 4 / kAffThreads; ++k) {
+      const int e = 4 * (k * kAffThreads + threadIdx.x);
+      *reinterpret_cast<float4*>(&dst[e / kPerRow * kRow + e % kPerRow]) =
+          __ldcs(&s4[k * kAffThreads + threadIdx.x]);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kCount; e += kAffThreads) {
+      dst[e / kPerRow * kRow + e % kPerRow] = e < avail ? src[e] : 0.0f;
+    }
+  }
+}
+
+// One launch: h f32[n, J] and hist f32[J] from a f32[n, J], ff f32[n],
+// live u8[n] and h0 f32[J].
 template <int J>
 __global__ void __launch_bounds__(kAffThreads)
-affine_apply(const float* __restrict__ a, const float* __restrict__ ff,
-             const uint8_t* __restrict__ live, const float* __restrict__ hin,
-             int64_t n, float* __restrict__ h, float* __restrict__ hist) {
-  __shared__ Map<J> warp_maps[32];
-  const int64_t start =
-      (int64_t)blockIdx.x * kAffTile + (int64_t)threadIdx.x * kAffItems;
-  const Map<J> P = thread_map<J>(a, ff, live, start, n);
-  const Map<J> excl = block_exclusive_scan_maps<J>(P, warp_maps, nullptr);
-  float hb[J], hv[J];
+affine_single_pass(const float* __restrict__ a, const float* __restrict__ ff,
+                   const uint8_t* __restrict__ live,
+                   const float* __restrict__ h0, float* __restrict__ h,
+                   float* __restrict__ hist, unsigned* scratch, int64_t cap,
+                   int64_t n) {
+  constexpr int kRowA = aff_row(kAffItems * J);
+  constexpr int kRowF = aff_row(kAffItems);
+  extern __shared__ __align__(16) unsigned char aff_smem[];
+  float* a_s = reinterpret_cast<float*>(aff_smem);  // then h, in place
+  float* ff_s = a_s + kAffThreads * kRowA;
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(ff_s + kAffThreads * kRowF);
+  __shared__ Map<J> warp_maps[kAffThreads / 32];
+  __shared__ float h_tile[J];
+  __shared__ unsigned tile_index;
+  __shared__ bool last_block;
+
+  const int64_t nb = (n + kAffTile - 1) / kAffTile;
+  unsigned* flags = scratch + kAffHead;
+  float* records = reinterpret_cast<float*>(scratch + aff_payload_offset(cap));
+  int64_t t = 0;
+  if (nb > 1) {
+    if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1u);
+    __syncthreads();
+    t = (int64_t)tile_index;
+  }
+  const int64_t base = t * kAffTile;
+  const bool whole = base + kAffTile <= n;
+  const int64_t avail = whole ? kAffTile : n - base;
+
+  // Load: coalesced, into the padded rows.
+  load_rows<kAffItems * J>(a + base * J, avail * J,
+                           whole && ((uintptr_t)a & 15) == 0, a_s);
+  load_rows<kAffItems>(ff + base, avail, whole && ((uintptr_t)ff & 15) == 0,
+                       ff_s);
+  if (whole && ((uintptr_t)live & 15) == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(live + base);
+    for (int v = threadIdx.x; v < kAffTile / 16; v += kAffThreads) {
+      reinterpret_cast<uint4*>(live_s)[v] = __ldcs(&s4[v]);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kAffTile; e += kAffThreads) {
+      live_s[e] = e < avail ? live[base + e] : 0;
+    }
+  }
+  __syncthreads();
+
+  // Each thread composes its lanes' maps, O(J^2) a lane.
+  const float* row_a = a_s + threadIdx.x * kRowA;
+  const float* row_f = ff_s + threadIdx.x * kRowF;
+  const uint8_t* row_l = live_s + threadIdx.x * kAffItems;
+  Map<J> P;
+  set_identity<J>(P);
 #pragma unroll
-  for (int i = 0; i < J; ++i) hb[i] = hin[(int64_t)blockIdx.x * J + i];
-  apply_map<J>(excl, hb, hv);
-  for (int k = 0; k < kAffItems; ++k) {
-    const int64_t i = start + k;
-    if (i >= n) break;
-    if (live[i]) {
-      float y = ff[i];
+  for (int g = 0; g < kAffItems / 4; ++g) {
+    float av[4 * J];
 #pragma unroll
-      for (int j = 0; j < J; ++j) y -= a[i * J + j] * hv[j];
+    for (int c = 0; c < J; ++c) {
+      const float4 q = reinterpret_cast<const float4*>(row_a + 4 * J * g)[c];
+      av[4 * c] = q.x, av[4 * c + 1] = q.y, av[4 * c + 2] = q.z,
+      av[4 * c + 3] = q.w;
+    }
+    const float4 fq = reinterpret_cast<const float4*>(row_f)[g];
+    const float fv[4] = {fq.x, fq.y, fq.z, fq.w};
+    const unsigned lw = reinterpret_cast<const unsigned*>(row_l)[g];
 #pragma unroll
-      for (int j = J - 1; j >= 1; --j) hv[j] = hv[j - 1];
-      hv[0] = y;
+    for (int q = 0; q < 4; ++q) {
+      if ((lw >> (8 * q)) & 0xff) push_lane<J>(P, av + q * J, fv[q]);
+    }
+  }
+  Map<J> total;
+  const Map<J> excl = block_exclusive_scan_maps<J>(P, warp_maps, &total);
+
+  // The history entering the tile.
+  if (nb > 1) {
+    const bool anchor = t % kAffThreads == 0;
+    float* rec = records + t * kAffRecord;
+    if (threadIdx.x == 0 && !anchor) {
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+#pragma unroll
+        for (int k = 0; k < J; ++k) rec[i * J + k] = total.A[i][k];
+        rec[J * J + i] = total.b[i];
+      }
+      store_release(&flags[t], kAffAggregate);
+    }
+    if (t == 0) {
+      if (threadIdx.x < J) h_tile[threadIdx.x] = h0[threadIdx.x];
+      __syncthreads();
+    } else {
+      affine_look_back<J>(flags, records, t, warp_maps, h_tile);
+    }
+    if (threadIdx.x == 0) {
+      if (anchor) {
+        apply_map<J>(total, h_tile, rec);
+        store_release(&flags[t], kAffHistory);
+      }
+      // Every read of a flag or record by this block is done, and this
+      // tile's flag is final.
+      last_block = count_acq_rel(&scratch[1]) == (unsigned)(nb - 1);
+    }
+  } else if (threadIdx.x < J) {
+    h_tile[threadIdx.x] = h0[threadIdx.x];
+  }
+  __syncthreads();
+
+  // The recurrence over the thread's lanes from its entering history, in
+  // the reference's op order; h overwrites a in the thread's row.
+  float hv[J];
+  {
+    float hb[J];
+#pragma unroll
+    for (int i = 0; i < J; ++i) hb[i] = h_tile[i];
+    apply_map<J>(excl, hb, hv);
+  }
+  const int64_t first = base + (int64_t)threadIdx.x * kAffItems;
+#pragma unroll
+  for (int g = 0; g < kAffItems / 4; ++g) {
+    float4* row4 =
+        reinterpret_cast<float4*>(a_s + threadIdx.x * kRowA + 4 * J * g);
+    float av[4 * J];
+#pragma unroll
+    for (int c = 0; c < J; ++c) {
+      const float4 q = row4[c];
+      av[4 * c] = q.x, av[4 * c + 1] = q.y, av[4 * c + 2] = q.z,
+      av[4 * c + 3] = q.w;
+    }
+    const float4 fq = reinterpret_cast<const float4*>(row_f)[g];
+    const float fv[4] = {fq.x, fq.y, fq.z, fq.w};
+    const unsigned lw = reinterpret_cast<const unsigned*>(row_l)[g];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if ((lw >> (8 * q)) & 0xff) {
+        float y = fv[q];
+#pragma unroll
+        for (int j = 0; j < J; ++j) y -= av[q * J + j] * hv[j];
+#pragma unroll
+        for (int j = J - 1; j >= 1; --j) hv[j] = hv[j - 1];
+        hv[0] = y;
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) av[q * J + j] = hv[j];
+      if (first + 4 * g + q == n - 1) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) hist[j] = hv[j];
+      }
     }
 #pragma unroll
-    for (int j = 0; j < J; ++j) h[i * J + j] = hv[j];
-    if (i == n - 1) {
+    for (int c = 0; c < J; ++c) {
+      row4[c] = make_float4(av[4 * c], av[4 * c + 1], av[4 * c + 2],
+                            av[4 * c + 3]);
+    }
+  }
+  __syncthreads();
+
+  // Store: coalesced, from the padded rows.
+  {
+    constexpr int kPerRow = kAffItems * J;
+    float* dst = h + base * J;
+    if (whole && ((uintptr_t)h & 15) == 0) {
+      float4* d4 = reinterpret_cast<float4*>(dst);
 #pragma unroll
-      for (int j = 0; j < J; ++j) hist[j] = hv[j];
+      for (int k = 0; k < kPerRow / 4; ++k) {
+        const int v = k * kAffThreads + threadIdx.x;
+        const int e = 4 * v;
+        d4[v] = *reinterpret_cast<const float4*>(
+            &a_s[e / kPerRow * kRowA + e % kPerRow]);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kAffThreads * kPerRow; e += kAffThreads) {
+        if (e < avail * J) dst[e] = a_s[e / kPerRow * kRowA + e % kPerRow];
+      }
+    }
+  }
+
+  // The last block to finish its look-back leaves the scratch clean.
+  if (nb > 1 && last_block) {
+    for (int64_t i = threadIdx.x; i < nb; i += kAffThreads) flags[i] = 0;
+    if (threadIdx.x == 0) {
+      scratch[0] = 0;
+      scratch[1] = 0;
     }
   }
 }
 
 template <int J>
 int run_affine(const float* a, const float* ff, const uint8_t* live,
-               const float* h0, float* h, float* hist, float* agg, float* hin,
-               int64_t n, cudaStream_t stream) {
+               const float* h0, float* h, float* hist, unsigned* scratch,
+               int64_t cap, int64_t n, cudaStream_t stream) {
   const int64_t nb = (n + kAffTile - 1) / kAffTile;
-  affine_tile_maps<J><<<(unsigned)nb, kAffThreads, 0, stream>>>(a, ff, live, n, agg);
-  affine_scan_aggregates<J><<<1, kAffThreads, 0, stream>>>(agg, h0, hin, nb);
-  affine_apply<J><<<(unsigned)nb, kAffThreads, 0, stream>>>(a, ff, live, hin, n, h, hist);
+  if (nb > 1 && (scratch == nullptr || nb > cap)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = aff_smem_bytes<J>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        affine_single_pass<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  affine_single_pass<J><<<(unsigned)nb, kAffThreads, smem, stream>>>(
+      a, ff, live, h0, h, hist, scratch, cap, n);
   return (int)cudaGetLastError();
 }
 
@@ -673,24 +935,32 @@ int tuun_prefix_max_f32(const float* x, float* out, unsigned long long* scratch,
   return run_prefix<MaxOp>(x, out, scratch, n, (cudaStream_t)stream);
 }
 
+// Words (32-bit) of an affine-scan scratch buffer for up to `tiles` tiles.
+long long tuun_affine_scratch_words(long long tiles) {
+  return aff_payload_offset(tiles) + tiles * kAffRecord;
+}
+
 // a f32[n, J] row-major, ff f32[n], live u8[n], h0 f32[J].
 // Writes h f32[n, J] (h[i, j] = y[i - j]) and hist f32[J] (= h[n-1, :]).
-// agg: nb * (J*J + J) floats, hin: (nb + 1) * J floats,
-// nb = ceil(n / tuun_affine_tile()).
+// scratch: the caller's persistent buffer of tuun_affine_scratch_words(cap)
+// words for this stream, with counters and flags zero, cap >= nb =
+// ceil(n / tuun_affine_tile()) (null when nb == 1); the kernel leaves it
+// so.  Calls that share a scratch buffer must not overlap.
 int tuun_affine_scan_f32(const float* a, const float* ff, const uint8_t* live,
-                         const float* h0, float* h, float* hist, float* agg,
-                         float* hin, long long n, int J, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                         const float* h0, float* h, float* hist,
+                         unsigned* scratch, long long cap, long long n, int J,
+                         void* stream) {
+  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (J) {
-    case 1: return run_affine<1>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 2: return run_affine<2>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 3: return run_affine<3>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 4: return run_affine<4>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 5: return run_affine<5>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 6: return run_affine<6>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 7: return run_affine<7>(a, ff, live, h0, h, hist, agg, hin, n, s);
-    case 8: return run_affine<8>(a, ff, live, h0, h, hist, agg, hin, n, s);
+    case 1: return run_affine<1>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 2: return run_affine<2>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 3: return run_affine<3>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 4: return run_affine<4>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 5: return run_affine<5>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 6: return run_affine<6>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 7: return run_affine<7>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 8: return run_affine<8>(a, ff, live, h0, h, hist, scratch, cap, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -63,8 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tuun_tpu import ir
-
+from .. import ir
 from ..noisegen import noise_torch
 from . import scan_ops
 
@@ -135,8 +134,9 @@ class EngineConfig:
     #         affine-scan IIR.
     precision: str = "exact"
     # Where every tensor of a render lives; the scan kernels run exactly
-    # when this is a CUDA device.
-    device: Any = "cpu"
+    # when this is a CUDA device.  The card unless the caller asks for the
+    # CPU: a voice compiled for a missing card raises (check_device).
+    device: Any = "cuda"
 
     def __post_init__(self):
         if self.precision == "exact_df":
@@ -154,6 +154,15 @@ class EngineConfig:
     @property
     def sequential_iir(self) -> bool:
         return self.precision == "exact"
+
+
+def check_device(device: torch.device) -> None:
+    """Raises when `device` is a CUDA device and no card is visible: a
+    render asked for on the card never goes on quietly on the CPU."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            f"false (pass device='cpu' for a CPU render)")
 
 
 @dataclass
@@ -1099,6 +1108,7 @@ class CompiledVoice:
     moves, per-voice frequencies) share one compiled voice."""
 
     def __init__(self, w: ir.Waveform, cfg: EngineConfig):
+        check_device(cfg.device)
         self.cfg = cfg
         self.waveform = w
         compiler = Compiler(cfg)
@@ -1224,7 +1234,7 @@ def structure_key(w: ir.Waveform, sample_rate: Optional[int] = None,
 
 def render(w: ir.Waveform, n: int, sample_rate: int, *,
            precision: str = "exact", seed: int = 0,
-           block: Optional[int] = None, device="cpu") -> np.ndarray:
+           block: Optional[int] = None, device="cuda") -> np.ndarray:
     """Renders up to n samples, driving the block renderer to completion.
     Returns the valid prefix as float32 numpy."""
     cfg = EngineConfig(sample_rate, precision, device)

@@ -11,8 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-from tuun_tpu import ir, oracle
-
+from .. import ir, oracle
 from .graph import CompiledVoice, EngineConfig
 
 PRECOMPUTE_CAP_SECONDS = oracle.Oracle.PRECOMPUTE_CAP_SECONDS

@@ -13,17 +13,26 @@ by a hash of the source and flags, and bind through ctypes.  Each entry
 point counts its kernel launches in `launches` (reset with
 `reset_launches`), so a run can show which kernels its path reached.
 
-The prefix sum and max are one launch per call: a single-pass scan with
-decoupled look-back over 4096-lane tiles, in a fixed grouping, so a call
-gives the same bits every time.  Its scratch (two counters and one status
-word per tile) is a persistent buffer for each (device, stream), sized
-once for the longest scan (4 MiB) and zeroed once when it is allocated;
-it is never freed or grown, and each call leaves it zeroed again, so
-calls and replays of a captured CUDA graph need no set-up.  Call a
-prefix scan once on a stream before capturing it there, so that its
-scratch exists outside the capture.  A graph keeps the scratch of the
-stream it was captured on, so replays of graphs captured on one stream
-must not overlap one another or calls on that stream.
+Each kernel is one launch per call: a single-pass scan with decoupled
+look-back, in a fixed grouping, so a call gives the same bits every
+time.  Each keeps a persistent scratch per (device, stream), zeroed once
+when it is allocated and left clean by every call, so calls and replays
+of a captured CUDA graph need no set-up:
+
+  * the prefix scans' (two counters and one status word per 4096-lane
+    tile) is sized once for the longest scan (4 MiB) and never grows;
+  * the affine scan's (two counters, a flag and a record of up to 72
+    floats per 2048-lane tile) would be ~300 MB for the longest scan, so
+    it starts at the tiles of 2^22 lanes (0.6 MB) and grows by a new
+    buffer when a longer scan comes; an outgrown buffer is kept, never
+    freed, because a captured graph may hold its pointer.
+
+Call a scan once on a stream, at the longest length it will capture,
+before capturing it there, so that its scratch exists outside the
+capture: a call that would allocate scratch while the stream captures
+raises.  A graph keeps the scratch of the stream it was captured on, so
+replays of graphs captured on one stream must not overlap one another
+or calls on that stream.
 
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit) and the affine scan any J from 1 to
@@ -37,7 +46,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -54,13 +63,22 @@ MAX_N = 2 ** 31 - 1
 launches: Dict[str, int] = {"prefix_sum_f32": 0, "prefix_max_f32": 0,
                             "affine_scan_f32": 0}
 
+# The affine scan's first scratch covers this many lanes (0.6 MB at
+# 2048-lane tiles); a longer scan grows it.
+AFFINE_SCRATCH_MIN_LANES = 1 << 22
+
 _lib = None
-# Read from the library once: lanes per prefix-scan tile, and the 64-bit
-# words of a stream's prefix-scan scratch.
+# Read from the library once: lanes per prefix-scan tile, the 64-bit
+# words of a stream's prefix-scan scratch, and lanes per affine tile.
 _scan_tile = 0
 _scratch_words = 0
+_affine_tile = 0
 # Persistent prefix-scan scratch, keyed by (device index, raw stream).
 _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+# Persistent affine-scan scratch, keyed likewise: (buffer, tiles it holds).
+_affine_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+# Outgrown affine scratch: never freed (a captured graph may use it).
+_affine_retired: List[torch.Tensor] = []
 
 
 def reset_launches() -> None:
@@ -104,16 +122,19 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = i32
     lib.tuun_scan_scratch_words.argtypes = []
     lib.tuun_scan_scratch_words.restype = i64
+    lib.tuun_affine_scratch_words.argtypes = [i64]
+    lib.tuun_affine_scratch_words.restype = i64
     for name in ("tuun_prefix_sum_f32", "tuun_prefix_max_f32"):
         getattr(lib, name).argtypes = [p, p, p, i64, p]
         getattr(lib, name).restype = i32
-    lib.tuun_affine_scan_f32.argtypes = [p, p, p, p, p, p, p, p, i64, i32, p]
+    lib.tuun_affine_scan_f32.argtypes = [p] * 7 + [i64, i64, i32, p]
     lib.tuun_affine_scan_f32.restype = i32
     if lib.tuun_affine_max_j() != MAX_J:
         raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
-    global _scan_tile, _scratch_words
+    global _scan_tile, _scratch_words, _affine_tile
     _scan_tile = lib.tuun_scan_tile()
     _scratch_words = lib.tuun_scan_scratch_words()
+    _affine_tile = lib.tuun_affine_tile()
     _lib = lib
     return lib
 
@@ -121,15 +142,6 @@ def load_library() -> ctypes.CDLL:
 def _check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
-
-
-def _stream(device: torch.device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 def _check_vector(x: torch.Tensor, name: str) -> None:
@@ -160,14 +172,18 @@ def prefix_max_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, 0).values
 
 
-def _zeroed_scratch(device: int) -> torch.Tensor:
+def _zeroed(words: int, dtype, device: int, what: str) -> torch.Tensor:
     # torch.zeros runs on the current stream, the one the buffer is keyed
     # by, so it is ordered before the kernel that first uses it.
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
-            "prefix scan: this stream has no scratch yet; call the scan "
-            "once on it before capturing")
-    return torch.zeros(_scratch_words, dtype=torch.int64, device=device)
+            f"{what}: this stream has no scratch for this length yet; call "
+            f"the scan once on it, at the longest length, before capturing")
+    return torch.zeros(words, dtype=dtype, device=device)
+
+
+def _zeroed_scratch(device: int) -> torch.Tensor:
+    return _zeroed(_scratch_words, torch.int64, device, "prefix scan")
 
 
 def prefix_scratch(device: int, stream: int,
@@ -263,25 +279,59 @@ def affine_scan_ref(a_rows: torch.Tensor, ff: torch.Tensor,
 
 
 def _check_affine(a_rows, ff, live, h0) -> None:
-    _require(a_rows.dtype == torch.float32 and a_rows.dim() == 2,
-             f"affine_scan_f32: a_rows must be float32 [N, J], got "
-             f"{a_rows.dtype} {tuple(a_rows.shape)}")
+    # Runs on every call, so each message is formatted only when its
+    # check fails.
+    if a_rows.dtype != torch.float32 or a_rows.dim() != 2:
+        raise ValueError(f"affine_scan_f32: a_rows must be float32 [N, J], "
+                         f"got {a_rows.dtype} {tuple(a_rows.shape)}")
     n, J = a_rows.shape
     if not 1 <= J <= MAX_J:
         raise NotImplementedError(
             f"affine_scan_f32: feedback depth J={J} outside 1..{MAX_J} "
             f"(deeper filters: ROADMAP.md queue 2)")
     _check_vector(ff, "affine_scan_f32 ff")
-    _require(ff.shape[0] == n, "affine_scan_f32: ff length != N")
-    _require(live.dtype == torch.bool and live.shape == (n,),
-             "affine_scan_f32: live must be bool [N]")
-    _require(h0.dtype == torch.float32 and h0.shape == (J,),
-             "affine_scan_f32: h0 must be float32 [J]")
-    for t in (a_rows, live, h0):
-        _require(t.is_contiguous(), "affine_scan_f32: inputs must be "
-                 "contiguous")
-        _require(t.device == ff.device, "affine_scan_f32: inputs on "
-                 "different devices")
+    if ff.shape[0] != n:
+        raise ValueError("affine_scan_f32: ff length != N")
+    if live.dtype != torch.bool or live.shape != (n,):
+        raise ValueError("affine_scan_f32: live must be bool [N]")
+    if h0.dtype != torch.float32 or h0.shape != (J,):
+        raise ValueError("affine_scan_f32: h0 must be float32 [J]")
+    dev = ff.device
+    for x in (a_rows, live, h0):
+        if not x.is_contiguous():
+            raise ValueError("affine_scan_f32: inputs must be contiguous")
+        if x.device != dev:
+            raise ValueError("affine_scan_f32: inputs on different devices")
+
+
+def _zeroed_affine_scratch(device: int, tiles: int) -> torch.Tensor:
+    words = load_library().tuun_affine_scratch_words(tiles)
+    return _zeroed(words, torch.int32, device, "affine scan")
+
+
+def affine_scratch(device: int, stream: int, tiles: int,
+                   alloc=_zeroed_affine_scratch) -> Tuple[torch.Tensor, int]:
+    """(buffer, capacity in tiles) of (device, stream), holding at least
+    `tiles` tiles.
+
+    Made on first use, zeroed by `alloc(device, capacity)`, for at least
+    the tiles of AFFINE_SCRATCH_MIN_LANES lanes.  A longer scan gets a
+    new buffer of at least twice the capacity; the old one is kept in
+    _affine_retired for the life of the process, since a captured graph
+    may hold its raw pointer.  The kernel leaves the counters and flags
+    zero after each call."""
+    key = (device, stream)
+    entry = _affine_scratch.get(key)
+    if entry is not None and entry[1] >= tiles:
+        return entry
+    cap = max(tiles, -(-AFFINE_SCRATCH_MIN_LANES // _affine_tile))
+    if entry is not None:
+        cap = max(cap, 2 * entry[1])
+    buf = alloc(device, cap)
+    if entry is not None:
+        _affine_retired.append(entry[0])
+    entry = _affine_scratch[key] = (buf, cap)
+    return entry
 
 
 def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,
@@ -291,22 +341,27 @@ def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,
 
     a_rows f32[N, J]; ff f32[N]; live bool[N] (dead lanes pass the history
     through unchanged); h0 f32[J] = [y[-1] ... y[-J]].  Returns
-    (h f32[N, J] with h[i, j] = y[i-j], hist f32[J] = h[N-1])."""
+    (h f32[N, J] with h[i, j] = y[i-j], hist f32[J] = h[N-1]).
+
+    The CUDA kernel carries the history across tiles and threads by
+    composed maps and runs the recurrence itself over each thread's
+    lanes, in a fixed grouping: every call gives the same bits."""
     _check_affine(a_rows, ff, live, h0)
-    if ff.device.type == "cpu":
+    if ff.is_cpu:
         return affine_scan_ref(a_rows, ff, live, h0)
     lib = load_library()
     n, J = a_rows.shape
-    tile = lib.tuun_affine_tile()
-    nb = (n + tile - 1) // tile
-    dev = ff.device
-    h = torch.empty((n, J), dtype=torch.float32, device=dev)
-    hist = torch.empty(J, dtype=torch.float32, device=dev)
-    agg = torch.empty(nb * (J * J + J), dtype=torch.float32, device=dev)
-    hin = torch.empty((nb + 1) * J, dtype=torch.float32, device=dev)
+    dev = ff.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    tiles = -(-n // _affine_tile)
+    scratch, cap = affine_scratch(dev, stream, tiles) if tiles > 1 \
+        else (None, 0)
+    h = torch.empty((n, J), dtype=torch.float32, device=ff.device)
+    hist = torch.empty(J, dtype=torch.float32, device=ff.device)
     _check(lib.tuun_affine_scan_f32(
         a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(), h0.data_ptr(),
-        h.data_ptr(), hist.data_ptr(), agg.data_ptr(), hin.data_ptr(), n, J,
-        _stream(dev)), "affine_scan_f32")
+        h.data_ptr(), hist.data_ptr(),
+        scratch.data_ptr() if scratch is not None else 0, cap, n, J, stream),
+        "affine_scan_f32")
     launches["affine_scan_f32"] += 1
     return h, hist

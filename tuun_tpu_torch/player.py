@@ -13,11 +13,10 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from tuun_tpu import ir, optimizer
-from tuun_tpu.ids import MarkId
-from tuun_tpu.sliders import denormalize
-
+from . import ir, optimizer
 from .engine.precompute import precompute as engine_precompute
+from .ids import MarkId
+from .sliders import denormalize
 from .tracker import Tracker
 
 

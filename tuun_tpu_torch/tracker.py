@@ -22,10 +22,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tuun_tpu import ir, oracle
-from tuun_tpu.wav import write_wav_f32
-
+from . import ir, native, oracle
 from .engine import CompiledVoice, EngineConfig, structure_key
+from .engine.graph import check_device
+from .wav import write_wav_f32
 
 # The helpers below are copied from tuun_tpu/tracker.py:40-166, which
 # imports jax at module top.
@@ -53,7 +53,6 @@ class Status:
 def _subtree_length(node: ir.Waveform, sample_rate: int, cap: int) -> int:
     """Producible length of a fresh copy of `node`, up to cap samples,
     from the native C++ oracle when it builds, else the Python one."""
-    from tuun_tpu import native
     if native.native_available():
         return native.NativeOracle(node, sample_rate).length(cap)
     o = oracle.Oracle(sample_rate)
@@ -63,7 +62,6 @@ def _subtree_length(node: ir.Waveform, sample_rate: int, cap: int) -> int:
 def _voice_total_length(w: ir.Waveform, sample_rate: int) -> Optional[int]:
     """Exact producible length of a fresh voice, or None when infinite,
     longer than the retirement cap, or the native oracle is missing."""
-    from tuun_tpu import native
     if not native.native_available():
         return None
     cap = RETIRE_LENGTH_CAP_SECONDS * sample_rate
@@ -169,12 +167,13 @@ class Tracker:
     def __init__(self, sample_rate: int, block_size: int = 1024,
                  captured_output_dir: str | Path = ".",
                  captured_date_format: str = "_%Y-%m-%d_%H-%M-%S",
-                 precision: str = "fast", device="cpu"):
+                 precision: str = "fast", device="cuda"):
         self.sample_rate = sample_rate
         self.block_size = block_size
         self.captured_output_dir = Path(captured_output_dir)
         self.captured_date_format = captured_date_format
         self.cfg = EngineConfig(sample_rate, precision, device)
+        check_device(self.cfg.device)
         self.cache = _CompileCache()
         self.active: List[Voice] = []
         self.pending: List[Pending] = []
