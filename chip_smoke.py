@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on failure:
   1. build: compile the hand-written scan kernels (csrc/scan.cu) with nvcc.
   2. kernels: each kernel against its plain PyTorch version on the card,
      with timings; noise_torch against the numpy oracle's noise; sin at
-     every NCO grid angle on the card against the CPU (reported only).
+     every NCO grid angle on the card against the CPU.
      The prefix sum and max from 128 up to 2^26 lanes, the affine scan
      at J = 1, 2, 3, 4, 8 and up to 2^20 + 5 lanes, each also: on
      misaligned inputs (x[1:]; a[1:], ff[1:], live[1:]); exactly one CUDA
@@ -22,20 +22,34 @@ Phases, each of which exits non-zero on failure:
      interleaved with the first.  At the main path's shapes each is timed
      three ways: events around back-to-back calls (cuda_ms, which reads
      the slower of host and device), device time alone (replays of a
-     captured graph) and host time per call.
-  3. main path: the batch CLI (python -m tuun_tpu_torch) renders W1-W3 at
-     48 kHz in 65536-sample blocks (W1 also with the default
-     --precompute true, as W1p).  The valid samples the engine itself
-     reported, and the WAV's length, must equal the native oracle's
-     length; the first 2 s must match the port's numpy oracle (a copy of
-     tuun_tpu's, held equal to it by tests/test_torch_frontend.py) within the
-     fast-mode tolerances stated below.  Every kernel must have launched
-     in this phase: its counts are the `launches` of the kernels line.
+     captured graph) and host time per call.  sin's sign at all 2^24 NCO
+     grid angles must equal the phase's top bit on the card (the analytic
+     Reset tiers rest on it).
+  3. main path: the batch CLI (python -m tuun_tpu_torch) renders W1-W3,
+     W5 (bench.py's marks_4_40), W6 (poly_16) and W2g (a reset no
+     analytic tier takes) at 48 kHz in 65536-sample blocks (W1 also with
+     the default --precompute true, as W1p).  The valid samples the
+     engine itself reported, and the WAV's length, must equal the native
+     oracle's length; the first 2 s must match the port's numpy oracle (a
+     copy of tuun_tpu's, held equal to it by tests/test_torch_frontend.py)
+     within the fast-mode tolerances stated below.  W5 and W6 must compile
+     to a timeline (W6 with its 16 tones in one stacked chord) and give
+     the same bits on both renders.  Every kernel must have launched in
+     this phase: its counts are the `launches` of the kernels line.
   4. cross-device: W1's first 2 s rendered on the CPU (plain scans, CPU
      sin) against the card's render.
   5. engine: filter_4_3 (W4) through CompiledVoice.render_block in 8
      blocks of 2^20 lanes, the first block checked against the native
      oracle; its launches are reported on a line of their own.
+  6. profiles: for W1 and W2 with the analytic Reset tiers and with them
+     forced off, and for W3, W5, W6 and W2g, one engine render of the
+     whole piece (CompiledVoice, 65536-lane blocks, warm) in a child
+     process of its own (`--profile NAME [--generic]`, its first
+     torch.profiler session): device events per block and the device's
+     idle share.
+  7. reloc_fast: W1, W2, W5 and W6 rendered warm through CompiledVoice in
+     65536-lane blocks with EngineConfig(reloc_fast=True) and with the
+     default, in turns (default, fast, fast, default).
 
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2.
@@ -67,20 +81,35 @@ BUFFER = 65536
 MAIN_N = BUFFER
 
 W1_EXPR = "harmonica(10.0, 440)"
+# bench.py:87-96's score workloads, as its expressions build them.
+MARKS_4_40 = "<[" + ", ".join(
+    ["0 | fin(time - 0.5) | seq(time - 0.5)"] * 160) + "]>"
+POLY_16 = "{[" + ", ".join(f"$({600 + 60 * i}) + $({1200 + 35 * i})"
+                           for i in range(16)) + "]} | fin(time - 80)"
 # Workloads of phase 3: (name, expression, --precompute, kernels it must
-# reach).  The 60 s pieces run with --precompute false: with the default
-# true, the precompute pass bakes a finite piece to at most 10 s (the
-# reference's cap), so they would be cut and rendered only by the bake.
-# W1 is 10 s long and runs both ways; with the default (W1p) the engine
-# renders it in the bake and the tracker plays the baked samples.
+# reach).  The 60-80 s pieces run with --precompute false: with the
+# default true, the precompute pass bakes a finite piece to at most 10 s
+# (the reference's cap), so they would be cut and rendered only by the
+# bake.  W1 is 10 s long and runs both ways; with the default (W1p) the
+# engine renders it in the bake and the tracker plays the baked samples.
+# Every Reset of W1 and W2 takes an analytic tier, so they reach no
+# running max; W2g's outer reset(triangle(...)) is one that every tier
+# rejects, which keeps the prefix max on the path.  W5's silent segments
+# are one step sum (the prefix sum); W6's chord reaches no scan.
 WORKLOADS = [
-    ("W1", W1_EXPR, "false", ("affine_scan_f32", "prefix_max_f32")),
-    ("W1p", W1_EXPR, None, ("affine_scan_f32", "prefix_max_f32")),
+    ("W1", W1_EXPR, "false", ("affine_scan_f32",)),
+    ("W1p", W1_EXPR, None, ("affine_scan_f32",)),
     ("W2", "sawtooth(110) | lpf(0.7, 2000) | fin(time - 60)", "false",
-     ("affine_scan_f32", "prefix_max_f32")),
+     ("affine_scan_f32",)),
     ("W3", "sine(2*pi*(220 + 30*$(5)), 0) * 0.5 | fin(time - 60)", "false",
      ("prefix_sum_f32",)),
+    ("W5", MARKS_4_40, "false", ("prefix_sum_f32",)),
+    ("W6", POLY_16, "false", ()),
+    ("W2g", "reset(triangle(110), time * -110) * 2 | lpf(0.7, 2000) "
+     "| fin(time - 60)", "false", ("affine_scan_f32", "prefix_max_f32")),
 ]
+# Rendered twice in phase 3, these must give the same bits both times.
+REPEATABLE = ("W5", "W6")
 PREFIX_SECONDS = 2.0
 
 # Affine-scan error bound per feedback depth J, as a fraction of the
@@ -653,11 +682,10 @@ def phase_noise(torch, np):
 
 def phase_sin(torch):
     """sin at all 2^24 NCO grid angles (the angles every constant-
-    frequency sine takes in fast mode), on the card against the CPU.
-    Reported, not checked: the port's Reset uses the sampled sign of the
-    trigger, which is right whatever sin's rounding.  The analytic Reset
-    tiers (ROADMAP.md) need sin(angle) >= 0 exactly when the phase is
-    below 2^31."""
+    frequency sine takes in fast mode), on the card against the CPU.  The
+    analytic Reset tiers take edges from the phase's top bit where the
+    generic tiers take them from sin's sign, so on the card sin(angle) >= 0
+    must hold exactly when the phase is below 2^31: checked."""
     from tuun_tpu_torch.engine.graph import _nco_angle
     ph = torch.arange(1 << 24, dtype=torch.int64) << 8
     below = ph < 2 ** 31
@@ -671,10 +699,14 @@ def phase_sin(torch):
                     != sin_cpu.view(torch.int32)).sum())
     ulps = (sin_gpu.view(torch.int32).long()
             - sin_cpu.view(torch.int32).long()).abs().max()
+    bad_gpu = int(((sin_gpu >= 0) != below).sum())
     log(f"sin at 2^24 NCO grid angles: angles differ card vs CPU at "
         f"{ang_diff}; sin values differ at {val_diff} (max {int(ulps)} "
-        f"ulp); sign != (phase < 2^31) at {int(((sin_gpu >= 0) != below).sum())} "
-        f"on the card, {int(((sin_cpu >= 0) != below).sum())} on the CPU")
+        f"ulp); sign != (phase < 2^31) at {bad_gpu} on the card, "
+        f"{int(((sin_cpu >= 0) != below).sum())} on the CPU")
+    check(bad_gpu == 0, f"sin's sign differs from the phase's top bit at "
+          f"{bad_gpu} grid angles on the card: the analytic Reset tiers "
+          f"would move edges")
 
 
 def fast_mode_errors(got, ref):
@@ -733,8 +765,8 @@ class ValidEnds:
         self._cls, self._orig = CompiledVoice, CompiledVoice.render_block
         orig, calls = self._orig, self.calls
 
-        def render_block(voice, P, state, n, s=0, e=None):
-            out = orig(voice, P, state, n, s, e)
+        def render_block(voice, P, state, n, s=0, e=None, **kw):
+            out = orig(voice, P, state, n, s, e, **kw)
             calls.append((voice, s, n if e is None else e, out[1]))
             return out
 
@@ -782,10 +814,12 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
         top = build_top_level_waveform(optimizer.optimize(value.waveform),
                                        0.0)
         want_len = native.NativeOracle(top, SR).length(700 * SR)
+        if name in REPEATABLE:
+            check_timeline(name, top)
         # Two runs: the first pays first-use costs (the evaluator's stdlib
         # load, CUDA context warm-up, allocator growth), the second is the
         # steady state a batch of renders sees.
-        walls = []
+        walls, bits = [], []
         for _ in range(2):
             with ValidEnds() as ends:
                 t0 = time.perf_counter()
@@ -793,6 +827,8 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             check(rc == 0, f"{name}: the CLI exited {rc}")
+            if name in REPEATABLE:
+                bits.append(read_wav(out)[0].view(np.int32))
             # The tracker's voice is the last one rendered (a bake, when
             # there is one, renders first).  Its engine must end exactly
             # where the oracle does: not run past it, not stop short.
@@ -800,6 +836,10 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
             check(bool(produced) and produced[-1] == want_len,
                   f"{name}: the engine reported {produced} valid samples "
                   f"per voice, the oracle's length is {want_len}")
+        if name in REPEATABLE:
+            check(np.array_equal(bits[0], bits[1]),
+                  f"{name}: two renders differ at "
+                  f"{int((bits[0] != bits[1]).sum())} samples")
         got, sr = read_wav(out)
         check(sr == SR and np.isfinite(got).all(),
               f"{name}: bad WAV (sr {sr}, finite {np.isfinite(got).all()})")
@@ -822,9 +862,206 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
             f"first {PREFIX_SECONDS:.0f} s vs oracle: max_abs "
             f"{stats['max_abs']:.3e}, median {stats['median']:.3e}, "
             f"off>5%peak {stats['frac_large']:.2e}, max run "
-            f"{stats['max_run']}")
+            f"{stats['max_run']}"
+            + ("; the same bits on both renders" if name in REPEATABLE
+               else ""))
         summary.append((name, seconds / walls[1]))
     return summary
+
+
+def check_timeline(name, top) -> None:
+    """`top` compiles to a timeline; for W6, its 16 tones are one stacked
+    chord (one evaluation of the tone over a [16, n] parameter table)."""
+    from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
+    from tuun_tpu_torch.engine.timeline import CTimeline, _Chord
+    voice = CompiledVoice(top, EngineConfig(SR, "fast", "cuda"))
+    tl = next((n for n in iter_nodes(voice.root)
+               if isinstance(n, CTimeline)), None)
+    check(voice._has_timeline and tl is not None,
+          f"{name}: did not compile to a timeline")
+    P = voice.params()
+    plan = tl._plan_for(P, voice.lits_for(P))
+    if name == "W6":
+        check([(type(x), getattr(x, "count", 1)) for x in plan.items]
+              == [(_Chord, 16)], f"W6: not one chord of 16: {plan.items}")
+    else:
+        check(plan.const is not None, f"{name}: no step sum")
+    log(f"{name}: a timeline of {len(tl.infos)} leaves, "
+        f"{'one chord of 16 stacked tones' if name == 'W6' else 'a step sum'}"
+        f", total {plan.total} samples")
+
+
+def workload_waveform(expr):
+    """The optimized IR of a workload expression (port front end, 48 kHz)
+    and its length from the native oracle."""
+    from tuun_tpu_torch import cli, native, optimizer
+    from tuun_tpu_torch.evaluator import Evaluator
+    from tuun_tpu_torch.expr import ESeq
+    value = Evaluator(SR, 90, cli.DEFAULT_LIBRARY).evaluate_source(
+        expr, opens=("std",))
+    if isinstance(value, ESeq):
+        value = value.waveform
+    w = optimizer.optimize(value.waveform)
+    return w, native.NativeOracle(w, SR).length(700 * SR)
+
+
+def engine_render(torch, voice, P, total: int):
+    """The whole piece through CompiledVoice.render_block in MAIN_N-lane
+    blocks from a fresh state, without reading anything back; returns
+    (blocks, the last block's samples)."""
+    st = voice.init(P)
+    done = blocks = 0
+    while done < total:
+        m = min(MAIN_N, total - done)
+        y, _, st, _ = voice.render_block(P, st, MAIN_N, 0, m)
+        done += m
+        blocks += 1
+    torch.cuda.synchronize()
+    return blocks, y
+
+
+class GenericTiers:
+    """While active, every Reset compiles to the generic sampled-sign
+    tiers: the "before" of the analytic tiers."""
+
+    def __enter__(self):
+        from tuun_tpu_torch.engine.graph import CReset
+        self._saved = {k: CReset.__dict__[k] for k in (
+            "_analytic_ok", "_wrap_edge_info", "_wrap_edge_info_pwm")}
+        CReset._analytic_ok = staticmethod(lambda t, c: False)
+        CReset._wrap_edge_info = classmethod(lambda cls, t, c: None)
+        CReset._wrap_edge_info_pwm = classmethod(lambda cls, t, c: None)
+        return self
+
+    def __exit__(self, *exc):
+        from tuun_tpu_torch.engine.graph import CReset
+        for k, v in self._saved.items():
+            setattr(CReset, k, v)
+
+
+PROFILES = (("W1", False), ("W1", True), ("W2", False), ("W2", True),
+            ("W3", False), ("W5", False), ("W6", False), ("W2g", False))
+
+
+def profile_child(torch, scan_ops, name: str, generic: bool) -> dict:
+    """One warm engine render of workload `name` under torch.profiler (the
+    process's first session): device events, their summed time, and the
+    scan launches, per block."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
+    from tuun_tpu_torch.engine.graph import CReset
+    expr = next(e for n, e, _, _ in WORKLOADS if n == name)
+    w, total = workload_waveform(expr)
+    cfg = EngineConfig(SR, "fast", "cuda")
+    if generic:
+        with GenericTiers():
+            voice = CompiledVoice(w, cfg)
+    else:
+        voice = CompiledVoice(w, cfg)
+    resets = [n for n in iter_nodes(voice.root) if isinstance(n, CReset)]
+    P = voice.params(1)
+    engine_render(torch, voice, P, total)  # warm: plans, allocator
+    scan_ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        blocks, _ = engine_render(torch, voice, P, total)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                  for e in events)
+    return dict(profile=name, tiers="generic" if generic else "default",
+                analytic_resets=sum(r.analytic for r in resets),
+                generic_resets=sum(not r.analytic for r in resets),
+                blocks=blocks, device_events=len(events), kernels=kernels,
+                events_per_block=len(events) / blocks,
+                device_busy_ms=busy_ms, wall_ms=wall * 1e3,
+                idle_share=1.0 - busy_ms / (wall * 1e3),
+                scan=dict(scan_ops.launches),
+                audio_seconds=total / SR)
+
+
+def iter_nodes(node):
+    """Every node of a compiled tree, timeline leaves included."""
+    from tuun_tpu_torch.engine.graph import Node
+    from tuun_tpu_torch.engine.timeline import CTimeline
+    yield node
+    for attr in ("a", "b", "inner", "trigger", "pos", "neg", "freq",
+                 "phase", "length"):
+        child = getattr(node, attr, None)
+        if isinstance(child, Node):
+            yield from iter_nodes(child)
+    for child in list(getattr(node, "ffs", ())) + list(getattr(node, "fbs",
+                                                               ())):
+        yield from iter_nodes(child)
+    if isinstance(node, CTimeline):
+        for info in node.infos:
+            yield from iter_nodes(info.node)
+
+
+def phase_profiles() -> None:
+    """Each of PROFILES in a child process of its own (a profiler session
+    after the first in one process may lose kernel events).  With the
+    analytic tiers, W1 and W2 must launch no running max; with them
+    forced off, they must."""
+    for name, generic in PROFILES:
+        argv = [sys.executable, str(Path(__file__).resolve()), "--profile",
+                name] + (["--generic"] if generic else [])
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"profile {name}: exit "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"profile {json.dumps(row)}")
+        if name in ("W1", "W2"):
+            maxes = row["scan"]["prefix_max_f32"]
+            check((maxes > 0) == generic
+                  and (row["generic_resets"] > 0) == generic,
+                  f"profile {name}: tiers {row['tiers']} with "
+                  f"{row['generic_resets']} generic resets launched "
+                  f"{maxes} running maxes")
+
+
+def phase_reloc_fast(torch) -> list:
+    """W1, W2, W5 and W6 warm through CompiledVoice in MAIN_N-lane blocks,
+    the default config against EngineConfig(reloc_fast=True), in turns
+    (default, fast, fast, default), one warm-up render each first.  The
+    last blocks of the two paths must agree within 4 f32 spacings of the
+    output's scale (the fast path evaluates the same closures; a timeline
+    takes its broadcast form there)."""
+    import numpy as np
+    from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
+    rows = []
+    for name in ("W1", "W2", "W5", "W6"):
+        expr = next(e for n, e, _, _ in WORKLOADS if n == name)
+        w, total = workload_waveform(expr)
+        voices = {flag: CompiledVoice(w, EngineConfig(SR, "fast", "cuda",
+                                                      reloc_fast=flag))
+                  for flag in (False, True)}
+        params = {flag: v.params(1) for flag, v in voices.items()}
+        last = {flag: engine_render(torch, v, params[flag], total)[1]
+                for flag, v in voices.items()}
+        diff = float((last[True] - last[False]).abs().max())
+        scale = max(1.0, float(last[False].abs().max()))
+        check(diff <= 4 * float(np.spacing(np.float32(scale))),
+              f"{name}: reloc_fast's last block differs by {diff:.3e}")
+        walls = {False: [], True: []}
+        for flag in (False, True, True, False):
+            t0 = time.perf_counter()
+            engine_render(torch, voices[flag], params[flag], total)
+            walls[flag].append(time.perf_counter() - t0)
+        seconds = total / SR
+        row = dict(reloc=name, relocatable=voices[True].relocatable,
+                   fast_default=voices[True].fast_default,
+                   default_s=walls[False], reloc_fast_s=walls[True],
+                   default_x=[seconds / t for t in walls[False]],
+                   reloc_fast_x=[seconds / t for t in walls[True]],
+                   last_block_diff=diff)
+        log(f"reloc_fast {json.dumps(row)}")
+        rows.append(row)
+    return rows
 
 
 def phase_cross_device(torch, np, tmp: Path):
@@ -907,6 +1144,11 @@ def main(argv) -> int:
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
+    ap.add_argument("--profile", choices=sorted({n for n, _ in PROFILES}),
+                    help="profile one engine render of this workload and "
+                    "print it as JSON (phase 6 runs each in a child)")
+    ap.add_argument("--generic", action="store_true",
+                    help="with --profile: the analytic Reset tiers off")
     args = ap.parse_args(argv)
     if args.tree is not None and args.phase != "times":
         ap.error("--tree needs --phase times")
@@ -919,6 +1161,10 @@ def main(argv) -> int:
         scan_ops = tree_scan_ops(args.tree.resolve())
     else:
         from tuun_tpu_torch.engine import scan_ops
+    if args.profile is not None:
+        print(json.dumps(profile_child(torch, scan_ops, args.profile,
+                                       args.generic)), flush=True)
+        return 0
 
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} (torch {torch.__version__}, cuda "
@@ -957,6 +1203,8 @@ def main(argv) -> int:
     log(f"launch counts of W4 (phase 5, not in the kernels line): "
         f"{dict(scan_ops.launches)}")
     log("x realtime (warm): " + ", ".join(f"{n} {x:.1f}" for n, x in summary))
+    phase_profiles()
+    phase_reloc_fast(torch)
 
     kernels = []
     for k in scan_ops.launches:

@@ -10,26 +10,35 @@ how far the node wrote (consumers read written-but-invalid samples, as
 the reference's shared buffers do).  The semantics, state layouts and op
 orders are the JAX engine's; see its module docstring and
 tuun_tpu/oracle.py for the per-sample ground truth.  The port covers the
-stateful interval path: leaves, arithmetic, Append, Fin, NCO and FM
-sines, filters, Reset (generic tiers), Alt and captures.
+JAX engine's fast mode: the stateful interval path (leaves, arithmetic,
+Append, Fin, NCO and FM sines, filters, Reset, Alt, captures), literal
+Fin cutoffs (`lits`), the relocatable fast path (`reloc_block`, closed-
+form state, `note_fn`), the analytic Reset tiers and the timeline form of
+Merge/Append trees (timeline.py).
 
 Decisions where the JAX engine's form was a fact of XLA or the TPU:
 
   * uint32 arithmetic.  torch's CPU build has no uint32 `+` or `>>`, so
-    the NCO phase rides in int64 masked to 32 bits after every op.  Its
-    products stay far below 2^63 (lane offset < 2^24 times inc < 2^32).
-    Noise does the same (noisegen.py).
+    the NCO phase rides in int64 masked to 32 bits after every op.  A
+    product of a lane offset (< 2^24) and an increment (< 2^32) stays
+    below 2^63; a product of an absolute index and an increment, both up
+    to 2^32, need not, so those go through `_mul_u32` (16-bit halves, as
+    noisegen.py does), and the closed-form state multiplies Python ints.
   * Interval ends s, e, v, w are 0-dim int64 tensors on the voice's
     device, as the eager JAX path keeps them traced: no node reads one on
     the host or branches on it, so a block render never waits for the
     device.  The JAX engine's lax.cond gating of empty regions is an
     XLA-only optimisation (its eager path skips it too) and is dropped.
     Positions, ages and cursors are int64 (the JAX int32 ones wrap after
-    2^31 samples; these do not).
-  * Literal Fin thresholds (`lits`) exist because traced thresholds
-    de-vectorize Mosaic fusions; they belong to the reloc fast path,
-    which waits (ROADMAP.md).  Reloc lengths here are Python ints, int64
-    tensors or None, and every length mask compares integers.
+    2^31 samples; these do not, and reconstruct_state follows the port's
+    render).
+  * Literal Fin cutoffs (`lits`): the JAX engine fetched them to the host
+    because traced thresholds de-vectorize Mosaic fusions.  Here they
+    exist because the timeline's schedule (leaf offsets, layers) is built
+    on the host from literal offsets once per (params, lits); lits_for,
+    symbolic_len and state_at evaluate on CPU tensors from the host
+    mirror of the params, never on the card.  Reloc lengths are Python
+    ints, int64 tensors or None, and every length mask compares integers.
   * f32 lane indices (`fidx`) existed because int32 reductions are slow
     on the TPU.  Reductions here use int64 lane indices; `fidx` remains
     only as the input of the float32 running-max kernel, exact below
@@ -43,11 +52,15 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     device (`_div`): on CUDA torch divides by a host scalar as a multiply
     by its reciprocal, which rounds differently from JAX and the oracle.
   * jnp.mod is a floor mod: torch.remainder, the same sign rule.
-  * Reset compiles to the generic sampled-sign tiers only: the analytic
-    tiers rest on sign(sin(angle)) matching the NCO phase's top bit,
-    which chip_smoke.py reports for CUDA's sin at all 2^24 grid angles;
-    porting those tiers waits (ROADMAP.md).  The JAX suite pins both
-    tiers as bit-identical, so no sample changes.
+  * The analytic Reset tiers take edges from the NCO phase's top bit,
+    the generic tiers from sign(sin(angle)): the two agree because
+    sin's sign equals that bit at all 2^24 grid angles, which
+    chip_smoke.py checks for CUDA's sin on every run (a failure fails
+    the run).  Their compile-time sign verifications sample the trigger
+    on CPU tensors.
+  * The timeline's step sums scatter each block's deltas at points that
+    are host ints merged on the host, so no two deltas meet in one slot
+    and the scatter needs no float atomics: the same bits every call.
   * Exact-mode IIR feedback is a Python loop over lanes (a lax.scan in
     JAX): fine for tests on the CPU, slow on the card.  Fast mode runs the
     affine-scan kernel (scan_ops.py).
@@ -56,6 +69,7 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -137,6 +151,14 @@ class EngineConfig:
     # when this is a CUDA device.  The card unless the caller asks for the
     # CPU: a voice compiled for a missing card raises (check_device).
     device: Any = "cuda"
+    # Compile large Merge/Append trees to timeline form (timeline.py).
+    # Off: the plain tree, which needs no literal lits.
+    timeline: bool = True
+    # Opt-in: render relocatable voices through root.reloc (one pure
+    # function of the absolute index) instead of the interval machinery.
+    # The JAX engine's default (off) was measured on a TPU; chip_smoke.py
+    # times both on the card (PERF.md).
+    reloc_fast: bool = False
 
     def __post_init__(self):
         if self.precision == "exact_df":
@@ -197,8 +219,11 @@ def params_from_numpy(consts, fixeds, seed, device) -> Params:
 def state_from_numpy(tree, device):
     """A state tree on `device` from a host one (e.g. a JAX engine state
     after jax.device_get), keeping its nesting: integer leaves (uint32
-    NCO accumulators, int32 positions) become int64, bool and float leaves
-    keep their dtype."""
+    NCO accumulators, int32 positions and ages) become int64, bool and
+    float leaves keep their dtype.  That covers every state the engine
+    carries: the interval path's, an analytic Reset's (sign, age, trigger
+    state holding its u32 accumulator, inner), a timeline's position, and
+    the fast path's (position, untouched tree)."""
     if isinstance(tree, tuple):
         return tuple(state_from_numpy(x, device) for x in tree)
     a = np.asarray(tree)
@@ -230,7 +255,8 @@ def _zero_i(P: Params) -> torch.Tensor:
 class Ctx:
     """Per-render context for one block of n lanes."""
 
-    def __init__(self, n: int, device, allow_captures: bool = True):
+    def __init__(self, n: int, device, allow_captures: bool = True,
+                 lits: Optional[Tuple[int, ...]] = None):
         if not 1 <= n <= MAX_BLOCK:
             raise ValueError(f"block of {n} lanes outside [1, {MAX_BLOCK}]")
         self.n = n
@@ -241,6 +267,9 @@ class Ctx:
         # stem -> (samples[N], start, end) accumulated during the render
         self.captures: Dict[str, Tuple] = {}
         self.allow_captures = allow_captures
+        # Host-computed literal Fin cutoffs, when the caller has them:
+        # timeline nodes build their schedules from these.
+        self.lits = lits
 
     @property
     def fidx(self) -> torch.Tensor:
@@ -295,6 +324,44 @@ def _tree_where(cond, a, b):
     return torch.where(cond, a, b)
 
 
+def _tree_to(tree, device):
+    """A state tree with every leaf moved to `device`."""
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(x, device) for x in tree)
+    return tree.to(device)
+
+
+def _path_get(tree, path):
+    """Fetch a leaf from a nested state tuple by index path."""
+    for i in path:
+        tree = tree[i]
+    return tree
+
+
+def _path_set(tree, path, v):
+    """Return `tree` with the leaf at index `path` replaced by `v`."""
+    if not path:
+        return v
+    i = path[0]
+    return tree[:i] + (_path_set(tree[i], path[1:], v),) + tree[i + 1:]
+
+
+def _mul_u32(a, b):
+    """(a * b) mod 2^32 as int64, for any int64 `a` (taken mod 2^32) and
+    `b` in [0, 2^32): split into 16-bit halves of b, every partial
+    product stays below 2^49, where a plain product of two values up to
+    2^32 can pass 2^63."""
+    a = a & M32
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (a * (b & 0xFFFF) + hi) & M32
+
+
+def _bcast(c, li):
+    """The scalar (or per-lane, or per-row [S, 1]) value c broadcast
+    against the lane indices li."""
+    return c.expand(torch.broadcast_shapes(c.shape, li.shape))
+
+
 # ---------------------------------------------------------------------------
 # Node compilers
 # ---------------------------------------------------------------------------
@@ -303,14 +370,20 @@ def _tree_where(cond, a, b):
 class Node:
     """A compiled IR node: init / render / advance plus optional reloc."""
 
-    # reloc: None, or fn(P, local_idx[N]) -> (samples[N], length) for nodes
-    # that are a pure function of time-since-start (the JAX engine's
-    # contract: y[i] == 0 wherever li[i] >= length; unspecified for
-    # li[i] < 0).  length is a Python int, an int64 scalar, or None for
-    # infinite.
+    # reloc: None, or fn(P, local_idx[N], lits=None) -> (samples[N],
+    # length) for nodes that are a pure function of time-since-start (the
+    # JAX engine's contract: y[i] == 0 wherever li[i] >= length;
+    # unspecified for li[i] < 0).  length is a Python int (always, when
+    # `lits` carries the host-computed Fin cutoffs), an int64 tensor, or
+    # None for infinite.
     reloc: Optional[Callable] = None
     # const_expr: None, or fn(P) -> f32 scalar (is_const semantics)
     const_expr: Optional[Callable] = None
+    # static_len: None, or fn(P) -> the node's length as an int64 scalar
+    # (CFin, CFixed).
+    static_len: Optional[Callable] = None
+    # Whether the compiled subtree holds a capture (set by the compiler).
+    has_capture: bool = False
 
     def __init__(self, cfg: EngineConfig):
         self.cfg = cfg
@@ -331,7 +404,8 @@ class CConst(Node):
         super().__init__(cfg)
         self.index = index
         self.const_expr = lambda P: P.consts[index]
-        self.reloc = lambda P, li: (P.consts[index].expand(li.shape), None)
+        self.reloc = lambda P, li, lits=None: (_bcast(P.consts[index], li),
+                                                None)
 
     def init(self, P):
         return ()
@@ -348,7 +422,7 @@ class CTime(Node):
     def __init__(self, cfg):
         super().__init__(cfg)
         sr = float(cfg.sample_rate)
-        self.reloc = lambda P, li: (_div(li.to(f32), sr), None)
+        self.reloc = lambda P, li, lits=None: (_div(li.to(f32), sr), None)
 
     def init(self, P):
         return (_zero_i(P),)
@@ -368,7 +442,7 @@ class CNoise(Node):
     def __init__(self, cfg, uid: int):
         super().__init__(cfg)
         self.uid = uid
-        self.reloc = lambda P, li: (
+        self.reloc = lambda P, li, lits=None: (
             noise_torch(P.seed, uid, li.clamp(min=0)), None)
 
     def init(self, P):
@@ -391,7 +465,7 @@ class CFixed(Node):
         self.index = index
         self.length = length
 
-        def reloc(P, li):
+        def reloc(P, li, lits=None):
             if length == 0:
                 return torch.zeros(li.shape, dtype=f32, device=li.device), 0
             data = P.fixeds[index]
@@ -431,12 +505,12 @@ class CAppend(Node):
         super().__init__(cfg)
         self.a, self.b = a, b
         if a.reloc is not None and b.reloc is not None:
-            def reloc(P, li):
-                ya, la = a.reloc(P, li)
+            def reloc(P, li, lits=None):
+                ya, la = a.reloc(P, li, lits)
                 if la is None:
                     # Infinite a: b never plays (matches the stateful path).
                     return ya, None
-                yb, lb = b.reloc(P, li - la)
+                yb, lb = b.reloc(P, li - la, lits)
                 return torch.where(li < la, ya, yb), _len_add(la, lb)
             self.reloc = reloc
 
@@ -477,9 +551,9 @@ class CBinary(Node):
             ca, cb = a.const_expr, b.const_expr
             self.const_expr = lambda P: _apply_op(op, ca(P), cb(P))
         if a.reloc is not None and b.reloc is not None:
-            def reloc(P, li):
-                ya, la = a.reloc(P, li)
-                yb, lb = b.reloc(P, li)
+            def reloc(P, li, lits=None):
+                ya, la = a.reloc(P, li, lits)
+                yb, lb = b.reloc(P, li, lits)
                 if op == ir.Operator.MERGE:
                     # Operands are zero past their own lengths by the reloc
                     # contract, so zero-extension is a plain add.
@@ -524,6 +598,18 @@ def _nco_angle(ph):
     return (ph >> 8).to(f32) * CSine.NCO_TO_RAD
 
 
+def _nco_inc_host(freq_v, sample_rate: int) -> int:
+    """Host replication of CSine._nco_inc in exact f32 arithmetic: the
+    u32 phase increment the NCO uses for `freq_v` rad/s."""
+    fc = np.float32(freq_v) / np.float32(sample_rate * TAU)
+    frac = np.float32(fc - np.floor(fc))
+    x = frac * np.float32(2.0 ** 32)
+    if x >= np.float32(2 ** 31):
+        return int(np.uint32(np.int32(np.float32(
+            x - np.float32(2 ** 31)))) + np.uint32(2 ** 31))
+    return int(np.int32(x))
+
+
 class CSine(Node):
     """DDS oscillator.
 
@@ -543,15 +629,16 @@ class CSine(Node):
             pd = cfg.phase_dtype
             sr = float(cfg.sample_rate)
             if self.nco:
-                def reloc(P, li):
-                    yp, lp = phase.reloc(P, li)
-                    ph = (li * self._nco_inc(P)) & M32
+                def reloc(P, li, lits=None):
+                    yp, lp = phase.reloc(P, li, lits)
+                    # li is an absolute index here, not a lane offset.
+                    ph = _mul_u32(li, self._nco_inc(P))
                     y = torch.sin(_nco_angle(ph) + yp)
                     return _len_mask(li, y, lp), lp
             else:
-                def reloc(P, li):
+                def reloc(P, li, lits=None):
                     inc = _div(freq.const_expr(P).to(pd), sr)
-                    yp, lp = phase.reloc(P, li)
+                    yp, lp = phase.reloc(P, li, lits)
                     acc = torch.remainder(li.to(pd) * inc, TAU)
                     y = torch.sin(acc + yp.to(pd)).to(f32)
                     return _len_mask(li, y, lp), lp
@@ -754,6 +841,8 @@ def _pad_hist(h, J):
 
 
 class CFin(Node):
+    fin_slot: Optional[int] = None  # index into the literal cutoffs (lits)
+
     def __init__(self, cfg, length: Node, inner: Node,
                  ge0: Optional[Callable]):
         super().__init__(cfg)
@@ -761,12 +850,18 @@ class CFin(Node):
         self.inner = inner
         self.ge0 = ge0  # fn(P, lpos, maxn) -> rel cutoff in [0, maxn]
         if ge0 is not None and inner.reloc is not None:
-            def reloc(P, li):
-                rel = ge0(P, _zero_i(P), BIG)
-                yi, lin = inner.reloc(P, li)
+            def reloc(P, li, lits=None):
+                # The literal cutoff when the caller computed the lits.
+                rel = lits[self.fin_slot] if lits is not None \
+                    else ge0(P, _zero_i(P), BIG)
+                yi, lin = inner.reloc(P, li, lits)
                 v = _len_min(lin, rel)
                 return _len_mask(li, yi, v), v
             self.reloc = reloc
+            self.static_len = lambda P: _tmin(
+                ge0(P, _zero_i(P), BIG),
+                inner.static_len(P) if inner.static_len is not None
+                else BIG)
 
     def init(self, P):
         return (_zero_i(P), self.length.init(P), self.inner.init(P))
@@ -814,26 +909,457 @@ class CFin(Node):
 class CReset(Node):
     """Reset(trigger, inner): restart `inner` at each -..+ trigger crossing.
 
-    The generic sampled-sign tiers of the JAX engine: the trigger renders,
-    edges are its sign crossings, and the last edge at or before each lane
-    is a running max over edge lane indices (the prefix-max kernel).  A
+    Analytic-edge tiers (fast mode, tuun_tpu graph.py:983-1513): when the
+    trigger is an NCO sine with a structurally zero phase (`$f`, tier 0),
+    or a pointwise tree over one such Reset whose per-period sign pattern
+    is verified on the host at compile time (composite hard-sync and PWM
+    tiers), its rising edges are exactly the base NCO's phase wraps, so
+    the age of each lane since the last edge is the integer identity
+
+        age(i) = (i·inc mod 2^32) // inc,
+
+    with no trigger render and no running max.  The node is then
+    relocatable.  The sign rule behind it (sin >= 0 iff the phase is
+    below 2^31 at every grid angle) is checked on the card by
+    chip_smoke.py.
+
+    Otherwise the generic sampled-sign tiers: the trigger renders, edges
+    are its sign crossings, and the last edge at or before each lane is a
+    running max over edge lane indices (the prefix-max kernel).  A
     relocatable inner is then evaluated at each lane's age; a stateful
     inner renders once from a fresh state over the block and is gathered
-    at the ages (tuun_tpu graph.py:1515-1588).  The analytic tiers wait
-    (see the module docstring), so a Reset is never itself relocatable.
+    at the ages (tuun_tpu graph.py:1515-1588).  Both tiers give the same
+    bits.
     """
 
-    def __init__(self, cfg, trigger: Node, inner: Node):
+    def __init__(self, cfg, trigger: Node, inner: Node,
+                 compiler: "Compiler"):
         super().__init__(cfg)
         self.trigger = trigger
         self.inner = inner
         self.inner_reloc = inner.reloc
+        # Composite-trigger info: (base CSine, acc path into the trigger
+        # state tree, positive-prefix length k in samples or None, LFO
+        # leaves ((CSine, acc path), ...), base CReset, trigger root); None
+        # for the plain-sine tier.  k is None for PWM triggers, whose
+        # last-lane sign is evaluated in closed form at run time.
+        self._trig = None
+        self.analytic = self._analytic_ok(trigger, compiler)
+        if not self.analytic:
+            self._trig = self._wrap_edge_info(trigger, compiler)
+            if self._trig is None:
+                self._trig = self._wrap_edge_info_pwm(trigger, compiler)
+            self.analytic = self._trig is not None
+        if self.analytic and inner.reloc is not None:
+            inner_reloc = inner.reloc
+
+            def reloc(P, li, lits=None):
+                age = self._analytic_age(self._inc(P), li.clamp(min=0))
+                yi, _ = inner_reloc(P, age, lits)
+                return yi, None  # the trigger (= validity) is infinite
+            self.reloc = reloc
+
+    # -- analytic-trigger plumbing ---------------------------------------
+    # The trigger's NCO accumulator is strg[0] for a plain sine trigger;
+    # for a composite trigger it lives at _trig's recorded path inside
+    # the (never otherwise touched) trigger state tree.
+
+    def _inc(self, P):
+        """Phase increment of the NCO whose wraps are the reset edges."""
+        if self._trig is None:
+            return self.trigger._nco_inc(P)
+        return self._trig[0]._nco_inc(P)
+
+    def _acc_path(self):
+        return (0,) if self._trig is None else self._trig[1]
+
+    def _acc_get(self, strg):
+        return _path_get(strg, self._acc_path())
+
+    def _acc_set(self, strg, v):
+        return _path_set(strg, self._acc_path(), v)
+
+    @staticmethod
+    def _analytic_ok(trigger: Node, compiler: "Compiler") -> bool:
+        """Tier 0: a fast-mode NCO sine whose phase is a structural Const
+        0 and whose frequency is a structural Const in (0, Nyquist) at
+        compile time (tuun_tpu graph.py:1057-1079; structure_key keys
+        these decisions, so a same-structure params swap keeps them)."""
+        if not (isinstance(trigger, CSine) and trigger.nco):
+            return False
+        if not (isinstance(trigger.phase, CConst)
+                and isinstance(trigger.freq, CConst)):
+            return False
+        phase_v = float(compiler.const_values[trigger.phase.index])
+        freq_v = float(compiler.const_values[trigger.freq.index])
+        fc = freq_v / (trigger.cfg.sample_rate * TAU)  # cycles/sample
+        # The lower bound keeps inc comfortably non-zero: the inc == 0
+        # branch of _age_from_phase is exact only for absolute indices.
+        return phase_v == 0.0 and 2.0 ** -20 < fc < 0.5
+
+    @staticmethod
+    def _base_period(base_sine: "CSine", compiler: "Compiler"):
+        """A = the largest age within one period of the base NCO, or None
+        when the period is outside [2, 2^21] samples."""
+        freq_v = np.float32(compiler.const_values[base_sine.freq.index])
+        inc = _nco_inc_host(freq_v, base_sine.cfg.sample_rate)
+        if inc <= 0:
+            return None
+        A = (2 ** 32 - 1) // inc
+        return A if 2 <= A <= 2 ** 21 else None
+
+    @classmethod
+    def _wrap_edge_info(cls, trigger: Node, compiler: "Compiler"):
+        """Composite analytic triggers (tuun_tpu graph.py:1081-1175): a
+        tree of Const/Binary/Alt/markers over exactly one tier-0 Reset
+        (sawtooth, pulse, and their hard-sync uses) is a function of that
+        Reset's age.  If its sign over one base period, sampled on the
+        host with the current consts, is a non-negative prefix of k lanes
+        then a strictly negative tail, its rising edges are the base
+        NCO's wraps.  Returns (base_sine, acc_path, k, (), None, None) or
+        None."""
+        if trigger.has_capture or trigger.reloc is None:
+            return None
+        found = []
+
+        def walk(node, path):
+            while isinstance(node, CWrap):
+                if node.capture_stem is not None:
+                    return False
+                node = node.inner  # state passthrough: no tuple level
+            if isinstance(node, CConst):
+                return True
+            if isinstance(node, CBinary):
+                return walk(node.a, path + (0,)) \
+                    and walk(node.b, path + (1,))
+            if isinstance(node, CAlt):
+                return walk(node.trigger, path + (0,)) \
+                    and walk(node.pos, path + (1,)) \
+                    and walk(node.neg, path + (2,))
+            if isinstance(node, CReset) and node.analytic \
+                    and node._trig is None \
+                    and node.inner_reloc is not None \
+                    and isinstance(node.trigger, CSine):
+                found.append((node, path))
+                return True
+            return False
+
+        if not walk(trigger, ()) or len(found) != 1:
+            return None
+        base_reset, path = found[0]
+        base_sine = base_reset.trigger
+        A = cls._base_period(base_sine, compiler)
+        if A is None:
+            return None
+        # One period's sign pattern through the trigger's own reloc (ages
+        # equal local indices before the first wrap), on CPU tensors.
+        try:
+            y, _ = trigger.reloc(_compile_params(compiler),
+                                 torch.arange(A + 1, dtype=I64))
+        except IndexError:  # a Fixed payload: no compile-time params
+            return None
+        g = y.numpy()
+        if not np.isfinite(g).all():
+            return None
+        pos = g >= 0.0
+        neg = np.signbit(g)
+        if not pos[0] or neg[0]:
+            return None
+        k = int(np.argmin(pos)) if not pos.all() else len(pos)
+        # g[A-1] and g[A] strictly negative (the pre-wrap lane is one of
+        # them, by the phase residue) and no rise inside the period.
+        if k > A - 1 or pos[k:].any() or not neg[k:].all() \
+                or neg[:k].any():
+            return None
+        return (base_sine, path + (2, 0), k, (), None, None)
+
+    # Margin (in trigger-value units) by which the interval-arithmetic
+    # PWM verification must clear zero: far above f32 rounding, below
+    # real pulse widths' margins.
+    PWM_EPS = 1e-3
+
+    @classmethod
+    def _wrap_edge_info_pwm(cls, trigger: Node, compiler: "Compiler"):
+        """Modulated-width composite triggers (tuun_tpu graph.py:1184-
+        1285): `pulse(w, f)` with a width of const-frequency NCO sine LFOs
+        (std.tuun's harmonica `breathy`), or any affine combination of one
+        tier-0 Reset with such LFOs.  Its rising edges are still the base
+        NCO's wraps provided each period's sign is a non-negative prefix
+        then a strictly negative tail for every value the LFOs can take,
+        which _pwm_verify proves with interval arithmetic.  The carried
+        sign is evaluated at run time in closed form (_trig_value_last).
+        Returns (base_sine, base_acc_path, None, lfos, base_reset,
+        trigger) or None; lfos = ((CSine, acc_path), ...)."""
+        if trigger.has_capture or trigger.reloc is None:
+            return None
+        # Peel markers; a root alt(X, p, n) with structural consts
+        # p >= 0 > n only shapes the sign of X, so verify X.
+        core, core_path = trigger, ()
+        while isinstance(core, CWrap):
+            if core.capture_stem is not None:
+                return None
+            core = core.inner
+        if isinstance(core, CAlt):
+            pv = cls._struct_const(core.pos, compiler)
+            nv = cls._struct_const(core.neg, compiler)
+            if pv is None or nv is None or not (pv >= 0.0 > nv):
+                return None
+            core, core_path = core.trigger, (0,)
+        bases: list = []
+        lfos: list = []
+
+        def walk(node, path):
+            while isinstance(node, CWrap):
+                if node.capture_stem is not None:
+                    return False
+                node = node.inner
+            if isinstance(node, CConst):
+                return True
+            if isinstance(node, CBinary):
+                if node.op not in (ir.Operator.ADD, ir.Operator.SUBTRACT,
+                                   ir.Operator.MULTIPLY):
+                    return False
+                return walk(node.a, path + (0,)) \
+                    and walk(node.b, path + (1,))
+            if isinstance(node, CReset) and node.analytic \
+                    and node._trig is None \
+                    and node.inner_reloc is not None \
+                    and isinstance(node.trigger, CSine):
+                bases.append((node, path))
+                return True
+            if isinstance(node, CSine) and node.nco \
+                    and isinstance(node.phase, CConst):
+                lfos.append((node, path))
+                return True
+            return False
+
+        if not walk(core, core_path) or len(bases) != 1 or not lfos:
+            return None
+        if cls._subtree_has_fin(trigger):
+            # A Fin inside the trigger makes its value depend on lengths
+            # the closed-form evaluation cannot see.
+            return None
+        base_reset, base_path = bases[0]
+        base_sine = base_reset.trigger
+        A = cls._base_period(base_sine, compiler)
+        if A is None:
+            return None
+        if not cls._pwm_verify(core, base_reset, lfos, compiler, A):
+            return None
+        return (base_sine, base_path + (2, 0), None,
+                tuple((sn, pth + (0,)) for sn, pth in lfos),
+                base_reset, trigger)
+
+    @staticmethod
+    def _struct_const(node: Node, compiler: "Compiler"):
+        """float value of a structural Const subtree (markers peeled),
+        else None."""
+        while isinstance(node, CWrap):
+            node = node.inner
+        if isinstance(node, CConst):
+            return float(compiler.const_values[node.index])
+        return None
+
+    @staticmethod
+    def _subtree_has_fin(node: Node) -> bool:
+        todo = [node]
+        while todo:
+            n = todo.pop()
+            if isinstance(n, CFin):
+                return True
+            for attr in ("a", "b", "inner", "trigger", "pos", "neg",
+                         "freq", "phase", "length"):
+                c = getattr(n, attr, None)
+                if isinstance(c, Node):
+                    todo.append(c)
+            for lst in (getattr(n, "ffs", ()), getattr(n, "fbs", ())):
+                todo.extend(c for c in lst if isinstance(c, Node))
+        return False
+
+    @classmethod
+    def _pwm_verify(cls, core: Node, base_reset: "CReset", lfos,
+                    compiler: "Compiler", A: int) -> bool:
+        """Sound per-period sign-pattern check (tuun_tpu graph.py:1316-
+        1408): decompose the trigger as X(a, t) = d(a) + H(t), d sampled
+        per age over one base period on the host, H bounded by [lo, hi]
+        with per-sample slope <= s, then require d[0] + lo >= eps, d[A-1]
+        + hi <= -eps and d[A] + hi <= -eps, and d falling by more than
+        s + eps per sample through the band where the sign is open."""
+        sr = base_reset.cfg.sample_rate
+        P0 = _compile_params(compiler)
+        try:
+            yb, _ = base_reset.reloc(P0, torch.arange(A + 1, dtype=I64))
+        except IndexError:  # a Fixed payload: no compile-time params
+            return False
+        gbase = yb.numpy().astype(np.float64)
+        lfo_info = {id(sn): abs(float(sn.freq.const_expr(P0))) / sr
+                    for sn, _ in lfos}  # rad (= max dy) per sample
+        if not np.isfinite(gbase).all():
+            return False
+
+        class Reject(Exception):
+            pass
+
+        def const_of(x):
+            return None if isinstance(x, np.ndarray) else float(x)
+
+        def dec(node):
+            """-> (g, lo, hi, slope): X = g(age) + H(t), H in [lo, hi],
+            |H(t+1) - H(t)| <= slope."""
+            while isinstance(node, CWrap):
+                node = node.inner
+            if node is base_reset:
+                return gbase, 0.0, 0.0, 0.0
+            if id(node) in lfo_info:
+                return 0.0, -1.0, 1.0, lfo_info[id(node)]
+            if isinstance(node, CConst):
+                return float(compiler.const_values[node.index]), \
+                    0.0, 0.0, 0.0
+            if isinstance(node, CBinary):
+                ga, la, ha, sa = dec(node.a)
+                gb, lb, hb, sb = dec(node.b)
+                if node.op == ir.Operator.ADD:
+                    return ga + gb, la + lb, ha + hb, sa + sb
+                if node.op == ir.Operator.SUBTRACT:
+                    return ga - gb, la - hb, ha - lb, sa + sb
+                # MULTIPLY: const scaling, age*age and lfo*lfo.
+                for (gc, lc, hc, sc), (go, lo, ho, so) in \
+                        (((ga, la, ha, sa), (gb, lb, hb, sb)),
+                         ((gb, lb, hb, sb), (ga, la, ha, sa))):
+                    c = const_of(gc)
+                    if c is not None and lc == hc == 0.0 and sc == 0.0:
+                        if c >= 0.0:
+                            return go * c, lo * c, ho * c, so * c
+                        return go * c, ho * c, lo * c, so * (-c)
+                if la == ha == 0.0 == lb == hb and sa == sb == 0.0:
+                    return ga * gb, 0.0, 0.0, 0.0  # both pure-age
+                if const_of(ga) == 0.0 and const_of(gb) == 0.0:
+                    prods = [la * lb, la * hb, ha * lb, ha * hb]
+                    mag_a = max(abs(la), abs(ha))
+                    mag_b = max(abs(lb), abs(hb))
+                    return 0.0, min(prods), max(prods), \
+                        mag_a * sb + mag_b * sa
+                raise Reject
+            raise Reject
+
+        try:
+            d, lo, hi, slope = dec(core)
+        except Reject:
+            return False
+        if not isinstance(d, np.ndarray):
+            return False  # no age dependence: no wraps to ride
+        eps = cls.PWM_EPS
+        if not (d[0] + lo >= eps):
+            return False
+        if not (d[A - 1] + hi <= -eps and d[A] + hi <= -eps):
+            return False
+        pos_m = d + lo >= eps   # sign decided positive for every H
+        neg_m = d + hi <= -eps  # sign decided negative for every H
+        p = int(np.argmin(pos_m)) - 1 if not pos_m.all() else A
+        # q = start of the trailing all-negative-decided suffix.
+        q = 0 if neg_m.all() else A + 1 - int(np.argmin(neg_m[::-1]))
+        band = np.diff(d)[p:q]
+        return bool((band <= -(slope + eps)).all())
+
+    def _trig_value_last(self, P, strg, age_last, n_adv):
+        """The trigger's value at the last rendered lane, in closed form:
+        the base Reset contributes inner_reloc(age), each LFO sine its NCO
+        phase read from the (analytically advanced) trigger state.  The
+        same ops as the sampled trigger render at that lane."""
+        _, _, _, lfos, base, root = self._trig
+        off = (n_adv - 1).clamp(min=0)
+        phases = {id(sn): (_path_get(strg, pth) + off * sn._nco_inc(P)) & M32
+                  for sn, pth in lfos}
+        return _scalar_trig_value(root, base, P, age_last.clamp(min=0),
+                                  phases)
+
+    @staticmethod
+    def _age_from_phase(inc, ph, liu):
+        """Exact samples since the last edge given the NCO phase `ph` at
+        the lane (== liu*inc mod 2^32); edges are wraps, so age = ph //
+        inc.  inc == 0 (a frequency that quantizes to zero) means one edge
+        at sample 0: age = the sample index."""
+        safe = inc.clamp(min=1)
+        return torch.where(inc == 0, liu,
+                           torch.div(ph, safe, rounding_mode="floor"))
+
+    @classmethod
+    def _analytic_age(cls, inc, liu):
+        return cls._age_from_phase(inc, _mul_u32(liu, inc), liu)
 
     def init(self, P):
         return (torch.full((), -1.0, dtype=f32, device=P.device), _zero_i(P),
                 self.trigger.init(P), self.inner.init(P))
 
+    def _render_analytic(self, P, st, s, e, ctx):
+        """Interval render with closed-form edges (tuun_tpu graph.py:1441-
+        1513): no trigger render (its validity is infinite and its state
+        is one u32 accumulator, plus the LFOs' for PWM), no cross-lane
+        scan.  The same bits as the generic tier below."""
+        sign, age, strg, sinn = st
+        acc = self._acc_get(strg)  # the base NCO's phase accumulator
+        inc = self._inc(P)
+        # Lanes before s are masked out; clamping them keeps local * inc
+        # below 2^56.
+        local = (ctx.idx - s).clamp(min=0)
+        ph = (acc + local * inc) & M32  # absolute NCO phase per lane
+        ageL = self._age_from_phase(inc, ph, local)
+        m = _mask(ctx, s, e)
+        n_adv = (e - s).clamp(min=0)
+        nonempty = e > s
+        # Trigger state, sign and age bookkeeping: scalar arithmetic.
+        ph_last = (acc + (n_adv - 1).clamp(min=0) * inc) & M32
+        age_last = self._age_from_phase(inc, ph_last, ph_last)
+        new_acc = (acc + n_adv * inc) & M32
+        if self._trig is None:
+            # Sine trigger: non-negative exactly while phase < half turn.
+            pos_last = ph_last < 2 ** 31
+        elif self._trig[2] is not None:
+            # Composite trigger: non-negative exactly on the verified
+            # k-lane positive prefix of each period.
+            pos_last = age_last < self._trig[2]
+        else:
+            # PWM trigger: the prefix varies per period; evaluate the
+            # trigger at the last lane in closed form.
+            pos_last = self._trig_value_last(
+                P, strg, age_last, n_adv) >= 0.0
+        sign = torch.where(nonempty, torch.where(pos_last, 1.0, -1.0), sign)
+        new_age = torch.where(nonempty, age_last + 1, age)
+        strg = self._acc_set(strg, new_acc)
+        if self._trig is not None and self._trig[2] is None:
+            # Advance the LFO accumulators as their sampled renders would
+            # (acc += n*inc); the rest of the trigger state stays frozen.
+            for sn, pth in self._trig[3]:
+                strg = _path_set(strg, pth, (_path_get(strg, pth)
+                                             + n_adv * sn._nco_inc(P)) & M32)
+
+        if self.inner_reloc is not None:
+            yi, _ = self.inner_reloc(P, ageL, ctx.lits)
+            y = torch.where(m, yi, 0.0)
+            return y, e, e, (sign, new_age, strg, sinn)
+
+        # Stateful inner: the generic tier's three renders, with the edge
+        # vector and carry scalars in closed form.
+        inner = self.inner
+        fresh = inner.init(P)
+        nctx = Ctx(ctx.n, ctx.device, allow_captures=False, lits=ctx.lits)
+        # A lane is at/after an in-block edge iff its age fits since s.
+        restarted = m & (ctx.idx - ageL >= s)
+        any_edge = restarted.any()
+        y0, v0, _, st0 = inner.render(P, sinn, s, e, nctx)
+        y0 = torch.where(_mask(nctx, s, v0), y0, 0.0)
+        yb, vb, _, _ = inner.render(P, fresh, nctx.zero, nctx.end, nctx)
+        yb = torch.where(nctx.idx < vb, yb, 0.0)
+        y = torch.where(restarted, yb[ageL.clamp(0, ctx.n - 1)], y0)
+        y = torch.where(m, y, 0.0)
+        k = torch.where(nonempty, age_last + 1, 0).clamp(0, ctx.n)
+        _, _, _, st_last = inner.render(P, fresh, nctx.zero, k, nctx)
+        sinn = _tree_where(any_edge, st_last, st0)
+        return y, e, e, (sign, new_age, strg, sinn)
+
     def render(self, P, st, s, e, ctx):
+        if self.analytic:
+            return self._render_analytic(P, st, s, e, ctx)
         sign, age, strg, sinn = st
         yt, vt, wt, strg = self.trigger.render(P, strg, s, e, ctx)
         m = _mask(ctx, s, vt)
@@ -851,7 +1377,7 @@ class CReset(Node):
             # A virtual last-edge lane at s - age encodes the carried age.
             base = s - age
             last = torch.maximum(last_f.to(I64), base)
-            yi, _ = self.inner_reloc(P, ctx.idx - last)
+            yi, _ = self.inner_reloc(P, ctx.idx - last, ctx.lits)
             # Lanes beyond the trigger's validity keep the trigger's raw
             # writes (the reset reuses the trigger's buffer).
             y = torch.where(m, yi, yt)
@@ -866,7 +1392,7 @@ class CReset(Node):
         # edges.
         inner = self.inner
         fresh = inner.init(P)
-        nctx = Ctx(ctx.n, ctx.device, allow_captures=False)
+        nctx = Ctx(ctx.n, ctx.device, allow_captures=False, lits=ctx.lits)
         any_edge = edge.any()
 
         # Continued segment [s, first edge) from the carried state.
@@ -901,10 +1427,10 @@ class CAlt(Node):
         super().__init__(cfg)
         self.trigger, self.pos, self.neg = trigger, pos, neg
         if all(n.reloc is not None for n in (trigger, pos, neg)):
-            def reloc(P, li):
-                yt, lt = trigger.reloc(P, li)
-                yp, _ = pos.reloc(P, li)
-                yn, _ = neg.reloc(P, li)
+            def reloc(P, li, lits=None):
+                yt, lt = trigger.reloc(P, li, lits)
+                yp, _ = pos.reloc(P, li, lits)
+                yn, _ = neg.reloc(P, li, lits)
                 # Branches are already zero past their own lengths.
                 return _len_mask(li, torch.where(yt >= 0.0, yp, yn), lt), lt
             self.reloc = reloc
@@ -970,6 +1496,184 @@ def _apply_op(op, a, b):
     raise ValueError(op)
 
 
+def _scalar_trig_value(node, base, P, age, phases):
+    """Scalar closed-form evaluation of a PWM composite trigger at one
+    lane: `age` is the base Reset's age there, `phases` maps each LFO
+    CSine (by id) to its u32 NCO phase at the lane.  The ops the sampled
+    trigger render performs per lane (tuun_tpu graph.py:1675-1699)."""
+    while isinstance(node, CWrap):
+        node = node.inner
+    if node is base:
+        yi, _ = base.inner_reloc(P, age)
+        return yi
+    if isinstance(node, CSine) and id(node) in phases:
+        return torch.sin(_nco_angle(phases[id(node)])
+                         + node.phase.const_expr(P))
+    if isinstance(node, CConst):
+        return node.const_expr(P)
+    if isinstance(node, CBinary):
+        return _apply_op(node.op,
+                         _scalar_trig_value(node.a, base, P, age, phases),
+                         _scalar_trig_value(node.b, base, P, age, phases))
+    if isinstance(node, CAlt):
+        yt = _scalar_trig_value(node.trigger, base, P, age, phases)
+        yp = _scalar_trig_value(node.pos, base, P, age, phases)
+        yn = _scalar_trig_value(node.neg, base, P, age, phases)
+        return torch.where(yt >= 0.0, yp, yn)
+    raise TypeError(f"unexpected PWM trigger node {type(node)}")
+
+
+def _compile_params(compiler: "Compiler") -> Params:
+    """CPU Params of the consts compiled so far (no Fixed payloads), for
+    the compile-time trigger verifications: they never touch the card."""
+    return Params(torch.from_numpy(
+        np.asarray(compiler.const_values, np.float32).reshape(-1)), (),
+        torch.zeros((), dtype=I64))
+
+
+# ---------------------------------------------------------------------------
+# Closed-form state for relocatable trees (tuun_tpu graph.py:1710-1882)
+# ---------------------------------------------------------------------------
+#
+# A relocatable voice renders on the fast path without advancing its node
+# tree; a later stateful render (a Modify splice) needs the tree's state at
+# the current position.  Every such node's interval-path state is a closed
+# form of (samples rendered r, samples advanced past adv): positions
+# (r + adv), NCO accumulators (r*inc mod 2^32), Append done flags and the
+# analytic Reset's sign and age.  The u32 products are Python ints here,
+# so nothing overflows.
+
+
+class FastStateUnsupported(Exception):
+    """Raised when a node's state is not closed-form (a stateful subtree,
+    exact-precision accumulators); callers fall back to replay."""
+
+
+def _reloc_len(node: Node, P, lits) -> Optional[int]:
+    """The node's literal produced length (None = infinite)."""
+    if node.reloc is None:
+        raise FastStateUnsupported(type(node).__name__)
+    _, L = node.reloc(P, torch.zeros(1, dtype=I64, device=P.device), lits)
+    if L is None or isinstance(L, int):
+        return L
+    raise FastStateUnsupported("length not literal")
+
+
+def reloc_block(root: Node, P, state, lanes, s, e, lits):
+    """The relocatable render contract (tuun_tpu graph.py:1752-1768): the
+    root's reloc at the absolute indices pos + lanes - s, its literal
+    length clamped at BIG, validity masked to [s, v), the position
+    advanced by the whole region."""
+    pos, rst = state
+    y, L = root.reloc(P, pos + lanes - s, lits)
+    if isinstance(L, int):
+        L = min(L, BIG)
+    v = e if L is None else torch.minimum(torch.maximum(s + L - pos, s), e)
+    y = torch.where((lanes >= s) & (lanes < v), y, 0.0)
+    return y, v, (pos + (e - s).clamp(min=0), rst)
+
+
+def _i64(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=I64)
+
+
+def reconstruct_state(node: Node, P, lits, r: int, adv: int = 0):
+    """The state tree that interval-rendering [0, r) and then advancing
+    [r, r+adv) leaves in a fast-mode relocatable node, as CPU tensors
+    (evaluate with host params).  Positions are int64 and never wrap, as
+    the port's render does not."""
+    if isinstance(node, CWrap):
+        return reconstruct_state(node.inner, P, lits, r, adv)
+    if isinstance(node, CConst):
+        return ()
+    if isinstance(node, (CTime, CNoise)):
+        return (_i64(r + adv),)
+    if isinstance(node, CFixed):
+        # CFixed advances by `take`, clipped at the payload length.
+        return (_i64(min(r + adv, node.length)),)
+    from .timeline import CTimeline
+    if isinstance(node, CTimeline):
+        return (_i64(r + adv),)
+    if isinstance(node, CSine):
+        if not node.nco:
+            raise FastStateUnsupported("non-NCO sine")
+        inc = int(node._nco_inc(P))
+        # The NCO render never touches the (const-expr) frequency
+        # subtree; the phase subtree renders the full region.
+        return (_i64((r * inc) & M32), node.freq.init(P),
+                reconstruct_state(node.phase, P, lits, r, adv))
+    if isinstance(node, CBinary):
+        la = _reloc_len(node.a, P, lits)
+        if node.op == ir.Operator.MERGE or la is None:
+            rb = r
+        else:
+            rb = min(r, la)  # b renders only to a's valid end
+        return (reconstruct_state(node.a, P, lits, r, adv),
+                reconstruct_state(node.b, P, lits, rb, adv))
+    if isinstance(node, CAppend):
+        la = _reloc_len(node.a, P, lits)
+        if la is None:
+            return (torch.tensor(False),
+                    reconstruct_state(node.a, P, lits, r, adv),
+                    node.b.init(P))
+        ra = min(r, la)
+        adv_a = max(min(r + adv, la) - ra, 0)
+        rb = max(r - la, 0)
+        adv_b = max(adv - max(la - r, 0), 0)
+        return (torch.tensor(r + adv > la),
+                reconstruct_state(node.a, P, lits, ra, adv_a),
+                reconstruct_state(node.b, P, lits, rb, adv_b))
+    if isinstance(node, CFin):
+        if node.fin_slot is None:
+            raise FastStateUnsupported("value-path Fin")
+        c = lits[node.fin_slot]
+        rc = min(r, c)
+        return (_i64(r + adv),
+                reconstruct_state(node.length, P, lits, 0, r + adv),
+                reconstruct_state(node.inner, P, lits, rc, (r - rc) + adv))
+    if isinstance(node, CAlt):
+        lt = _reloc_len(node.trigger, P, lits)
+        rb = r if lt is None else min(r, lt)
+        # Branches render only to the trigger's valid end and are never
+        # advanced past it by CAlt.render: the plain advance region.
+        return (reconstruct_state(node.trigger, P, lits, r, adv),
+                reconstruct_state(node.pos, P, lits, rb, adv),
+                reconstruct_state(node.neg, P, lits, rb, adv))
+    if isinstance(node, CReset):
+        if not node.analytic or node.inner_reloc is None:
+            raise FastStateUnsupported("non-analytic reset")
+        inc = int(node._inc(P))
+        if r > 0:
+            ph_last = ((r - 1) * inc) & M32
+            age = (ph_last // inc if inc else r - 1) + 1
+            if node._trig is None:
+                positive = ph_last < 2 ** 31
+            elif node._trig[2] is not None:
+                positive = age - 1 < node._trig[2]
+            else:
+                # PWM trigger: its closed-form value at lane r-1, where
+                # each LFO's phase is (r-1)*inc.
+                phases = {id(sn): _i64(((r - 1) * int(sn._nco_inc(P)))
+                                       & M32)
+                          for sn, _ in node._trig[3]}
+                positive = float(_scalar_trig_value(
+                    node._trig[5], node._trig[4], P, _i64(max(age - 1, 0)),
+                    phases)) >= 0.0
+            sign = 1.0 if positive else -1.0
+        else:
+            sign, age = -1.0, 0
+        # The analytic render leaves the trigger's state untouched apart
+        # from the base NCO accumulator and, for PWM, the LFOs'.
+        strg = node._acc_set(node.trigger.init(P), _i64((r * inc) & M32))
+        if node._trig is not None and node._trig[2] is None:
+            for sn, pth in node._trig[3]:
+                strg = _path_set(strg, pth,
+                                 _i64((r * int(sn._nco_inc(P))) & M32))
+        return (torch.tensor(sign, dtype=f32), _i64(age), strg,
+                node.inner.init(P))
+    raise FastStateUnsupported(type(node).__name__)
+
+
 # ---------------------------------------------------------------------------
 # The compiler
 # ---------------------------------------------------------------------------
@@ -982,12 +1686,23 @@ class Compiler:
         self.fixed_values: List[np.ndarray] = []
         self.uid = 0
         self.captures: List[str] = []
+        # CFin nodes with symbolic cutoffs, in slot order: their cutoffs
+        # are computed on the host once per params (CompiledVoice.lits_for)
+        # and passed as the literal `lits`.
+        self.fins: List[CFin] = []
+        # Set when a Merge subtree compiled to timeline form.
+        self.has_timeline = False
 
     def _const_index(self, value: float) -> int:
         self.const_values.append(np.float32(value))
         return len(self.const_values) - 1
 
     def compile(self, w: ir.Waveform) -> Node:
+        node = self._compile(w)
+        node.has_capture = any(isinstance(n, ir.Captured) for n in w.walk())
+        return node
+
+    def _compile(self, w: ir.Waveform) -> Node:
         cfg = self.cfg
         uid = self.uid  # pre-order numbering, matching oracle.initialize
         self.uid += 1
@@ -999,11 +1714,19 @@ class Compiler:
             return CNoise(cfg, uid)
         if isinstance(w, ir.Fixed):
             self.fixed_values.append(np.asarray(w.samples, np.float32))
-            return CFixed(cfg, len(self.fixed_values) - 1, len(w.samples))
+            node = CFixed(cfg, len(self.fixed_values) - 1, len(w.samples))
+            node.static_len = lambda P, L=len(w.samples): torch.full(
+                (), L, dtype=I64, device=P.device)
+            return node
         if isinstance(w, ir.Fin):
             length = self.compile(w.length)
             inner = self.compile(w.waveform)
-            return CFin(cfg, length, inner, self._ge0_static(w.length, length))
+            ge0 = self._ge0_static(w.length, length)
+            node = CFin(cfg, length, inner, ge0)
+            if node.reloc is not None:
+                node.fin_slot = len(self.fins)
+                self.fins.append(node)
+            return node
         if isinstance(w, ir.Append):
             return CAppend(cfg, self.compile(w.a), self.compile(w.b))
         if isinstance(w, ir.Sine):
@@ -1019,11 +1742,19 @@ class Compiler:
                          for n, c in zip(fbs, w.feedback)]
             return CFilter(cfg, inner, ffs, fbs, ff_consts, fb_consts)
         if isinstance(w, ir.BinaryPointOp):
-            # Merge compiles to CBinary: the timeline form waits.
+            if w.op == ir.Operator.MERGE:
+                # Large Merge/Append trees (sequences, chords, scores)
+                # compile to timeline form: O(active structure) per block
+                # instead of O(segments).
+                from .timeline import try_compile_timeline
+                node = try_compile_timeline(self, w)
+                if node is not None:
+                    return node
             return CBinary(cfg, w.op, self.compile(w.a), self.compile(w.b))
         if isinstance(w, ir.Reset):
-            return CReset(cfg, self.compile(w.trigger),
-                          self.compile(w.waveform))
+            trigger = self.compile(w.trigger)
+            inner = self.compile(w.waveform)
+            return CReset(cfg, trigger, inner, self)
         if isinstance(w, ir.Alt):
             return CAlt(cfg, self.compile(w.trigger),
                         self.compile(w.positive), self.compile(w.negative))
@@ -1115,25 +1846,60 @@ class CompiledVoice:
         self.root = compiler.compile(w)
         self.capture_stems = compiler.captures
         # A relocatable root is a pure function of the absolute sample
-        # index: its length composes symbolically (symbolic_len).
+        # index: its length composes symbolically (symbolic_len), its
+        # state has a closed form (state_at), and it may render through
+        # reloc_block.
         self.relocatable = (self.root.reloc is not None
                             and not compiler.captures)
+        # New voices render through reloc_block only when the config opts
+        # in (EngineConfig.reloc_fast).
+        self.fast_default = self.relocatable and cfg.reloc_fast
         self._base_consts = np.asarray(compiler.const_values, np.float32) \
             if compiler.const_values else np.zeros((0,), np.float32)
         self._base_fixeds = tuple(compiler.fixed_values)
+        self._fins = compiler.fins
+        self._has_timeline = compiler.has_timeline
+        self._lits_cache: Dict[int, Tuple[int, ...]] = {}
+        self._symlen_cache: Dict[Tuple, Optional[int]] = {}
+        self._arg_cache: Dict[Tuple, Tuple] = {}
 
-    def symbolic_len(self, P) -> Optional[int]:
+    def lits_for(self, P) -> Tuple[int, ...]:
+        """The literal Fin cutoffs for this parameter set, one per
+        Compiler.fins slot (() when the structure has none, or is neither
+        relocatable nor timeline-bearing).  Evaluated once per P on CPU
+        tensors from P's host mirror: no device round trip."""
+        if not self._fins or not (self.relocatable or self._has_timeline):
+            return ()
+        key = id(P)
+        lits = self._lits_cache.get(key)
+        if lits is None:
+            hp = _host_params(P)
+            zero = torch.zeros((), dtype=I64)
+            lits = tuple(int(f.ge0(hp, zero, BIG)) for f in self._fins)
+            # id(P) is only P's while P lives: evict with it.
+            weakref.finalize(P, self._lits_cache.pop, key, None)
+            self._lits_cache[key] = lits
+        return lits
+
+    def symbolic_len(self, P, lits: Optional[Tuple[int, ...]] = None
+                     ) -> Optional[int]:
         """Total producible length of a relocatable voice, or None when
-        infinite, unresolvable, or not relocatable (callers fall back to
-        the oracle's length(), generator.rs:620-782).  Evaluates a 1-lane
-        reloc on CPU tensors from P's host mirror: no device round trip."""
+        infinite or not relocatable (callers fall back to the oracle's
+        length(), generator.rs:620-782).  Evaluates a 1-lane reloc on CPU
+        tensors from P's host mirror, memoized per lits (lengths compose
+        from lits and structure), so it runs at every note-on cheaply."""
         if not self.relocatable:
             return None
-        _, L = self.root.reloc(_host_params(P), torch.zeros(1, dtype=I64))
-        if L is None:
-            return None
-        L = int(L)
-        return None if L >= BIG else L
+        if lits is None:
+            lits = self.lits_for(P)
+        cached = self._symlen_cache.get(lits, False)
+        if cached is not False:
+            return cached
+        _, L = self.root.reloc(_host_params(P), torch.zeros(1, dtype=I64),
+                               lits)
+        out = None if L is None or int(L) >= BIG else int(L)
+        self._symlen_cache[lits] = out
+        return out
 
     # -- params ---------------------------------------------------------
 
@@ -1152,13 +1918,51 @@ class CompiledVoice:
     # -- state ----------------------------------------------------------
 
     def init(self, P: Params):
-        # Voice state = (stream position, per-node state tree).
+        # Voice state = (stream position, per-node state tree).  The
+        # fast path renders from the position alone and leaves the tree.
         return (_zero_i(P), self.root.init(P))
+
+    def state_at(self, P, pos: int, n: int = 8192):
+        """The per-node state tree at stream position `pos` (for a voice
+        that rendered on the fast path, whose tree never advanced).
+
+        Relocatable fast-mode trees reconstruct in closed form on CPU
+        tensors from P's host mirror, then move to P's device (O(tree),
+        no replay).  Anything else replays from init in n-lane blocks:
+        the JAX engine's semantics, not a device fallback."""
+        if self.relocatable and self.cfg.precision == "fast":
+            try:
+                st = reconstruct_state(self.root, _host_params(P),
+                                       self.lits_for(P), pos)
+                return _tree_to(st, P.device)
+            except FastStateUnsupported:
+                pass
+        # Full renders, output discarded: advance() leaves phase and
+        # sample state untouched (it mirrors the reference's length()
+        # lookahead), so reconstruction replays real render steps.
+        ctx = Ctx(n, P.device, allow_captures=False,
+                  lits=self.lits_for(P) if self._has_timeline else None)
+        st = self.root.init(P)
+        done = 0
+        while done < pos:
+            k = min(n, pos - done)
+            e = ctx.end if k == n else torch.full((), k, dtype=I64,
+                                                  device=P.device)
+            _, _, _, st = self.root.render(P, st, ctx.zero, e, ctx)
+            done += k
+        return st
 
     # -- rendering ------------------------------------------------------
 
-    def _render_impl(self, n, P, state, s, e):
-        ctx = Ctx(n, P.device)
+    def _render_impl(self, n, fast, lits, P, state, s, e):
+        ctx = Ctx(n, P.device, lits=lits)
+        if fast:
+            # A pure function of the absolute sample index: no state
+            # threading, no per-node interval bookkeeping, and the valid
+            # end is scalar arithmetic on a literal length.
+            y, v, state = reloc_block(self.root, P, state, ctx.idx, s, e,
+                                      lits)
+            return y, v, state, ctx.captures
         pos, rst = state
         y, v, w, rst = self.root.render(P, rst, s, e, ctx)
         # Consumers (the tracker mix, WAV writers) see only valid samples;
@@ -1166,20 +1970,89 @@ class CompiledVoice:
         y = torch.where(_mask(ctx, s, v), y, 0.0)
         return y, v, (pos + (e - s).clamp(min=0), rst), ctx.captures
 
-    def render_fn(self, n: int) -> Callable:
-        """fn(P, state, s, e) -> (y[n], valid_end, state', captures) with
-        s and e int64 scalars on P's device."""
-        return partial(self._render_impl, n)
+    def _resolve_fast(self, fast, P, lits):
+        """(fast, lits) normalization: the fast path needs the literal
+        cutoffs; compute them from P when the caller gave none.
 
-    def render_block(self, P, state, n: int, s=0, e=None):
+        Timeline-bearing structures want lits on the stateful path too
+        (their schedules): computed only on `fast=None` default calls, so
+        an explicit `lits=None` keeps a lits-free render."""
+        auto = fast is None
+        if fast is None:
+            fast = self.fast_default
+        fast = bool(fast) and self.relocatable
+        if not fast:
+            if self._has_timeline and auto and lits is None \
+                    and P is not None:
+                lits = self.lits_for(P)
+            elif not self._has_timeline:
+                lits = None
+            return False, lits
+        if lits is None and P is not None:
+            lits = self.lits_for(P)
+        return True, lits
+
+    def render_fn(self, n: int, fast: Optional[bool] = None,
+                  lits: Optional[Tuple[int, ...]] = None,
+                  P=None) -> Callable:
+        """fn(P, state, s, e) -> (y[n], valid_end, state', captures) with
+        s and e int64 scalars on P's device.  fast=None takes the
+        config's default path; a voice that is no longer a pure function
+        of the absolute index passes fast=False."""
+        fast, lits = self._resolve_fast(fast, P, lits)
+        return partial(self._render_impl, n, fast, lits)
+
+    def note_fn(self, sizes: Tuple[int, ...], n: Optional[int] = None,
+                fast: Optional[bool] = None,
+                lits: Optional[Tuple[int, ...]] = None, P=None,
+                passes: int = 1) -> Callable:
+        """fn(P) -> (last_y, last_v, state): renders a whole finite piece
+        from a fresh state, block by block in the given sizes (the JAX
+        engine traces the same loop into one executable).  With
+        passes > 1, that many independent passes run, y is the sum of
+        their last blocks, and v and the state come from the last."""
+        sizes = tuple(int(m) for m in sizes)
+        if n is None:
+            n = 1 << (max(sizes) - 1).bit_length()
+        fast, lits = self._resolve_fast(fast, P, lits)
+
+        def impl(P):
+            dev = P.device
+            s = torch.zeros((), dtype=I64, device=dev)
+            ends = {m: torch.full((), m, dtype=I64, device=dev)
+                    for m in set(sizes)}
+            acc = None
+            for _ in range(passes):
+                st = self.init(P)
+                for m in sizes:
+                    y, v, st, _ = self._render_impl(n, fast, lits, P, st, s,
+                                                    ends[m])
+                acc = y if acc is None else acc + y
+            return (acc if passes > 1 else y), v, st
+        return impl
+
+    def render_block(self, P, state, n: int, s=0, e=None,
+                     fast: Optional[bool] = None,
+                     lits: Optional[Tuple[int, ...]] = None):
         if e is None:
             e = n
         dev = P.device
-        if not isinstance(s, torch.Tensor):
-            s = torch.full((), int(s), dtype=I64, device=dev)
-        if not isinstance(e, torch.Tensor):
-            e = torch.full((), int(e), dtype=I64, device=dev)
-        return self.render_fn(n)(P, state, s, e)
+        if not isinstance(s, torch.Tensor) and not isinstance(e, torch.Tensor):
+            # Device scalars for the common calls, made once.
+            key = (int(s), int(e), dev)
+            cached = self._arg_cache.get(key)
+            if cached is None:
+                cached = tuple(torch.full((), x, dtype=I64, device=dev)
+                               for x in key[:2])
+                if len(self._arg_cache) < 64:
+                    self._arg_cache[key] = cached
+            s, e = cached
+        else:
+            if not isinstance(s, torch.Tensor):
+                s = torch.full((), int(s), dtype=I64, device=dev)
+            if not isinstance(e, torch.Tensor):
+                e = torch.full((), int(e), dtype=I64, device=dev)
+        return self.render_fn(n, fast, lits, P)(P, state, s, e)
 
 
 def compile_voice(w: ir.Waveform, cfg: EngineConfig) -> CompiledVoice:

@@ -8,8 +8,13 @@ the one host copy per block.  Each voice's valid end is read on the host
 once per block -- the JAX tracker with sync_interval=1.  Voices with an
 exactly known length retire at their end sample without a read.
 
-Voice groups, the fused session step, lookahead windows, Modify and level
-reporting wait (ROADMAP.md queue 1).
+Each voice carries its `fast` flag and literal Fin cutoffs (`lits`),
+resolved at activation as tuun_tpu/tracker.py:846-897 does: timeline-
+bearing structures render their literal schedules, relocatable ones take
+the fast path when EngineConfig.reloc_fast asks for it, and a relocatable
+voice's exact length comes from its symbolic length.  Voice groups, the
+fused session step, lookahead windows, Modify and level reporting wait
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -110,7 +115,7 @@ class _CompileCache:
 
     def get(self, w: ir.Waveform, cfg: EngineConfig) -> CompiledVoice:
         key = (structure_key(w, cfg.sample_rate), cfg.sample_rate,
-               cfg.precision, str(cfg.device))
+               cfg.precision, str(cfg.device), cfg.timeline, cfg.reloc_fast)
         voice = self._cache.get(key)
         if voice is None:
             voice = self._cache[key] = CompiledVoice(w, cfg)
@@ -133,6 +138,10 @@ class Voice:
     # Exact total length in samples when known: the voice retires at
     # start + total_len without reading its valid end.
     total_len: Optional[int] = None
+    # Renders through the relocatable fast path (reloc_block).
+    fast: bool = False
+    # Literal Fin cutoffs: the fast path's lengths and timeline schedules.
+    lits: Optional[Tuple[int, ...]] = None
 
 
 @dataclass
@@ -212,11 +221,15 @@ class Tracker:
         compiled = self.cache.get(p.waveform, self.cfg)
         self._seed_counter += 1
         params = compiled.params_for(p.waveform, seed=self._seed_counter)
+        fast = compiled.fast_default
+        lits = compiled.lits_for(params) \
+            if fast or compiled._has_timeline else None
         voice = Voice(p.id, p.waveform, compiled, params,
-                      compiled.init(params), p.start, list(p.marks))
+                      compiled.init(params), p.start, list(p.marks),
+                      fast=fast, lits=lits)
         # Exact retirement: the symbolic length of a relocatable
         # structure, else the oracle's length() (generator.rs:787-862).
-        total = compiled.symbolic_len(params)
+        total = compiled.symbolic_len(params, lits)
         if total is None:
             total = _voice_total_length(p.waveform, self.sample_rate)
         voice.total_len = total
@@ -237,7 +250,8 @@ class Tracker:
     def _render_voice(self, voice: Voice, e: int, s: int) -> torch.Tensor:
         """One block for one voice; returns its samples on the device."""
         y, v, voice.state, caps = voice.compiled.render_block(
-            voice.params, voice.state, self.block_size, s, e)
+            voice.params, voice.state, self.block_size, s, e,
+            fast=voice.fast, lits=voice.lits)
         _resolve_single(voice, v, e, caps)
         return y
 
