@@ -14,7 +14,8 @@ Phases, each of which exits non-zero on failure:
      The prefix sum and max from 128 up to 2^26 lanes, the affine scan
      at J = 1, 2, 3, 4, 8 and up to 2^20 + 5 lanes, each also: on
      misaligned inputs (x[1:]; a[1:], ff[1:], live[1:]); exactly one CUDA
-     kernel per call, no memset (torch.profiler); the same bits on every
+     kernel per call, no memset (torch.profiler, in a child process:
+     `--profile launches`); the same bits on every
      call (the sum up to 2^26 lanes, the affine scan at 65536 and 2^20 + 5
      lanes); captured CUDA graphs on one stream, one per op (per J of the
      affine scan) at each of two lengths, each replayed three times in
@@ -22,7 +23,11 @@ Phases, each of which exits non-zero on failure:
      interleaved with the first.  At the main path's shapes each is timed
      three ways: events around back-to-back calls (cuda_ms, which reads
      the slower of host and device), device time alone (replays of a
-     captured graph) and host time per call.  sin's sign at all 2^24 NCO
+     captured graph) and host time per call.  The voices x lanes forms
+     at PREFIX_ROWS / AFFINE_ROWS: against their plain versions, each row
+     bit for bit against a single call, one kernel per call, the same
+     bits on repeat, a captured graph replayed, timed the same three
+     ways beside B single calls.  sin's sign at all 2^24 NCO
      grid angles must equal the phase's top bit on the card (the analytic
      Reset tiers rest on it).
   3. main path: the batch CLI (python -m tuun_tpu_torch) renders W1-W3,
@@ -50,13 +55,29 @@ Phases, each of which exits non-zero on failure:
   7. reloc_fast: W1, W2, W5 and W6 rendered warm through CompiledVoice in
      65536-lane blocks with EngineConfig(reloc_fast=True) and with the
      default, in turns (default, fast, fast, default).
+  8. voice groups: G1, bench.py's polyphony lane (256 FM voices through
+     CompiledVoice.batched_render_fn at 2^17 lanes, block 0 against the
+     256 voices rendered one by one, then timed), and G2, polyphonic
+     tracker sessions (Tracker.play / render_block at 48 kHz, 1024- and
+     65536-sample blocks, three instruments whose notes join and retire)
+     against the sum of every voice's own render, with every group render
+     launching each scan's voices x lanes form as often as one voice
+     launches its single form.  Their launches are the counts of the
+     voices x lanes forms.  Each G2 session is then timed in turns
+     against the per-voice loop that groups replace (groups, loop, loop,
+     groups; the loop's mix held to the same bound).  Then profiles of
+     G1, one G1 voice alone and G2 at the live block, each in a child
+     (`--profile G1|G1one|G2`), and phase 2's one-launch calls counted
+     under an in-process profiler session (logged, not held: the child
+     of phase 2 holds them).
 
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2.
 
-`--phase times [--tree DIR]` runs only the affine scan at the shapes
-whose time is split (AFFINE_SPLIT): held to AFFINE_TOL, kernels per call
-(torch.profiler) and the three times of phase 2, one JSON line per shape.
+`--phase times [--tree DIR]` runs only the single-voice scans at the
+shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
+affine scan at AFFINE_SPLIT): each held to its bound, kernels per call
+(torch.profiler) and the three times of phase 2, one JSON line a shape.
 With --tree, the kernels are those of the checkout at DIR (its
 tuun_tpu_torch/engine/scan_ops.py, loaded on its own), so that two
 commits are compared with one set of inputs and clocks, each in its own
@@ -66,6 +87,7 @@ process and in turns (parent, change, change, parent).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -144,7 +166,21 @@ REPLACES = {
     "prefix_sum_f32": "tuun_tpu/engine/pallas_ops.py:149",
     "prefix_max_f32": "tuun_tpu/engine/pallas_ops.py:156",
     "affine_scan_f32": "tuun_tpu/engine/pallas_ops.py:301",
+    # The voices x lanes forms: the same Pallas kernels under the group's
+    # jax.vmap (tuun_tpu/tracker.py:409-410), which adds a grid axis.
+    "prefix_sum_rows_f32": "tuun_tpu/engine/pallas_ops.py:149",
+    "prefix_max_rows_f32": "tuun_tpu/engine/pallas_ops.py:156",
+    "affine_scan_rows_f32": "tuun_tpu/engine/pallas_ops.py:301",
 }
+# The voices x lanes forms of phase 2, as (B voices, N lanes[, J]): the
+# live block at bench.py's 256 voices, a 32-voice group at the offline
+# block, bench.py's polyphony lane (256 voices at 2^17); for the affine
+# scan lpf (J = 2) at the offline block for 32 voices and for a group of
+# 4, the live block's lpf for a group of 8 (G2's harmonica and W2g groups
+# of 2-6 voices: one tile a row, no look-back), and a J = 3 section on the
+# live block.  The first of each is the kernels line's shape.
+PREFIX_ROWS = ((32, MAIN_N), (256, 1024), (256, 1 << 17))
+AFFINE_ROWS = ((32, MAIN_N, 2), (4, MAIN_N, 2), (8, 1024, 2), (64, 1024, 3))
 
 
 class SmokeFailure(Exception):
@@ -321,10 +357,183 @@ def phase_kernels(torch, np, scan_ops, results):
                                          f"a[1:], ff[1:], n={n}")
             log(f"affine_scan_f32 J={J} on a[1:], ff[1:], live[1:] of {n + 1} "
                 f"lanes: max_abs_err={err:.3e} = {err / scale:.2e} of scale")
-    check_one_launch(torch, np, scan_ops, rng)
+    # In a child: the first profiler session of a process that has run no
+    # graph or second stream (events went missing once after both).
+    profile_in_child("launches")
     check_affine_repeatable(torch, np, scan_ops, rng)
     check_affine_graph(torch, np, scan_ops, rng, (MAIN_N, (1 << 20) + 5))
     check_affine_streams(torch, np, scan_ops, rng, (1 << 20) + 5)
+    phase_rows(torch, np, scan_ops, rng, results)
+
+
+def rows_input(torch, np, rng, op, B, n):
+    """[B, n] rows: unit normal noise, on a ramp for the max (as
+    prefix_input), each row its own draw."""
+    x = rng.standard_normal((B, n))
+    if op == "max":
+        x += np.linspace(0, 50, n)
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def affine_rows_input(torch, np, rng, J, B, n):
+    """affine_input for B rows, each row its own ff, live and h0."""
+    a = np.broadcast_to(stable_feedback(J).astype(np.float32),
+                        (B, n, J)).copy()
+    ff = rng.standard_normal((B, n)).astype(np.float32)
+    live = rng.random((B, n)) > 0.1
+    h0 = rng.standard_normal((B, J)).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (a, ff, live, h0))
+
+
+def check_prefix_rows(torch, np, scan_ops, op, x, got, what) -> float:
+    """check_prefix on every row: the sum within 16 eps * running sum|x|
+    of its row, the max bit-identical to torch.cummax(x, -1)."""
+    if op == "max":
+        check(torch.equal(got.view(torch.int32),
+                          scan_ops.prefix_max_ref(x).view(torch.int32)),
+              f"prefix_max rows {what}: not bit-identical to torch.cummax")
+        return 0.0
+    eps = float(np.finfo(np.float32).eps)
+    bound = 16 * eps * torch.cumsum(x.double().abs(), -1)
+    err = (got.double() - torch.cumsum(x.double(), -1)).abs()
+    check(bool((err <= bound).all()),
+          f"prefix_sum rows {what}: error {float(err.max()):.3e} above "
+          f"16 eps sum|x|")
+    return float(err.max())
+
+
+def rows_times(torch, fn, ref, single, args, iters, B):
+    """As prefix_times with the split, for a rows form, plus B single
+    calls on the rows one after another (singles_ms by events,
+    singles_device_ms from a graph of them, singles_host_us)."""
+    rows = [tuple(a[r] for a in args) for r in range(B)]
+
+    def singles():
+        for r in rows:
+            single(*r)
+    return {"ms": cuda_ms(torch, lambda: fn(*args), iters),
+            "plain_ms": cuda_ms(torch, lambda: ref(*args), max(iters // 5, 2)),
+            "device_ms": graph_ms(torch, lambda: fn(*args)),
+            "plain_device_ms": graph_ms(torch, lambda: ref(*args), calls=5,
+                                        replays=2),
+            "host_us": host_us(torch, lambda: fn(*args)),
+            "plain_host_us": host_us(torch, lambda: ref(*args), calls=20),
+            "singles_ms": cuda_ms(torch, singles, 3),
+            "singles_device_ms": graph_ms(torch, singles, calls=2, replays=2),
+            "singles_host_us": host_us(torch, singles, calls=3)}
+
+
+def phase_rows(torch, np, scan_ops, rng, results) -> None:
+    """The voices x lanes forms at PREFIX_ROWS and AFFINE_ROWS: against
+    their plain versions (torch.cumsum / cummax along the rows, the
+    batched affine_scan_ref in float64 within AFFINE_TOL), every row
+    bit for bit against a single call on it, the same bits on 20 calls,
+    one captured graph replayed three times over new data, and timed
+    three ways beside B single calls.  (One kernel per call: check_one_
+    launch.)"""
+    s = torch.cuda.Stream()
+    for B, n in PREFIX_ROWS:
+        for op, single in prefix_ops(scan_ops):
+            fn = getattr(scan_ops, f"prefix_{op}_rows_f32")
+            x = rows_input(torch, np, rng, op, B, n)
+            got = fn(x)
+            err = check_prefix_rows(torch, np, scan_ops, op, x, got,
+                                    f"B={B} n={n}")
+            diff = sum(not torch.equal(got[r], single(x[r]))
+                       for r in range(B))
+            check(diff == 0, f"prefix_{op} rows B={B} n={n}: {diff} rows "
+                  f"differ from a single call on the row")
+            first = got.view(torch.int32)
+            rep = sum(not torch.equal(fn(x).view(torch.int32), first)
+                      for _ in range(19))
+            check(rep == 0, f"prefix_{op} rows B={B} n={n}: {rep} of 19 "
+                  f"repeats differ")
+            static = torch.zeros_like(x)
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                fn(static)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                out = fn(static)
+            for r in range(3):
+                static.copy_(rows_input(torch, np, rng, op, B, n))
+                g.replay()
+                torch.cuda.synchronize()
+                check_prefix_rows(torch, np, scan_ops, op, static, out,
+                                  f"B={B} n={n} graph replay {r}")
+            del g
+            row = rows_times(torch, fn, scan_ops.prefix_sum_ref if op == "sum"
+                             else scan_ops.prefix_max_ref, single, (x,), 50, B)
+            log(f"prefix_{op}_rows_f32 B={B} n={n}: max_abs_err={err:.3e}, "
+                f"rows bit-identical to single calls, 20 calls the same bits, "
+                f"graph replays right; {format_times(row)}; {B} single calls "
+                f"{row['singles_ms']:.4f} ms (device {row['singles_device_ms']:.4f}"
+                f" ms, host {row['singles_host_us']:.1f} us)")
+            results[f"prefix_{op}_rows_f32"].append(dict(row, n=n, B=B,
+                                                         err=err))
+            del x, got, static, out
+    for B, n, J in AFFINE_ROWS:
+        args = affine_rows_input(torch, np, rng, J, B, n)
+        h, hist = scan_ops.affine_scan_rows_f32(*args)
+        err, scale = check_affine_rows(torch, scan_ops, args, h, hist,
+                                       f"B={B} n={n}")
+        diff = 0
+        for r in range(B):
+            h1, hist1 = scan_ops.affine_scan_f32(*(a[r] for a in args))
+            diff += not (torch.equal(h[r], h1) and torch.equal(hist[r], hist1))
+        check(diff == 0, f"affine rows B={B} n={n} J={J}: {diff} rows "
+              f"differ from a single call on the row")
+        first = torch.cat([h.view(-1), hist.view(-1)]).view(torch.int32)
+        rep = sum(not torch.equal(torch.cat(
+            [x.view(-1) for x in scan_ops.affine_scan_rows_f32(*args)]).view(
+            torch.int32), first) for _ in range(19))
+        check(rep == 0, f"affine rows B={B} n={n}: {rep} of 19 repeats differ")
+        static = tuple(a.clone() for a in args)
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            scan_ops.affine_scan_rows_f32(*static)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            out = scan_ops.affine_scan_rows_f32(*static)
+        for r in range(3):
+            for dst, src in zip(static[1:], affine_rows_input(
+                    torch, np, rng, J, B, n)[1:]):
+                dst.copy_(src)
+            g.replay()
+            torch.cuda.synchronize()
+            check_affine_rows(torch, scan_ops, static, *out,
+                              f"B={B} n={n} graph replay {r}")
+        del g
+        row = rows_times(torch, scan_ops.affine_scan_rows_f32,
+                         scan_ops.affine_scan_ref, scan_ops.affine_scan_f32,
+                         args, 20, B)
+        log(f"affine_scan_rows_f32 B={B} n={n} J={J}: max_abs_err={err:.3e} "
+            f"= {err / scale:.2e} of scale (bound {AFFINE_TOL[J]:g}), rows "
+            f"bit-identical to single calls, 20 calls the same bits, graph "
+            f"replays right; {format_times(row)}; {B} single calls "
+            f"{row['singles_ms']:.4f} ms (device {row['singles_device_ms']:.4f}"
+            f" ms, host {row['singles_host_us']:.1f} us)")
+        results["affine_scan_rows_f32"].append(dict(row, n=n, B=B, J=J,
+                                                    err=err))
+        del args, h, hist, static, out
+
+
+def check_affine_rows(torch, scan_ops, args, h, hist, what):
+    """check_affine over B rows: (h, hist) against the batched float64
+    affine_scan_ref, within AFFINE_TOL[J] of the output's scale."""
+    a, ff, live, h0 = args
+    J = a.shape[-1]
+    ref, ref_hist = scan_ops.affine_scan_ref(a.double(), ff.double(), live,
+                                             h0.double())
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((h.double() - ref).abs().max())
+    herr = float((hist.double() - ref_hist).abs().max())
+    bound = AFFINE_TOL[J] * scale
+    check(err <= bound and herr <= bound,
+          f"affine_scan rows J={J} {what}: error {err:.3e} (hist "
+          f"{herr:.3e}) above {AFFINE_TOL[J]:g} * {scale:.3g}")
+    return err, scale
 
 
 def affine_input(torch, np, rng, J, n, offset=0):
@@ -380,13 +589,18 @@ def affine_times(torch, scan_ops, args, split):
 
 
 def phase_times(torch, np, scan_ops, label: str) -> None:
-    """The affine scan alone at AFFINE_SPLIT's shapes, for comparing two
-    trees: each shape held to AFFINE_TOL, kernels per call counted over
-    all shapes in this process's one profiler session, then affine_times
-    with the split.  Logs one JSON line per shape."""
+    """The single-voice scans alone, for comparing two trees: the prefix
+    sum and max at SPLIT_SIZES, the affine scan at AFFINE_SPLIT's shapes,
+    each held to its bound, kernels per call counted over all of them in
+    this process's one profiler session, then timed three ways (device
+    time alone among them).  Logs one JSON line per shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(0)
+    prefix = [(op, fn, n, prefix_input(torch, np, rng, op, n))
+              for n in SPLIT_SIZES for op, fn in prefix_ops(scan_ops)]
+    for op, fn, n, x in prefix:
+        check_prefix(torch, np, scan_ops, op, x, fn(x), "(--phase times)")
     inputs = [affine_input(torch, np, rng, J, n) for J, n in AFFINE_SPLIT]
     for args in inputs:
         check_affine(torch, scan_ops, args, *scan_ops.affine_scan_f32(*args),
@@ -394,18 +608,30 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
     calls = 10
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            for _ in range(calls):
+        for _ in range(calls):
+            for _, fn, _, x in prefix:
+                fn(x)
+            for args in inputs:
                 scan_ops.affine_scan_f32(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    per_call = len(names) / (calls * len(inputs))
+    per_call = len(names) / (calls * (len(inputs) + len(prefix)))
+    for op, fn, n, x in prefix:
+        ref = scan_ops.prefix_sum_ref if op == "sum" \
+            else scan_ops.prefix_max_ref
+        row = prefix_times(torch, fn, ref, x, 200, split=True)
+        bound_us = 8 * n / HBM_BYTES_PER_S * 1e6
+        log(json.dumps(dict(
+            row, tree=label, op=f"prefix_{op}_f32", n=n,
+            kernels_per_call=per_call, bound_us=bound_us,
+            share_of_bound=bound_us / (row["device_ms"] * 1e3))))
     for (J, n), args in zip(AFFINE_SPLIT, inputs):
         row = affine_times(torch, scan_ops, args, split=True)
         bound_us = (8 * J + 5) * n / HBM_BYTES_PER_S * 1e6
         log(json.dumps(dict(
-            row, tree=label, J=J, n=n, kernels_per_call=per_call,
-            kernels=sorted(set(names)), bound_us=bound_us,
+            row, tree=label, op="affine_scan_f32", J=J, n=n,
+            kernels_per_call=per_call, kernels=sorted(set(names)),
+            bound_us=bound_us,
             share_of_bound=bound_us / (row["device_ms"] * 1e3))))
 
 
@@ -541,14 +767,12 @@ def format_times(row) -> str:
     return text
 
 
-def check_one_launch(torch, np, scan_ops, rng) -> None:
-    """Every call, at every length phase 2 runs, is exactly one CUDA
-    kernel: no memset, no set-up or second kernel (torch.profiler).  The
+def one_launch_calls(torch, np, scan_ops, rng) -> list:
+    """The calls of check_one_launch, as (fn, args, kernel, tag): the
     prefix scans from 128 to 2^26 lanes and on x[1:]; the affine scan at
     J = 2 and 8 at every length of phase 2, on one tile (1000 lanes), and
-    on a[1:], ff[1:], live[1:]."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    on a[1:], ff[1:], live[1:]; the voices x lanes forms at every shape of
+    phase_rows."""
     xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
           for n in PREFIX_SIZES]
     xs.append(torch.from_numpy(
@@ -562,27 +786,78 @@ def check_one_launch(torch, np, scan_ops, rng) -> None:
                 (1000, 1), (1 << 20, 1)]:
             calls.append((scan_ops.affine_scan_f32,
                           affine_input(torch, np, rng, J, n, offset),
-                          "affine_single_pass", f"<{J}>"))
-    for fn, args, _, _ in calls:  # each stream's scratch exists before
+                          "affine_single_pass", f"<{J},"))
+    # The voices x lanes forms, at every shape of phase_rows.
+    for B, n in PREFIX_ROWS:
+        x = rows_input(torch, np, rng, "sum", B, n)
+        calls += [(scan_ops.prefix_sum_rows_f32, (x,), "scan_single_pass",
+                   "SumOp"),
+                  (scan_ops.prefix_max_rows_f32, (x,), "scan_single_pass",
+                   "MaxOp")]
+    for B, n, J in AFFINE_ROWS:
+        calls.append((scan_ops.affine_scan_rows_f32,
+                      affine_rows_input(torch, np, rng, J, B, n),
+                      "affine_single_pass", f"<{J},"))
+    return calls
+
+
+def profile_calls(torch, scan_ops, calls, rounds: int = 1):
+    """Every call once (so that each stream's scratch exists), then
+    `rounds` times under torch.profiler.  Returns the device kernels the
+    profiler saw, the host-side kernel launch calls it saw (the CUDA
+    runtime's or driver's), and the launches the wrappers counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn, args, _, _ in calls:
         fn(*args)
     torch.cuda.synchronize()
+    before = sum(scan_ops.launches.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for fn, args, _, _ in calls:
-            fn(*args)
+        for _ in range(rounds):
+            for fn, args, _, _ in calls:
+                fn(*args)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    host = [e.name for e in events if e.device_type == DeviceType.CPU
+            and "LaunchKernel" in e.name]
+    return kernels, host, sum(scan_ops.launches.values()) - before
+
+
+def check_one_launch(torch, np, scan_ops, rng) -> None:
+    """Every call of one_launch_calls is exactly one CUDA kernel: no
+    memset, no set-up or second kernel (torch.profiler)."""
+    calls = one_launch_calls(torch, np, scan_ops, rng)
+    names, _, _ = profile_calls(torch, scan_ops, calls)
     for kernel, tag in sorted({(k, t) for _, _, k, t in calls}):
         want = sum(k == kernel and t == tag for _, _, k, t in calls)
         mine = [k for k in names if kernel in k and tag in k]
         check(len(mine) == want, f"{kernel} {tag}: {len(mine)} kernels for "
-              f"{want} calls")
+              f"{want} calls; all kernels: {sorted(names)}")
     check(len(names) == len(calls),
           f"scan calls ran other device work: {sorted(set(names))}")
     log(f"one launch per call: {len(names)} calls (prefix sum/max at "
-        f"{len(xs)} lengths from 128 to 2^26 and x[1:]; affine scan at "
-        f"J = 2, 8 from 1000 to 2^20 + 5 lanes and on a[1:]) ran exactly "
-        f"one kernel each, no memset")
+        f"{len(PREFIX_SIZES) + 1} lengths from 128 to 2^26 and x[1:]; affine "
+        f"scan at J = 2, 8 from 1000 to 2^20 + 5 lanes and on a[1:]; the "
+        f"voices x lanes forms at {PREFIX_ROWS} and {AFFINE_ROWS}) ran "
+        f"exactly one kernel each, no memset")
+
+
+def launches_in_process(torch, np, scan_ops) -> dict:
+    """check_one_launch's calls, three rounds, under this process's first
+    torch.profiler session, after every phase (graphs, second streams):
+    where, in phase 2, the count once came up short.  Logged, not held:
+    check_one_launch holds the count in a child.  Where the device
+    kernels fall short of the host's launch calls and the wrappers'
+    counts, the profiler lost a record of a kernel that was launched."""
+    calls = one_launch_calls(torch, np, scan_ops, np.random.default_rng(1))
+    kernels, host, counted = profile_calls(torch, scan_ops, calls, rounds=3)
+    row = dict(calls=3 * len(calls), wrapper_launches=counted,
+               device_kernels=len(kernels), host_launch_calls=len(host),
+               host_launch_names=sorted(set(host)))
+    log(f"in-process launch count {json.dumps(row)}")
+    return row
 
 
 def check_prefix_repeatable(torch, np, scan_ops, rng) -> None:
@@ -1001,20 +1276,26 @@ def iter_nodes(node):
             yield from iter_nodes(info.node)
 
 
+def profile_in_child(name: str, generic: bool = False) -> dict:
+    """`chip_smoke.py --profile NAME [--generic]` in a child process (a
+    profiler session after the first in one process may lose kernel
+    events); its JSON row."""
+    argv = [sys.executable, str(Path(__file__).resolve()), "--profile",
+            name] + (["--generic"] if generic else [])
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"profile {name}: exit "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"profile {json.dumps(row)}")
+    return row
+
+
 def phase_profiles() -> None:
-    """Each of PROFILES in a child process of its own (a profiler session
-    after the first in one process may lose kernel events).  With the
-    analytic tiers, W1 and W2 must launch no running max; with them
-    forced off, they must."""
+    """Each of PROFILES in a child process of its own.  With the analytic
+    tiers, W1 and W2 must launch no running max; with them forced off,
+    they must."""
     for name, generic in PROFILES:
-        argv = [sys.executable, str(Path(__file__).resolve()), "--profile",
-                name] + (["--generic"] if generic else [])
-        proc = subprocess.run(argv, capture_output=True, text=True,
-                              timeout=600)
-        check(proc.returncode == 0, f"profile {name}: exit "
-              f"{proc.returncode}: {proc.stderr[-3000:]}")
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        log(f"profile {json.dumps(row)}")
+        row = profile_in_child(name, generic)
         if name in ("W1", "W2"):
             maxes = row["scan"]["prefix_max_f32"]
             check((maxes > 0) == generic
@@ -1062,6 +1343,393 @@ def phase_reloc_fast(torch) -> list:
         log(f"reloc_fast {json.dumps(row)}")
         rows.append(row)
     return rows
+
+
+# -- phase 8: voice groups ----------------------------------------------
+
+# bench.py:181-227's polyphony lane: 256 same-structure FM voices, consts
+# jittered by 1 + 0.001 i, one batched render per 2^17-lane block.
+G1_EXPR = ("sine(2*pi * 220, 3 * sine(2*pi * 222, 0)) * 0.01"
+           " | fin(time - 3600)")
+G1_VOICES = 256
+G1_BLOCK = 1 << 17
+G1_BLOCKS = 10
+# The jittered consts move each voice's Fin cutoff, so the voices share
+# no literal cutoffs: the stateful path, the one bench.py's call takes.
+G1_FAST = False
+# G2: a polyphonic tracker session at 48 kHz, three instruments, each a
+# template of (frequency, seconds) and the pitches its notes cycle
+# through.  Every Reset trigger's consts key the compiled structure
+# (engine.structure_key, as in tuun_tpu), so harmonica and W2g notes
+# share a structure, and group, only at one pitch; FM notes group at
+# every pitch.  The harmonica reaches the affine scan (lpf) and the
+# analytic Reset tiers, FM the prefix sum, W2g the prefix max (a Reset
+# no analytic tier takes) and the affine scan.
+G2_INSTRUMENTS = (
+    ("harmonica", "harmonica({d}, {f})", (440.0, 660.0)),
+    ("fm", "sine(2*pi*({f} + 30*$(5)), 0) * 0.5 | fin(time - {d})",
+     (220.0, 247.0, 277.0, 330.0)),
+    ("w2g", "reset(triangle({f}), time * -{f}) * 2 | lpf(0.7, 2000) "
+     "| fin(time - {d})", (110.0, 165.0)),
+)
+# (block, notes per instrument, seconds over which notes start, note
+# lengths in seconds, mix tolerance): the live block for ~2 s, the
+# offline block for ~10 s.  A group sums its FM voices' phase increments
+# (the block's phase advance, ~2 pi 280 Hz * block / 48 kHz: 38 rad at
+# 1024 lanes, 2.4e3 rad at 65536) in another order than one voice's sum,
+# which moves that voice's f32 phase by a few ulp of it (3.8e-6 and
+# 2.4e-4 rad) each block; at amplitude 0.5 the tolerance is 8 such ulp
+# (1.5e-5 at 1024 lanes, measured 1.1e-6; 1e-3 at 65536, measured 2.4e-4
+# on the CPU).
+G2_SESSIONS = ((1024, 24, 1.6, (0.12, 0.18, 0.24, 0.3), 1.5e-5),
+               (65536, 20, 8.5, (0.6, 0.9, 1.2, 1.5), 1e-3))
+# Scan kernels and their voices x lanes forms.
+ROWS_OF = {"prefix_sum_f32": "prefix_sum_rows_f32",
+           "prefix_max_f32": "prefix_max_rows_f32",
+           "affine_scan_f32": "affine_scan_rows_f32"}
+
+
+def g1_voices(torch, np):
+    """(compiled voice, per-voice params, stacked params) of G1."""
+    from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
+    from tuun_tpu_torch.engine.graph import params_from_numpy, stack_params
+    w, _ = workload_waveform(G1_EXPR)
+    voice = CompiledVoice(w, EngineConfig(SR, "fast", "cuda"))
+    base = voice.params()
+    params = [params_from_numpy(
+        np.asarray(base.host.consts) * np.float32(1.0 + 0.001 * i),
+        base.host.fixeds, i, "cuda") for i in range(G1_VOICES)]
+    return voice, params, stack_params(params)
+
+
+def g1_render(torch, voice, bP, blocks: int):
+    """`blocks` G1 blocks from a fresh group state; returns the last
+    mix and the wall time (synchronized)."""
+    fn = voice.batched_render_fn(G1_BLOCK, fast=G1_FAST)
+    starts = torch.zeros(G1_VOICES, dtype=torch.int64, device="cuda")
+    e = torch.full((), G1_BLOCK, dtype=torch.int64, device="cuda")
+    bst = voice.batched_init(bP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        mix, v, bst, _ = fn(bP, bst, starts, e)
+    torch.cuda.synchronize()
+    return mix, v, time.perf_counter() - t0
+
+
+def phase_g1(torch, np) -> dict:
+    """G1: 256 voices through batched_render_fn at 2^17 lanes.  Block 0:
+    each voice's row against its own render_block (within 4 f32 spacings
+    of the row's scale), and the mix against the sum of the 256 voices
+    rendered one by one, within 2 (B - 1) eps sum|y| (any two summation
+    orders of B terms differ by at most that) plus the rows' bound.
+    Then G1_BLOCKS blocks timed, best of two passes from a fresh state."""
+    voice, params, bP = g1_voices(torch, np)
+    rows_fn = voice.batched_render_fn(G1_BLOCK, fast=G1_FAST, mix=False)
+    starts = torch.zeros(G1_VOICES, dtype=torch.int64, device="cuda")
+    e = torch.full((), G1_BLOCK, dtype=torch.int64, device="cuda")
+    rows, _, _, _ = rows_fn(bP, voice.batched_init(bP), starts, e)
+    mix0, _, _ = g1_render(torch, voice, bP, 1)
+    ref = torch.zeros(G1_BLOCK, dtype=torch.float32, device="cuda")
+    mag = torch.zeros(G1_BLOCK, dtype=torch.float64, device="cuda")
+    row_err = 0.0
+    for i, P in enumerate(params):
+        y, v, _, _ = voice.render_block(P, voice.init(P), G1_BLOCK)
+        ref += y
+        mag += y.double().abs()
+        row_err = max(row_err, float((rows[i] - y).abs().max()))
+    scale = float(rows.abs().max())
+    row_tol = 4 * float(np.spacing(np.float32(scale)))
+    check(row_err <= row_tol, f"G1: a voice's row differs from its own "
+          f"render by {row_err:.3e} (bound {row_tol:.3e})")
+    eps = float(np.finfo(np.float32).eps)
+    bound = 2 * (G1_VOICES - 1) * eps * mag + G1_VOICES * row_tol
+    diff = (mix0.double() - ref.double()).abs()
+    check(bool(torch.isfinite(mix0).all()) and bool((diff <= bound).all()),
+          f"G1: block 0's mix differs from the sum of the voices by "
+          f"{float(diff.max()):.3e}")
+    walls = [g1_render(torch, voice, bP, G1_BLOCKS)[2] for _ in range(2)]
+    best = min(walls)
+    audio = G1_BLOCKS * G1_BLOCK / SR
+    row = dict(group="G1", voices=G1_VOICES, block=G1_BLOCK,
+               blocks=G1_BLOCKS, walls_s=walls,
+               mvoice_samples_per_s=G1_VOICES * G1_BLOCKS * G1_BLOCK / best
+               / 1e6, mix_x_realtime=audio / best,
+               block0_row_err=row_err, block0_mix_err=float(diff.max()),
+               block0_mix_scale=float(mix0.abs().max()))
+    log(f"groups {json.dumps(row)}")
+    return row
+
+
+def g2_notes(session):
+    """[(id, instrument, expression, start sample)] of one G2 session:
+    note j of instrument k at pitch j mod its pitches, length j mod 4 of
+    the session's lengths, starting at j / notes of the span, offset by
+    37 k + 11 j samples (so that starts fall mid-block)."""
+    block, count, span, lengths, _ = session
+    notes = []
+    for k, (name, template, pitches) in enumerate(G2_INSTRUMENTS):
+        for j in range(count):
+            expr = template.format(f=pitches[j % len(pitches)],
+                                   d=lengths[j % len(lengths)])
+            start = int(SR * span * j / count) + 37 * k + 11 * j
+            notes.append((f"{name}{j}", name, expr, start))
+    return notes
+
+
+class GroupCalls:
+    """While active, records every VoiceGroup.render (structure, voices,
+    the scan launches it made) and every voice the tracker activates."""
+
+    def __init__(self, scan_ops):
+        self.scan_ops = scan_ops
+
+    def __enter__(self):
+        from tuun_tpu_torch import tracker as T
+        self.groups, self.voices = [], []
+        self._saved = (T.VoiceGroup.render, T.Tracker._activate)
+        g_render, activate = self._saved
+        launches = self.scan_ops.launches
+
+        def group_render(group, *a, **k):
+            before = dict(launches)
+            out = g_render(group, *a, **k)
+            self.groups.append((id(group.compiled), len(group.voices),
+                                {k: launches[k] - before[k]
+                                 for k in launches}))
+            return out
+
+        def activate_(tracker, p, block_start):
+            voice = activate(tracker, p, block_start)
+            self.voices.append(voice)
+            return voice
+        T.VoiceGroup.render = group_render
+        T.Tracker._activate = activate_
+        return self
+
+    def __exit__(self, *exc):
+        from tuun_tpu_torch import tracker as T
+        T.VoiceGroup.render, T.Tracker._activate = self._saved
+
+
+class NoGroups:
+    """While active, the tracker renders every active voice on its own
+    (the per-voice loop that voice groups replace)."""
+
+    def __enter__(self):
+        from tuun_tpu_torch.tracker import Tracker
+        self._saved = Tracker._rebuild_groups
+
+        def singles(tracker):
+            tracker._singles, tracker._groups = list(tracker.active), []
+            tracker._groups_dirty = False
+        Tracker._rebuild_groups = singles
+        return self
+
+    def __exit__(self, *exc):
+        from tuun_tpu_torch.tracker import Tracker
+        Tracker._rebuild_groups = self._saved
+
+
+def g2_waveforms(notes):
+    """The optimized IR of each distinct expression of `notes`."""
+    return {expr: workload_waveform(expr)[0]
+            for expr in sorted({n[2] for n in notes})}
+
+
+def g2_session(torch, session, waves):
+    """One G2 session through Tracker.play / render_block until every
+    voice has retired.  Returns (the mix, per-block wall seconds,
+    per-block (dispatches, voices, group sizes))."""
+    import numpy as np
+    from tuun_tpu_torch.tracker import Tracker
+    block = session[0]
+    t = Tracker(SR, block, precision="fast", device="cuda")
+    notes = g2_notes(session)
+    for wid, _, expr, start in notes:
+        t.play(wid, waves[expr], start=start)
+    out, walls, shape = [], [], []
+    while t.active or t.pending:
+        t0 = time.perf_counter()
+        y, status = t.render_block()
+        walls.append(time.perf_counter() - t0)
+        out.append(y)
+        shape.append((status.dispatches, status.voices,
+                      sorted(len(g.voices) for g in t._groups)))
+    return np.concatenate(out), walls, shape
+
+
+# Phase 8's profiles, each in a child process (--profile NAME): G1's
+# group of 256, one G1 voice alone, and G2's live-block session.
+GROUP_PROFILES = ("G1", "G1one", "G2")
+# Phase 2's count of kernels per call, in a child of its own.
+LAUNCH_PROFILE = "launches"
+
+
+def profile_group_child(torch, scan_ops, name: str) -> dict:
+    """Warm, then profiled: three G1 blocks of the group (G1) or of one
+    of its voices alone (G1one), or a whole G2 session at the live block
+    (G2).  Device events per block and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
+    if name == "G2":
+        session = G2_SESSIONS[0]
+        waves = g2_waveforms(g2_notes(session))
+
+        def run():
+            mix, walls, shape = g2_session(torch, session, waves)
+            torch.cuda.synchronize()
+            return len(walls), dict(
+                audio_s=len(mix) / SR,
+                dispatches_per_block=float(np.mean([x[0] for x in shape])),
+                voices_per_block=float(np.mean([x[1] for x in shape])))
+    else:
+        voice, params, bP = g1_voices(torch, np)
+        n = G1_BLOCK
+        if name == "G1":
+            fn = voice.batched_render_fn(n, fast=G1_FAST)
+            starts = torch.zeros(G1_VOICES, dtype=torch.int64, device="cuda")
+            e = torch.full((), n, dtype=torch.int64, device="cuda")
+            state = voice.batched_init(bP)
+
+            def step(st):
+                return fn(bP, st, starts, e)[2]
+        else:
+            P = params[0]
+            state = voice.init(P)
+
+            def step(st):
+                return voice.render_block(P, st, n)[2]
+
+        def run():
+            st = state
+            for _ in range(3):
+                st = step(st)
+            torch.cuda.synchronize()
+            return 3, dict(audio_s=3 * n / SR,
+                           voices=G1_VOICES if name == "G1" else 1)
+    run()  # warm: caches, allocator, custom ops
+    scan_ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        blocks, extra = run()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return dict(profile=name, blocks=blocks, device_events=len(events),
+                events_per_block=len(events) / blocks,
+                device_busy_ms=busy_ms, wall_ms=wall * 1e3,
+                idle_share=1.0 - busy_ms / (wall * 1e3),
+                scan={k: c for k, c in scan_ops.launches.items() if c},
+                **extra)
+
+
+def g2_reference(torch, np, voices, block, total):
+    """The sum of each voice's own render_block, placed at its start: its
+    first block at the block holding its start (s = start mod block),
+    then whole blocks, until its exact length or its valid end."""
+    ref = np.zeros(total, np.float64)
+    mag = np.zeros(total, np.float64)
+    for voice in voices:
+        cv, P = voice.compiled, voice.params
+        st = cv.init(P)
+        k, s = divmod(voice.start, block)
+        while True:
+            y, v, st, _ = cv.render_block(P, st, block, s, block,
+                                          fast=voice.fast, lits=voice.lits)
+            seg = y.double().cpu().numpy()
+            ref[k * block:(k + 1) * block] += seg
+            mag[k * block:(k + 1) * block] += np.abs(seg)
+            k, s = k + 1, 0
+            if int(v) < block or (voice.total_len is not None and k * block
+                                  >= voice.start + voice.total_len):
+                break
+    return ref, mag
+
+
+def phase_g2(torch, np, scan_ops, session) -> dict:
+    """G2 at one block size: the tracker's mix against the sum of every
+    voice's own render (within 2 (V - 1) eps sum|y|, the gap between any
+    two summation orders, plus the session's FM tolerance, G2_SESSIONS),
+    groups formed, changed and retired, and per group render each scan
+    launched in its voices x lanes form exactly as often as one voice of
+    that structure launches its single form, whatever the group's size.
+    Then timed in turns against the per-voice loop (NoGroups)."""
+    block, tol = session[0], session[4]
+    waves = g2_waveforms(g2_notes(session))
+    with GroupCalls(scan_ops) as calls:
+        mix, walls, shape = g2_session(torch, session, waves)
+    group_calls, voices = calls.groups, calls.voices
+    ref, mag = g2_reference(torch, np, voices, block, len(mix))
+    eps = float(np.finfo(np.float32).eps)
+    bound = 2 * (len(voices) - 1) * eps * mag + tol
+    diff = np.abs(mix.astype(np.float64) - ref)
+    check(np.isfinite(mix).all() and bool((diff <= bound).all()),
+          f"G2 block {block}: the mix differs from the per-voice sum by "
+          f"{diff.max():.3e} at sample {int(diff.argmax())}")
+    # One voice's single-form launches per render, per structure.
+    per_voice = {}
+    for voice in voices:
+        cv, P = voice.compiled, voice.params
+        if id(cv) not in per_voice:
+            st = cv.init(P)  # a filter's init renders (its delay line)
+            before = dict(scan_ops.launches)
+            cv.render_block(P, st, block, fast=voice.fast, lits=voice.lits)
+            per_voice[id(cv)] = {k: scan_ops.launches[k] - before[k]
+                                 for k in ROWS_OF}
+    sizes = {}
+    for cid, B, d in group_calls:
+        want = {ROWS_OF[k]: c for k, c in per_voice[cid].items()}
+        got = {k: d[k] for k in want}
+        check(got == want and all(d[k] == 0 for k in ROWS_OF),
+              f"G2 block {block}: a group of {B} launched {d}, one voice of "
+              f"its structure {per_voice[cid]}")
+        sizes.setdefault(cid, set()).add(B)
+    launched = {k: sum(d[k] for _, _, d in group_calls)
+                for k in ROWS_OF.values()}
+    check(all(launched.values()), f"G2 block {block}: a voices x lanes "
+          f"form never launched: {launched}")
+    changed = sum(a[2] != b[2] for a, b in zip(shape, shape[1:]))
+    check(max(len(x) for x in sizes.values()) >= 2 and changed >= 2,
+          f"G2 block {block}: groups never changed size ({sizes})")
+    # The groups against the per-voice loop they replace, a fresh session
+    # each, in turns (groups, loop, loop, groups); the loop's mix is held
+    # to the same bound, and it renders every voice on its own.
+    turns = {"groups": [], "pervoice": []}
+    for grouped in (True, False, False, True):
+        with contextlib.nullcontext() if grouped else NoGroups():
+            m, w, sh = g2_session(torch, session, waves)
+        if not grouped:
+            d = np.abs(m.astype(np.float64) - ref) if len(m) == len(ref) \
+                else np.full(1, np.inf)
+            check(np.isfinite(m).all() and bool((d <= bound).all()),
+                  f"G2 block {block}, per-voice loop: the mix differs from "
+                  f"the per-voice sum by {d.max():.3e}")
+            check(not any(x[2] for x in sh),
+                  f"G2 block {block}: the per-voice loop formed groups")
+        turns["groups" if grouped else "pervoice"].append(dict(
+            x_realtime=len(m) / SR / sum(w),
+            block_ms_p50=float(np.percentile(w, 50) * 1e3),
+            block_ms_p99=float(np.percentile(w, 99) * 1e3)))
+    log(f"groups-vs-pervoice {json.dumps(dict(block=block, **turns))}")
+    audio = len(mix) / SR
+    row = dict(group="G2", block=block, voices=len(voices),
+               blocks=len(walls), audio_s=audio, wall_s=sum(walls),
+               x_realtime=audio / sum(walls),
+               block_ms_p50=float(np.percentile(walls, 50) * 1e3),
+               block_ms_p99=float(np.percentile(walls, 99) * 1e3),
+               max_err=float(diff.max()), peak=float(np.abs(ref).max()),
+               group_renders=len(group_calls),
+               dispatches_per_block=float(np.mean([x[0] for x in shape])),
+               voices_per_block=float(np.mean([x[1] for x in shape])),
+               max_voices=max(x[1] for x in shape),
+               group_sizes_seen=[sorted(v) for v in sizes.values()],
+               regroups=changed, rows_launches=launched,
+               per_voice_launches=[per_voice[cid] for cid in sizes])
+    log(f"groups {json.dumps(row)}")
+    return row
 
 
 def phase_cross_device(torch, np, tmp: Path):
@@ -1140,11 +1808,13 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
     ap.add_argument("--phase", choices=("kernels", "times"),
                     help="kernels: stop after phase 2; times: only the "
-                    "affine scan's times (see the module docstring)")
+                    "single-voice scans' times (see the module docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
-    ap.add_argument("--profile", choices=sorted({n for n, _ in PROFILES}),
+    ap.add_argument("--profile", choices=sorted({n for n, _ in PROFILES}
+                                                | set(GROUP_PROFILES)
+                                                | {LAUNCH_PROFILE}),
                     help="profile one engine render of this workload and "
                     "print it as JSON (phase 6 runs each in a child)")
     ap.add_argument("--generic", action="store_true",
@@ -1161,11 +1831,22 @@ def main(argv) -> int:
         scan_ops = tree_scan_ops(args.tree.resolve())
     else:
         from tuun_tpu_torch.engine import scan_ops
+    if args.profile == LAUNCH_PROFILE:
+        scan_ops.load_library()
+        check_one_launch(torch, np, scan_ops, np.random.default_rng(0))
+        print(json.dumps({"profile": LAUNCH_PROFILE, "ok": True}),
+              flush=True)
+        return 0
+    if args.profile in GROUP_PROFILES:
+        print(json.dumps(profile_group_child(torch, scan_ops, args.profile)),
+              flush=True)
+        return 0
     if args.profile is not None:
         print(json.dumps(profile_child(torch, scan_ops, args.profile,
                                        args.generic)), flush=True)
         return 0
 
+    started = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} (torch {torch.__version__}, cuda "
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
@@ -1193,7 +1874,7 @@ def main(argv) -> int:
     scan_ops.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         summary = phase_main_path(torch, np, scan_ops, Path(tmp))
-        counts = dict(scan_ops.launches)
+        counts = {k: scan_ops.launches[k] for k in ROWS_OF}
         log(f"launch counts of the main path (phase 3): {counts}")
         for k, c in counts.items():
             check(c > 0, f"kernel {k} was never launched on the main path")
@@ -1206,12 +1887,28 @@ def main(argv) -> int:
     phase_profiles()
     phase_reloc_fast(torch)
 
+    # Phase 8, the voice groups: the path of the voices x lanes forms,
+    # whose launches, and only those, make their counts.
+    scan_ops.reset_launches()
+    phase_g1(torch, np)
+    for session in G2_SESSIONS:
+        phase_g2(torch, np, scan_ops, session)
+    counts.update({k: scan_ops.launches[k] for k in ROWS_OF.values()})
+    log(f"launch counts of the voices x lanes forms (phase 8): "
+        f"{ {k: counts[k] for k in ROWS_OF.values()} }")
+    for k in ROWS_OF.values():
+        check(counts[k] > 0, f"kernel {k} was never launched by the groups")
+    for name in GROUP_PROFILES:
+        profile_in_child(name)
+    launches_in_process(torch, np, scan_ops)
+
     kernels = []
     for k in scan_ops.launches:
         rows = results[k]
-        affine = k == "affine_scan_f32"
+        affine = k.startswith("affine")
         # The main path's shape: MAIN_N lanes (J = 2, lpf, for the affine
-        # scan).  Bytes each input read once, each output written once.
+        # scan), B = 32 voices for the voices x lanes forms.  Bytes each
+        # input read once, each output written once.
         main_row = next(r for r in rows if r["n"] == MAIN_N
                         and r.get("J", 2) == 2)
         lane_bytes = 8 * 2 + 5 if affine else 8
@@ -1224,12 +1921,14 @@ def main(argv) -> int:
             "device_ms": main_row["device_ms"],
             "plain_device_ms": main_row["plain_device_ms"],
             "host_us": main_row["host_us"],
-            "bound_ms": lane_bytes * MAIN_N / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": main_row.get("B", 1) * lane_bytes * MAIN_N
+            / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             # The plain versions of the prefix scans are single PyTorch
-            # calls (torch.cumsum, torch.cummax); no single call computes
-            # the affine scan.
+            # calls (torch.cumsum, torch.cummax along the lanes); no
+            # single call computes the affine scan.
             "library_ms": None if affine else main_row["plain_ms"]})
+    log(f"elapsed: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

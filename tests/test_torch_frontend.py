@@ -299,3 +299,38 @@ def test_default_device_without_a_card_raises():
         Tracker(SR)
     got = render(w, 10, 10, device="cpu")
     np.testing.assert_array_equal(got, np.ones(10, np.float32))
+
+
+# -- the copied metric series ---------------------------------------------
+
+
+class _Clock:
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        return self.now
+
+
+@pytest.mark.parametrize("steps", [
+    [(0.05, 1.0), (0.05, 3.0), (0.2, 5.0)],
+    [(0.0, 2.0), (3.0, 4.0), (20.0, 8.0), (0.31, 1.0)],
+    [(0.1 * k, float(k)) for k in range(30)]],
+    ids=["one-bucket", "gaps", "ramp"])
+def test_metric_series_the_same(steps):
+    """The port's metric.py (the tracker's load and dispatch series)
+    against tuun_tpu's, under one scripted clock: the same series and
+    latest value after every step."""
+    metrics = []
+    for pkg in PKGS:
+        clock = _Clock()
+        m = import_module(f"{pkg.__name__}.metric").Metric(
+            window_seconds=2.0, buckets=20, clock=clock)
+        metrics.append((clock, m))
+    for dt, value in steps:
+        out = []
+        for clock, m in metrics:
+            clock.now += dt
+            m.set(value)
+            out.append((m.series(), m.latest()))
+        same(out[0], out[1], "metric")

@@ -484,15 +484,24 @@ def _tree_fold(m):
 def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64):
     """(h, hist, scratch) as the CUDA kernel computes them, with tile
     geometry geom = (T, K), finishing its steps in the order given by
-    `order` (a function that picks the next runnable tile), in `dtype`."""
+    `order` (a function that picks the next runnable tile), in `dtype`.
+    Inputs with a leading row axis (a [B, n, J], ff and live [B, n], h0
+    [B, J]) model the voices x lanes form: global tile g is tile g % nbr
+    of row g // nbr, with one scratch (counters, flags, records) for all
+    rows, as in the kernel."""
+    rows = a.ndim == 3
+    if not rows:
+        a, ff, live, h0 = a[None], ff[None], live[None], h0[None]
     T, K = geom
     tile, nw = T * K, T // 32
-    n, J = a.shape
-    nb = -(-n // tile)
-    pad = nb * tile - n
-    a = np.concatenate([a, np.zeros((pad, J))]).astype(dtype)
-    ff = np.concatenate([ff, np.zeros(pad)]).astype(dtype)
-    live = np.concatenate([live, np.zeros(pad, bool)])
+    B, n, J = a.shape
+    nbr = -(-n // tile)  # tiles per row
+    nb = B * nbr
+    pad = nbr * tile - n
+    a = np.concatenate([a, np.zeros((B, pad, J))], 1).astype(dtype)
+    ff = np.concatenate([ff, np.zeros((B, pad))], 1).astype(dtype)
+    live = np.concatenate([live, np.zeros((B, pad), bool)], 1)
+    a, ff, live = a.reshape(-1, J), ff.reshape(-1), live.reshape(-1)
     h0 = h0.astype(dtype)
     # Lane maps: the companion form (row 0 = -a, rows 1.. shift the
     # history down, b = (ff, 0, ...)), or the identity on a dead lane.
@@ -533,12 +542,13 @@ def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64):
     counters = [0, 0]
     h_tile = np.zeros((nb, J), dtype)
 
-    def look_back(t):
+    def look_back(g):
+        r, t = divmod(g, nbr)
         a0 = (t - 1) // T * T
         words = t - a0
         recs = _identity((T,), J, dtype)
         for i in range(words):
-            rec = records[a0 + i]
+            rec = records[r * nbr + a0 + i]
             if i == 0:  # the anchor's exit history, a constant map
                 recs[0][i] = 0
                 recs[1][i] = rec[:J]
@@ -552,26 +562,27 @@ def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64):
             out = _compose(_take(warps, w), out)
         return out[1]
 
-    def run(t):
+    def run(g):
         # Yields True after a step that may unblock another tile, False
-        # while it waits.
+        # while it waits.  g is the global tile, t its tile in row r.
+        r, t = divmod(g, nbr)
         anchor = t % T == 0
-        if nb > 1 and not anchor:
-            records[t, :J * J] = total[0][t].reshape(-1)
-            records[t, J * J:J * J + J] = total[1][t]
-            flags[t] = 1
+        if nbr > 1 and not anchor:
+            records[g, :J * J] = total[0][g].reshape(-1)
+            records[g, J * J:J * J + J] = total[1][g]
+            flags[g] = 1
         yield True
-        if t == 0 or nb == 1:
-            h_tile[t] = h0
+        if t == 0 or nbr == 1:
+            h_tile[g] = h0[r]
         else:
-            a0 = (t - 1) // T * T
-            while not flags[a0:t].all():
+            a0 = r * nbr + (t - 1) // T * T
+            while not flags[a0:g].all():
                 yield False
-            h_tile[t] = look_back(t)
-        if nb > 1:
+            h_tile[g] = look_back(g)
+        if nbr > 1:
             if anchor:
-                records[t, :J] = total[0][t] @ h_tile[t] + total[1][t]
-                flags[t] = 2
+                records[g, :J] = total[0][g] @ h_tile[g] + total[1][g]
+                flags[g] = 2
             counters[1] += 1
             if counters[1] == nb:  # the last block leaves the scratch clean
                 flags[:] = 0
@@ -603,8 +614,11 @@ def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64):
         shifted = np.concatenate([y[..., None], hv[..., :-1]], axis=-1)
         hv = np.where(lv[:, :, k, None], shifted, hv)
         h[:, :, k] = hv
-    h = h.reshape(-1, J)[:n]
-    return h, h[-1].copy(), (counters, flags)
+    h = h.reshape(B, nbr * tile, J)[:, :n]
+    hist = h[:, -1].copy()
+    if not rows:
+        h, hist = h[0], hist[0]
+    return h, hist, (counters, flags)
 
 
 def _stable_inputs(n, J, seed):

@@ -3,13 +3,28 @@
 // Three entry points, each the counterpart of one Pallas TPU kernel in
 // tuun_tpu/engine/pallas_ops.py and each one kernel launch per call:
 //
-//   tuun_prefix_sum_f32   <- prefix_sum_f32 / _prefix_sum_kernel
-//   tuun_prefix_max_f32   <- prefix_max_f32 / _prefix_max_kernel
-//   tuun_affine_scan_f32  <- affine_scan_f32 / _affine_scan_kernel
+//   tuun_prefix_sum_rows_f32   <- prefix_sum_f32 / _prefix_sum_kernel
+//   tuun_prefix_max_rows_f32   <- prefix_max_f32 / _prefix_max_kernel
+//   tuun_affine_scan_rows_f32  <- affine_scan_f32 / _affine_scan_kernel
 //
 // The TPU kernels walk a sequential grid and carry the running total (or
 // the running affine map) from one grid step to the next in SMEM scratch.
 // Blocks on this card run in parallel and in no order.
+//
+// Each scans B rows of n lanes (voices x lanes), one per voice of a tracker
+// group, in one launch; a single voice is the one-row call.  It replaces
+// the same Pallas kernels, and them under the group's jax.vmap, which adds
+// a grid axis over the voices (tuun_tpu/tracker.py:409-410).  The grid is every
+// row's tiles: global tile gt is tile gt % nbr of row gt / nbr (nbr tiles
+// a row), a tile never crosses a row, and its look-back reads only its own
+// row's status in the grouping a one-row call has, so row r gives the bits
+// of a single call on row r.  One scratch serves all rows (one status
+// slot per global tile); the done counter counts every row's tiles.  With
+// one tile a row (the live block of 1024 lanes) no tile looks back and no
+// scratch is touched.  A one-row call runs a kernel compiled without the
+// row arithmetic (kRows = false): at a given B, the
+// batched call moves the bytes of B single calls but launches once, so it
+// saves B - 1 launches and their host work.
 //
 // Prefix sum and max: one launch per call, a single-pass scan with
 // decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
@@ -264,24 +279,35 @@ __device__ float look_back(volatile unsigned long long* status, int64_t t,
   return v;
 }
 
-// Single-pass inclusive scan.  Lanes past n read as the identity.
-template <class Op>
+// Single-pass inclusive scan of each of `rows` rows of n lanes (row r at
+// x + r * n).  Lanes past n read as the identity.  A tile never crosses a
+// row: global tile gt is tile t = gt % nbr of row r = gt / nbr, and its
+// look-back reads only its own row's status words, in the grouping a
+// single row has, so row r gives the bits of a one-row call on it.
+// kRows = false is the one-row form, compiled without the row arithmetic.
+template <class Op, bool kRows>
 __global__ void __launch_bounds__(kScanThreads)
-scan_single_pass(const float* __restrict__ x, float* __restrict__ out,
-                 unsigned long long* scratch, int64_t n) {
+scan_single_pass(const float* __restrict__ x_all, float* __restrict__ out_all,
+                 unsigned long long* scratch, int64_t rows, int64_t n) {
   __shared__ __align__(16) float tile[kScanTile + kScanTile / 8];
   __shared__ float warp_tot[32];
   __shared__ unsigned long long tile_index;
   __shared__ float tile_prefix;
   __shared__ bool last_block;
-  const int64_t nb = (n + kScanTile - 1) / kScanTile;
-  volatile unsigned long long* status = scratch + kScratchHead;
-  int64_t t = 0;
-  if (nb > 1) {
+  const int64_t nbr = (n + kScanTile - 1) / kScanTile;  // tiles per row
+  const int64_t nb = kRows ? rows * nbr : nbr;
+  int64_t gt = blockIdx.x;
+  if (nbr > 1) {
     if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1ull);
     __syncthreads();
-    t = (int64_t)tile_index;
+    gt = (int64_t)tile_index;
   }
+  // A 32-bit division (nb < 2^31), cheaper than a 64-bit one.
+  const int64_t r = kRows ? (int64_t)((unsigned)gt / (unsigned)nbr) : 0;
+  const int64_t t = gt - r * nbr;
+  const float* __restrict__ x = x_all + r * n;
+  float* __restrict__ out = out_all + r * n;
+  volatile unsigned long long* status = scratch + kScratchHead + r * nbr;
   const int64_t base = t * kScanTile;
   const bool vec = base + kScanTile <= n &&
       (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
@@ -323,7 +349,7 @@ scan_single_pass(const float* __restrict__ x, float* __restrict__ out,
   const float excl =
       block_exclusive_scan<Op>(items[kScanItems - 1], warp_tot, &total);
 
-  if (nb > 1) {
+  if (nbr > 1) {
     float prefix = Op::identity();
     const bool anchor = t % kScanThreads == 0;
     if (t == 0) {
@@ -382,8 +408,9 @@ scan_single_pass(const float* __restrict__ x, float* __restrict__ out,
   }
 
   // The last block to finish its look-back leaves the scratch clean.
-  if (nb > 1 && last_block) {
-    for (int64_t i = threadIdx.x; i < nb; i += kScanThreads) status[i] = 0;
+  if (nbr > 1 && last_block) {
+    volatile unsigned long long* all = scratch + kScratchHead;
+    for (int64_t i = threadIdx.x; i < nb; i += kScanThreads) all[i] = 0;
     if (threadIdx.x == 0) {
       scratch[0] = 0;
       scratch[1] = 0;
@@ -393,12 +420,21 @@ scan_single_pass(const float* __restrict__ x, float* __restrict__ out,
 
 template <class Op>
 int run_prefix(const float* x, float* out, unsigned long long* scratch,
-               int64_t n, cudaStream_t stream) {
-  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
-  const int64_t nb = (n + kScanTile - 1) / kScanTile;
-  if (nb > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  scan_single_pass<Op><<<(unsigned)nb, kScanThreads, 0, stream>>>(
-      x, out, scratch, n);
+               int64_t rows, int64_t n, cudaStream_t stream) {
+  if (n <= 0 || n > kMaxN || rows <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t nbr = (n + kScanTile - 1) / kScanTile;
+  const int64_t nb = rows * nbr;
+  if (nb > kMaxN) return (int)cudaErrorInvalidValue;
+  if (nbr > 1 && (scratch == nullptr || nb > kScratchWords - kScratchHead)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 1) {
+    scan_single_pass<Op, false><<<(unsigned)nb, kScanThreads, 0, stream>>>(
+        x, out, scratch, rows, n);
+  } else {
+    scan_single_pass<Op, true><<<(unsigned)nb, kScanThreads, 0, stream>>>(
+        x, out, scratch, rows, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -702,15 +738,20 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src,
   }
 }
 
-// One launch: h f32[n, J] and hist f32[J] from a f32[n, J], ff f32[n],
-// live u8[n] and h0 f32[J].
-template <int J>
+// One launch: for each of `rows` rows, h f32[n, J] and hist f32[J] from
+// a f32[n, J], ff f32[n], live u8[n] and h0 f32[J] (row r of each at r
+// times its row's size).  As in the prefix scan, a tile never crosses a
+// row and its look-back reads only its own row's flags and records, in a
+// single row's grouping, so row r gives the bits of a one-row call on it.
+// kRows = false is the one-row form, compiled without the row arithmetic.
+template <int J, bool kRows>
 __global__ void __launch_bounds__(kAffThreads)
-affine_single_pass(const float* __restrict__ a, const float* __restrict__ ff,
-                   const uint8_t* __restrict__ live,
-                   const float* __restrict__ h0, float* __restrict__ h,
-                   float* __restrict__ hist, unsigned* scratch, int64_t cap,
-                   int64_t n) {
+affine_single_pass(const float* __restrict__ a_all,
+                   const float* __restrict__ ff_all,
+                   const uint8_t* __restrict__ live_all,
+                   const float* __restrict__ h0_all, float* __restrict__ h_all,
+                   float* __restrict__ hist_all, unsigned* scratch, int64_t cap,
+                   int64_t rows, int64_t n) {
   constexpr int kRowA = aff_row(kAffItems * J);
   constexpr int kRowF = aff_row(kAffItems);
   extern __shared__ __align__(16) unsigned char aff_smem[];
@@ -722,15 +763,26 @@ affine_single_pass(const float* __restrict__ a, const float* __restrict__ ff,
   __shared__ unsigned tile_index;
   __shared__ bool last_block;
 
-  const int64_t nb = (n + kAffTile - 1) / kAffTile;
-  unsigned* flags = scratch + kAffHead;
-  float* records = reinterpret_cast<float*>(scratch + aff_payload_offset(cap));
-  int64_t t = 0;
-  if (nb > 1) {
+  const int64_t nbr = (n + kAffTile - 1) / kAffTile;  // tiles per row
+  const int64_t nb = kRows ? rows * nbr : nbr;
+  int64_t gt = blockIdx.x;
+  if (nbr > 1) {
     if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1u);
     __syncthreads();
-    t = (int64_t)tile_index;
+    gt = (int64_t)tile_index;
   }
+  // A 32-bit division (nb < 2^31), cheaper than a 64-bit one.
+  const int64_t r = kRows ? (int64_t)((unsigned)gt / (unsigned)nbr) : 0;
+  const int64_t t = gt - r * nbr;
+  const float* __restrict__ a = a_all + r * n * J;
+  const float* __restrict__ ff = ff_all + r * n;
+  const uint8_t* __restrict__ live = live_all + r * n;
+  const float* __restrict__ h0 = h0_all + r * J;
+  float* __restrict__ h = h_all + r * n * J;
+  float* __restrict__ hist = hist_all + r * J;
+  unsigned* flags = scratch + kAffHead + r * nbr;
+  float* records = reinterpret_cast<float*>(scratch + aff_payload_offset(cap)) +
+                   r * nbr * kAffRecord;
   const int64_t base = t * kAffTile;
   const bool whole = base + kAffTile <= n;
   const int64_t avail = whole ? kAffTile : n - base;
@@ -779,7 +831,7 @@ affine_single_pass(const float* __restrict__ a, const float* __restrict__ ff,
   const Map<J> excl = block_exclusive_scan_maps<J>(P, warp_maps, &total);
 
   // The history entering the tile.
-  if (nb > 1) {
+  if (nbr > 1) {
     const bool anchor = t % kAffThreads == 0;
     float* rec = records + t * kAffRecord;
     if (threadIdx.x == 0 && !anchor) {
@@ -881,8 +933,9 @@ affine_single_pass(const float* __restrict__ a, const float* __restrict__ ff,
   }
 
   // The last block to finish its look-back leaves the scratch clean.
-  if (nb > 1 && last_block) {
-    for (int64_t i = threadIdx.x; i < nb; i += kAffThreads) flags[i] = 0;
+  if (nbr > 1 && last_block) {
+    unsigned* all = scratch + kAffHead;
+    for (int64_t i = threadIdx.x; i < nb; i += kAffThreads) all[i] = 0;
     if (threadIdx.x == 0) {
       scratch[0] = 0;
       scratch[1] = 0;
@@ -893,20 +946,22 @@ affine_single_pass(const float* __restrict__ a, const float* __restrict__ ff,
 template <int J>
 int run_affine(const float* a, const float* ff, const uint8_t* live,
                const float* h0, float* h, float* hist, unsigned* scratch,
-               int64_t cap, int64_t n, cudaStream_t stream) {
-  const int64_t nb = (n + kAffTile - 1) / kAffTile;
-  if (nb > 1 && (scratch == nullptr || nb > cap)) {
+               int64_t cap, int64_t rows, int64_t n, cudaStream_t stream) {
+  const int64_t nbr = (n + kAffTile - 1) / kAffTile;
+  const int64_t nb = rows * nbr;
+  if (nb > kMaxN || (nbr > 1 && (scratch == nullptr || nb > cap))) {
     return (int)cudaErrorInvalidValue;
   }
   constexpr size_t smem = aff_smem_bytes<J>();
+  auto kernel = rows == 1 ? affine_single_pass<J, false>
+                          : affine_single_pass<J, true>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        affine_single_pass<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  affine_single_pass<J><<<(unsigned)nb, kAffThreads, smem, stream>>>(
-      a, ff, live, h0, h, hist, scratch, cap, n);
+  kernel<<<(unsigned)nb, kAffThreads, smem, stream>>>(
+      a, ff, live, h0, h, hist, scratch, cap, rows, n);
   return (int)cudaGetLastError();
 }
 
@@ -919,20 +974,25 @@ long long tuun_scan_scratch_words() { return kScratchWords; }
 int tuun_affine_tile() { return kAffTile; }
 int tuun_affine_max_j() { return kMaxJ; }
 
-// out[i] = x[0] + ... + x[i], the same bits on every call.  scratch: the
-// caller's persistent, zeroed buffer of tuun_scan_scratch_words() 64-bit
-// words for this stream (null when n <= one tile); the kernel leaves it
-// zeroed.  Calls that share a scratch buffer must not overlap.
-int tuun_prefix_sum_f32(const float* x, float* out, unsigned long long* scratch,
-                        long long n, void* stream) {
-  return run_prefix<SumOp>(x, out, scratch, n, (cudaStream_t)stream);
+// x and out f32[rows, n] row-major, each row scanned on its own, in one
+// launch, with the bits a one-row call gives: out[r, i] = x[r, 0] + ... +
+// x[r, i], the same bits on every call.  scratch: the caller's persistent,
+// zeroed buffer of tuun_scan_scratch_words() 64-bit words for this stream
+// (null when n <= one tile), which rows * ceil(n / tile) tiles must fit;
+// the kernel leaves it zeroed.  Calls that share a scratch buffer must not
+// overlap.
+int tuun_prefix_sum_rows_f32(const float* x, float* out,
+                             unsigned long long* scratch, long long rows,
+                             long long n, void* stream) {
+  return run_prefix<SumOp>(x, out, scratch, rows, n, (cudaStream_t)stream);
 }
 
-// out[i] = max(x[0..i]) with torch.cummax's NaN and tie rules; scratch as
-// for tuun_prefix_sum_f32.
-int tuun_prefix_max_f32(const float* x, float* out, unsigned long long* scratch,
-                        long long n, void* stream) {
-  return run_prefix<MaxOp>(x, out, scratch, n, (cudaStream_t)stream);
+// out[r, i] = max(x[r, 0..i]) with torch.cummax's NaN and tie rules; the
+// rest as for tuun_prefix_sum_rows_f32.
+int tuun_prefix_max_rows_f32(const float* x, float* out,
+                             unsigned long long* scratch, long long rows,
+                             long long n, void* stream) {
+  return run_prefix<MaxOp>(x, out, scratch, rows, n, (cudaStream_t)stream);
 }
 
 // Words (32-bit) of an affine-scan scratch buffer for up to `tiles` tiles.
@@ -940,27 +1000,38 @@ long long tuun_affine_scratch_words(long long tiles) {
   return aff_payload_offset(tiles) + tiles * kAffRecord;
 }
 
-// a f32[n, J] row-major, ff f32[n], live u8[n], h0 f32[J].
-// Writes h f32[n, J] (h[i, j] = y[i - j]) and hist f32[J] (= h[n-1, :]).
-// scratch: the caller's persistent buffer of tuun_affine_scratch_words(cap)
-// words for this stream, with counters and flags zero, cap >= nb =
-// ceil(n / tuun_affine_tile()) (null when nb == 1); the kernel leaves it
-// so.  Calls that share a scratch buffer must not overlap.
-int tuun_affine_scan_f32(const float* a, const float* ff, const uint8_t* live,
-                         const float* h0, float* h, float* hist,
-                         unsigned* scratch, long long cap, long long n, int J,
-                         void* stream) {
-  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+// a f32[rows, n, J], ff f32[rows, n], live u8[rows, n], h0 f32[rows, J]
+// (each row-major) -> h f32[rows, n, J] (h[r, i, j] = y_r[i - j]), hist
+// f32[rows, J] (= h[r, n-1, :]), each row scanned on its own, in one
+// launch, with the bits a one-row call gives.  scratch: the caller's
+// persistent buffer of tuun_affine_scratch_words(cap) words for this
+// stream, with counters and flags zero, cap >= rows * ceil(n /
+// tuun_affine_tile()) (null when n <= one tile); the kernel leaves it so.
+// Calls that share a scratch buffer must not overlap.
+int tuun_affine_scan_rows_f32(const float* a, const float* ff,
+                              const uint8_t* live, const float* h0, float* h,
+                              float* hist, unsigned* scratch, long long cap,
+                              long long rows, long long n, int J,
+                              void* stream) {
+  if (n <= 0 || n > kMaxN || rows <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (J) {
-    case 1: return run_affine<1>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 2: return run_affine<2>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 3: return run_affine<3>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 4: return run_affine<4>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 5: return run_affine<5>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 6: return run_affine<6>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 7: return run_affine<7>(a, ff, live, h0, h, hist, scratch, cap, n, s);
-    case 8: return run_affine<8>(a, ff, live, h0, h, hist, scratch, cap, n, s);
+    case 1: return run_affine<1>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 2: return run_affine<2>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 3: return run_affine<3>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 4: return run_affine<4>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 5: return run_affine<5>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 6: return run_affine<6>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 7: return run_affine<7>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
+    case 8: return run_affine<8>(a, ff, live, h0, h, hist, scratch, cap,
+                                 rows, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -43,9 +43,14 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     on the TPU.  Reductions here use int64 lane indices; `fidx` remains
     only as the input of the float32 running-max kernel, exact below
     2^24 lanes, so Ctx refuses larger blocks (MAX_BLOCK).
-  * The masked-sum gather of `_value_at` becomes torch.take at a clamped
-    index; dynamic_slice + roll windows (Fixed playback, the filter's
-    delay line) become gathers at clamped indices.
+  * The masked-sum gather of `_value_at` becomes indexing at a clamped
+    index (not torch.take, which has no batching rule under vmap);
+    dynamic_slice + roll windows (Fixed playback, the filter's delay
+    line) become gathers at clamped indices.
+  * Voice groups (batched_render_fn) run the same render under
+    torch.func.vmap, as the JAX engine vmaps it: every op of the render
+    has a batching rule, the scans' is their voices x lanes kernels
+    (scan_ops.py), and nothing in a render reads a tensor on the host.
   * The BIGF sentinel (2e9) stays only as NO_EDGE, the running-max value
     of lanes without a reset edge: exact in f32 and below every lane.
   * Division by a constant divides by a 0-dim tensor on the operand's
@@ -236,6 +241,32 @@ def state_from_numpy(tree, device):
     raise TypeError(f"unsupported state leaf dtype {a.dtype}")
 
 
+def stack_params(params: List[Params]) -> Params:
+    """A voice group's params: consts [B, C], each Fixed payload [B, L],
+    seeds [B].  Voices group by (structure, fast, lits), so voice 0's host
+    mirror drives what is read on the host (schedules, lengths)."""
+    return Params(torch.stack([P.consts for P in params]),
+                  tuple(torch.stack(xs) for xs in
+                        zip(*[P.fixeds for P in params])),
+                  torch.stack([P.seed for P in params]),
+                  host=params[0].host)
+
+
+def stack_tree(trees: List[Any]):
+    """Same-shaped state trees stacked leaf by leaf on a new leading
+    voice axis."""
+    if isinstance(trees[0], tuple):
+        return tuple(stack_tree(list(xs)) for xs in zip(*trees))
+    return torch.stack(trees)
+
+
+def tree_index(tree, i: int):
+    """Row i of a stacked state tree."""
+    if isinstance(tree, tuple):
+        return tuple(tree_index(x, i) for x in tree)
+    return tree[i]
+
+
 def _host_params(P: Params) -> Params:
     """P as CPU tensors, from its host mirror when it has one."""
     if P.host is not None:
@@ -312,7 +343,7 @@ def _last_lane(ctx, cond, default):
 
 def _value_at(ctx, lane_values, lane, default):
     """lane_values[lane] when 0 <= lane < n, else default."""
-    picked = torch.take(lane_values, lane.clamp(0, ctx.n - 1))
+    picked = lane_values[lane.clamp(0, ctx.n - 1)]
     hit = (lane >= 0) & (lane < ctx.n)
     return torch.where(hit, picked, default)
 
@@ -2030,6 +2061,39 @@ class CompiledVoice:
                 acc = y if acc is None else acc + y
             return (acc if passes > 1 else y), v, st
         return impl
+
+    def batched_init(self, bP: Params):
+        """init under torch.func.vmap over a stacked Params (stack_params):
+        a group's fresh state, [B, ...] on every leaf."""
+        def one(consts, fixeds, seed):
+            return self.init(Params(consts, fixeds, seed, host=bP.host))
+        return torch.func.vmap(one)(bP.consts, bP.fixeds, bP.seed)
+
+    def batched_render_fn(self, n: int, fast: Optional[bool] = None,
+                          lits: Optional[Tuple[int, ...]] = None,
+                          mix: bool = True) -> Callable:
+        """fn(bP, bstate, starts, e) -> (mix[n], v[B], bstate', caps): one
+        render of a whole voice group (tuun_tpu graph.py:2446-2470).
+        _render_impl runs under torch.func.vmap over (params, state,
+        start) with e shared, and the mix sums on the device (mix=False:
+        the voices' samples [B, n] instead).  The scans take their voices
+        x lanes kernels, one launch per call site for the whole group.
+        The voices must share `lits` (the tracker groups by them); on the
+        fast path without them, each voice evaluates its own Fin cutoffs
+        on the device, as render_fn does without P."""
+        fast, lits = self._resolve_fast(fast, None, lits)
+        render = partial(self._render_impl, n, fast, lits)
+
+        def one(consts, fixeds, seed, state, s, e, host=None):
+            return render(Params(consts, fixeds, seed, host=host), state, s, e)
+
+        vmapped = torch.func.vmap(one, in_dims=(0, 0, 0, 0, 0, None))
+
+        def batched(bP, bstate, starts, e):
+            y, v, st, caps = vmapped(bP.consts, bP.fixeds, bP.seed, bstate,
+                                     starts, e, host=bP.host)
+            return (y.sum(0) if mix else y), v, st, caps
+        return batched
 
     def render_block(self, P, state, n: int, s=0, e=None,
                      fast: Optional[bool] = None,

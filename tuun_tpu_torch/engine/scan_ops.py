@@ -37,6 +37,16 @@ or calls on that stream.
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit) and the affine scan any J from 1 to
 MAX_J = 8, so the engine never needs a plain path on the card.
+
+Each scan also has a voices x lanes form (`*_rows_f32`) for a voice
+group: [B, N] rows (the affine scan: a [B, N, J], ff and live [B, N], h0
+[B, J]) scanned in one launch, tiles never crossing a row, row r with the
+bits of a single call on it.  The library exports only the rows form:
+a single-voice entry point launches it on one row.  Under torch.func.vmap (the tracker's group
+render) a single-voice entry point receives batched tensors; it then
+calls a custom op whose batching rule hands the whole [B, ...] batch to
+the rows form, as jax.vmap of a pallas_call adds a grid axis, so a group
+never falls back to a loop over voices.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -61,7 +71,9 @@ MAX_J = 8
 MAX_N = 2 ** 31 - 1
 
 launches: Dict[str, int] = {"prefix_sum_f32": 0, "prefix_max_f32": 0,
-                            "affine_scan_f32": 0}
+                            "affine_scan_f32": 0, "prefix_sum_rows_f32": 0,
+                            "prefix_max_rows_f32": 0,
+                            "affine_scan_rows_f32": 0}
 
 # The affine scan's first scratch covers this many lanes (0.6 MB at
 # 2048-lane tiles); a longer scan grows it.
@@ -124,11 +136,11 @@ def load_library() -> ctypes.CDLL:
     lib.tuun_scan_scratch_words.restype = i64
     lib.tuun_affine_scratch_words.argtypes = [i64]
     lib.tuun_affine_scratch_words.restype = i64
-    for name in ("tuun_prefix_sum_f32", "tuun_prefix_max_f32"):
-        getattr(lib, name).argtypes = [p, p, p, i64, p]
+    for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
+        getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
         getattr(lib, name).restype = i32
-    lib.tuun_affine_scan_f32.argtypes = [p] * 7 + [i64, i64, i32, p]
-    lib.tuun_affine_scan_f32.restype = i32
+    lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [i64, i64, i64, i32, p]
+    lib.tuun_affine_scan_rows_f32.restype = i32
     if lib.tuun_affine_max_j() != MAX_J:
         raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
     global _scan_tile, _scratch_words, _affine_tile
@@ -144,15 +156,18 @@ def _check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
 
 
-def _check_vector(x: torch.Tensor, name: str) -> None:
+def _check_vector(x: torch.Tensor, name: str, dims: int = 1) -> None:
     # Runs on every call, so each message is formatted only when its
-    # check fails.
+    # check fails.  dims = 2: [B, N] rows.
     if x.dtype != torch.float32:
         raise ValueError(f"{name}: expected float32, got {x.dtype}")
-    if x.dim() != 1:
-        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(x.shape)}")
-    if not 1 <= x.shape[0] <= MAX_N:
-        raise ValueError(f"{name}: length {x.shape[0]} outside [1, {MAX_N}]")
+    if x.dim() != dims:
+        raise ValueError(f"{name}: expected a {dims}-D tensor, got "
+                         f"{tuple(x.shape)}")
+    if not 1 <= x.shape[-1] <= MAX_N:
+        raise ValueError(f"{name}: length {x.shape[-1]} outside [1, {MAX_N}]")
+    if x.shape[0] < 1:
+        raise ValueError(f"{name}: no rows")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if not (x.is_cuda or x.is_cpu):
@@ -165,11 +180,13 @@ def _check_vector(x: torch.Tensor, name: str) -> None:
 
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, 0, dtype=torch.float32)
+    """The plain version of both sum forms: along the last axis."""
+    return torch.cumsum(x, -1, dtype=torch.float32)
 
 
 def prefix_max_ref(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummax(x, 0).values
+    """The plain version of both max forms: along the last axis."""
+    return torch.cummax(x, -1).values
 
 
 def _zeroed(words: int, dtype, device: int, what: str) -> torch.Tensor:
@@ -203,14 +220,21 @@ def prefix_scratch(device: int, stream: int,
 
 
 def _prefix_launch(fn, entry: str, x: torch.Tensor) -> torch.Tensor:
-    n = x.shape[0]
+    """Launches `fn`, a rows entry point, on x as rows (a 1-D x is one
+    row) and counts the launch under `entry`."""
+    n = x.shape[-1]
+    rows = x.shape[0] if x.dim() == 2 else 1
     dev = x.get_device()
     # torch.cuda.current_stream(dev).cuda_stream without building a Stream
     # object, which cost ~2 us of host time per call.
     stream = torch._C._cuda_getCurrentRawStream(dev)
     scratch = prefix_scratch(dev, stream).data_ptr() if n > _scan_tile else 0
+    if scratch and rows * -(-n // _scan_tile) > _scratch_words - 2:
+        raise ValueError(f"{entry}: {rows} rows of {n} lanes exceed the "
+                         f"prefix scratch's tiles")
     out = torch.empty_like(x)
-    _check(fn(x.data_ptr(), out.data_ptr(), scratch, n, stream), entry)
+    status = fn(x.data_ptr(), out.data_ptr(), scratch, rows, n, stream)
+    _check(status, entry)
     launches[entry] += 1
     return out
 
@@ -227,21 +251,45 @@ def prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
     tile's own roundings, the carry's tree, and one rounding per anchor
     passed).  The grouping does not depend on timing, so every call
     gives the same bits."""
+    if _is_batched(x):
+        return _vmap_op("prefix_sum")(x)
     _check_vector(x, "prefix_sum_f32")
     if x.is_cpu:
         return prefix_sum_ref(x)
-    return _prefix_launch(load_library().tuun_prefix_sum_f32,
+    return _prefix_launch(load_library().tuun_prefix_sum_rows_f32,
                           "prefix_sum_f32", x)
 
 
 def prefix_max_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive running max of a 1-D float32 tensor, bit-identical to
     torch.cummax(x, 0).values (NaN propagates; ties take the later lane)."""
+    if _is_batched(x):
+        return _vmap_op("prefix_max")(x)
     _check_vector(x, "prefix_max_f32")
     if x.is_cpu:
         return prefix_max_ref(x)
-    return _prefix_launch(load_library().tuun_prefix_max_f32,
+    return _prefix_launch(load_library().tuun_prefix_max_rows_f32,
                           "prefix_max_f32", x)
+
+
+def prefix_sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
+    """prefix_sum_f32 of each row of a float32 [B, N] tensor, in one
+    launch; row r has the bits of prefix_sum_f32(x[r])."""
+    _check_vector(x, "prefix_sum_rows_f32", dims=2)
+    if x.is_cpu:
+        return prefix_sum_ref(x)
+    return _prefix_launch(load_library().tuun_prefix_sum_rows_f32,
+                          "prefix_sum_rows_f32", x)
+
+
+def prefix_max_rows_f32(x: torch.Tensor) -> torch.Tensor:
+    """prefix_max_f32 of each row of a float32 [B, N] tensor, in one
+    launch: bit-identical to torch.cummax(x, -1).values."""
+    _check_vector(x, "prefix_max_rows_f32", dims=2)
+    if x.is_cpu:
+        return prefix_max_ref(x)
+    return _prefix_launch(load_library().tuun_prefix_max_rows_f32,
+                          "prefix_max_rows_f32", x)
 
 
 # ---------------------------------------------------------------------------
@@ -255,27 +303,30 @@ def affine_scan_ref(a_rows: torch.Tensor, ff: torch.Tensor,
     """Companion-matrix composition (tuun_tpu/engine/graph.py:876-897),
     scanned by doubling: after the step of width k, lane i holds the
     composed map of lanes (i-2k, i].  Runs in the inputs' dtype, so
-    float64 inputs give the reference the kernel is checked against."""
-    n, J = a_rows.shape
+    float64 inputs give the reference the kernel is checked against.
+    The plain version of both forms: leading axes (a [..., N, J], ff and
+    live [..., N], h0 [..., J]) are rows scanned on their own."""
+    n, J = a_rows.shape[-2:]
+    lead = a_rows.shape[:-2]
     eye = torch.eye(J, dtype=a_rows.dtype, device=a_rows.device)
-    top = -a_rows[:, None, :]
+    top = -a_rows[..., None, :]
     if J > 1:
-        A = torch.cat([top, eye[:-1].expand(n, J - 1, J)], dim=1)
+        A = torch.cat([top, eye[:-1].expand(*lead, n, J - 1, J)], dim=-2)
     else:
         A = top
-    b = torch.cat([ff[:, None], ff.new_zeros((n, J - 1))], dim=1)
-    A = torch.where(live[:, None, None], A, eye)
-    b = torch.where(live[:, None], b, 0.0)
+    b = torch.cat([ff[..., None], ff.new_zeros((*lead, n, J - 1))], dim=-1)
+    A = torch.where(live[..., None, None], A, eye)
+    b = torch.where(live[..., None], b, 0.0)
     k = 1
     while k < n:
-        Ac, bc = A[k:], b[k:]
-        nA = Ac @ A[:-k]
-        nb = (Ac @ b[:-k, :, None])[..., 0] + bc
-        A = torch.cat([A[:k], nA])
-        b = torch.cat([b[:k], nb])
+        Ac, bc = A[..., k:, :, :], b[..., k:, :]
+        nA = Ac @ A[..., :-k, :, :]
+        nb = (Ac @ b[..., :-k, :, None])[..., 0] + bc
+        A = torch.cat([A[..., :k, :, :], nA], dim=-3)
+        b = torch.cat([b[..., :k, :], nb], dim=-2)
         k *= 2
-    hs = (A @ h0) + b
-    return hs, hs[-1].clone()
+    hs = (A @ h0[..., None, :, None])[..., 0] + b
+    return hs, hs[..., -1, :].clone()
 
 
 def _check_affine(a_rows, ff, live, h0) -> None:
@@ -296,12 +347,36 @@ def _check_affine(a_rows, ff, live, h0) -> None:
         raise ValueError("affine_scan_f32: live must be bool [N]")
     if h0.dtype != torch.float32 or h0.shape != (J,):
         raise ValueError("affine_scan_f32: h0 must be float32 [J]")
+    _check_layout(a_rows, ff, live, h0, "affine_scan_f32")
+
+
+def _check_affine_rows(a_rows, ff, live, h0) -> None:
+    name = "affine_scan_rows_f32"
+    if a_rows.dtype != torch.float32 or a_rows.dim() != 3:
+        raise ValueError(f"{name}: a_rows must be float32 [B, N, J], got "
+                         f"{a_rows.dtype} {tuple(a_rows.shape)}")
+    B, n, J = a_rows.shape
+    if not 1 <= J <= MAX_J:
+        raise NotImplementedError(
+            f"{name}: feedback depth J={J} outside 1..{MAX_J} "
+            f"(deeper filters: ROADMAP.md queue 2)")
+    _check_vector(ff, f"{name} ff", dims=2)
+    if ff.shape != (B, n):
+        raise ValueError(f"{name}: ff must be [B, N]")
+    if live.dtype != torch.bool or live.shape != (B, n):
+        raise ValueError(f"{name}: live must be bool [B, N]")
+    if h0.dtype != torch.float32 or h0.shape != (B, J):
+        raise ValueError(f"{name}: h0 must be float32 [B, J]")
+    _check_layout(a_rows, ff, live, h0, name)
+
+
+def _check_layout(a_rows, ff, live, h0, name) -> None:
     dev = ff.device
     for x in (a_rows, live, h0):
         if not x.is_contiguous():
-            raise ValueError("affine_scan_f32: inputs must be contiguous")
+            raise ValueError(f"{name}: inputs must be contiguous")
         if x.device != dev:
-            raise ValueError("affine_scan_f32: inputs on different devices")
+            raise ValueError(f"{name}: inputs on different devices")
 
 
 def _zeroed_affine_scratch(device: int, tiles: int) -> torch.Tensor:
@@ -346,22 +421,102 @@ def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     The CUDA kernel carries the history across tiles and threads by
     composed maps and runs the recurrence itself over each thread's
     lanes, in a fixed grouping: every call gives the same bits."""
+    if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
+            or _is_batched(h0):
+        return _vmap_op("affine_scan")(a_rows, ff, live, h0)
     _check_affine(a_rows, ff, live, h0)
     if ff.is_cpu:
         return affine_scan_ref(a_rows, ff, live, h0)
+    return _affine_launch(a_rows, ff, live, h0, 1, "affine_scan_f32")
+
+
+def affine_scan_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
+                         live: torch.Tensor, h0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """affine_scan_f32 of each of B rows in one launch: a_rows f32[B, N,
+    J], ff f32[B, N], live bool[B, N], h0 f32[B, J] -> (h f32[B, N, J],
+    hist f32[B, J]); row r has the bits of a single call on row r."""
+    _check_affine_rows(a_rows, ff, live, h0)
+    if ff.is_cpu:
+        return affine_scan_ref(a_rows, ff, live, h0)
+    return _affine_launch(a_rows, ff, live, h0, ff.shape[0],
+                          "affine_scan_rows_f32")
+
+
+def _affine_launch(a_rows, ff, live, h0, rows: int, entry: str):
+    """Launches the rows kernel on `rows` rows (1: a single voice's
+    unbatched operands) and counts the launch under `entry`."""
     lib = load_library()
-    n, J = a_rows.shape
+    n, J = a_rows.shape[-2:]
     dev = ff.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    tiles = -(-n // _affine_tile)
-    scratch, cap = affine_scratch(dev, stream, tiles) if tiles > 1 \
-        else (None, 0)
-    h = torch.empty((n, J), dtype=torch.float32, device=ff.device)
-    hist = torch.empty(J, dtype=torch.float32, device=ff.device)
-    _check(lib.tuun_affine_scan_f32(
+    per_row = -(-n // _affine_tile)
+    scratch, cap = affine_scratch(dev, stream, rows * per_row) \
+        if per_row > 1 else (None, 0)
+    h = torch.empty(a_rows.shape, dtype=torch.float32, device=ff.device)
+    hist = torch.empty(h0.shape, dtype=torch.float32, device=ff.device)
+    sp = scratch.data_ptr() if scratch is not None else 0
+    status = lib.tuun_affine_scan_rows_f32(
         a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(), h0.data_ptr(),
-        h.data_ptr(), hist.data_ptr(),
-        scratch.data_ptr() if scratch is not None else 0, cap, n, J, stream),
-        "affine_scan_f32")
-    launches["affine_scan_f32"] += 1
+        h.data_ptr(), hist.data_ptr(), sp, cap, rows, n, J, stream)
+    _check(status, entry)
+    launches[entry] += 1
     return h, hist
+
+
+# ---------------------------------------------------------------------------
+# Batching rules: the scans under torch.func.vmap
+# ---------------------------------------------------------------------------
+
+
+def _is_batched(x: torch.Tensor) -> bool:
+    """Whether x is a tensor that torch.func.vmap is batching."""
+    return torch._C._functorch.is_batchedtensor(x)
+
+
+def _rows(x: torch.Tensor, bdim, batch: int) -> torch.Tensor:
+    """The vmapped operand as contiguous rows with the voice axis first
+    (an operand vmap does not batch is the same for every voice)."""
+    if bdim is None:
+        return x.expand(batch, *x.shape).contiguous()
+    return x.movedim(bdim, 0).contiguous()
+
+
+# Custom ops with a vmap rule, made at the first batched call (the CPU
+# tests import this module many times over; none registers at import).
+_vmap_ops: Dict[str, Any] = {}
+
+
+def _vmap_op(kind: str):
+    op = _vmap_ops.get(kind)
+    if op is not None:
+        return op
+    lib = torch.library
+    # Annotations name module-level types: custom_op reads them as
+    # strings (from __future__ import annotations).
+    if kind == "affine_scan":
+        @lib.custom_op("tuun_tpu_torch::affine_scan_f32", mutates_args=())
+        def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
+               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            h, hist = affine_scan_f32(a_rows, ff, live, h0)
+            return h, hist
+
+        def rule(info, dims, a_rows, ff, live, h0):
+            args = [_rows(x, d, info.batch_size)
+                    for x, d in zip((a_rows, ff, live, h0), dims)]
+            return affine_scan_rows_f32(*args), (0, 0)
+    else:
+        single = {"prefix_sum": prefix_sum_f32,
+                  "prefix_max": prefix_max_f32}[kind]
+        rows_fn = {"prefix_sum": prefix_sum_rows_f32,
+                   "prefix_max": prefix_max_rows_f32}[kind]
+
+        @lib.custom_op(f"tuun_tpu_torch::{kind}_f32", mutates_args=())
+        def op(x: torch.Tensor) -> torch.Tensor:
+            return single(x)
+
+        def rule(info, dims, x):
+            return rows_fn(_rows(x, dims[0], info.batch_size)), 0
+    op.register_vmap(rule)
+    _vmap_ops[kind] = op
+    return op

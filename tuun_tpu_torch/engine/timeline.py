@@ -20,8 +20,11 @@ start offsets, evaluated in O(active structure) per block:
 
 Offsets come from the literal Fin cutoffs (CompiledVoice.lits_for), so
 the schedule is host ints.  Everything the evaluation needs on the
-device (the step points and values, the parameter tables) is built once
-per (params, lits) and cached, so a block makes no host-to-device copy.
+device is built once per lits (the step points, the const indices each
+table gathers) and gathered once per params (the step values, the
+parameter tables), so a block makes no host-to-device copy.  A voice
+group's params are batched by vmap for one render only, so its tables
+are gathered on the device in every render.
 The step sums scatter deltas at host-merged points, one per slot, so a
 block gives the same bits on every call (no float atomics).
 
@@ -33,7 +36,7 @@ zero-extends to the longer operand.
 from __future__ import annotations
 
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -252,21 +255,40 @@ class _Steps:
     values: torch.Tensor
 
 
-def _steps(points: np.ndarray, values: torch.Tensor) -> _Steps:
-    """Merges equal points; `values` [S] is on the evaluation device."""
-    dev = values.device
+@dataclass
+class _StepMerge:
+    """How _steps merges S points into G: the merged points, and for each
+    d the index of member d of every group in the values (S: none)."""
+    points: torch.Tensor
+    members: List[torch.Tensor]
+
+
+def _step_merge(points: np.ndarray, dev) -> _StepMerge:
     order = np.argsort(points, kind="stable")
     uniq, first, counts = np.unique(points[order], return_index=True,
                                     return_counts=True)
-    # Member d of each group (or the zero appended at index S).
     S = len(points)
-    vz = torch.cat([values, values.new_zeros(1)])
+    members = [torch.as_tensor(
+        np.where(counts > d, order[np.minimum(first + d, S - 1)], S),
+        device=dev) for d in range(int(counts.max()))]
+    return _StepMerge(torch.as_tensor(uniq, dtype=I64, device=dev), members)
+
+
+def _steps(points: np.ndarray, values: torch.Tensor) -> _Steps:
+    """Merges equal points; `values` [S] is on the evaluation device."""
+    return _merged_steps(_step_merge(points, values.device), values)
+
+
+def _merged_steps(merge: _StepMerge, values: torch.Tensor) -> _Steps:
+    """The step function of `values` [S] at the merged points: the values
+    of equal points summed in their order, by device gathers only."""
+    vz = torch.cat([values, torch.zeros(1, dtype=values.dtype,
+                                        device=values.device)])
     merged = None
-    for d in range(int(counts.max())):
-        idx = np.where(counts > d, order[np.minimum(first + d, S - 1)], S)
-        col = vz[torch.as_tensor(idx, device=dev)]
+    for idx in merge.members:
+        col = vz[idx]
         merged = col if merged is None else merged + col
-    return _Steps(torch.as_tensor(uniq, dtype=I64, device=dev), merged)
+    return _Steps(merge.points, merged)
 
 
 def _step_sum(li0, n: int, steps: _Steps) -> torch.Tensor:
@@ -274,15 +296,15 @@ def _step_sum(li0, n: int, steps: _Steps) -> torch.Tensor:
     265): each point's delta lands at its lane, the points at or before
     li0 are summed into lane 0, then one prefix sum -- O(n + G) instead
     of the O(G * n) broadcast.  Merged points give distinct lanes, so the
-    scatter writes each slot once and no float atomics are involved."""
+    scatter writes each slot once and no float atomics are involved.  The
+    scatter is out of place (a voice group vmaps it)."""
     t = steps.points - li0
     inside = (t > 0) & (t < n)
-    delta = steps.values.new_zeros(n + 1)
     # Points outside (0, n) write zero into the spare slot n.
-    delta.index_put_((torch.where(inside, t, n),),
-                     torch.where(inside, steps.values, 0.0))
-    delta[0] = torch.where(t <= 0, steps.values, 0.0).sum()
-    return _cumsum(delta[:n])
+    delta = torch.zeros(n + 1, dtype=f32, device=t.device).index_put(
+        (torch.where(inside, t, n),), torch.where(inside, steps.values, 0.0))
+    head = torch.where(t <= 0, steps.values, 0.0).sum()
+    return _cumsum(torch.cat([head[None], delta[1:n]]))
 
 
 def _layer_partition(entries: List[Tuple[int, int, Optional[int]]]):
@@ -342,6 +364,19 @@ class _Plan:
     items: List  # _Chord, _Layer, or (node, off) for a lone leaf
 
 
+@dataclass
+class _Layout:
+    """The part of a plan that depends on lits alone, on the device: the
+    const indices each table gathers from the params.  `items` hold
+    _Chord / _Layer with an int64 index tensor in place of `table`."""
+    total: Optional[int]
+    const_merge: Optional[_StepMerge]
+    const_vidx: Optional[torch.Tensor]   # [S] const index of each value
+    const_fin: Optional[torch.Tensor]    # [S] bool: the leaf ends
+    const_offs_ends: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    items: List
+
+
 class CTimeline(Node):
     """A compiled Merge/Append tree in timeline form.
 
@@ -357,6 +392,7 @@ class CTimeline(Node):
         self.infos = infos
         self._sched_cache: Dict[Tuple, Optional[Tuple]] = {}
         self._plans: Dict[Tuple, _Plan] = {}
+        self._layouts: Dict[Tuple, _Layout] = {}
         self.reloc = self._reloc
 
     # -- schedule (host side, once per lits) ---------------------------
@@ -406,16 +442,46 @@ class CTimeline(Node):
         return sched
 
     def _plan_for(self, P, lits) -> _Plan:
+        """The plan for (P, lits): cached per params for a voice of its
+        own; gathered anew from the layout for a voice group, whose
+        params are batched by vmap and live only for one render."""
+        if torch._C._functorch.is_batchedtensor(P.consts):
+            return self._bind(self._layout_for(P, lits), P)
         key = (id(P), lits)
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = self._build_plan(P, lits)
+            plan = self._plans[key] = self._bind(self._layout_for(P, lits),
+                                                 P)
             # id(P) is only P's while P lives: evict with it.
             weakref.finalize(P, self._plans.pop, key, None)
         return plan
 
-    def _build_plan(self, P, lits) -> _Plan:
-        """The grouping of tuun_tpu timeline.py:387-443, with every table
+    def _layout_for(self, P, lits) -> _Layout:
+        # Per device too: lengths evaluate on CPU copies of the params.
+        key = (lits, P.device)
+        layout = self._layouts.get(key)
+        if layout is None:
+            layout = self._layouts[key] = self._build_layout(P, lits)
+        return layout
+
+    @staticmethod
+    def _bind(layout: _Layout, P) -> _Plan:
+        """A plan from a layout: every table gathered from P.consts."""
+        const, const_bcast = None, None
+        if layout.const_merge is not None:
+            vals = P.consts[layout.const_vidx]                   # [S]
+            const = _merged_steps(
+                layout.const_merge, torch.cat([vals, -vals[layout.const_fin]]))
+            const_bcast = layout.const_offs_ends + (vals,)
+        items = []
+        for item in layout.items:
+            if isinstance(item, (_Chord, _Layer)) and item.table is not None:
+                item = replace(item, table=P.consts[item.table])
+            items.append(item)
+        return _Plan(layout.total, const, const_bcast, items)
+
+    def _build_layout(self, P, lits) -> _Layout:
+        """The grouping of tuun_tpu timeline.py:387-443, with every index
         on P's device."""
         entries, total = self._sched_for(P, lits)
         dev = P.device
@@ -423,24 +489,24 @@ class CTimeline(Node):
         def consts_table(group):
             idx = np.stack([np.arange(self.infos[i].c0, self.infos[i].c1)
                             for (i, _, _) in group])          # [S, C]
-            return P.consts[torch.as_tensor(idx, device=dev)]
+            return torch.as_tensor(idx, device=dev)
 
-        const, const_bcast = None, None
+        const_merge = const_vidx = const_fin = const_offs_ends = None
         const_entries = [(i, off, end) for (i, off, end) in entries
                          if self.infos[i].const_idx is not None]
         if const_entries:
             offs = np.array([off for (_, off, _) in const_entries], np.int64)
             ends = np.array([_NEVER if end is None else end
                              for (_, _, end) in const_entries], np.int64)
-            vidx = [self.infos[i].const_idx for (i, _, _) in const_entries]
-            vals = P.consts[torch.as_tensor(vidx, device=dev)]   # [S]
+            const_vidx = torch.as_tensor(
+                [self.infos[i].const_idx for (i, _, _) in const_entries],
+                device=dev)
             # An infinite leaf never steps down: no -v point.
             fin = ends < _NEVER
-            const = _steps(np.concatenate([offs, ends[fin]]),
-                           torch.cat([vals, -vals[torch.as_tensor(
-                               fin, device=dev)]]))
-            const_bcast = (torch.as_tensor(offs, device=dev),
-                           torch.as_tensor(ends, device=dev), vals)
+            const_fin = torch.as_tensor(fin, device=dev)
+            const_merge = _step_merge(np.concatenate([offs, ends[fin]]), dev)
+            const_offs_ends = (torch.as_tensor(offs, device=dev),
+                               torch.as_tensor(ends, device=dev))
 
         # Structured leaves grouped by structure; simultaneous leaves of a
         # group (a chord) evaluate once, the rest layer by overlap.
@@ -487,7 +553,8 @@ class CTimeline(Node):
                                             device=dev)),
                     rep.c0, consts_table(layer) if rep.c1 > rep.c0 else None,
                     rep.f0, ftable))
-        return _Plan(total, const, const_bcast, items)
+        return _Layout(total, const_merge, const_vidx, const_fin,
+                       const_offs_ends, items)
 
     # -- evaluation -----------------------------------------------------
 
