@@ -30,17 +30,24 @@ Phases, each of which exits non-zero on failure:
      ways beside B single calls.  sin's sign at all 2^24 NCO
      grid angles must equal the phase's top bit on the card (the analytic
      Reset tiers rest on it).
-  3. main path: the batch CLI (python -m tuun_tpu_torch) renders W1-W3,
-     W5 (bench.py's marks_4_40), W6 (poly_16) and W2g (a reset no
-     analytic tier takes) at 48 kHz in 65536-sample blocks (W1 also with
-     the default --precompute true, as W1p).  The valid samples the
-     engine itself reported, and the WAV's length, must equal the native
-     oracle's length; the first 2 s must match the port's numpy oracle (a
-     copy of tuun_tpu's, held equal to it by tests/test_torch_frontend.py)
-     within the fast-mode tolerances stated below.  W5 and W6 must compile
-     to a timeline (W6 with its 16 tones in one stacked chord) and give
-     the same bits on both renders.  Every kernel must have launched in
-     this phase: its counts are the `launches` of the kernels line.
+  3. main path: the batch CLI (python -m tuun_tpu_torch, which streams at
+     sync_interval=16: the fused step and 16-block lookahead windows as
+     CUDA graph replays) renders W1-W3, W5 (bench.py's marks_4_40), W6
+     (poly_16) and W2g (a reset no analytic tier takes) at 48 kHz in
+     65536-sample blocks (W1 also with the default --precompute true, as
+     W1p).  The valid samples the engine itself reported, as the tracker
+     resolved them on every path (Voice.produced), and the WAV's length,
+     must equal the native oracle's length; the first 2 s must match the
+     port's numpy oracle (a copy of tuun_tpu's, held equal to it by
+     tests/test_torch_frontend.py) within the fast-mode tolerances stated
+     below.  Each workload logs how its blocks were served (per voice,
+     fused, a window opened or served) and the captures and replays.  W5
+     and W6 must compile to a timeline (W6 with its 16 tones in one
+     stacked chord) and give the same bits on both renders: they capture
+     inline (fuse_blocking), so both renders take the same paths.  Every
+     kernel must have launched in this phase (a graph replay counts the
+     launches its capture recorded): its counts are the `launches` of the
+     kernels line.
   4. cross-device: W1's first 2 s rendered on the CPU (plain scans, CPU
      sin) against the card's render.
   5. engine: filter_4_3 (W4) through CompiledVoice.render_block in 8
@@ -48,10 +55,10 @@ Phases, each of which exits non-zero on failure:
      oracle; its launches are reported on a line of their own.
   6. profiles: for W1 and W2 with the analytic Reset tiers and with them
      forced off, and for W3, W5, W6 and W2g, one engine render of the
-     whole piece (CompiledVoice, 65536-lane blocks, warm) in a child
-     process of its own (`--profile NAME [--generic]`, its first
-     torch.profiler session): device events per block and the device's
-     idle share.
+     piece's first 16 blocks (CompiledVoice, 65536-lane blocks, warm; W1
+     has 8), all in one child process and its first torch.profiler
+     session (`--profile W1,W1:generic,...`), each in a range of its
+     own: device events per block and the device's idle share.
   7. reloc_fast: W1, W2, W5 and W6 rendered warm through CompiledVoice in
      65536-lane blocks with EngineConfig(reloc_fast=True) and with the
      default, in turns (default, fast, fast, default).
@@ -63,16 +70,32 @@ Phases, each of which exits non-zero on failure:
      against the sum of every voice's own render, with every group render
      launching each scan's voices x lanes form as often as one voice
      launches its single form.  Their launches are the counts of the
-     voices x lanes forms.  Each G2 session is then timed in turns
-     against the per-voice loop that groups replace (groups, loop, loop,
-     groups; the loop's mix held to the same bound).  Then profiles of
-     G1, one G1 voice alone and G2 at the live block, each in a child
-     (`--profile G1|G1one|G2`), and phase 2's one-launch calls counted
-     under an in-process profiler session (logged, not held: the child
-     of phase 2 holds them).
+     voices x lanes forms.  The live-block session is then timed in
+     turns against the per-voice loop that groups replace (groups, loop;
+     the loop's mix held to the same bound).  These run with the fused
+     step off (the per-call path).  Then the streaming path:
+     G2 at the live block with the fused step on, at sync_interval 1 and
+     4 (windows of 4 blocks, prefetch on), each mix held to the same
+     bound (its FM term scaled to the window's length), every block's
+     path and the capture, replay, window and prefetch counters logged;
+     G3, a stable set of G2's instruments held 5 s, in turns (the per-call
+     path, fused, sync_interval=4, per-call), where the fused step and
+     windows must engage (a fused block one dispatch, a served block none);
+     and a capture check against the eager path (a replay while another
+     tracker captures, a same-key set swapped in, a window interrupted by a
+     play).  The pools of each tracker's live graphs are logged as it
+     closes (CLI runs, G2 and G3 sessions), and the allocator's after the
+     CLI runs and after G2 and G3.  Then profiles of G1 and one G1 voice
+     alone in one child (`--profile G1,G1one`), and of the first third of
+     G2's live-block session in another, and phase 2's one-launch calls
+     counted under
+     an in-process profiler session (logged, not held: the child of phase 2
+     holds them).
 
 The second-last line is the JSON list of kernels; the last line is
-{"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2.
+{"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2;
+`--phase stream` runs only phase 8's capture check, G3 and G2's
+streaming sessions.
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
@@ -359,7 +382,7 @@ def phase_kernels(torch, np, scan_ops, results):
                 f"lanes: max_abs_err={err:.3e} = {err / scale:.2e} of scale")
     # In a child: the first profiler session of a process that has run no
     # graph or second stream (events went missing once after both).
-    profile_in_child("launches")
+    profile_in_child([LAUNCH_PROFILE])
     check_affine_repeatable(torch, np, scan_ops, rng)
     check_affine_graph(torch, np, scan_ops, rng, (MAIN_N, (1 << 20) + 5))
     check_affine_streams(torch, np, scan_ops, rng, (1 << 20) + 5)
@@ -1027,43 +1050,134 @@ def check_fast_mode(name, stats, fm: bool):
           f"{name}: fast-mode deviation outside tolerance: {stats}")
 
 
-class ValidEnds:
-    """Records, while active, the valid end that every
-    CompiledVoice.render_block call returns, so the length a render
-    produced can be read from the engine itself and not from the
-    tracker's cut of the mix to the oracle's length.  Keeps the 0-dim
-    tensors and reads them after the run: it adds no host wait."""
+class TrackerRuns:
+    """While active, records every Tracker built (optionally pinning its
+    `fuse_blocking`), every voice one activates and, for every block it
+    renders, how it was served: "pervoice" (one call per member), "fused"
+    (one replay of the fused step's graph), "open" (a lookahead window
+    opened: one replay), "served" (a window's later block: no call) or
+    "idle" (no voice), with its dispatches.  The engine's valid samples are
+    read from what the tracker resolved (Voice.produced): on the fused and
+    window paths no CompiledVoice.render_block runs, and a replay runs no
+    Python at all."""
+
+    def __init__(self, fuse_blocking=None):
+        self.fuse_blocking = fuse_blocking
 
     def __enter__(self):
-        from tuun_tpu_torch.engine import CompiledVoice
-        self.calls = []
-        self._cls, self._orig = CompiledVoice, CompiledVoice.render_block
-        orig, calls = self._orig, self.calls
+        import torch
+        from tuun_tpu_torch.tracker import Tracker
+        self.trackers, self.voices, self.blocks = [], [], []
+        self.walls = []  # (a capture was running, seconds) per block
+        self.pools = []  # each closed tracker's live graphs' pools
+        self._saved = (Tracker.__init__, Tracker._activate,
+                       Tracker.render_block, Tracker.close)
+        init, activate, render, close = self._saved
+        runs = self
 
-        def render_block(voice, P, state, n, s=0, e=None, **kw):
-            out = orig(voice, P, state, n, s, e, **kw)
-            calls.append((voice, s, n if e is None else e, out[1]))
+        def init_(tracker, *a, **k):
+            init(tracker, *a, **k)
+            if runs.fuse_blocking is not None:
+                tracker.fuse_blocking = runs.fuse_blocking
+            runs.trackers.append(tracker)
+
+        def activate_(tracker, p, block_start):
+            voice = activate(tracker, p, block_start)
+            runs.voices.append(voice)
+            return voice
+
+        def close_(tracker):
+            runs.pools.append(tracker_pools(torch, tracker))
+            close(tracker)
+
+        def render_(tracker):
+            opens, replays = tracker.window_opens, tracker.replays
+            busy = tracker.captures_started > tracker.captures_finished
+            t0 = time.perf_counter()
+            out = render(tracker)
+            runs.walls.append((busy, time.perf_counter() - t0))
+            status = out[1]
+            if tracker.window_opens > opens:
+                path = "open"
+            elif status.dispatches == 0:
+                path = "served" if status.voices else "idle"
+            elif tracker.replays > replays:
+                path = "fused"
+            else:
+                path = "pervoice"
+            runs.blocks.append((path, status.dispatches))
             return out
-
-        CompiledVoice.render_block = render_block
+        Tracker.__init__, Tracker._activate = init_, activate_
+        Tracker.render_block, Tracker.close = render_, close_
         return self
 
     def __exit__(self, *exc):
-        self._cls.render_block = self._orig
+        from tuun_tpu_torch.tracker import Tracker
+        (Tracker.__init__, Tracker._activate, Tracker.render_block,
+         Tracker.close) = self._saved
 
-    def produced(self):
-        """Valid samples per compiled voice, in the order each was first
-        rendered: the sum of v - s over its blocks, up to and including
-        the first block that ended short (v < e)."""
-        total, done = {}, set()
-        for voice, s, e, v in self.calls:
-            if id(voice) in done:
-                continue
-            s, e, v = int(s), int(e), int(v)
-            total[id(voice)] = total.get(id(voice), 0) + max(v - s, 0)
-            if v < e:
-                done.add(id(voice))
-        return list(total.values())
+    def paths(self) -> dict:
+        """Blocks per path, the dispatches of each path's blocks, and the
+        tracker's capture, replay, window and prefetch counters."""
+        out = {k: sum(p == k for p, _ in self.blocks)
+               for k in ("pervoice", "fused", "open", "served", "idle")}
+        out["dispatches"] = {k: sorted({d for p, d in self.blocks if p == k})
+                             for k in out if out[k]}
+        for name in ("captures_started", "captures_finished", "replays",
+                     "window_opens", "_prefetch_hits", "_prefetch_misses"):
+            out[name.strip("_")] = sum(getattr(t, name)
+                                       for t in self.trackers)
+        out["capture_s"] = [x for t in self.trackers
+                            for x in t.capture_seconds]
+        if self.pools:  # at the first close, the session's end
+            out["graphs"] = self.pools[0]
+        # What a capture costs the serve thread: the blocks rendered while
+        # one of the tracker's captures ran, beside the others.
+        for key, busy in (("blocks_capturing", True),
+                          ("blocks_not_capturing", False)):
+            ms = sorted(w * 1e3 for b, w in self.walls if b == busy)
+            if ms:
+                out[key] = dict(n=len(ms), p50_ms=ms[len(ms) // 2],
+                                max_ms=ms[-1])
+        return out
+
+
+def check_paths(name, paths) -> None:
+    """A fused block is one dispatch, a window's opening block one and
+    every block it serves none."""
+    d = paths["dispatches"]
+    check(d.get("fused", [1]) == [1] and d.get("open", [1]) == [1]
+          and d.get("served", [0]) == [0],
+          f"{name}: dispatches per path {d}")
+
+
+def tracker_pools(torch, tracker) -> dict:
+    """The bytes and count of the memory pools of a tracker's live CUDA
+    graphs (each captured session step has its own)."""
+    pools = {ent["step"]._graph.pool()
+             for ent in tracker._fused_cache.values()
+             if ent["fn"] is not None and ent["step"].captured}
+    segs = [sg for sg in torch.cuda.memory_snapshot()
+            if tuple(sg.get("segment_pool_id", ())) in pools]
+    return dict(graph_pool_bytes=sum(sg["total_size"] for sg in segs),
+                graphs=len(pools))
+
+
+def graph_memory(torch) -> dict:
+    """The allocator's reserved and allocated bytes, and the bytes and
+    count of its private pools (CUDA graphs' memory), after freeing what
+    nothing holds: the pools left are those of graphs still alive."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats()
+    pools = [sg for sg in torch.cuda.memory_snapshot()
+             if tuple(sg.get("segment_pool_id", (0, 0))) != (0, 0)]
+    return dict(reserved_bytes=stats.get("reserved_bytes.all.current", 0),
+                allocated_bytes=stats.get("allocated_bytes.all.current", 0),
+                graph_pool_bytes=sum(sg["total_size"] for sg in pools),
+                graph_pools=len({tuple(sg["segment_pool_id"])
+                                 for sg in pools}))
 
 
 def phase_main_path(torch, np, scan_ops, tmp: Path):
@@ -1093,22 +1207,30 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
             check_timeline(name, top)
         # Two runs: the first pays first-use costs (the evaluator's stdlib
         # load, CUDA context warm-up, allocator growth), the second is the
-        # steady state a batch of renders sees.
-        walls, bits = [], []
+        # steady state a batch of renders sees.  Each CLI run builds its
+        # own tracker, so each captures its session steps anew.  W5 and W6
+        # capture inline (fuse_blocking), so that both renders serve the
+        # same blocks from the same paths and can give the same bits (a
+        # window renders 16 blocks in one call, which rounds differently
+        # from 16 block renders); the rest capture on the worker, as the
+        # CLI does.
+        walls, bits, paths = [], [], []
         for _ in range(2):
-            with ValidEnds() as ends:
+            with TrackerRuns(True if name in REPEATABLE else None) as runs:
                 t0 = time.perf_counter()
                 rc = cli.main(argv)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             check(rc == 0, f"{name}: the CLI exited {rc}")
+            paths.append(runs.paths())
+            check_paths(name, paths[-1])
             if name in REPEATABLE:
                 bits.append(read_wav(out)[0].view(np.int32))
-            # The tracker's voice is the last one rendered (a bake, when
-            # there is one, renders first).  Its engine must end exactly
-            # where the oracle does: not run past it, not stop short.
-            produced = ends.produced()
-            check(bool(produced) and produced[-1] == want_len,
+            # The tracker's one voice must end exactly where the oracle
+            # does (not run past it, not stop short), by the valid ends
+            # the tracker resolved on every path.
+            produced = [v.produced for v in runs.voices]
+            check(len(produced) == 1 and produced[0] == want_len,
                   f"{name}: the engine reported {produced} valid samples "
                   f"per voice, the oracle's length is {want_len}")
         if name in REPEATABLE:
@@ -1128,8 +1250,10 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
             check(scan_ops.launches[k] > before[k],
                   f"{name}: kernel {k} was never launched")
         seconds = len(got) / SR
+        log(f"{name} paths " + json.dumps(dict(workload=name, cold=paths[0],
+                                               warm=paths[1])))
         log(f"{name} {expr!r} --precompute {precompute or 'true (default)'}"
-            f": engine valid samples {produced[-1]}, WAV {len(got)} "
+            f": engine valid samples {produced[0]}, WAV {len(got)} "
             f"samples, oracle {want_len} ({seconds:.1f} s audio); "
             f"wall cold {walls[0]:.3f} s = {seconds / walls[0]:.1f}x "
             f"realtime, warm {walls[1]:.3f} s = {seconds / walls[1]:.1f}x "
@@ -1216,18 +1340,24 @@ class GenericTiers:
 
 PROFILES = (("W1", False), ("W1", True), ("W2", False), ("W2", True),
             ("W3", False), ("W5", False), ("W6", False), ("W2g", False))
+# A profile name's suffix that forces the generic Reset tiers.
+GENERIC = ":generic"
 
 
-def profile_child(torch, scan_ops, name: str, generic: bool) -> dict:
-    """One warm engine render of workload `name` under torch.profiler (the
-    process's first session): device events, their summed time, and the
-    scan launches, per block."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# Blocks each workload profile renders (at most): the first 16 of the
+# piece (cut from the whole piece to keep the run's time).
+PROFILE_BLOCKS = 16
+
+
+def workload_profile(torch, name: str, generic: bool):
+    """(meta, run) for the profile of workload `name`'s first
+    PROFILE_BLOCKS blocks through CompiledVoice (warm): run() renders
+    them and returns (blocks, {})."""
     from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
     from tuun_tpu_torch.engine.graph import CReset
     expr = next(e for n, e, _, _ in WORKLOADS if n == name)
     w, total = workload_waveform(expr)
+    total = min(total, PROFILE_BLOCKS * MAIN_N)
     cfg = EngineConfig(SR, "fast", "cuda")
     if generic:
         with GenericTiers():
@@ -1237,25 +1367,52 @@ def profile_child(torch, scan_ops, name: str, generic: bool) -> dict:
     resets = [n for n in iter_nodes(voice.root) if isinstance(n, CReset)]
     P = voice.params(1)
     engine_render(torch, voice, P, total)  # warm: plans, allocator
-    scan_ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        blocks, _ = engine_render(torch, voice, P, total)
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
-                  for e in events)
-    return dict(profile=name, tiers="generic" if generic else "default",
+    meta = dict(profile=name, tiers="generic" if generic else "default",
                 analytic_resets=sum(r.analytic for r in resets),
                 generic_resets=sum(not r.analytic for r in resets),
-                blocks=blocks, device_events=len(events), kernels=kernels,
-                events_per_block=len(events) / blocks,
-                device_busy_ms=busy_ms, wall_ms=wall * 1e3,
-                idle_share=1.0 - busy_ms / (wall * 1e3),
-                scan=dict(scan_ops.launches),
                 audio_seconds=total / SR)
+    return meta, lambda: (engine_render(torch, voice, P, total)[0], {})
+
+
+def profile_session(torch, scan_ops, runs) -> list:
+    """Every (meta, run) of `runs` once, in turn, under one torch.profiler
+    session (the process's first: a later session may lose kernel
+    events), each inside a record_function range of its own and ended by
+    a synchronize, so that its device events are those that start in
+    its range.  One row per run: device events, their summed time, the
+    wall, the device's idle share and the scan launches, per block."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    walls, scans, outs = [], [], []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, (_, run) in enumerate(runs):
+            torch.cuda.synchronize()
+            scan_ops.reset_launches()
+            with record_function(f"smoke_run_{i}"):
+                t0 = time.perf_counter()
+                outs.append(run())  # ends synchronized
+                walls.append(time.perf_counter() - t0)
+            scans.append(dict(scan_ops.launches))
+    events = prof.events()
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("smoke_run_")
+             and e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("smoke_run_")]
+    rows = []
+    for i, ((meta, _), (blocks, extra)) in enumerate(zip(runs, outs)):
+        lo, hi = spans[f"smoke_run_{i}"]
+        evs = [e for e in device if lo <= e.time_range.start < hi]
+        busy_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                      for e in evs)
+        rows.append(dict(meta, blocks=blocks, device_events=len(evs),
+                         kernels=kernels, events_per_block=len(evs) / blocks,
+                         device_busy_ms=busy_ms, wall_ms=walls[i] * 1e3,
+                         idle_share=1.0 - busy_ms / (walls[i] * 1e3),
+                         scan=scans[i], **extra))
+    return rows
 
 
 def iter_nodes(node):
@@ -1276,26 +1433,33 @@ def iter_nodes(node):
             yield from iter_nodes(info.node)
 
 
-def profile_in_child(name: str, generic: bool = False) -> dict:
-    """`chip_smoke.py --profile NAME [--generic]` in a child process (a
-    profiler session after the first in one process may lose kernel
-    events); its JSON row."""
+def profile_in_child(names) -> list:
+    """`chip_smoke.py --profile NAME[,NAME...]` in a child process, whose
+    first torch.profiler session takes them all (a process's later
+    sessions may lose kernel events; each process costs ~25 s to start);
+    one JSON row each."""
     argv = [sys.executable, str(Path(__file__).resolve()), "--profile",
-            name] + (["--generic"] if generic else [])
+            ",".join(names)]
+    t0 = time.perf_counter()
     proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"profile {name}: exit "
+    check(proc.returncode == 0, f"profile {names}: exit "
           f"{proc.returncode}: {proc.stderr[-3000:]}")
-    row = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"profile {json.dumps(row)}")
-    return row
+    rows = [json.loads(x) for x in proc.stdout.strip().splitlines()[-len(
+        names):]]
+    log(f"profiles of {names}: child process {time.perf_counter() - t0:.1f}"
+        f" s")
+    for row in rows:
+        log(f"profile {json.dumps(row)}")
+    return rows
 
 
 def phase_profiles() -> None:
-    """Each of PROFILES in a child process of its own.  With the analytic
-    tiers, W1 and W2 must launch no running max; with them forced off,
-    they must."""
-    for name, generic in PROFILES:
-        row = profile_in_child(name, generic)
+    """PROFILES in one child process, one profiler session.  With the
+    analytic tiers, W1 and W2 must launch no running max; with them
+    forced off, they must."""
+    rows = profile_in_child([name + (GENERIC if generic else "")
+                             for name, generic in PROFILES])
+    for (name, generic), row in zip(PROFILES, rows):
         if name in ("W1", "W2"):
             maxes = row["scan"]["prefix_max_f32"]
             check((maxes > 0) == generic
@@ -1537,18 +1701,23 @@ def g2_waveforms(notes):
             for expr in sorted({n[2] for n in notes})}
 
 
-def g2_session(torch, session, waves):
+def g2_session(torch, session, waves, fuse=False, sync_interval=1):
     """One G2 session through Tracker.play / render_block until every
-    voice has retired.  Returns (the mix, per-block wall seconds,
-    per-block (dispatches, voices, group sizes))."""
+    voice has retired.  Returns (the mix, per-block host seconds, per-block
+    (dispatches, voices, group sizes), the session's wall seconds).  With
+    sync_interval > 1 the blocks come back on the card and are copied to
+    the host once the last is rendered; the wall includes that copy."""
     import numpy as np
     from tuun_tpu_torch.tracker import Tracker
     block = session[0]
-    t = Tracker(SR, block, precision="fast", device="cuda")
-    notes = g2_notes(session)
-    for wid, _, expr, start in notes:
+    t = Tracker(SR, block, precision="fast", device="cuda",
+                sync_interval=sync_interval)
+    t.fuse = fuse
+    for wid, _, expr, start in g2_notes(session):
         t.play(wid, waves[expr], start=start)
     out, walls, shape = [], [], []
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
     while t.active or t.pending:
         t0 = time.perf_counter()
         y, status = t.render_block()
@@ -1556,29 +1725,34 @@ def g2_session(torch, session, waves):
         out.append(y)
         shape.append((status.dispatches, status.voices,
                       sorted(len(g.voices) for g in t._groups)))
-    return np.concatenate(out), walls, shape
+    mix = np.concatenate([y if isinstance(y, np.ndarray)
+                          else y.cpu().numpy() for y in out])
+    wall = time.perf_counter() - t_start
+    t.close()
+    return mix, walls, shape, wall
 
 
-# Phase 8's profiles, each in a child process (--profile NAME): G1's
-# group of 256, one G1 voice alone, and G2's live-block session.
+# Phase 8's profiles, in child processes (--profile NAME[,NAME]): G1's
+# group of 256 and one G1 voice alone, and G2's live-block session cut to
+# its first third (8 notes an instrument over 0.53 s; the whole session's
+# 221k device events took most of the run's time to read).
 GROUP_PROFILES = ("G1", "G1one", "G2")
+G2_PROFILE_SESSION = (1024, 8, 0.53) + G2_SESSIONS[0][3:]
 # Phase 2's count of kernels per call, in a child of its own.
 LAUNCH_PROFILE = "launches"
 
 
-def profile_group_child(torch, scan_ops, name: str) -> dict:
-    """Warm, then profiled: three G1 blocks of the group (G1) or of one
-    of its voices alone (G1one), or a whole G2 session at the live block
-    (G2).  Device events per block and the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def group_profile(torch, name: str):
+    """(meta, run) for the profile of three G1 blocks of the group (G1)
+    or of one of its voices alone (G1one), or of G2's cut session at the
+    live block (G2), warm."""
     import numpy as np
     if name == "G2":
-        session = G2_SESSIONS[0]
+        session = G2_PROFILE_SESSION
         waves = g2_waveforms(g2_notes(session))
 
         def run():
-            mix, walls, shape = g2_session(torch, session, waves)
+            mix, walls, shape, _ = g2_session(torch, session, waves)
             torch.cuda.synchronize()
             return len(walls), dict(
                 audio_s=len(mix) / SR,
@@ -1610,20 +1784,7 @@ def profile_group_child(torch, scan_ops, name: str) -> dict:
             return 3, dict(audio_s=3 * n / SR,
                            voices=G1_VOICES if name == "G1" else 1)
     run()  # warm: caches, allocator, custom ops
-    scan_ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        blocks, extra = run()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    return dict(profile=name, blocks=blocks, device_events=len(events),
-                events_per_block=len(events) / blocks,
-                device_busy_ms=busy_ms, wall_ms=wall * 1e3,
-                idle_share=1.0 - busy_ms / (wall * 1e3),
-                scan={k: c for k, c in scan_ops.launches.items() if c},
-                **extra)
+    return dict(profile=name), run
 
 
 def g2_reference(torch, np, voices, block, total):
@@ -1660,7 +1821,7 @@ def phase_g2(torch, np, scan_ops, session) -> dict:
     block, tol = session[0], session[4]
     waves = g2_waveforms(g2_notes(session))
     with GroupCalls(scan_ops) as calls:
-        mix, walls, shape = g2_session(torch, session, waves)
+        mix, walls, shape, _ = g2_session(torch, session, waves)
     group_calls, voices = calls.groups, calls.voices
     ref, mag = g2_reference(torch, np, voices, block, len(mix))
     eps = float(np.finfo(np.float32).eps)
@@ -1695,12 +1856,14 @@ def phase_g2(torch, np, scan_ops, session) -> dict:
     check(max(len(x) for x in sizes.values()) >= 2 and changed >= 2,
           f"G2 block {block}: groups never changed size ({sizes})")
     # The groups against the per-voice loop they replace, a fresh session
-    # each, in turns (groups, loop, loop, groups); the loop's mix is held
-    # to the same bound, and it renders every voice on its own.
+    # each, in turns (groups, loop); the loop's mix is held to the same
+    # bound, and it renders every voice on its own.  At the live block
+    # only, one turn each: the offline block's turns and the second pair
+    # were cut to keep the run's time (PERF.md).
     turns = {"groups": [], "pervoice": []}
-    for grouped in (True, False, False, True):
+    for grouped in (True, False) if block == 1024 else ():
         with contextlib.nullcontext() if grouped else NoGroups():
-            m, w, sh = g2_session(torch, session, waves)
+            m, w, sh, _ = g2_session(torch, session, waves)
         if not grouped:
             d = np.abs(m.astype(np.float64) - ref) if len(m) == len(ref) \
                 else np.full(1, np.inf)
@@ -1713,7 +1876,8 @@ def phase_g2(torch, np, scan_ops, session) -> dict:
             x_realtime=len(m) / SR / sum(w),
             block_ms_p50=float(np.percentile(w, 50) * 1e3),
             block_ms_p99=float(np.percentile(w, 99) * 1e3)))
-    log(f"groups-vs-pervoice {json.dumps(dict(block=block, **turns))}")
+    if turns["groups"]:
+        log(f"groups-vs-pervoice {json.dumps(dict(block=block, **turns))}")
     audio = len(mix) / SR
     row = dict(group="G2", block=block, voices=len(voices),
                blocks=len(walls), audio_s=audio, wall_s=sum(walls),
@@ -1730,6 +1894,336 @@ def phase_g2(torch, np, scan_ops, session) -> dict:
                per_voice_launches=[per_voice[cid] for cid in sizes])
     log(f"groups {json.dumps(row)}")
     return row
+
+
+def g2_bound(np, ref, mag, voices, tol):
+    """Phase 8's bound on a session's mix against every voice's own
+    render: the gap between two summation orders of the voices, plus the
+    session's FM tolerance."""
+    eps = float(np.finfo(np.float32).eps)
+    return 2 * (len(voices) - 1) * eps * mag + tol
+
+
+def check_mix(np, what, mix, ref, bound) -> float:
+    """The mix against the per-voice sum within `bound`; a deferred-sync
+    session may render whole silent blocks past the end (its voices
+    retire at sync points), which must be zeros."""
+    tail = mix[len(ref):]
+    diff = np.abs(mix[:len(ref)].astype(np.float64) - ref) \
+        if len(mix) >= len(ref) and not tail.any() else np.full(1, np.inf)
+    check(np.isfinite(mix).all() and bool((diff <= bound).all()),
+          f"{what}: the mix differs from the per-voice sum by "
+          f"{diff.max():.3e} at sample {int(diff.argmax())}")
+    return float(diff.max())
+
+
+def session_row(np, mix, walls, shape, wall) -> dict:
+    return dict(x_realtime=len(mix) / SR / wall,
+                block_ms_p50=float(np.percentile(walls, 50) * 1e3),
+                block_ms_p99=float(np.percentile(walls, 99) * 1e3),
+                dispatches_per_block=float(np.mean([x[0] for x in shape])),
+                blocks=len(walls))
+
+
+# The streaming settings of phase 8: (name, fuse, sync_interval).  The
+# per-call path (fuse off, a read every block), the fused step at the
+# tracker's default sync_interval=1, and the live stream's
+# sync_interval=4 (tuun_tpu/audio.py:161), where lookahead windows of
+# K = 4 blocks and their prefetch engage.
+STREAM_MODES = (("percall", False, 1), ("fused", True, 1),
+                ("window", True, 4))
+
+
+def stream_tol(tol: float, sync_interval: int) -> float:
+    """A session's FM tolerance when windows render sync_interval blocks
+    in one call: FM's f32 phase error grows with the phase a render
+    advances (G2_SESSIONS), so with the render's length."""
+    return tol * sync_interval
+
+
+def phase_g2_stream(torch, np, session) -> dict:
+    """G2 at the live block with the fused step on, at sync_interval 1
+    and 4: each mix against every voice's own render within phase 8's
+    bound (the FM term scaled to the window's length), and per block how
+    it was served, with the capture, replay, window and prefetch
+    counters."""
+    block, tol = session[0], session[4]
+    waves = g2_waveforms(g2_notes(session))
+    rows = {}
+    for name, fuse, si in STREAM_MODES[1:]:
+        with TrackerRuns() as runs:
+            mix, walls, shape, wall = g2_session(
+                torch, session, waves, fuse=fuse, sync_interval=si)
+        ref, mag = g2_reference(torch, np, runs.voices, block, len(mix))
+        err = check_mix(np, f"G2 {name}", mix, ref,
+                        g2_bound(np, ref, mag, runs.voices,
+                                 stream_tol(tol, si)))
+        paths = runs.paths()
+        check_paths(f"G2 {name}", paths)
+        rows[name] = dict(session_row(np, mix, walls, shape, wall),
+                          sync_interval=si, max_err=err, paths=paths,
+                          per_block="".join(p[0] for p, _ in runs.blocks))
+    rows["memory"] = graph_memory(torch)
+    log(f"G2 stream {json.dumps(dict(block=block, **rows))}")
+    return rows
+
+
+# G3: a stable live set, G2's three instruments started together at
+# sample 0 and held for G3_SECONDS at the live block: 4 FM notes at four
+# pitches (one group of 4), 2 harmonica and 2 W2g-like notes at two pitches
+# each (lone voices: their Reset triggers key the structure).  It exists to
+# show the fused step and windows engaged; it is a check, not a bench cell.
+G3_SECONDS = 5.0
+G3_BLOCK = 1024
+# Its FM notes' highest frequency, 330 Hz + 30 Hz of modulation.
+G3_FM_TOP_HZ = 360.0
+
+
+def fm_drift_tol(np, renders: int, lanes: int, voices: int = 4) -> float:
+    """What G3's FM voices may drift from their own renders: a render's
+    phase advance is summed in another order by a group (or over a
+    window's lanes), which moves each voice's f32 phase accumulator by up
+    to 2 ulp of that advance per render, and the moves add up over the
+    session (G2_SESSIONS' tolerance is 8 such ulp: its notes last at
+    most 14 blocks).  At amplitude 0.5, for `voices` FM voices."""
+    advance = 2 * math.pi * G3_FM_TOP_HZ * lanes / SR
+    ulp = float(np.spacing(np.float32(advance)))
+    return voices * 0.5 * renders * 2 * ulp
+
+
+def g3_notes():
+    notes = []
+    for name, template, pitches in G2_INSTRUMENTS:
+        for j, f in enumerate(pitches):
+            notes.append((f"g3{name}{j}", template.format(f=f, d=G3_SECONDS),
+                          0))
+    return notes
+
+
+def g3_session(torch, np, waves, fuse: bool, sync_interval: int):
+    """One G3 turn, paced as a live stream is: no block is rendered
+    before its audio time (block i at i * block / SR after the start).
+    Returns (mix, per-block host seconds, shape, wall, runs, blocks that
+    finished after their deadline)."""
+    from tuun_tpu_torch.tracker import Tracker
+    period = G3_BLOCK / SR
+    with TrackerRuns() as runs:
+        t = Tracker(SR, G3_BLOCK, precision="fast", device="cuda",
+                    sync_interval=sync_interval)
+        t.fuse = fuse
+        for wid, expr, start in g3_notes():
+            t.play(wid, waves[expr], start=start)
+        out, walls, shape = [], [], []
+        late = 0
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        while t.active or t.pending:
+            ahead = t_start + len(walls) * period - time.perf_counter()
+            if ahead > 0:
+                time.sleep(ahead)
+            t0 = time.perf_counter()
+            y, status = t.render_block()
+            t1 = time.perf_counter()
+            walls.append(t1 - t0)
+            late += t1 > t_start + len(walls) * period
+            out.append(y)
+            shape.append((status.dispatches, status.voices))
+        mix = np.concatenate([y if isinstance(y, np.ndarray)
+                              else y.cpu().numpy() for y in out])
+        wall = time.perf_counter() - t_start
+        t.close()
+    return mix, walls, shape, wall, runs, late
+
+
+def phase_g3(torch, np) -> dict:
+    """G3 in turns, each paced at real time as a live stream: the
+    per-call path, the fused step, sync_interval=4, the per-call path
+    again.  Each mix against every voice's own render within phase 8's
+    bound, its FM term the drift of fm_drift_tol over the session's
+    renders; the fused turn's mix bit for bit the per-call path's (the
+    same kernels in the same order), the windowed turn's within the
+    windows' drift of it.  A fused block is one dispatch and a served
+    window block none; the fused turn must replay a captured step and
+    the windowed turn serve blocks from windows, or the graphs never
+    engaged."""
+    waves = {expr: workload_waveform(expr)[0]
+             for _, expr, _ in g3_notes()}
+    blocks = int(math.ceil(G3_SECONDS * SR / G3_BLOCK))
+    turns = {name: [] for name, _, _ in STREAM_MODES}
+    ref = base = None
+    for name, fuse, si in STREAM_MODES + STREAM_MODES[:1]:
+        mix, walls, shape, wall, runs, late = g3_session(torch, np, waves,
+                                                         fuse, si)
+        if ref is None:
+            ref, mag = g2_reference(torch, np, runs.voices, G3_BLOCK,
+                                    len(mix))
+            base = mix
+        win = fm_drift_tol(np, -(-blocks // si), si * G3_BLOCK) \
+            if si > 1 else 0.0
+        tol = fm_drift_tol(np, blocks, G3_BLOCK) + win
+        err = check_mix(np, f"G3 {name}", mix, ref,
+                        g2_bound(np, ref, mag, runs.voices, tol))
+        if name == "fused":
+            check(np.array_equal(mix, base),
+                  "G3 fused: the mix differs from the per-call path's")
+        if si > 1:
+            check_mix(np, f"G3 {name} against the per-call path", mix, base,
+                      win)
+        paths = runs.paths()
+        check_paths(f"G3 {name}", paths)
+        if fuse:
+            check(paths["captures_finished"] >= 1 and paths["fused"] > 0,
+                  f"G3 {name}: the fused step never engaged: {paths}")
+        if si > 1:
+            check(paths["served"] > 0, f"G3 {name}: no window: {paths}")
+        # Paced, the wall is the audio's length: its x realtime is the
+        # host's, the audio over the blocks' render time.
+        turns[name].append(dict(session_row(np, mix, walls, shape,
+                                            sum(walls)),
+                                wall_s=wall, late_blocks=late,
+                                max_err=err, bound=tol, paths=paths))
+    turns["memory"] = graph_memory(torch)
+    log(f"G3 {json.dumps(dict(block=G3_BLOCK, seconds=G3_SECONDS, **turns))}")
+    return turns
+
+
+def state_leaves(torch, tracker):
+    """Every voice's state leaves, in activation order, after the groups
+    write theirs back."""
+    from tuun_tpu_torch.engine.capture import flatten
+    tracker._materialize_groups()
+    return [flatten(v.state)[1] for v in tracker.active]
+
+
+def phase_capture_check(torch, np) -> None:
+    """The hazards of captured steps, each against the eager per-voice
+    path (fuse off) on the same notes:
+    (1) a captured fused step replays while a second tracker's capture
+        warms up on its worker (every block's mix and, after, every
+        state bit for bit);
+    (2) the set is swapped for a same-key one (same structures, other FM
+        pitches): the cached step is replayed, not captured again, over
+        the new voices' params and states (bit for bit);
+    (3) a play interrupts a window mid-way: the served blocks replay from
+        the window's inputs (within the windows' bound; states within
+        2e-4, integers exactly)."""
+    from tuun_tpu_torch.tracker import Tracker
+    notes = [(wid, expr, s) for wid, expr, s in g3_notes()]
+    swap = [(wid + "b", expr.replace("sine(2*pi*(2", "sine(2*pi*(3"), s)
+            for wid, expr, s in notes]
+    extra = ("g3late", G2_INSTRUMENTS[1][1].format(f=392.0, d=1.0))
+    waves = {expr: workload_waveform(expr)[0]
+             for expr in {e for _, e, _ in notes + swap} | {extra[1]}}
+
+    def tracker(fuse, si=1, block=G3_BLOCK):
+        t = Tracker(SR, block, precision="fast", device="cuda",
+                    sync_interval=si)
+        t.fuse, t.fuse_blocking = fuse, True
+        return t
+
+    def play(t, ns):
+        for wid, expr, start in ns:
+            t.play(wid, waves[expr], start=t.now + start)
+
+    def host(y):
+        return y if isinstance(y, np.ndarray) else y.cpu().numpy()
+
+    # (1) Replays of A's step while B's capture warms up on a worker.
+    A, E = tracker(True), tracker(False)
+    for t in (A, E):
+        play(t, notes)
+    for _ in range(4):
+        check(np.array_equal(A.render_block()[0], E.render_block()[0]),
+              "capture check: a fused block differs from the eager one")
+    check(A.captures_finished >= 1 and A.replays >= 1,
+          "capture check: A's fused step did not engage")
+    B = tracker(True, block=BUFFER)
+    B.fuse_blocking = False
+    play(B, notes + [(f"{w}x", e, 0) for w, e, _ in notes])
+    overlapped = 0
+    deadline = time.perf_counter() + 120
+    while not B.captures_finished and time.perf_counter() < deadline:
+        if not B.captures_started:
+            B.render_block()
+        elif overlapped < 50:
+            replays = A.replays
+            ya, yb = A.render_block()[0], E.render_block()[0]
+            overlapped += A.replays > replays and not B.captures_finished
+            check(np.array_equal(ya, yb), "capture check: a replay during "
+                  "another capture differs from the eager block")
+        else:
+            time.sleep(0.01)
+    B.close()  # waits for the capture
+    check(overlapped >= 1 and B.captures_finished == 1,
+          f"capture check: {overlapped} replays overlapped the capture")
+    sa, se = state_leaves(torch, A), state_leaves(torch, E)
+    check(all(torch.equal(x, y) for la, le in zip(sa, se)
+              for x, y in zip(la, le)),
+          "capture check: states after the replays differ")
+    # (2) The same key, other voices: the cached step replays.
+    started, replays = A.captures_started, A.replays
+    for t in (A, E):
+        t.stop_all()
+        play(t, swap)
+    for _ in range(6):
+        check(np.array_equal(A.render_block()[0], E.render_block()[0]),
+              "capture check: a swapped set's block differs")
+    swapped = A.replays - replays
+    check(A.captures_started == started and swapped >= 5,
+          f"capture check: the swapped set captured "
+          f"{A.captures_started - started} steps, replayed {swapped}")
+    sa, se = state_leaves(torch, A), state_leaves(torch, E)
+    check(all(torch.equal(x, y) for la, le in zip(sa, se)
+              for x, y in zip(la, le)),
+          "capture check: the swapped set's states differ")
+    A.close()
+    # (3) A play interrupts a window.
+    W, E = tracker(True, 4), tracker(False)
+    for t in (W, E):
+        play(t, notes)
+    got, want = [], []
+    for _ in range(40):
+        got.append(host(W.render_block()[0]))
+        want.append(E.render_block()[0])
+        if W._window is not None and W._window["k"] == 2:
+            break
+    check(W._window is not None, "capture check: no window opened")
+    for t in (W, E):
+        play(t, [(extra[0], extra[1], 0)])
+    check(W._window is None, "capture check: the play did not interrupt")
+    for _ in range(8):
+        got.append(host(W.render_block()[0]))
+        want.append(E.render_block()[0])
+    got, want = np.concatenate(got), np.concatenate(want)
+    # Phase 8's bound with every voice's |y| at most 2 (W2g's gain), so
+    # sum |y| <= 2 V, and the FM term of a 4-block window.
+    V = len(notes) + 1
+    bound = 2 * (V - 1) * float(np.finfo(np.float32).eps) * 2 * V \
+        + stream_tol(G2_SESSIONS[0][4], 4)
+    diff = float(np.abs(got.astype(np.float64) - want).max())
+    check(diff <= bound, f"capture check: the interrupted window differs "
+          f"by {diff:.3e} (bound {bound:.3e})")
+    # Mid-window, the states stand at the window's start: replay what it
+    # served to bring them to the block the eager tracker is at.
+    W._interrupt_window()
+    sw, se = state_leaves(torch, W), state_leaves(torch, E)
+    worst = 0.0
+    for lw, le in zip(sw, se):
+        for x, y in zip(lw, le):
+            if x.is_floating_point():
+                worst = max(worst, float((x.double() - y.double()).abs()
+                                         .max()))
+            else:
+                check(torch.equal(x, y), "capture check: an integer state "
+                      "differs after the interrupt")
+    check(worst <= 2e-4, f"capture check: states differ by {worst:.3e}")
+    W.close()
+    log(f"capture check: {overlapped} replays of a captured step during "
+        f"another tracker's capture, the same bits and states as the "
+        f"eager path; a same-key set swapped in replayed the cached step "
+        f"({swapped} replays, no new capture), the same bits and "
+        f"states; a play interrupting a window at block 2 of 4: mix "
+        f"within {diff:.3e}, float states within {worst:.3e}")
 
 
 def phase_cross_device(torch, np, tmp: Path):
@@ -1804,21 +2298,26 @@ def phase_engine(torch, np):
     return ("W4", seconds / wall)
 
 
+def log_phase(started: float, name: str) -> None:
+    log(f"phase {name} done at {time.perf_counter() - started:.1f} s")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
-    ap.add_argument("--phase", choices=("kernels", "times"),
+    ap.add_argument("--phase", choices=("kernels", "times", "stream"),
                     help="kernels: stop after phase 2; times: only the "
-                    "single-voice scans' times (see the module docstring)")
+                    "single-voice scans' times; stream: only phase 8's "
+                    "capture check, G3 and G2's streaming sessions (see "
+                    "the module docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
-    ap.add_argument("--profile", choices=sorted({n for n, _ in PROFILES}
-                                                | set(GROUP_PROFILES)
-                                                | {LAUNCH_PROFILE}),
-                    help="profile one engine render of this workload and "
-                    "print it as JSON (phase 6 runs each in a child)")
-    ap.add_argument("--generic", action="store_true",
-                    help="with --profile: the analytic Reset tiers off")
+    ap.add_argument("--profile",
+                    help="NAME[,NAME...]: profile these workloads (W1, "
+                    "W1:generic for the analytic Reset tiers off, ..., G1, "
+                    "G1one, G2) in one profiler session and print a JSON "
+                    "row each (phases 6 and 8 run them in children), or "
+                    "`launches`: phase 2's one-kernel-a-call check")
     args = ap.parse_args(argv)
     if args.tree is not None and args.phase != "times":
         ap.error("--tree needs --phase times")
@@ -1837,13 +2336,19 @@ def main(argv) -> int:
         print(json.dumps({"profile": LAUNCH_PROFILE, "ok": True}),
               flush=True)
         return 0
-    if args.profile in GROUP_PROFILES:
-        print(json.dumps(profile_group_child(torch, scan_ops, args.profile)),
-              flush=True)
-        return 0
     if args.profile is not None:
-        print(json.dumps(profile_child(torch, scan_ops, args.profile,
-                                       args.generic)), flush=True)
+        runs = []
+        for spec in args.profile.split(","):
+            name = spec[:-len(GENERIC)] if spec.endswith(GENERIC) else spec
+            if name in GROUP_PROFILES:
+                runs.append(group_profile(torch, name))
+            elif name in {n for n, _ in PROFILES}:
+                runs.append(workload_profile(torch, name,
+                                             spec.endswith(GENERIC)))
+            else:
+                ap.error(f"--profile: unknown {spec!r}")
+        for row in profile_session(torch, scan_ops, runs):
+            print(json.dumps(row), flush=True)
         return 0
 
     started = time.perf_counter()
@@ -1862,11 +2367,17 @@ def main(argv) -> int:
     if args.phase == "times":
         phase_times(torch, np, scan_ops, str(args.tree or "."))
         return 0
+    if args.phase == "stream":
+        phase_capture_check(torch, np)
+        phase_g3(torch, np)
+        phase_g2_stream(torch, np, G2_SESSIONS[0])
+        return 0
 
     results = {k: [] for k in scan_ops.launches}
     phase_kernels(torch, np, scan_ops, results)
     phase_noise(torch, np)
     phase_sin(torch)
+    log_phase(started, "2")
     if args.phase == "kernels":
         return 0
 
@@ -1876,16 +2387,21 @@ def main(argv) -> int:
         summary = phase_main_path(torch, np, scan_ops, Path(tmp))
         counts = {k: scan_ops.launches[k] for k in ROWS_OF}
         log(f"launch counts of the main path (phase 3): {counts}")
+        log(f"memory after the CLI runs {json.dumps(graph_memory(torch))}")
+        log_phase(started, "3")
         for k, c in counts.items():
             check(c > 0, f"kernel {k} was never launched on the main path")
         phase_cross_device(torch, np, Path(tmp))
     scan_ops.reset_launches()
     summary.append(phase_engine(torch, np))
+    log_phase(started, "4-5")
     log(f"launch counts of W4 (phase 5, not in the kernels line): "
         f"{dict(scan_ops.launches)}")
     log("x realtime (warm): " + ", ".join(f"{n} {x:.1f}" for n, x in summary))
     phase_profiles()
+    log_phase(started, "6")
     phase_reloc_fast(torch)
+    log_phase(started, "7")
 
     # Phase 8, the voice groups: the path of the voices x lanes forms,
     # whose launches, and only those, make their counts.
@@ -1893,14 +2409,22 @@ def main(argv) -> int:
     phase_g1(torch, np)
     for session in G2_SESSIONS:
         phase_g2(torch, np, scan_ops, session)
+    log_phase(started, "8, G1 and G2")
+    phase_g2_stream(torch, np, G2_SESSIONS[0])
+    log_phase(started, "8, G2 streaming")
+    phase_g3(torch, np)
+    log_phase(started, "8, G3")
+    phase_capture_check(torch, np)
+    log_phase(started, "8, capture check")
     counts.update({k: scan_ops.launches[k] for k in ROWS_OF.values()})
     log(f"launch counts of the voices x lanes forms (phase 8): "
         f"{ {k: counts[k] for k in ROWS_OF.values()} }")
     for k in ROWS_OF.values():
         check(counts[k] > 0, f"kernel {k} was never launched by the groups")
-    for name in GROUP_PROFILES:
-        profile_in_child(name)
+    profile_in_child(["G1", "G1one"])
+    profile_in_child(["G2"])
     launches_in_process(torch, np, scan_ops)
+    log_phase(started, "8, profiles")
 
     kernels = []
     for k in scan_ops.launches:

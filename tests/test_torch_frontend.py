@@ -334,3 +334,23 @@ def test_metric_series_the_same(steps):
             m.set(value)
             out.append((m.series(), m.latest()))
         same(out[0], out[1], "metric")
+
+
+# -- modules the port copies verbatim -------------------------------------
+
+# Each copied module of tuun_tpu that holds no front-end behaviour of its
+# own, with the only edits its copy may have.
+COPIED = {
+    "metric": (),
+    "_threads": (('print(f"tuun_tpu: worker',
+                  'print(f"tuun_tpu_torch: worker'),),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COPIED))
+def test_copied_module_is_verbatim(name):
+    text = (Path(tuun_tpu.__file__).parent / f"{name}.py").read_text()
+    for old, new in COPIED[name]:
+        assert old in text, (name, old)
+        text = text.replace(old, new)
+    assert (PORT / f"{name}.py").read_text() == text

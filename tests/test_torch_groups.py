@@ -448,6 +448,7 @@ def test_tracker_matches_jax_tracker_on_a_polyphonic_score():
     jt.fuse = False  # per-voice and group dispatches, as the port's
     want, jst = _run(jt, _score(tuun_tpu, sr))
     pt = Tracker(sr, block, precision="fast", device=CPU)
+    pt.fuse = False  # the per-call path, as JAX's above
     got, pst = _run(pt, _score(tuun_tpu_torch, sr))
     assert len(got) == len(want)
     np.testing.assert_allclose(got, want, rtol=0, atol=8 * 2e-5)
@@ -473,12 +474,14 @@ def test_tracker_groups_render_once_and_read_once(monkeypatch):
         return resolve(group, *a, **k)
     monkeypatch.setattr(T.VoiceGroup, "render", spy_render)
     monkeypatch.setattr(T.VoiceGroup, "resolve", spy_resolve)
-    got, status = _run(Tracker(SR, 128, precision="fast", device=CPU),
-                       _score(tuun_tpu_torch, SR))
+    tr = Tracker(SR, 128, precision="fast", device=CPU)
+    tr.fuse = False  # the per-call path: one render and one read a group
+    got, status = _run(tr, _score(tuun_tpu_torch, SR))
     assert max(calls) >= 3 and calls == reads
     assert sum(s.dispatches for s in status) < sum(s.voices for s in status)
 
     alone = Tracker(SR, 128, precision="fast", device=CPU)
+    alone.fuse = False
 
     def singles():
         alone._singles, alone._groups = list(alone.active), []

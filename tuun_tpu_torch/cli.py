@@ -8,9 +8,15 @@ plays each program on the tracker, and renders blocks until every
 waveform finishes; captures stream to float32 WAVs, `--render-out` writes
 the mix.
 
-Not yet ported: `--ui true` (the REPL, ROADMAP.md queue 1 item 9) and
-`--precision exact_df` (ROADMAP.md queue 1 item 7).  `--no-jit` is
-accepted for flag parity and has no effect: PyTorch runs eagerly.
+The tracker streams at sync_interval=16, as tuun_tpu/cli.py:135 runs its
+jitted path: valid ends resolve every 16 blocks, the fused session step
+and 16-block lookahead windows engage once the voice set is stable (on
+the card, as CUDA graph replays).
+
+Not yet ported: `--ui true` (the REPL, ROADMAP.md queue 1 item 4) and
+`--precision exact_df` (ROADMAP.md queue 1 item 6).  `--no-jit` is
+accepted for flag parity and has no effect: the port has no unjitted
+debug path to select.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from .tracker import Tracker
 from .wav import write_wav_f32
 
 DEFAULT_LIBRARY = Path(__file__).resolve().parent / "stdlib" / "v0"
+# Blocks between host syncs of the batch render (tuun_tpu/cli.py:135).
+STREAM_SYNC_INTERVAL = 16
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -87,11 +95,11 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     if args.ui == "true":
         print("error: --ui true is not yet ported (ROADMAP.md queue 1 "
-              "item 9, the app layer)", file=sys.stderr)
+              "item 4, the app layer)", file=sys.stderr)
         return 2
     if args.precision == "exact_df":
         print("error: --precision exact_df is not yet ported (ROADMAP.md "
-              "queue 1 item 7, df32 and exact_df)", file=sys.stderr)
+              "queue 1 item 6, df32 and exact_df)", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda requested but torch.cuda.is_available() "
@@ -101,13 +109,22 @@ def main(argv=None) -> int:
         print("error: provide an input file or --expr", file=sys.stderr)
         return 2
 
-    log = (lambda *a: None) if args.quiet else print
     evaluator = Evaluator(args.sample_rate, args.tempo,
                           resolve_library_root(args))
     tracker = Tracker(args.sample_rate, args.buffer_size,
                       captured_output_dir=args.output_dir,
                       captured_date_format=args.date_format,
-                      precision=args.precision, device=args.device)
+                      precision=args.precision, device=args.device,
+                      sync_interval=STREAM_SYNC_INTERVAL)
+    try:
+        return _run(args, evaluator, tracker)
+    finally:
+        # Stops the tracker's workers and waits for a capture in progress.
+        tracker.close()
+
+
+def _run(args, evaluator, tracker) -> int:
+    log = (lambda *a: None) if args.quiet else print
     player = Player(tracker, precompute=args.precompute == "true")
 
     played = 0

@@ -43,8 +43,9 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     on the TPU.  Reductions here use int64 lane indices; `fidx` remains
     only as the input of the float32 running-max kernel, exact below
     2^24 lanes, so Ctx refuses larger blocks (MAX_BLOCK).
-  * The masked-sum gather of `_value_at` becomes indexing at a clamped
-    index (not torch.take, which has no batching rule under vmap);
+  * The masked-sum gather of `_value_at` becomes a gather at a clamped
+    index (not torch.take, which has no batching rule under vmap, nor
+    an index by a 0-dim tensor, which reads it on the host);
     dynamic_slice + roll windows (Fixed playback, the filter's delay
     line) become gathers at clamped indices.
   * Voice groups (batched_render_fn) run the same render under
@@ -342,8 +343,10 @@ def _last_lane(ctx, cond, default):
 
 
 def _value_at(ctx, lane_values, lane, default):
-    """lane_values[lane] when 0 <= lane < n, else default."""
-    picked = lane_values[lane.clamp(0, ctx.n - 1)]
+    """lane_values[lane] when 0 <= lane < n, else default.  A gather: an
+    index by a 0-dim tensor would read it on the host."""
+    picked = lane_values.gather(
+        0, lane.clamp(0, ctx.n - 1).reshape(1)).reshape(())
     hit = (lane >= 0) & (lane < ctx.n)
     return torch.where(hit, picked, default)
 
@@ -732,11 +735,13 @@ class CFilter(Node):
                  ff_consts: List[Optional[Callable]],
                  fb_consts: List[Optional[Callable]]):
         super().__init__(cfg)
-        if len(fbs) > scan_ops.MAX_J:
+        # Exact mode runs the recurrence lane by lane and takes any depth;
+        # fast mode's affine scan takes at most MAX_J, on either device.
+        if not cfg.sequential_iir and len(fbs) > scan_ops.MAX_J:
             raise NotImplementedError(
-                f"filter with {len(fbs)} feedback coefficients: the affine "
-                f"scan takes at most {scan_ops.MAX_J} (deeper filters: "
-                f"ROADMAP.md queue 2)")
+                f"filter with {len(fbs)} feedback coefficients in fast mode: "
+                f"the affine scan takes at most {scan_ops.MAX_J} (deeper "
+                f"filters: ROADMAP.md queue 2; exact mode takes any depth)")
         self.inner = inner
         self.ffs, self.fbs = ffs, fbs
         self.ff_consts, self.fb_consts = ff_consts, fb_consts

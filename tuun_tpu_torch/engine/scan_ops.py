@@ -32,7 +32,12 @@ before capturing it there, so that its scratch exists outside the
 capture: a call that would allocate scratch while the stream captures
 raises.  A graph keeps the scratch of the stream it was captured on, so
 replays of graphs captured on one stream must not overlap one another
-or calls on that stream.
+or calls on that stream.  Inside `graph_scope(owner)` a thread's scans
+take scratch of their own, keyed by the owner too (engine/capture.py
+gives each captured graph its own, so that no warm-up, call or replay
+elsewhere shares it; `release_scratch(owner)` frees it with the graph),
+and a scan that a CUDA graph captures records its launch in the scope
+instead of counting it: the graph's replays count it (`count_launches`).
 
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit) and the affine scan any J from 1 to
@@ -51,12 +56,14 @@ never falls back to a loop over voices.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -85,17 +92,69 @@ _lib = None
 _scan_tile = 0
 _scratch_words = 0
 _affine_tile = 0
-# Persistent prefix-scan scratch, keyed by (device index, raw stream).
-_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+# Persistent prefix-scan scratch, keyed by (device index, raw stream), and
+# inside a graph_scope by (device index, raw stream, owner).
+_scratch: Dict[Tuple, torch.Tensor] = {}
 # Persistent affine-scan scratch, keyed likewise: (buffer, tiles it holds).
-_affine_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
-# Outgrown affine scratch: never freed (a captured graph may use it).
+_affine_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
+# Outgrown affine scratch: never freed (a captured graph may use it), and
+# an owner's until the owner releases it.
 _affine_retired: List[torch.Tensor] = []
+_owner_retired: Dict[Any, List[torch.Tensor]] = {}
+# Per thread: the graph_scope's owner and, while a graph captures, the
+# launches its scans recorded.
+_tls = threading.local()
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def _launched(entry: str) -> None:
+    rec = getattr(_tls, "recording", None)
+    if rec is None:
+        launches[entry] += 1
+    else:
+        rec[entry] = rec.get(entry, 0) + 1
+
+
+def count_launches(recorded: Dict[str, int]) -> None:
+    """Counts the launches that a replay of a captured graph makes."""
+    for k, c in recorded.items():
+        launches[k] += c
+
+
+@contextlib.contextmanager
+def graph_scope(owner, record: bool = False) -> Iterator[Dict[str, int]]:
+    """While active on this thread, the scans use scratch of `owner`'s
+    own; with record=True (a capture) they record their launches in the
+    yielded dict instead of counting them."""
+    if getattr(_tls, "owner", None) is not None:
+        raise RuntimeError("graph_scope does not nest")
+    recorded: Dict[str, int] = {}
+    _tls.owner = owner
+    _tls.recording = recorded if record else None
+    try:
+        yield recorded
+    finally:
+        _tls.owner = None
+        _tls.recording = None
+
+
+def _scratch_key(device: int, stream: int) -> Tuple:
+    owner = getattr(_tls, "owner", None)
+    return (device, stream) if owner is None else (device, stream, owner)
+
+
+def release_scratch(owner) -> None:
+    """Frees every scratch buffer of `owner` (its graph is gone).  The
+    tables hold `owner` in their keys until then: an owner that may be
+    dropped passes a token of its own and releases with a finalizer."""
+    for table in (_scratch, _affine_scratch):
+        for key in [k for k in table if len(k) == 3 and k[2] is owner]:
+            del table[key]
+    _owner_retired.pop(owner, None)
 
 
 def _nvcc() -> str:
@@ -211,8 +270,9 @@ def prefix_scratch(device: int, stream: int,
     streams may run at the same time.  It comes zeroed from
     `alloc(device)`, at the size of the longest scan, and is kept for the
     life of the process: a captured graph holds its raw pointer, so it
-    must never be freed.  The kernel leaves it zeroed after each call."""
-    key = (device, stream)
+    must never be freed.  The kernel leaves it zeroed after each call.
+    Inside a graph_scope the buffer is the scope owner's own."""
+    key = _scratch_key(device, stream)
     buf = _scratch.get(key)
     if buf is None:
         buf = _scratch[key] = alloc(device)
@@ -235,7 +295,7 @@ def _prefix_launch(fn, entry: str, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     status = fn(x.data_ptr(), out.data_ptr(), scratch, rows, n, stream)
     _check(status, entry)
-    launches[entry] += 1
+    _launched(entry)
     return out
 
 
@@ -394,8 +454,9 @@ def affine_scratch(device: int, stream: int, tiles: int,
     new buffer of at least twice the capacity; the old one is kept in
     _affine_retired for the life of the process, since a captured graph
     may hold its raw pointer.  The kernel leaves the counters and flags
-    zero after each call."""
-    key = (device, stream)
+    zero after each call.  Inside a graph_scope the buffers are the scope
+    owner's own."""
+    key = _scratch_key(device, stream)
     entry = _affine_scratch.get(key)
     if entry is not None and entry[1] >= tiles:
         return entry
@@ -404,7 +465,9 @@ def affine_scratch(device: int, stream: int, tiles: int,
         cap = max(cap, 2 * entry[1])
     buf = alloc(device, cap)
     if entry is not None:
-        _affine_retired.append(entry[0])
+        retired = _affine_retired if len(key) == 2 else \
+            _owner_retired.setdefault(key[2], [])
+        retired.append(entry[0])
     entry = _affine_scratch[key] = (buf, cap)
     return entry
 
@@ -460,7 +523,7 @@ def _affine_launch(a_rows, ff, live, h0, rows: int, entry: str):
         a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(), h0.data_ptr(),
         h.data_ptr(), hist.data_ptr(), sp, cap, rows, n, J, stream)
     _check(status, entry)
-    launches[entry] += 1
+    _launched(entry)
     return h, hist
 
 
@@ -483,14 +546,25 @@ def _rows(x: torch.Tensor, bdim, batch: int) -> torch.Tensor:
 
 
 # Custom ops with a vmap rule, made at the first batched call (the CPU
-# tests import this module many times over; none registers at import).
+# tests import this module many times over; none registers at import),
+# under a lock: a CUDA graph's warm-up may make the first call on a
+# worker thread while another thread makes its own.
 _vmap_ops: Dict[str, Any] = {}
+_vmap_lock = threading.Lock()
 
 
 def _vmap_op(kind: str):
     op = _vmap_ops.get(kind)
     if op is not None:
         return op
+    with _vmap_lock:
+        op = _vmap_ops.get(kind)
+        if op is None:
+            op = _vmap_ops[kind] = _make_vmap_op(kind)
+    return op
+
+
+def _make_vmap_op(kind: str):
     lib = torch.library
     # Annotations name module-level types: custom_op reads them as
     # strings (from __future__ import annotations).
@@ -518,5 +592,4 @@ def _vmap_op(kind: str):
         def rule(info, dims, x):
             return rows_fn(_rows(x, dims[0], info.batch_size)), 0
     op.register_vmap(rule)
-    _vmap_ops[kind] = op
     return op

@@ -372,7 +372,9 @@ class _Layout:
     total: Optional[int]
     const_merge: Optional[_StepMerge]
     const_vidx: Optional[torch.Tensor]   # [S] const index of each value
-    const_fin: Optional[torch.Tensor]    # [S] bool: the leaf ends
+    # Which of the S leaves end (int64 positions: a boolean mask would be
+    # counted on the host at every gather).
+    const_fin: Optional[torch.Tensor]
     const_offs_ends: Optional[Tuple[torch.Tensor, torch.Tensor]]
     items: List
 
@@ -443,9 +445,8 @@ class CTimeline(Node):
 
     def _plan_for(self, P, lits) -> _Plan:
         """The plan for (P, lits): cached per params for a voice of its
-        own; gathered anew from the layout for a voice group, whose
-        params are batched by vmap and live only for one render."""
-        if torch._C._functorch.is_batchedtensor(P.consts):
+        own, gathered anew from the layout where `_bind_per_render`."""
+        if _bind_per_render(P):
             return self._bind(self._layout_for(P, lits), P)
         key = (id(P), lits)
         plan = self._plans.get(key)
@@ -503,7 +504,7 @@ class CTimeline(Node):
                 device=dev)
             # An infinite leaf never steps down: no -v point.
             fin = ends < _NEVER
-            const_fin = torch.as_tensor(fin, device=dev)
+            const_fin = torch.as_tensor(np.flatnonzero(fin), device=dev)
             const_merge = _step_merge(np.concatenate([offs, ends[fin]]), dev)
             const_offs_ends = (torch.as_tensor(offs, device=dev),
                                torch.as_tensor(ends, device=dev))
@@ -657,6 +658,15 @@ class CTimeline(Node):
         (pos,) = st
         return self._valid_end(P, ctx.lits, pos, s, e), \
             (pos + (e - s).clamp(min=0),)
+
+
+def _bind_per_render(P) -> bool:
+    """Whether a render gathers its plan from P anew: for a voice group,
+    whose params are batched by vmap and live only for one render, and
+    in a render that a CUDA graph captures, whose replays must gather
+    from whatever params are copied into the graph's inputs then."""
+    return torch._C._functorch.is_batchedtensor(P.consts) or (
+        P.consts.is_cuda and torch.cuda.is_current_stream_capturing())
 
 
 class _NotLiteral(Exception):

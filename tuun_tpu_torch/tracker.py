@@ -1,30 +1,54 @@
 """The tracker: a batched polyphonic block renderer.
 
-Port of tuun_tpu/tracker.py with sync_interval=1 and no fused step:
-pending voices promote when their start sample is reached (late starts
-catch up by rendering and discarding, tracker.rs:514-537; repeat_every
-reschedules a fresh copy, skipping missed repetitions), and each block
-renders every active voice and mixes on the device until the one host
-copy per block.  Voices of one compiled structure, `fast` flag and
-literal Fin cutoffs (`lits`) form a VoiceGroup once two or more are
-active: the group renders as one call (CompiledVoice.batched_render_fn,
+Port of tuun_tpu/tracker.py: pending voices promote when their start
+sample is reached (late starts catch up by rendering and discarding,
+tracker.rs:514-537; repeat_every reschedules a fresh copy, skipping
+missed repetitions), and each block renders every active voice and mixes
+on the device.  Voices of one compiled structure, `fast` flag and literal
+Fin cutoffs (`lits`) form a VoiceGroup once two or more are active: the
+group renders as one call (CompiledVoice.batched_render_fn,
 torch.func.vmap over the voices, the scans on their voices x lanes
-kernels), its mix summed on the device, its valid ends read on the host
-in one copy.  A lone voice renders on its own, with one read of its
-valid end.  Voices with an exactly known length retire at their end
-sample without a read.
+kernels).  Voices with an exactly known length retire at their end sample
+without a read.  Each voice carries its `fast` flag and `lits`, resolved
+at activation as tuun_tpu/tracker.py:846-897 does.
 
-Each voice carries its `fast` flag and `lits`, resolved at activation as
-tuun_tpu/tracker.py:846-897 does: timeline-bearing structures render
-their literal schedules, relocatable ones take the fast path when
-EngineConfig.reloc_fast asks for it, and a relocatable voice's exact
-length comes from its symbolic length.  Deferred sync, the fused session
-step, lookahead windows, prefetch, Modify and the mesh wait (ROADMAP.md
-queue 1).
+The streaming path, with the reference's names and rules:
+
+  * Deferred sync (sync_interval > 1): valid ends, levels and capture
+    slices queue on the device and resolve every sync_interval blocks,
+    packed into one tensor whose copy to pinned host memory runs
+    asynchronously (a CUDA event marks it landed; a fetch worker waits on
+    it), and render_block returns the mix on the device.
+    run_to_completion delivers blocks through one FIFO of such copies.
+  * The fused session step: once the voice set has kept its structure
+    for `fuse_after` blocks, every lone voice and every group renders in
+    one step.  On the CPU the step runs as a plain closure, as JAX runs
+    it unjitted; on CUDA it is captured once per voice-set key into a
+    torch.cuda.CUDAGraph (engine/capture.py) and each block is one
+    replay.  The capture runs on a worker (inline with fuse_blocking)
+    while the per-voice path serves; a capture that fails raises on the
+    thread that serves blocks.  The graph writes each member's new state
+    back into its own inputs, so the members' states are its buffers
+    between replays, and any path that keeps a state past a later
+    replay clones it first (`_detach_states`).
+  * Lookahead windows (deferred sync, K = lookahead or sync_interval):
+    one render of K*n lanes per member serves the next K blocks; a play
+    that starts inside the window interrupts it, replaying the served
+    blocks from the window's untouched inputs.  A window never spans
+    more than engine.graph.MAX_BLOCK lanes.
+  * Window prefetch: the next window renders on a worker from this
+    window's end states, and is adopted only if every member still has
+    the params, state object and state generation it was built from.
+
+Not yet ported (ROADMAP.md queue 1): Modify and carry_state, the mesh
+paths of VoiceGroup, Status.buffer and send_current_buffer.
 """
 
 from __future__ import annotations
 
+import collections as _collections
+import queue as _queue
+import threading as _threading
 import time as _time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -33,9 +57,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import ir, native, oracle
+from . import _threads, ir, native, oracle
 from .engine import CompiledVoice, EngineConfig, structure_key
-from .engine.graph import check_device, stack_params, stack_tree, tree_index
+from .engine.capture import make_step, tree_clone
+from .engine.graph import (MAX_BLOCK, check_device, stack_params, stack_tree,
+                           tree_index)
 from .metric import Metric
 from .wav import write_wav_f32
 
@@ -45,6 +71,9 @@ MARK_LENGTH_CAP_SECONDS = 10  # tracker.rs process_marked's 10 * sample_rate
 # Exact-retirement length probe cap (the native oracle resolves symbolic
 # lengths in O(tree); a value-path Fin pays a generate pass to this cap).
 RETIRE_LENGTH_CAP_SECONDS = 120
+# Cached session steps (fused steps and windows), least recently used
+# first out (tuun_tpu/tracker.py:1061).
+STEP_CACHE_SIZE = 64
 
 
 @dataclass
@@ -62,11 +91,13 @@ class Status:
     # Host seconds of the block's render over the block's audio seconds.
     tracker_load: Optional[float] = None
     voices: int = 0
-    # Render calls issued this block: one per lone voice, one per group
-    # (the reference's allocations_per_sample analogue, tracker.rs:342-345).
+    # Render calls issued this block: one per lone voice and one per
+    # group, one for a fused step, one for the block that opens a
+    # lookahead window and none for a block it serves (the reference's
+    # allocations_per_sample analogue, tracker.rs:342-345).
     dispatches: int = 0
-    # Per-voice (rms, peak) of the block, when the tracker was built with
-    # levels=True.
+    # Per-voice (rms, peak), resolved at sync points, when the tracker was
+    # built with levels=True.
     voice_levels: Dict[Any, Tuple[float, float]] = field(default_factory=dict)
 
 
@@ -160,6 +191,18 @@ class Voice:
     # Last resolved output levels (levels=True trackers).
     level_rms: float = 0.0
     level_peak: float = 0.0
+    # Valid samples the engine reported for this voice: v - s summed over
+    # its resolved renders, up to and including the first that ended
+    # short of its extent (`ended`).
+    produced: int = 0
+    ended: bool = False
+    # Bumped on every change of `state`, in place (a fused replay) or not.
+    gen: int = 0
+    # Deferred-sync queues: (valid_end, s, e) device scalars, capture
+    # dicts and (rms, peak) pairs awaiting the next sync point.
+    _pending_v: List = field(default_factory=list)
+    _pending_caps: List = field(default_factory=list)
+    _pending_levels: List = field(default_factory=list)
 
 
 @dataclass
@@ -188,7 +231,17 @@ def _levels(y: torch.Tensor, dim=None) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.max(torch.abs(y), dim=dim).values)
 
 
-def _resolve_single(voice: Voice, v, e: int, caps, lv=None) -> None:
+def _note_valid(voice: Voice, v, s: int, e: int) -> None:
+    """Accounts one resolved render of `voice`: v its valid end, [s, e)
+    the interval it was asked for."""
+    if not voice.ended:
+        voice.produced += max(int(v) - int(s), 0)
+        voice.ended = int(v) < int(e)
+    if int(v) < int(e):
+        voice.finished = True
+
+
+def _resolve_single(voice: Voice, v, s: int, e: int, caps, lv=None) -> None:
     """Finish detection, levels and capture slicing for one rendered
     block: one host read of the voice's valid end (and its levels)."""
     if lv is None:
@@ -196,10 +249,61 @@ def _resolve_single(voice: Voice, v, e: int, caps, lv=None) -> None:
     else:
         vv, voice.level_rms, voice.level_peak = torch.stack(
             [v.double(), lv[0].double(), lv[1].double()]).tolist()
-    if vv < e:
-        voice.finished = True
+    _note_valid(voice, vv, s, e)
     for stem, (cy, cs, cv) in caps.items():
         _append_capture(voice, stem, cy, cs, cv)
+
+
+def _start_host_copies(x: torch.Tensor):
+    """Starts the copy of `x` to host memory without waiting for it:
+    (host tensor, event, x), the event recorded after the copy into
+    pinned memory, and `x` kept referenced until the event has passed.
+    On the CPU, x is its own host copy and there is no event."""
+    if not x.is_cuda:
+        return (x, None, None)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return (host, event, x)
+
+
+def _staged_ready(staged) -> bool:
+    """Non-blocking: has the staged copy landed?  (A host block, with no
+    event, always has.)"""
+    event = staged[1] if len(staged) > 1 else None
+    return event is None or event.query()
+
+
+def _staged_host(staged) -> np.ndarray:
+    """The staged copy as numpy, once it has landed (blocking)."""
+    host = staged[0]
+    event = staged[1] if len(staged) > 1 else None
+    if event is not None:
+        event.synchronize()
+    return host.numpy() if isinstance(host, torch.Tensor) else host
+
+
+def _pack(xs: List[torch.Tensor]) -> torch.Tensor:
+    """The deferred scalars (valid ends, levels) as one float64 vector:
+    valid ends are at most MAX_BLOCK, exact in float32 and float64."""
+    return torch.cat([x.reshape(-1) for x in xs]).to(torch.float64)
+
+
+def _params_of(m):
+    return m.params if isinstance(m, Voice) else m.bparams
+
+
+def _state_of(m):
+    return m.state if isinstance(m, Voice) else m.bstate
+
+
+def _set_state(m, state) -> None:
+    if isinstance(m, Voice):
+        m.state = state
+    else:
+        m.bstate = state
+    m.gen += 1
 
 
 class VoiceGroup:
@@ -220,6 +324,10 @@ class VoiceGroup:
         self.lits = voices[0].lits
         self.bparams = stack_params([v.params for v in voices])
         self.bstate = stack_tree([v.state for v in voices])
+        self.gen = 0
+        # (valid_end[B], caps, levels, starts, e) per deferred render (e:
+        # the render's extent, block_size or K*n for a window).
+        self._pending: List = []
         self._fns: Dict[Tuple[int, bool], Callable] = {}
         self._args = None  # ((starts, e), device starts, device e)
 
@@ -239,12 +347,13 @@ class VoiceGroup:
         _, starts_dev, e_dev = self._args
         lv = None
         if levels:
-            y_sum, v, self.bstate, caps, rms, peak = fn(
+            y_sum, v, bstate, caps, rms, peak = fn(
                 self.bparams, self.bstate, starts_dev, e_dev)
             lv = (rms, peak)
         else:
-            y_sum, v, self.bstate, caps = fn(self.bparams, self.bstate,
-                                             starts_dev, e_dev)
+            y_sum, v, bstate, caps = fn(self.bparams, self.bstate,
+                                        starts_dev, e_dev)
+        _set_state(self, bstate)
         return y_sum, v, caps, lv
 
     def _levels_render_fn(self, n: int):
@@ -260,7 +369,7 @@ class VoiceGroup:
             return y.sum(0), v, st, caps, rms, peak
         return batched
 
-    def resolve(self, v, caps, e: int, lv=None) -> None:
+    def resolve(self, v, caps, starts, e: int, lv=None) -> None:
         """Finish detection, levels and captures for every member from
         one host copy of the group's valid ends (and levels)."""
         rows = [v.double()]
@@ -268,8 +377,7 @@ class VoiceGroup:
             rows += [lv[0].double(), lv[1].double()]
         data = torch.stack(rows).tolist()
         for i, voice in enumerate(self.voices):
-            if data[0][i] < e:
-                voice.finished = True
+            _note_valid(voice, data[0][i], starts[i], e)
             if lv is not None:
                 voice.level_rms, voice.level_peak = data[1][i], data[2][i]
             for stem, (cy, cs, cv) in caps.items():
@@ -277,7 +385,7 @@ class VoiceGroup:
 
     def materialize_states(self) -> None:
         for i, voice in enumerate(self.voices):
-            voice.state = tree_index(self.bstate, i)
+            _set_state(voice, tree_index(self.bstate, i))
 
 
 class Tracker:
@@ -287,7 +395,7 @@ class Tracker:
                  captured_output_dir: str | Path = ".",
                  captured_date_format: str = "_%Y-%m-%d_%H-%M-%S",
                  precision: str = "fast", device="cuda",
-                 levels: bool = False):
+                 levels: bool = False, sync_interval: int = 1):
         self.sample_rate = sample_rate
         self.block_size = block_size
         self.captured_output_dir = Path(captured_output_dir)
@@ -302,6 +410,10 @@ class Tracker:
         self._groups: List[VoiceGroup] = []
         self._singles: List[Voice] = []
         self._groups_dirty = True
+        # Blocks to pipeline between host syncs (> 1: streaming mode;
+        # retirement and captures resolve lazily).
+        self.sync_interval = max(1, sync_interval)
+        self._since_sync = 0
         # While every activated voice had a known total length, known_end
         # is the last sample any voice produces.
         self._ends_known = True
@@ -313,6 +425,50 @@ class Tracker:
         # reference's HUD graphs, tracker.rs:342-345).
         self.load_metric = Metric()
         self.dispatch_metric = Metric()
+        # The fused session step: once the set keeps its structure for
+        # fuse_after blocks, the whole set renders as one step, one CUDA
+        # graph replay on the card.  Any set change falls back to the
+        # per-voice path at once; the step stays cached per set key.
+        self.fuse = True
+        self.fuse_after = 2
+        # True: capture inline instead of on a worker (deterministic
+        # engagement for tests; live streams keep False).
+        self.fuse_blocking = False
+        self._fuse_key = None
+        self._fuse_count = 0
+        self._fused_cache: Dict[Any, Dict[str, Any]] = {}
+        # Evicted steps, closed once the card is past their last replay.
+        self._retired_steps: List[Dict[str, Any]] = []
+        self._capture_threads: List[_threading.Thread] = []
+        # The captured fused step whose state buffers the members of
+        # _bound_members hold as their states (see _detach_states).
+        self._bound = None
+        self._bound_members: List = []
+        # Lookahead: steady-state streaming renders this many blocks per
+        # render (None: sync_interval); a play that starts inside the
+        # window interrupts it with exact block granularity.
+        self.lookahead: Optional[int] = None
+        self._window: Optional[Dict[str, Any]] = None
+        # Window prefetch: the next window renders on a worker as soon as
+        # one opens, and is adopted only if its inputs are still current.
+        self.prefetch_windows = True
+        self._prefetch: Optional[Dict[str, Any]] = None
+        self._prefetch_hits = 0
+        self._prefetch_misses = 0
+        # Counters of the session steps: captures started and finished,
+        # graph replays (the prefetch worker's included), windows opened.
+        self.captures_started = 0
+        self.captures_finished = 0
+        self.capture_seconds: List[float] = []  # each finished capture's
+        self.replays = 0
+        self.window_opens = 0
+        self._count_lock = _threading.Lock()
+        # Command-path phase log: every play, activation and costly window
+        # open appends (op, block_index, total_seconds, {phase: seconds}).
+        self.op_log: _collections.deque = _collections.deque(maxlen=256)
+        self._staged_q: List = []
+        self._fetch_thread: Optional[_threading.Thread] = None
+        self._prefetch_thread: Optional[_threading.Thread] = None
 
     @property
     def known_end(self) -> Optional[int]:
@@ -333,6 +489,10 @@ class Tracker:
             status.marks.extend(p.marks)
         return status
 
+    def _count(self, name: str, k: int = 1) -> None:
+        with self._count_lock:
+            setattr(self, name, getattr(self, name) + k)
+
     # -- commands ------------------------------------------------------
 
     def play(self, wid, waveform: ir.Waveform, start: Optional[int] = None,
@@ -342,16 +502,30 @@ class Tracker:
             # catch-up loop forever: play once instead.
             repeat_every = None
         start = self.now if start is None else start
+        t0 = _time.perf_counter()
+        phases: Dict[str, float] = {}
+        if self._window is not None and start < \
+                self._window["start"] + self._window["K"] * self.block_size:
+            self._interrupt_window()
+            phases["interrupt"] = _time.perf_counter() - t0
+        t = _time.perf_counter()
         marks = collect_marks(waveform, self.sample_rate, wid, start)
+        phases["marks"] = _time.perf_counter() - t
         self.pending.append(Pending(wid, waveform, start, repeat_every,
                                     marks))
         self.pending.sort(key=lambda p: p.start)
+        self.op_log.append(("play", self.now // self.block_size,
+                            _time.perf_counter() - t0, phases))
 
     def remove_pending(self, wid) -> None:
+        # No window interrupt: a window opens only when every pending
+        # voice starts at or after its end.
         self.pending = [p for p in self.pending if p.id != wid]
 
     def stop_all(self) -> None:
+        self._interrupt_window()
         self._sync_voices()
+        self._detach_states()
         for voice in self.active:
             self._close_voice(voice)
         self.active = []
@@ -363,49 +537,77 @@ class Tracker:
     # -- rendering -----------------------------------------------------
 
     def _activate(self, p: Pending, block_start: int) -> Voice:
+        t0 = _time.perf_counter()
+        phases: Dict[str, float] = {}
         compiled = self.cache.get(p.waveform, self.cfg)
         self._seed_counter += 1
         params = compiled.params_for(p.waveform, seed=self._seed_counter)
+        state = compiled.init(params)
+        phases["build"] = _time.perf_counter() - t0
+        t = _time.perf_counter()
         fast = compiled.fast_default
         lits = compiled.lits_for(params) \
             if fast or compiled._has_timeline else None
-        voice = Voice(p.id, p.waveform, compiled, params,
-                      compiled.init(params), p.start, list(p.marks),
-                      fast=fast, lits=lits)
+        voice = Voice(p.id, p.waveform, compiled, params, state, p.start,
+                      list(p.marks), fast=fast, lits=lits)
+        phases["lits"] = _time.perf_counter() - t
+        t = _time.perf_counter()
         # Exact retirement: the symbolic length of a relocatable
         # structure, else the oracle's length() (generator.rs:787-862).
         total = compiled.symbolic_len(params, lits)
         if total is None:
             total = _voice_total_length(p.waveform, self.sample_rate)
+        phases["length"] = _time.perf_counter() - t
         voice.total_len = total
         if total is None:
             self._ends_known = False
         else:
             self._last_end = max(self._last_end, p.start + total)
         delta = block_start - p.start
-        off = 0
-        while off < delta and not voice.finished:
+        if delta > 0:
             # Late start: render and discard the missed span
             # (tracker.rs:514-537); captures are kept.
-            m = min(self.block_size, delta - off)
-            self._render_voice(voice, m, 0)
-            off += m
+            t = _time.perf_counter()
+            off = 0
+            while off < delta and not voice.finished:
+                m = min(self.block_size, delta - off)
+                self._render_voice(voice, m, 0)
+                off += m
+            phases["catchup"] = _time.perf_counter() - t
+        self.op_log.append(("activate", block_start // self.block_size,
+                            _time.perf_counter() - t0, phases))
         return voice
 
-    def _render_voice(self, voice: Voice, e: int, s: int) -> torch.Tensor:
-        """One block for one voice; returns its samples on the device."""
-        y, v, voice.state, caps = voice.compiled.render_block(
+    def _render_voice(self, voice: Voice, e: int, s: int,
+                      defer: bool = False) -> torch.Tensor:
+        """One block for one voice; returns its samples on the device.
+        With defer=True nothing is read: the valid end, levels and
+        capture slices queue on the voice until the next sync point
+        (samples past a voice's end are zeros, so the mix needs no
+        host-side finish knowledge)."""
+        y, v, state, caps = voice.compiled.render_block(
             voice.params, voice.state, self.block_size, s, e,
             fast=voice.fast, lits=voice.lits)
-        _resolve_single(voice, v, e, caps,
+        _set_state(voice, state)
+        if defer:
+            voice._pending_v.append((v, s, e))
+            if self.report_levels:
+                voice._pending_levels.append(_levels(y))
+            if caps:
+                voice._pending_caps.append(caps)
+            return y
+        _resolve_single(voice, v, s, e, caps,
                         _levels(y) if self.report_levels else None)
         return y
 
-    def _materialize_groups(self) -> None:
+    def _materialize_groups(self, drain: bool = True) -> None:
         """Writes each group's stacked state back onto its voices and
         drops the groups; the next block regroups (tuun_tpu/tracker.py:
-        700-713, whose every sync drains at sync_interval=1)."""
-        self._sync_voices()
+        700-713).  drain=False leaves the staged valid ends to the fetch
+        worker: a voice whose finish is still in flight stays active a
+        few blocks longer, rendering zeros, and retires at the next sync."""
+        self._sync_voices(drain=drain)
+        self._detach_states()
         for g in self._groups:
             g.materialize_states()
         self._groups = []
@@ -417,6 +619,7 @@ class Tracker:
         groups of two or more render as one call, a lone voice on its own
         (tuun_tpu/tracker.py:1832-1856).  Existing groups write their
         stacked state back first, or a regroup would rewind them."""
+        self._detach_states()
         for g in self._groups:
             g.materialize_states()
         by_key: Dict[Tuple, List[Voice]] = {}
@@ -432,24 +635,502 @@ class Tracker:
                 self._singles.extend(voices)
         self._groups_dirty = False
 
-    def _render_all_pervoice(self, n: int, block_start: int):
+    def _members(self) -> List:
+        return list(self._singles) + list(self._groups)
+
+    def _detach_states(self) -> None:
+        """Gives every member that holds the bound fused step's state
+        buffers as its state a clone of them, so that no later replay of
+        the step (for this set or another of its key) changes a state
+        that something else holds: a group's materialized rows are views
+        of its state."""
+        step, self._bound = self._bound, None
+        for m, static in zip(self._bound_members,
+                             step.static_states if step else ()):
+            if _state_of(m) is static:
+                _set_state(m, tree_clone(static))
+        self._bound_members = []
+
+    # -- the fused session step ------------------------------------------
+
+    def _group_fast_lits(self, g: VoiceGroup):
+        """The (fast, lits) normalization batched_render_fn applies."""
+        return g.compiled._resolve_fast(g.fast, None, g.lits)
+
+    def _fused_set_key(self, n: int):
+        """The identity of the current voice set's structure for the
+        fused step, or None when fusing does not apply (a lone member
+        saves no dispatch, unless lookahead windows can engage)."""
+        members = len(self._singles) + len(self._groups)
+        if members == 0:
+            return None
+        if members < 2 and self._lookahead() <= 1:
+            return None
+        parts = []
+        for v in self._singles:
+            fast, lits = v.compiled._resolve_fast(v.fast, v.params, v.lits)
+            parts.append(("s", id(v.compiled), fast, lits))
+        for g in self._groups:
+            fast, lits = self._group_fast_lits(g)
+            parts.append(("g", id(g.compiled), fast, lits, len(g.voices)))
+        return (n, self.report_levels, tuple(parts))
+
+    def _member_impls(self, n: int):
+        """Each member's render of n lanes with its slice of the scalars
+        vector [e, starts...]: (kind, render, first, end)."""
+        impls = []
+        i = 1
+        for v in self._singles:
+            fast, lits = v.compiled._resolve_fast(v.fast, v.params, v.lits)
+            impls.append(("s", v.compiled.render_fn(n, fast, lits), i, i + 1))
+            i += 1
+        for g in self._groups:
+            fast, lits = self._group_fast_lits(g)
+            B = len(g.voices)
+            impls.append(("g", g.compiled.batched_render_fn(
+                n, fast=fast, lits=lits, mix=False), i, i + B))
+            i += B
+        return impls
+
+    def _build_fused_step(self, n: int):
+        """One step rendering every current member (lone voices, then
+        groups under torch.func.vmap, as batched_render_fn does) and
+        mixing in member order on the device, so its bits are the
+        per-voice path's (tuun_tpu/tracker.py:989-1036)."""
+        impls = self._member_impls(n)
+        levels = self.report_levels
+
+        def step(params, states, sc):
+            e = sc[0]
+            acc = None
+            new, outs = [], []
+            for (kind, impl, a, b), P, st in zip(impls, params, states):
+                if kind == "s":
+                    y, v, st2, caps = impl(P, st, sc[a], e)
+                    mixed = y
+                else:
+                    y, v, st2, caps = impl(P, st, sc[a:b], e)
+                    mixed = y.sum(0)
+                acc = mixed if acc is None else acc + mixed
+                lv = _levels(y, None if kind == "s" else 1) \
+                    if levels else None
+                new.append(st2)
+                outs.append((v, caps, lv))
+            return tuple(new), (acc, outs)
+        return step
+
+    def _async_compiled(self, cache_key, build, carry: bool,
+                        scalars: Tuple[int, ...]) -> Optional[Any]:
+        """The session step of `cache_key`, or None while its CUDA graph
+        is being captured (the caller serves through the per-voice path
+        meanwhile, tuun_tpu/tracker.py:1038-1091).  The closure and the
+        graph's static inputs are built on the calling thread; only the
+        warm-up and capture run on the worker.  On the CPU the step is the
+        plain closure, at once.  A failed capture raises here."""
+        ent = self._fused_cache.get(cache_key)
+        if ent is not None:
+            # True LRU: the entry in use is never the next victim.
+            self._fused_cache[cache_key] = self._fused_cache.pop(cache_key)
+        else:
+            self._collect_retired()
+            if len(self._fused_cache) >= STEP_CACHE_SIZE:
+                victim = next(iter(self._fused_cache))
+                self._retire_step(self._fused_cache.pop(victim))
+            members = self._members()
+            step = make_step(build(), tuple(_params_of(m) for m in members),
+                             tuple(_state_of(m) for m in members), scalars,
+                             carry)
+            ent = {"fn": None, "error": None, "step": step}
+            self._fused_cache[cache_key] = ent
+            if not step.captured:
+                ent["fn"] = step
+                return step
+            self._count("captures_started")
+
+            def work():
+                try:
+                    step.capture()
+                    ent["fn"] = step
+                    self._count("captures_finished")
+                    self.capture_seconds.append(step.capture_seconds)
+                except Exception as e:  # raised on the serve thread
+                    ent["error"] = e
+
+            if self.fuse_blocking:
+                work()
+            else:
+                t = _threading.Thread(target=work, daemon=True,
+                                      name="tuun-capture")
+                # Joined at interpreter shutdown: a capture torn down
+                # inside CUDA would abort the process.
+                _threads.track_thread(t)
+                self._capture_threads = [
+                    x for x in self._capture_threads if x.is_alive()] + [t]
+                t.start()
+        if ent["error"] is not None:
+            raise RuntimeError("capturing a session step failed") \
+                from ent["error"]
+        return ent["fn"]
+
+    def _retire_step(self, ent: Dict[str, Any]) -> None:
+        if ent["step"] is self._bound:
+            self._bound, self._bound_members = None, []
+        self._retired_steps.append(ent)
+
+    def _collect_retired(self) -> None:
+        """Closes each evicted step once its capture has ended, the card
+        is past its last replay and no prefetch job holds it."""
+        keep = []
+        held = self._prefetch["fn"] if self._prefetch is not None else None
+        for ent in self._retired_steps:
+            step = ent["step"]
+            captured = ent["fn"] is not None or ent["error"] is not None
+            if (captured or not step.captured) and step.idle() \
+                    and step is not held:
+                step.close()
+            else:
+                keep.append(ent)
+        self._retired_steps = keep
+
+    def _fused_fn(self, key, n: int, scalars) -> Optional[Any]:
+        return self._async_compiled(key, lambda: self._build_fused_step(n),
+                                    True, scalars)
+
+    def _block_scalars(self, n: int, block_start: int) -> Tuple[int, ...]:
+        """[e, every member's start offset] of a block."""
+        sc = [n]
+        for v in self._singles:
+            sc.append(max(v.start - block_start, 0))
+        for g in self._groups:
+            sc += [max(v.start - block_start, 0) for v in g.voices]
+        return tuple(sc)
+
+    def _render_all_fused(self, key, n: int, block_start: int, defer: bool):
+        """Renders the whole set through the fused step, or returns None
+        while its graph is being captured (the caller falls back to the
+        per-voice path for this block).  Every member's valid end,
+        levels and captures queue for the next sync point: with
+        sync_interval=1 that is the end of this block, so all of them
+        come back in one host copy."""
+        scalars = self._block_scalars(n, block_start)
+        step = self._fused_fn(key, n, scalars)
+        if step is None:
+            return None
+        members = self._members()
+        new, (mix, outs) = step(tuple(_params_of(m) for m in members),
+                                tuple(_state_of(m) for m in members),
+                                scalars)
+        if step.captured:
+            self._count("replays")
+            self._bound, self._bound_members = step, members
+        i = 1
+        for m, st, (v, caps, lv) in zip(members, new, outs):
+            _set_state(m, st)
+            if isinstance(m, Voice):
+                m._pending_v.append((v, scalars[i], n))
+                if lv is not None:
+                    m._pending_levels.append(lv)
+                if caps:
+                    m._pending_caps.append(caps)
+                i += 1
+            else:
+                B = len(m.voices)
+                m._pending.append((v, caps, lv, scalars[i:i + B], n))
+                i += B
+        return mix
+
+    def _render_all_pervoice(self, n: int, block_start: int, defer: bool):
         """Every lone voice and every group, one render call each
-        (tuun_tpu/tracker.py:1141-1158); returns the mix on the device."""
+        (tuun_tpu/tracker.py:1141-1158); returns the mix on the device.
+        Without defer each call's valid ends are read at once."""
         acc = None
         for voice in self._singles:
-            y = self._render_voice(voice, n, max(voice.start - block_start, 0))
+            s = max(voice.start - block_start, 0)
+            y = self._render_voice(voice, n, s, defer=defer)
             acc = y if acc is None else acc + y
         for group in self._groups:
             starts = [max(v.start - block_start, 0) for v in group.voices]
             y_sum, v_arr, caps, lv = group.render(
                 n, starts, n, levels=self.report_levels)
-            group.resolve(v_arr, caps, n, lv)
+            if defer:
+                group._pending.append((v_arr, caps, lv, tuple(starts), n))
+            else:
+                group.resolve(v_arr, caps, starts, n, lv)
             acc = y_sum if acc is None else acc + y_sum
         return acc
 
-    def render_block(self) -> Tuple[np.ndarray, Status]:
+    # -- lookahead windows ---------------------------------------------
+    #
+    # Steady-state streaming renders K blocks ahead in one step and serves
+    # the sub-blocks: a block's host cost drops to a handoff.  A play that
+    # starts inside the window interrupts it: the served sub-blocks
+    # replay from the window's inputs (which the window step never
+    # changes) to rebuild the states at the consume point.
+
+    def _lookahead(self) -> int:
+        return self.lookahead if self.lookahead is not None \
+            else self.sync_interval
+
+    def _build_window_step(self, n: int, K: int):
+        """One render of K*n lanes per member, not K renders: the engine
+        renders any block size (block-size invariance is a tested
+        contract), so the window multiplies the work per launch instead
+        of the launches (tuun_tpu/tracker.py:1170-1233).  scalars[0] is
+        the runtime extent e0: K*n for a full window, k*n when an
+        interrupt replays k served sub-blocks."""
+        impls = self._member_impls(n * K)
+        levels = self.report_levels
+
+        def win(params, states, sc):
+            e0 = sc[0]
+            acc = None
+            finals, vs, lvs = [], [], []
+            for (kind, impl, a, b), P, st in zip(impls, params, states):
+                if kind == "s":
+                    y, v, st2, _ = impl(P, st, sc[a], e0)
+                    mixed = y
+                else:
+                    y, v, st2, _ = impl(P, st, sc[a:b], e0)
+                    mixed = y.sum(0)
+                acc = mixed if acc is None else acc + mixed
+                vs.append(v)
+                if levels:
+                    # The last served sub-block's levels: at the runtime
+                    # extent, so that an interrupt replay reports them.
+                    lanes = (e0 - n) + torch.arange(n, device=y.device)
+                    lvs.append(_levels(y.index_select(-1, lanes),
+                                       None if kind == "s" else 1))
+                finals.append(st2)
+            return tuple(finals), (acc, vs, lvs)
+        return win
+
+    def _window_fn(self, key, n: int, K: int, scalars) -> Optional[Any]:
+        """The K-block window step; its graph never changes its inputs."""
+        return self._async_compiled(
+            ("win", key, K), lambda: self._build_window_step(n, K), False,
+            scalars)
+
+    def _window_scalars(self, e0: int) -> Tuple[int, ...]:
+        return (e0,) + (0,) * (len(self._singles)
+                               + sum(len(g.voices) for g in self._groups))
+
+    def _open_window(self, key, n: int, block_start: int):
+        """Opens a lookahead window when the set is eligible, returning
+        the first served sub-block (None: ineligible, or its step is still
+        being captured)."""
+        K = self._lookahead()
+        if K <= 1 or K * n > MAX_BLOCK:
+            return None
+        window_end = block_start + K * n
+        if any(v.start > block_start for v in self.active):
+            return None
+        if any(p.start < window_end for p in self.pending):
+            return None
+        members = self._members()
+        if any(m.compiled.root.has_capture for m in members):
+            return None
+        # The per-block fused step must be live for interrupt replays
+        # (refresh its LRU slot: it must outlive the window).
+        fent = self._fused_cache.get(key)
+        if fent is None or fent["fn"] is None:
+            return None
+        self._fused_cache[key] = self._fused_cache.pop(key)
+        scalars = self._window_scalars(K * n)
+        step = self._window_fn(key, n, K, scalars)
+        if step is None:
+            return None
+        t0 = _time.perf_counter()
+        res = self._adopt_prefetch(key, K, block_start)
+        t1 = _time.perf_counter()
+        phases = {"adopt": t1 - t0}
+        if res is None:
+            res = step(tuple(_params_of(m) for m in members),
+                       tuple(_state_of(m) for m in members), scalars)
+            if step.captured:
+                self._count("replays")
+            phases["dispatch"] = _time.perf_counter() - t1
+        if sum(phases.values()) > 0.002:
+            self.op_log.append(("window", block_start // n,
+                                sum(phases.values()), phases))
+        finals, (acc, vs, lvs) = res
+        self._count("window_opens")
+        self._window = {"acc": acc, "vs": vs, "lvs": lvs, "finals": finals,
+                        "k": 0, "K": K, "key": key, "start": block_start,
+                        "singles": list(self._singles),
+                        "groups": list(self._groups)}
+        if self.prefetch_windows:
+            self._submit_prefetch(key, K, step, finals, window_end, scalars)
+        return self._serve_window()
+
+    def _adopt_prefetch(self, key, K: int, block_start: int):
+        """The speculative next window's result if it was rendered from
+        exactly the current inputs: the same key, K, start and member
+        lists, and every member still holding the params, state object
+        and state generation that the job was built from (any retirement,
+        regroup or interrupt since breaks one of them), else None
+        (tuun_tpu/tracker.py:1298-1333)."""
+        pf, self._prefetch = self._prefetch, None
+        if pf is None:
+            return None
+
+        def same(a, b):  # element identity, not dataclass field ==
+            return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+        valid = (pf["key"] == key and pf["K"] == K
+                 and pf["start"] == block_start
+                 and same(pf["singles"], self._singles)
+                 and same(pf["groups"], self._groups)
+                 and all(_params_of(m) is p and _state_of(m) is s
+                         and m.gen == g for m, p, s, g in pf["refs"]))
+        with pf["lock"]:
+            started = pf["state"] != "queued"
+            if not started:
+                # Not picked up yet: rendering inline is faster than
+                # waiting in line.
+                pf["state"] = "abandoned"
+        if not valid or not started:
+            self._prefetch_misses += 1
+            return None
+        if not pf["done"].wait(timeout=120):  # pragma: no cover
+            self._prefetch_misses += 1
+            return None
+        if pf["error"] is not None:
+            raise RuntimeError("the window prefetch failed") from pf["error"]
+        self._prefetch_hits += 1
+        return pf["result"]
+
+    def _submit_prefetch(self, key, K: int, step, finals, start: int,
+                         scalars) -> None:
+        """Renders the next window from this window's end states on the
+        prefetch worker.  The window step never changes its inputs, so an
+        unadopted prefetch is only discarded output.  Each member's state
+        generation is expected one higher at adoption: the finalize of
+        this window sets it to `finals`."""
+        members = self._members()
+        params = tuple(_params_of(m) for m in members)
+        refs = [(m, p, f, m.gen + 1) for m, p, f in zip(members, params,
+                                                          finals)]
+        stream = torch.cuda.current_stream(self.cfg.device) \
+            if self.cfg.device.type == "cuda" else None
+        job = {"lock": _threading.Lock(), "state": "queued",
+               "done": _threading.Event(), "fn": step,
+               "args": (params, tuple(finals), scalars), "stream": stream,
+               "result": None, "error": None, "key": key, "K": K,
+               "start": start, "singles": list(self._singles),
+               "groups": list(self._groups), "refs": refs}
+        self._prefetch = job
+        self._ensure_prefetcher()
+        self._prefetch_q.put(job)
+
+    def _ensure_prefetcher(self) -> None:
+        if self._prefetch_thread is not None \
+                and self._prefetch_thread.is_alive():
+            return
+        self._prefetch_q: _queue.Queue = _queue.Queue()
+
+        def work():
+            while True:
+                job = self._prefetch_q.get()
+                if job is None:
+                    return
+                with job["lock"]:
+                    if job["state"] == "abandoned":
+                        job["done"].set()
+                        continue
+                    job["state"] = "running"
+                try:
+                    if job["stream"] is not None:
+                        # The serve thread's stream: its replays and this
+                        # one never overlap on the card.
+                        with torch.cuda.stream(job["stream"]):
+                            job["result"] = job["fn"](*job["args"])
+                        self._count("replays")
+                    else:
+                        job["result"] = job["fn"](*job["args"])
+                except Exception as e:  # raised at adoption
+                    job["error"] = e
+                job["done"].set()
+
+        self._prefetch_thread = _threading.Thread(
+            target=work, daemon=True, name="tuun-window-prefetch")
+        _threads.track_closer(self)
+        self._prefetch_thread.start()
+
+    def _serve_window(self):
+        w = self._window
+        n = self.block_size
+        y = w["acc"][w["k"] * n:(w["k"] + 1) * n]
+        w["k"] += 1
+        if w["k"] >= w["K"]:
+            self._finalize_window()
+        return y
+
+    def _queue_window(self, w, finals, vs, lvs, e: int) -> None:
+        """Adopts a window render's end states and queues its valid ends
+        and levels (the last served sub-block's: a finished voice keeps
+        reporting v < e, so finish detection holds)."""
+        for m, st, v, lv in zip(w["singles"] + w["groups"], finals, vs,
+                                lvs if self.report_levels
+                                else [None] * len(vs)):
+            _set_state(m, st)
+            if isinstance(m, Voice):
+                m._pending_v.append((v, 0, e))
+                if lv is not None:
+                    m._pending_levels.append(lv)
+            else:
+                m._pending.append((v, {}, lv, (0,) * len(m.voices), e))
+
+    def _finalize_window(self) -> None:
+        w = self._window
+        self._window = None
+        # The window served K blocks while _since_sync was frozen: count
+        # them, so the sync cadence stays per block (the finalize block
+        # itself adds the last one).
+        self._since_sync += w["K"] - 1
+        self._queue_window(w, w["finals"], w["vs"], w["lvs"],
+                           self.block_size * w["K"])
+
+    def _interrupt_window(self) -> None:
+        """A play arrived mid-window: discard the unserved tail and replay
+        the k served sub-blocks as one render of the window step with
+        extent k*n from its untouched inputs, so states and bookkeeping
+        stand exactly at the consume point (tuun_tpu/tracker.py:1434-
+        1491)."""
+        w = self._window
+        if w is None:
+            return
+        self._window = None
+        # The k served blocks were never counted toward the sync cadence.
+        self._since_sync += w["k"]
+        if w["k"] == 0:
+            return
+        n = self.block_size
+        ent = self._fused_cache.get(("win", w["key"], w["K"]))
+        step = ent["fn"] if ent is not None else None
+        if step is not None:
+            e = w["k"] * n
+            members = w["singles"] + w["groups"]
+            finals, (_acc, vs, lvs) = step(
+                tuple(_params_of(m) for m in members),
+                tuple(_state_of(m) for m in members),
+                self._window_scalars(e))
+            if step.captured:
+                self._count("replays")
+            self._queue_window(w, finals, vs, lvs, e)
+            return
+        # The window step was evicted mid-window: a skipped replay would
+        # freeze every state while `now` advances, so replay per block
+        # through the fused or the per-voice path.
+        for j in range(w["k"]):
+            bs = w["start"] + j * n
+            if self._render_all_fused(w["key"], n, bs, True) is None:
+                self._render_all_pervoice(n, bs, True)
+
+    def render_block(self):
         """Renders the next block of `block_size` samples (the audio
-        callback: tracker.rs:321-368 + generate:484-644)."""
+        callback: tracker.rs:321-368 + generate:484-644).  Returns (mix,
+        Status): the mix as numpy with sync_interval=1, else on the
+        device (a torch tensor), as the JAX tracker returns a device
+        array; a block with no voice is numpy zeros either way."""
         t0 = _time.perf_counter()
         n = self.block_size
         block_start = self.now
@@ -460,8 +1141,9 @@ class Tracker:
             if p.start < block_end:
                 self.active.append(self._activate(p, block_start))
                 # The regroup below stacks voice states: take the groups'
-                # progress back onto their voices first.
-                self._materialize_groups()
+                # progress back onto their voices first, without waiting
+                # on the card for valid ends still in flight.
+                self._materialize_groups(drain=False)
                 if p.repeat_every is not None:
                     nxt = p.start + p.repeat_every
                     while nxt < block_start:  # skip missed repetitions
@@ -476,15 +1158,58 @@ class Tracker:
 
         if self._groups_dirty:
             self._rebuild_groups()
-        acc = self._render_all_pervoice(n, block_start)
-        dispatches = len(self._singles) + len(self._groups)
+
+        defer = self.sync_interval > 1
+        acc = None
+        served = opened = fused = False
+        if self._window is not None:
+            acc = self._serve_window()
+            served = True
+        if not served:
+            fused_key = self._fused_set_key(n) if self.fuse else None
+            if fused_key is not None and fused_key == self._fuse_key:
+                self._fuse_count += 1
+            else:
+                self._fuse_key, self._fuse_count = fused_key, 0
+            fused = fused_key is not None and \
+                self._fuse_count >= self.fuse_after
+            if fused and defer:
+                acc = self._open_window(fused_key, n, block_start)
+                if acc is not None:
+                    served = opened = True
+            if not served and fused:
+                acc = self._render_all_fused(fused_key, n, block_start,
+                                             defer)
+                fused = acc is not None  # None: still being captured
+            if not served and not fused:
+                acc = self._render_all_pervoice(n, block_start, defer)
+        # Exact retirement: voices with a known total length finish the
+        # moment their final block has been rendered, without a read.
         for voice in self.active:
             if voice.total_len is not None and \
                     voice.start + voice.total_len <= block_end:
                 voice.finished = True
+        # Count dispatches before the sync prunes voices that finished in
+        # this very block.
+        if served:
+            dispatches = 1 if opened else 0
+        elif fused:
+            dispatches = 1
+        else:
+            dispatches = len(self._singles) + len(self._groups)
         self.now = block_end
-        self._sync_voices()
-        out = np.zeros(n, np.float32) if acc is None else acc.cpu().numpy()
+        if self._window is None:
+            # No sync while a window is open: the voice lists stay frozen
+            # until its states are adopted at finalize.
+            self._since_sync += 1
+            if not defer:
+                self._sync_voices(drain=True)
+            elif self._since_sync >= self.sync_interval:
+                self._sync_voices(drain=False)
+        if acc is None:
+            out = np.zeros(n, np.float32)
+        else:
+            out = acc if defer else acc.cpu().numpy()
 
         status = self._status(block_start)
         status.dispatches = dispatches
@@ -497,21 +1222,183 @@ class Tracker:
         self.dispatch_metric.set(float(status.dispatches))
         return out, status
 
-    def _sync_voices(self) -> None:
-        """Retires finished voices, writing their captures; a group that
-        loses a member writes its state back and the next block regroups
-        (tuun_tpu/tracker.py:1808-1830)."""
-        finished = [v for v in self.active if v.finished]
-        if not finished:
-            return
+    # -- deferred sync ---------------------------------------------------
+
+    def _stage_pending(self):
+        """Packs every queued valid end and level into one tensor and
+        starts its copy to host memory; returns (staged, plan), plan
+        saying how to unpack it, or None when nothing is queued
+        (tuun_tpu/tracker.py:1629-1674).  The read happens at a later
+        sync, so the copy overlaps with rendering."""
+        flat: List[torch.Tensor] = []
+        plan: List = []
+        for voice in self._singles:
+            for (v, s, e) in voice._pending_v:
+                flat.append(v)
+                plan.append(("single", voice, (s, e)))
+            for (r, pk) in voice._pending_levels:
+                flat += [r, pk]
+                plan.append(("slevel", voice, None))
+            for caps in voice._pending_caps:
+                plan.append(("caps", voice, caps))
+            voice._pending_v = []
+            voice._pending_caps = []
+            voice._pending_levels = []
         for group in self._groups:
-            if any(v.finished for v in group.voices):
-                group.materialize_states()
-        self._groups_dirty = True
-        for voice in finished:
-            self._close_voice(voice)
-        self.active = [v for v in self.active if not v.finished]
-        self._singles = [v for v in self._singles if not v.finished]
+            for (v_arr, caps, lv, starts, e) in group._pending:
+                flat.append(v_arr)
+                plan.append(("group", group, (caps, starts, e)))
+                if lv is not None:
+                    flat += [lv[0], lv[1]]
+                    plan.append(("glevel", group, None))
+            group._pending = []
+        if not flat:
+            return None
+        return _start_host_copies(_pack(flat)), plan
+
+    def _resolve_staged(self, staged) -> None:
+        if staged is None:
+            return
+        copy, plan = staged
+        self._apply_resolved(_staged_host(copy), plan)
+
+    def _apply_resolved(self, data: np.ndarray, plan) -> None:
+        cursor = 0
+        for kind, target, extra in plan:
+            if kind == "single":
+                s, e = extra
+                _note_valid(target, data[cursor], s, e)
+                cursor += 1
+            elif kind == "group":
+                b = len(target.voices)
+                v_np = data[cursor:cursor + b]
+                cursor += b
+                caps, starts, e = extra
+                for i, voice in enumerate(target.voices):
+                    for stem, (cy, cs, cv) in caps.items():
+                        _append_capture(voice, stem, cy[i], cs[i], cv[i])
+                    _note_valid(voice, v_np[i], starts[i], e)
+            elif kind == "slevel":
+                target.level_rms = float(data[cursor])
+                target.level_peak = float(data[cursor + 1])
+                cursor += 2
+            elif kind == "glevel":
+                b = len(target.voices)
+                rms = data[cursor:cursor + b]
+                peak = data[cursor + b:cursor + 2 * b]
+                cursor += 2 * b
+                for i, voice in enumerate(target.voices):
+                    voice.level_rms = float(rms[i])
+                    voice.level_peak = float(peak[i])
+            else:  # caps on a lone voice
+                for stem, (cy, cs, cv) in extra.items():
+                    _append_capture(target, stem, cy, cs, cv)
+
+    def _ensure_fetcher(self) -> None:
+        if self._fetch_thread is not None and self._fetch_thread.is_alive():
+            return
+        self._fetch_q: _queue.Queue = _queue.Queue()
+        self._fetched_q: _queue.Queue = _queue.Queue()
+        self._fetch_outstanding = 0
+
+        def work():
+            while True:
+                item = self._fetch_q.get()
+                if item is None:
+                    return
+                copy, plan = item
+                try:
+                    data = _staged_host(copy)  # waits on the copy's event
+                except Exception:
+                    data = None
+                self._fetched_q.put((data, plan))
+
+        self._fetch_thread = _threading.Thread(target=work, daemon=True,
+                                               name="tuun-fetch")
+        # close() runs before interpreter teardown: the worker waits on
+        # CUDA events, which is unsafe to kill mid-call.
+        _threads.track_closer(self)
+        self._fetch_thread.start()
+
+    def close(self) -> None:
+        """Stops the fetch and prefetch workers, waits for captures in
+        progress and, once the card is past their replays, frees every
+        cached session step's graph (idempotent; the tracker stays
+        usable: the workers respawn and the steps are captured again on
+        demand)."""
+        t = self._fetch_thread
+        if t is not None and t.is_alive():
+            self._fetch_q.put(None)
+            t.join(timeout=_threads.SHUTDOWN_JOIN_SECONDS)
+        t = self._prefetch_thread
+        if t is not None and t.is_alive():
+            self._prefetch_q.put(None)
+            t.join(timeout=_threads.SHUTDOWN_JOIN_SECONDS)
+        for t in self._capture_threads:
+            t.join(timeout=_threads.SHUTDOWN_JOIN_SECONDS)
+        self._capture_threads = []
+        self._prefetch = None
+        self._bound, self._bound_members = None, []
+        for ent in list(self._fused_cache.values()) + self._retired_steps:
+            if ent["fn"] is not None or ent["error"] is not None:
+                ent["step"].wait()
+                ent["step"].close()
+        self._fused_cache.clear()
+        self._retired_steps = []
+
+    def _apply_fetched(self, block: bool = False) -> None:
+        """Applies completed background fetches on the calling thread;
+        with block=True waits for every outstanding fetch."""
+        while self._fetch_outstanding:
+            try:
+                data, plan = self._fetched_q.get(timeout=60 if block else 0)
+            except _queue.Empty:
+                if block:
+                    raise RuntimeError("staged fetch worker stalled")
+                return
+            self._fetch_outstanding -= 1
+            if data is not None:
+                self._apply_resolved(data, plan)
+
+    def _sync_voices(self, drain: bool = True) -> None:
+        """Resolves queued valid ends, levels and capture slices, and
+        retires finished voices (tuun_tpu/tracker.py:1782-1830).  With
+        drain=False the blocking wait for the host copy runs on the fetch
+        worker and its results apply at a later sync; drain=True resolves
+        everything now."""
+        self._since_sync = 0
+        self._ensure_fetcher()
+        queue = self._staged_q
+        staged = self._stage_pending()
+        if staged is not None:
+            queue.append(staged)
+        self._apply_fetched(block=drain)
+        if drain:
+            for st in queue:
+                self._resolve_staged(st)
+        else:
+            for st in queue:
+                self._fetch_q.put(st)
+                self._fetch_outstanding += 1
+        queue.clear()
+        finished = [v for v in self.active if v.finished]
+        if finished and self._fetch_outstanding and any(
+                v.captures or v.compiled.capture_stems for v in finished):
+            # A voice can finish (exact retirement) while copies holding
+            # its capture slices are still in flight: resolve them before
+            # closing, or its capture WAV would lose its tail.  Voices
+            # without captures retire without this wait.
+            self._apply_fetched(block=True)
+        if finished:
+            self._detach_states()
+            for group in self._groups:
+                if any(v.finished for v in group.voices):
+                    group.materialize_states()
+            self._groups_dirty = True
+            for voice in finished:
+                self._close_voice(voice)
+            self.active = [v for v in self.active if not v.finished]
+            self._singles = [v for v in self._singles if not v.finished]
 
     def _close_voice(self, voice: Voice) -> None:
         if not voice.captures:
@@ -530,16 +1417,54 @@ class Tracker:
     def run_to_completion(self, max_seconds: float = 120.0,
                           sink: Optional[Callable[[np.ndarray], None]] = None
                           ) -> np.ndarray:
-        """Renders blocks until no active or pending voices remain."""
+        """Renders blocks until no active or pending voices remain.
+
+        In deferred-sync mode the blocks stay on the device; each sync
+        window's blocks stack into one tensor whose copy to host starts at
+        once and is read when it has landed, in one FIFO with host blocks,
+        so no block overtakes another (tuun_tpu/tracker.py:1872-1935)."""
         chunks: List[np.ndarray] = []
+        window: List[torch.Tensor] = []
+        in_flight: List = []  # staged copies of [k, block] stacks
+
+        def flush_window():
+            if not window:
+                return
+            packed = window[0][None] if len(window) == 1 \
+                else torch.stack(window)
+            window.clear()
+            in_flight.append(_start_host_copies(packed))
+
+        def resolve(limit: Optional[int] = None):
+            while in_flight and (
+                    (limit is not None and len(in_flight) > limit)
+                    or _staged_ready(in_flight[0])):
+                arr = np.asarray(_staged_host(in_flight.pop(0)),
+                                 np.float32).reshape(-1, self.block_size)
+                for row in arr:
+                    chunks.append(row)
+                    if sink is not None:
+                        sink(row)
+
         max_blocks = int(max_seconds * self.sample_rate / self.block_size) + 1
         for _ in range(max_blocks):
             y, _ = self.render_block()
-            chunks.append(y)
-            if sink is not None:
-                sink(y)
-            if not self.active and not self.pending:
+            if isinstance(y, np.ndarray):
+                # A host block (no voice active, or sync_interval=1) joins
+                # the same FIFO, behind every device block before it.
+                flush_window()
+                in_flight.append((y.reshape(1, -1), None))
+                resolve(limit=32)
+            else:
+                window.append(y)
+                if self._since_sync == 0:
+                    flush_window()
+                    resolve(limit=32)
+            # Termination is only decidable at sync points.
+            if self._since_sync == 0 and not self.active and not self.pending:
                 break
+        flush_window()
+        resolve(limit=0)
         if not chunks:
             return np.zeros(0, np.float32)
         return np.concatenate(chunks)
