@@ -91,11 +91,39 @@ Phases, each of which exits non-zero on failure:
      counted under
      an in-process profiler session (logged, not held: the child of phase 2
      holds them).
+  9. live edits (session): the port's TuunSession, Player.stop and web
+     server at the server's defaults (44.1 kHz, 1024-sample blocks, fast,
+     unpaced), on the card at sync_interval 1 and 32.  S1: the slider
+     demos' vibrato, filter and gain programs and a 20-note score (a
+     timeline), each ~10 s with a slider move every 8 blocks (the score:
+     one, late, which replays it through state_at), then Player.stop:
+     `$330 * gain` equals its piecewise-linear gain times sin(2 pi 330 t)
+     (phase 3's FM bound), each ramp block monotone, the 50 ms stop ramp
+     then exact zeros, every voice retired within 2 sync_interval blocks
+     of the ramp's end (the reference's lazy rule).  S2: keys
+     instruments: pm_piano_keys (an 8-note chord, staggered note-offs, a
+     second chord), G2's FM voice and its W2g-like voice as keys (4 notes
+     each, alone then grouped), with inline captures: one dispatch a block
+     again 3 blocks after every burst of commands, the fused step served.
+     At sync_interval 32 (windows interrupted by every command) each mix
+     equals sync_interval 1's within phase 8's interrupt bound; at
+     sync_interval 1 the card equals the port's own CPU run of the same
+     scripts within phase 4's envelope (S1's programs cut to their first
+     96 blocks on the CPU).  S3: the web server on
+     127.0.0.1:0 through http.client: an install streamed to its end bit
+     for bit a direct session's, a slider move's monotone ramp, keys
+     note_on/note_off, stop ending a live stream, an unknown id's 404.
+     Logged: per session x realtime, p50/p99 block ms, blocks by path,
+     captures; per modify p50/p99 ms and its op_log phases; state_at's
+     replay; each kernel's launches in the phase (the kernels line's
+     `session_launches`; every kernel must launch); and, not held, the
+     filter program with wide moves (Q 2 at 100 Hz) against a float64
+     scan.
 
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2;
 `--phase stream` runs only phase 8's capture check, G3 and G2's
-streaming sessions.
+streaming sessions; `--phase session` only phase 9.
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
@@ -118,6 +146,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 SR = 48000
 BUFFER = 65536
@@ -2298,17 +2328,564 @@ def phase_engine(torch, np):
     return ("W4", seconds / wall)
 
 
+# -- phase 9: live edits through the port's sessions and web server --------
+#
+# The live-edit path (Tracker.modify and carry_state, Player.stop,
+# TuunSession, tools/web_demo.py) at the web server's defaults: 44.1 kHz,
+# 1024-sample blocks, fast precision, unpaced.
+LIVE_SR = 44100
+LIVE_BLOCK = 1024
+LIVE_INTERVALS = (1, 32)  # the default, and docs/serving.md's production
+STOP_SAMPLES = 2205  # the Player's 50 ms stop ramp at 44.1 kHz
+S1_BLOCKS = 431  # 10 s
+S1_MOVE_EVERY = 8
+S1_NORMS = (0.9, 0.2, 0.65, 0.35, 1.0, 0.05, 0.5)
+# The filter's moves, cutoff and Q in turn, keep it within 630 Hz-5 kHz
+# and Q 0.38-0.83: a sharper resonance is where f32 scans lose digits
+# (measured apart: S1_STIFF_BLOCKS).
+S1_FILTER_NORMS = (0.8, 0.2, 0.45, 0.3, 0.65, 0.1, 0.5, 0.25, 0.9, 0.35,
+                   0.55, 0.15)
+S1_GAIN0 = 0.4
+_SCALE = [220 * 2 ** (i / 12) for i in (0, 2, 4, 5, 7, 9, 11, 12)]
+# A score of 20 quarter notes (10 s at the session's tempo, 120) with a
+# live detune: a timeline, so that its one move, late in the piece,
+# rebuilds the voice's node tree by replaying it from sample 0 (state_at).
+S1_SCORE = "<[" + ", ".join(
+    f"$({f:.3f} * pow(2, detune/12)) * Qw * 0.3"
+    for f in (_SCALE * 3)[:20]) + "]>"
+# examples/slider-demos.tuun's slider programs (no file is read at run
+# time), and the score: (name, expression, sliders, labels moved in turn,
+# the normalized values they move to in turn, blocks, blocks at which a
+# slider moves).  The score's run ends before its last note does, so that
+# the stop finds it playing.
+S1_PROGRAMS = (
+    ("vibrato", "sine(2*pi * 330, depth * sine(2*pi * $rate, 0))",
+     '["rate:5:0.5:12", "depth:0.3:0:1"]', ("rate", "depth"), S1_NORMS,
+     S1_BLOCKS, tuple(range(S1_MOVE_EVERY, S1_BLOCKS, S1_MOVE_EVERY))),
+    ("filter", "sawtooth(110) | lpf(Q, cutoff)",
+     '["cutoff:0.5:fn(x) => 80 * pow(100, x)", "Q:0.707:0.2:2"]',
+     ("cutoff", "Q"), S1_FILTER_NORMS, S1_BLOCKS,
+     tuple(range(S1_MOVE_EVERY, S1_BLOCKS, S1_MOVE_EVERY))),
+    ("gain", "$330 * gain", f'["gain:{S1_GAIN0}:0:1"]', ("gain",),
+     S1_NORMS, S1_BLOCKS,
+     tuple(range(S1_MOVE_EVERY, S1_BLOCKS, S1_MOVE_EVERY))),
+    ("score", S1_SCORE, '["detune:0:0:12"]', ("detune",), S1_NORMS, 400,
+     (392,)),
+)
+# The CPU runs the first this many blocks of each S1 program (11 moves)
+# and then stops it, to hold the card's run of the same script to.
+S1_CPU_BLOCKS = 96
+# Logged, not held: the filter program with S1_NORMS' wide moves (down to
+# 100 Hz at Q 2, poles at 0.9964) for this many blocks, on the card at
+# each of LIVE_INTERVALS and on the CPU, each against the CPU's plain
+# scan run in float64.
+S1_STIFF_BLOCKS = 120
+# S2's keys instruments: (name, expression, opens, [(block, "on"|"off",
+# key)]).
+# pm_piano_keys: an 8-note chord held 2 s (one group), staggered note-offs
+# (each splices Rw(0.2, 1.0) under Terminator: the voice leaves the
+# group), a second chord released at once.  Its notes phase-modulate NCO
+# carriers and reach no scan; G2's FM voice and its W2g-like voice as
+# keys instruments (4 notes each, started 8 blocks apart: alone, then
+# grouped) reach the prefix sum, the prefix max and the affine scan, in
+# single and voices x lanes forms.
+_CHORD1 = (60, 64, 67, 71, 72, 76, 79, 83)
+_CHORD2 = (57, 60, 64, 69, 72, 76, 81, 84)
+_QUAD = (45, 52, 57, 61)
+S2_INSTRUMENTS = (
+    ("pm_piano", "pm_piano_keys", ("std", "pm_synth"),
+     [(0, "on", k) for k in _CHORD1]
+     + [(86 + 4 * i, "off", k) for i, k in enumerate(_CHORD1)]
+     + [(130, "on", k) for k in _CHORD2]
+     + [(173, "off", k) for k in _CHORD2]),
+    ("fm_keys", "fn(k, v) => (sine(2*pi*(@k + 30*$(5)), 0) * 0.5 * v, "
+     "Rw(0.2, 1.0))", ("std",),
+     [(8 * i, "on", k) for i, k in enumerate(_QUAD)]
+     + [(60 + 4 * i, "off", k) for i, k in enumerate(_QUAD)]),
+    ("w2g_keys", "fn(k, v) => (reset(triangle(110), time * -(@k)) * 2 * v "
+     "| lpf(0.7, 2000), Rw(0.2, 1.0))", ("std",),
+     [(8 * i, "on", k) for i, k in enumerate(_QUAD)]
+     + [(60 + 4 * i, "off", k) for i, k in enumerate(_QUAD)]),
+)
+# Blocks after a burst of commands by which a stable set renders in one
+# dispatch again: the set is new at the burst's block, and the fused step
+# serves from fuse_after (2) blocks on.
+S2_SETTLE = 3
+MODIFY_PHASES = ("interrupt", "materialize", "splice", "state_at", "carry",
+                 "marks")
+
+
+def live_session(device, sync_interval: int):
+    from tuun_tpu_torch.session import TuunSession
+    return TuunSession(sample_rate=LIVE_SR, block_size=LIVE_BLOCK,
+                       precision="fast", device=device,
+                       sync_interval=sync_interval)
+
+
+def _timed_block(s, blocks, walls) -> bool:
+    """One process(): its block and host seconds; False once it returns
+    None (every voice retired)."""
+    t0 = time.perf_counter()
+    y = s.process()
+    if y is None:
+        return False
+    walls.append(time.perf_counter() - t0)
+    blocks.append(y)
+    return True
+
+
+def _modifies(s) -> list:
+    """The session's modify records since the last call (op_log is a ring
+    of 256: read it after each program)."""
+    ops = [op for op in s.tracker.op_log if op[0] == "modify"]
+    s.tracker.op_log.clear()
+    return ops
+
+
+def s1_run(device, sync_interval: int, programs=S1_PROGRAMS) -> dict:
+    """S1: each program of S1_PROGRAMS installed in turn on one session,
+    its sliders moved in turn to its values at its move blocks, then
+    Player.stop and blocks until process() returns None.  Per program:
+    the mix, the block at which the stop came, the blocks after it, the
+    moves (block, label, value), the host seconds of every block and the
+    modify records."""
+    from tuun_tpu_torch.ids import WaveformId
+    s = live_session(device, sync_interval)
+    out = {}
+    for name, expr, sliders, labels, norms, blocks_n, moves_at in programs:
+        s.install(expr, sliders=sliders)
+        blocks, walls, moves = [], [], []
+        for k in range(blocks_n):
+            if k in moves_at:
+                j = len(moves)
+                label = labels[j % len(labels)]
+                s.update_slider_normalized(label, norms[j % len(norms)])
+                moves.append((k, label, s._last_slider_values[label]))
+            check(_timed_block(s, blocks, walls),
+                  f"S1 {name}: the stream ended at block {k}")
+        s.player.stop(WaveformId.program(0))
+        while _timed_block(s, blocks, walls):
+            pass
+        check(not s.tracker.active and not s.tracker.pending,
+              f"S1 {name}: voices left after the stream ended")
+        out[name] = dict(mix=np.concatenate(blocks), stop=blocks_n,
+                         tail=len(blocks) - blocks_n, moves=moves,
+                         walls=walls, modifies=_modifies(s))
+    s.tracker.close()
+    return out
+
+
+def s2_run(device, sync_interval: int, runs=None) -> dict:
+    """S2: each keys instrument of S2_INSTRUMENTS installed in turn, its
+    notes played and released at their blocks, then blocks until
+    process() returns None.  The fused step is captured inline
+    (fuse_blocking), so that it engages at the same blocks on every run.
+    Per instrument: the mix, the host seconds and (with `runs`, a
+    TrackerRuns) the path and dispatches of every block, and the modify
+    records."""
+    s = live_session(device, sync_interval)
+    s.tracker.fuse_blocking = True
+    out = {}
+    for name, expr, opens, script in S2_INSTRUMENTS:
+        check(s.install(expr, opens=opens) == "keys",
+              f"S2 {name}: not a keys instrument")
+        blocks, walls, paths = [], [], []
+        last = max(b for b, _, _ in script)
+        k = 0
+        while True:
+            for when, what, key in script:
+                if when == k:
+                    if what == "on":
+                        s.note_on(key, 100)
+                    else:
+                        s.note_off(key)
+            if _timed_block(s, blocks, walls):
+                if runs is not None:
+                    paths.append(runs.blocks[-1])
+            elif k > last:
+                break
+            else:  # no voice until the next note: silence, as the server
+                blocks.append(np.zeros(LIVE_BLOCK, np.float32))
+                paths.append(("idle", 0))
+            k += 1
+        check(not s.tracker.active and not s.tracker.pending,
+              f"S2 {name}: voices left after the stream ended")
+        out[name] = dict(mix=np.concatenate(blocks), walls=walls,
+                         modifies=_modifies(s), paths=paths)
+    s.tracker.close()
+    return out
+
+
+def _gain_envelope(run) -> np.ndarray:
+    """The gain program's expected envelope before the stop: S1_GAIN0,
+    then a one-block linear ramp from each value to the next at each
+    move's block."""
+    env = np.full(run["stop"] * LIVE_BLOCK, S1_GAIN0, np.float64)
+    ramp = np.arange(LIVE_BLOCK) / LIVE_BLOCK
+    prev = S1_GAIN0
+    for k, _, value in run["moves"]:
+        a = k * LIVE_BLOCK
+        env[a:a + LIVE_BLOCK] = prev + (value - prev) * ramp
+        env[a + LIVE_BLOCK:] = value
+        prev = value
+    return env
+
+
+def check_s1(run, si: int) -> dict:
+    """S1's own checks on one run; returns their numbers."""
+    worst = {}
+    for name, r in run.items():
+        mix, stop = r["mix"], r["stop"] * LIVE_BLOCK
+        check(np.isfinite(mix).all(), f"S1 {name}: not finite")
+        # The stop: the 50 ms ramp, then exact zeros; the voice retires
+        # by its valid end, which the tracker reads at one sync and
+        # applies at the next (tuun_tpu's rule): within 2 sync_interval
+        # blocks of the ramp's end.
+        check(not mix[stop + STOP_SAMPLES:].any(),
+              f"S1 {name}: non-zero samples after the stop ramp")
+        ramp_blocks = -(-STOP_SAMPLES // LIVE_BLOCK)
+        check(ramp_blocks <= r["tail"] <= ramp_blocks + 2 * si + 1,
+              f"S1 {name}: retired {r['tail']} blocks after the stop "
+              f"(sync_interval {si})")
+        if name != "gain":
+            continue
+        n = np.arange(len(mix), dtype=np.float64)
+        sin = np.sin(2 * math.pi * 330 * n / LIVE_SR)
+        env = _gain_envelope(r)
+        err = np.abs(mix[:stop] - env * sin[:stop])
+        check(err.max() <= TOL_FM_MAX_ABS, f"S1 gain: {err.max():.3e} off "
+              f"gain x sin(2 pi 330 t) (bound {TOL_FM_MAX_ABS})")
+        # Each ramp block: the gain seen where |sin| > 0.5 moves one way.
+        steps = 0.0
+        for k, _, value in r["moves"]:
+            a = k * LIVE_BLOCK
+            lanes = np.abs(sin[a:a + LIVE_BLOCK]) > 0.5
+            seen = mix[a:a + LIVE_BLOCK][lanes] / sin[a:a + LIVE_BLOCK][lanes]
+            d = np.diff(seen) * np.sign(value - env[a - 1])
+            steps = min(steps, float(d.min()))
+        check(steps >= -4 * TOL_FM_MAX_ABS,
+              f"S1 gain: a ramp block turns back by {-steps:.3e}")
+        # The stop ramp: under the last gain's linearly falling envelope.
+        fall = r["moves"][-1][2] * (1 - np.arange(STOP_SAMPLES)
+                                    / STOP_SAMPLES)
+        over = np.abs(mix[stop:stop + STOP_SAMPLES]) - fall
+        check(over.max() <= TOL_FM_MAX_ABS,
+              f"S1 gain: the stop ramp exceeds its envelope by "
+              f"{over.max():.3e}")
+        worst = dict(gain_max_err=float(err.max()), ramp_turn=-steps)
+    return worst
+
+
+def compare_runs(what, a, b, bound_of) -> dict:
+    """Each program's mix of run `a` against run `b`: equal within
+    bound_of(name) over their common length, zeros past it."""
+    errs = {}
+    for name in a:
+        x, y = a[name]["mix"], b[name]["mix"]
+        n = min(len(x), len(y))
+        d = np.abs(x[:n].astype(np.float64) - y[:n])
+        check(not x[n:].any() and not y[n:].any(),
+              f"{what} {name}: the longer run has sound past the other")
+        check(d.max() <= bound_of(name, y[:n]),
+              f"{what} {name}: differs by {d.max():.3e} at sample "
+              f"{int(d.argmax())}")
+        errs[name] = float(d.max())
+    return errs
+
+
+def card_vs_cpu(a, b, prefix: bool = False) -> dict:
+    """Phase 4's envelope: no sample off by > 5% of peak, max |diff| <=
+    1e-4 of peak; the whole mixes, or (prefix) the CPU run's samples
+    before its stop, the card's run of the same script cut shorter."""
+    out = {}
+    for name in a:
+        x, y = a[name]["mix"], b[name]["mix"]
+        if prefix:
+            n = b[name]["stop"] * LIVE_BLOCK
+            x, y = x[:n], y[:n]
+        check(len(x) == len(y), f"card vs CPU {name}: {len(x)} samples "
+              f"on the card, {len(y)} on the CPU")
+        stats = fast_mode_errors(x, y.astype(np.float64))
+        check(stats["frac_large"] == 0.0
+              and stats["max_abs"] <= 1e-4 * stats["peak"],
+              f"card vs CPU {name}: {stats}")
+        out[name] = stats["max_abs"]
+    return out
+
+
+def interrupt_bound(voices: int, si: int) -> float:
+    """Phase 8's bound for a window interrupted by a command, with
+    `voices` voices of |y| <= 2: two summation orders, plus G2's FM term
+    scaled to the window."""
+    eps = float(np.finfo(np.float32).eps)
+    return 2 * (voices - 1) * eps * 2 * voices \
+        + stream_tol(G2_SESSIONS[0][4], si)
+
+
+def modify_stats(ops) -> dict:
+    """p50/p99 of each modify's milliseconds and of each of its phases."""
+    def pct(xs):
+        xs = np.asarray(xs) * 1e3
+        return dict(p50=float(np.percentile(xs, 50)),
+                    p99=float(np.percentile(xs, 99)), max=float(xs.max()))
+    out = dict(n=len(ops), total_ms=pct([op[2] for op in ops]))
+    for ph in MODIFY_PHASES:
+        xs = [op[3][ph] for op in ops if ph in op[3]]
+        if xs:
+            out[ph + "_ms"] = dict(pct(xs), n=len(xs))
+    return out
+
+
+def live_row(runs, run, audio_s) -> dict:
+    """One session's numbers: x realtime over the blocks' host time, p50
+    and p99 block ms, blocks by path, dispatches a block, captures and
+    their seconds, and the modifies' p50/p99 with their phases."""
+    walls = [w for r in run.values() for w in r["walls"]]
+    return dict(x_realtime=audio_s / sum(walls),
+                block_ms_p50=float(np.percentile(walls, 50) * 1e3),
+                block_ms_p99=float(np.percentile(walls, 99) * 1e3),
+                blocks=len(walls),
+                program_block_ms_p50={
+                    name: float(np.percentile(r["walls"], 50) * 1e3)
+                    for name, r in run.items()},
+                dispatches_per_block=float(np.mean(
+                    [d for _, d in runs.blocks])),
+                paths=runs.paths(),
+                modify=modify_stats([op for r in run.values()
+                                     for op in r["modifies"]]))
+
+
+def s3_server(torch) -> dict:
+    """S3: the port's web server on 127.0.0.1:0 on the card, at its
+    defaults, through http.client: the calls tests/test_web_demo.py
+    makes."""
+    import http.client
+    import threading
+    from tuun_tpu_torch.tools.web_demo import TuunWebServer
+    srv = TuunWebServer(("127.0.0.1", 0), device="cuda")
+    check(srv.sample_rate == LIVE_SR and srv.block_size == LIVE_BLOCK,
+          "S3: the server's defaults moved")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def conn():
+        return http.client.HTTPConnection("127.0.0.1", srv.server_port,
+                                          timeout=60)
+
+    def post(path, body):
+        c = conn()
+        c.request("POST", path, json.dumps(body),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        out = json.loads(r.read())
+        c.close()
+        return r.status, out
+
+    def stream(iid, n=None):
+        """Reads the stream to its end (or n samples)."""
+        c = conn()
+        c.request("GET", f"/api/stream?id={iid}")
+        r = c.getresponse()
+        data = b""
+        while n is None or len(data) < 4 * n:
+            chunk = r.read(4 * LIVE_BLOCK)
+            if not chunk:
+                break
+            data += chunk
+        c.close()
+        got = np.frombuffer(data, dtype="<f4")
+        return got if n is None else got[:n]
+
+    t0 = time.perf_counter()
+    try:
+        # A waveform streamed to its end, bit for bit a direct session.
+        expr = "$440 | fin(time - 0.5)"
+        status, out = post("/api/install", {"id": "s3a", "expression": expr})
+        check(status == 200 and out["kind"] == "waveform",
+              f"S3 install: {status} {out}")
+        got = stream("s3a")
+        s = live_session("cuda", 1)
+        s.install(expr)
+        direct = []
+        while (y := s.process()) is not None:
+            direct.append(y)
+        direct = np.concatenate(direct)
+        s.tracker.close()
+        check(len(got) == len(direct) and np.array_equal(got, direct),
+              f"S3: the stream ({len(got)} samples) is not the direct "
+              f"session's ({len(direct)})")
+        # A slider install and one move: a monotone one-block ramp.
+        status, out = post("/api/install", {
+            "id": "s3b", "expression": "gain | fin(time - 10)",
+            "sliders": '["gain:0.25:0:1"]'})
+        check(status == 200 and out["sliders"][0]["value"] == 0.25,
+              f"S3 slider install: {status} {out}")
+        c = conn()
+        c.request("GET", "/api/stream?id=s3b")
+        r = c.getresponse()
+        first = np.frombuffer(r.read(4 * LIVE_BLOCK), dtype="<f4")
+        status, out = post("/api/slider", {"id": "s3b", "label": "gain",
+                                           "normalized": 1.0})
+        check(status == 200 and out["value"] == 1.0, f"S3 slider: {out}")
+        chunks = [first]
+        for _ in range(200):
+            chunk = np.frombuffer(r.read(4 * LIVE_BLOCK), dtype="<f4")
+            chunks.append(chunk)
+            if len(chunk) and abs(chunk[-1] - 1.0) <= 1e-6:
+                break
+        c.close()
+        ramp = np.concatenate(chunks)
+        check(abs(first - 0.25).max() <= 1e-6 and abs(ramp[-1] - 1.0) <= 1e-6
+              and np.diff(ramp).min() >= -1e-6 and ramp.max() <= 1 + 1e-6,
+              "S3: the slider's ramp is not a monotone 0.25 -> 1 ramp")
+        # Keys: note_on streams the note, note_off is accepted.
+        status, out = post("/api/install", {
+            "id": "s3c", "expression": "fn(k, v) => ($(110 * v) | "
+            "fin(time - 5), 0 | fin(time - 0))"})
+        check(status == 200 and out["kind"] == "keys", f"S3 keys: {out}")
+        status, _ = post("/api/note_on", {"id": "s3c", "key": 60,
+                                          "velocity": 127})
+        got = stream("s3c", LIVE_BLOCK)
+        want = np.sin(2 * math.pi * 110 * np.arange(LIVE_BLOCK) / LIVE_SR)
+        check(status == 200 and abs(got - want).max() <= TOL_FM_MAX_ABS,
+              "S3: the keys note is not $(110)")
+        status, _ = post("/api/note_off", {"id": "s3c", "key": 60})
+        check(status == 200, "S3: note_off failed")
+        # stop ends a live stream.
+        post("/api/install", {"id": "s3d", "expression": "$220"})
+        read = []
+        reader = threading.Thread(target=lambda: read.append(stream("s3d")),
+                                  daemon=True)
+        reader.start()
+        time.sleep(0.5)
+        status, out = post("/api/stop", {"id": "s3d"})
+        reader.join(timeout=30)
+        check(status == 200 and not reader.is_alive() and read
+              and len(read[0]) > 0, "S3: stop did not end the live stream")
+        # An unknown id: 404, and no session made.
+        before = set(srv.instances)
+        status, _ = post("/api/slider", {"id": "ghost", "label": "x",
+                                         "normalized": 0.5})
+        check(status == 404 and set(srv.instances) == before,
+              "S3: an unknown id did not 404")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    return dict(seconds=time.perf_counter() - t0,
+                stopped_stream_samples=len(read[0]))
+
+
+def stiff_filter(scan_ops) -> dict:
+    """S1_STIFF_BLOCKS' runs: max |diff| / peak of each against the CPU's
+    plain scan in float64 (logged)."""
+    prog = [("filter", S1_PROGRAMS[1][1], S1_PROGRAMS[1][2],
+             S1_PROGRAMS[1][3], S1_NORMS, S1_STIFF_BLOCKS,
+             tuple(range(S1_MOVE_EVERY, S1_STIFF_BLOCKS, S1_MOVE_EVERY)))]
+    runs = {f"card si={si}": s1_run("cuda", si, prog)
+            for si in LIVE_INTERVALS}
+    runs["cpu"] = s1_run("cpu", 1, prog)
+    plain = scan_ops.affine_scan_ref
+
+    def f64(a, ff, live, h0):
+        hs, h = plain(a.double(), ff.double(), live, h0.double())
+        return hs.float(), h.float()
+    scan_ops.affine_scan_ref = f64
+    try:
+        ref = s1_run("cpu", 1, prog)["filter"]["mix"].astype(np.float64)
+    finally:
+        scan_ops.affine_scan_ref = plain
+    peak = float(np.abs(ref).max())
+    out = {}
+    for name, r in runs.items():
+        mix = r["filter"]["mix"]
+        n = min(len(mix), len(ref))
+        check(np.isfinite(mix).all(), f"stiff filter {name}: not finite")
+        out[name] = float(np.abs(mix[:n] - ref[:n]).max()) / peak
+    return dict(peak=peak, rel_err_vs_f64=out)
+
+
+def phase_session(torch, scan_ops) -> dict:
+    """Phase 9: S1 and S2 on the card at each of LIVE_INTERVALS and on
+    the CPU at sync_interval 1, S3 on the card.  Returns each scan's
+    launches in the phase's card runs."""
+    scan_ops.reset_launches()
+    rows = {}
+    s1, s2 = {}, {}
+    for si in LIVE_INTERVALS:
+        with TrackerRuns() as runs:
+            s1[si] = s1_run("cuda", si)
+        rows[f"S1 si={si}"] = dict(check_s1(s1[si], si), **live_row(
+            runs, s1[si], sum(len(r["mix"]) for r in s1[si].values())
+            / LIVE_SR))
+        with TrackerRuns() as runs:
+            s2[si] = s2_run("cuda", si, runs)
+        rows[f"S2 si={si}"] = live_row(
+            runs, s2[si], sum(len(r["mix"]) for r in s2[si].values())
+            / LIVE_SR)
+    launched = dict(scan_ops.launches)
+    # One dispatch a block again once each burst of commands has passed
+    # (the fused step, or the one group a chord forms), and the fused
+    # step served while released notes left their groups.
+    for name, _, _, script in S2_INSTRUMENTS:
+        paths = s2[1][name]["paths"]
+        for k in sorted({b + S2_SETTLE for b, _, _ in script}):
+            check(paths[k][1] == 1, f"S2 {name}: {paths[k][1]} dispatches "
+                  f"at block {k}, {S2_SETTLE} blocks after a burst")
+    check(any(p == "fused" for r in s2[1].values() for p, _ in r["paths"]),
+          "S2: the fused step never served")
+    # sync_interval 32, its windows interrupted by every command, against
+    # sync_interval 1.
+    last = LIVE_INTERVALS[-1]
+    rows["S1 windows vs si=1"] = compare_runs(
+        "S1 windows", s1[last], s1[1],
+        lambda name, y: interrupt_bound(1, last))
+    rows["S2 windows vs si=1"] = compare_runs(
+        "S2 windows", s2[last], s2[1],
+        lambda name, y: interrupt_bound(len(_CHORD1), last))
+    # The card against the port's own CPU run of the same scripts.
+    t0 = time.perf_counter()
+    cpu1 = s1_run("cpu", 1, tuple(
+        p[:5] + (S1_CPU_BLOCKS, tuple(k for k in p[6] if k < S1_CPU_BLOCKS))
+        for p in S1_PROGRAMS))
+    cpu2 = s2_run("cpu", 1)
+    check_s1(cpu1, 1)
+    rows["card vs CPU"] = dict(S1=card_vs_cpu(s1[1], cpu1, prefix=True),
+                               S2=card_vs_cpu(s2[1], cpu2),
+                               cpu_seconds=time.perf_counter() - t0)
+    rows["stiff filter"] = stiff_filter(scan_ops)
+    scan_ops.reset_launches()
+    rows["S3"] = s3_server(torch)
+    for k, c in scan_ops.launches.items():
+        launched[k] += c
+    score = [op for op in s1[1]["score"]["modifies"] if "state_at" in op[3]]
+    check(score, "S1 score: the detune move did not replay state_at")
+    rows["state_at"] = dict(
+        voice_seconds=S1_PROGRAMS[-1][6][0] * LIVE_BLOCK / LIVE_SR,
+        ms={si: [op[3]["state_at"] * 1e3 for op in s1[si]["score"]
+                 ["modifies"] if "state_at" in op[3]]
+            for si in LIVE_INTERVALS})
+    for name, row in rows.items():
+        log(f"session {name} {json.dumps(row)}")
+    log(f"launch counts of phase 9 (the card's sessions): {launched}")
+    for k, c in launched.items():
+        check(c > 0, f"phase 9: kernel {k} was never launched")
+    return launched
+
+
 def log_phase(started: float, name: str) -> None:
     log(f"phase {name} done at {time.perf_counter() - started:.1f} s")
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
-    ap.add_argument("--phase", choices=("kernels", "times", "stream"),
+    ap.add_argument("--phase", choices=("kernels", "times", "stream",
+                                        "session"),
                     help="kernels: stop after phase 2; times: only the "
                     "single-voice scans' times; stream: only phase 8's "
-                    "capture check, G3 and G2's streaming sessions (see "
-                    "the module docstring)")
+                    "capture check, G3 and G2's streaming sessions; "
+                    "session: only phase 9's live sessions and server "
+                    "(see the module docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
@@ -2372,6 +2949,9 @@ def main(argv) -> int:
         phase_g3(torch, np)
         phase_g2_stream(torch, np, G2_SESSIONS[0])
         return 0
+    if args.phase == "session":
+        phase_session(torch, scan_ops)
+        return 0
 
     results = {k: [] for k in scan_ops.launches}
     phase_kernels(torch, np, scan_ops, results)
@@ -2425,6 +3005,8 @@ def main(argv) -> int:
     profile_in_child(["G2"])
     launches_in_process(torch, np, scan_ops)
     log_phase(started, "8, profiles")
+    session = phase_session(torch, scan_ops)
+    log_phase(started, "9")
 
     kernels = []
     for k in scan_ops.launches:
@@ -2440,6 +3022,7 @@ def main(argv) -> int:
             "name": k, "route": "cuda",
             "source": "tuun_tpu_torch/csrc/scan.cu",
             "replaces": REPLACES[k], "launches": counts[k],
+            "session_launches": session[k],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "device_ms": main_row["device_ms"],

@@ -71,6 +71,12 @@ def test_port_file_imports_no_jax_nor_tuun_tpu(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+def test_import_walk_covers_the_live_session():
+    for rel in ("tuun_tpu_torch/session.py", "tuun_tpu_torch/player.py",
+                "tuun_tpu_torch/tools/web_demo.py"):
+        assert rel in PORT_FILES
+
+
 def test_port_package_owns_its_stdlib():
     from tuun_tpu_torch import cli
     assert cli.DEFAULT_LIBRARY == PORT / "stdlib" / "v0"

@@ -125,7 +125,8 @@ def main(argv=None) -> int:
 
 def _run(args, evaluator, tracker) -> int:
     log = (lambda *a: None) if args.quiet else print
-    player = Player(tracker, precompute=args.precompute == "true")
+    player = Player(tracker, args.tempo, args.beats_per_measure,
+                    precompute=args.precompute == "true")
 
     played = 0
     opens = tuple(args.opens) if args.opens else ("std",)

@@ -33,20 +33,33 @@ The streaming path, with the reference's names and rules:
     replay clones it first (`_detach_states`).
   * Lookahead windows (deferred sync, K = lookahead or sync_interval):
     one render of K*n lanes per member serves the next K blocks; a play
-    that starts inside the window interrupts it, replaying the served
-    blocks from the window's untouched inputs.  A window never spans
-    more than engine.graph.MAX_BLOCK lanes.
+    that starts inside the window, a modify or a stop interrupts it,
+    replaying the served blocks from the window's untouched inputs.  A
+    window never spans more than engine.graph.MAX_BLOCK lanes.
   * Window prefetch: the next window renders on a worker from this
     window's end states, and is adopted only if every member still has
     the params, state object and state generation it was built from.
 
-Not yet ported (ROADMAP.md queue 1): Modify and carry_state, the mesh
-paths of VoiceGroup, Status.buffer and send_current_buffer.
+Live edits (tuun_tpu/tracker.py:198-254, 715-825): Modify substitutes the
+subtree under a mark and carries the state of every structurally
+unchanged node into the recompiled voice (carry_state), so a slider ramp
+or a note-off splices in without a click.  It interrupts an open window,
+takes the groups' states back onto their voices (cloned off any captured
+step's buffers first), and reads the stream position from the host.  A
+spliced voice leaves the fast path, its literal cutoffs and exact
+retirement: it retires by its valid end.  carry_state compares leaves by
+shape and dtype; the JAX tracker compares shapes only, so where a sine's
+frequency stops being constant (its u32 NCO phase becomes a float
+phase) JAX carries the u32 word into the float slot and the port keeps
+the fresh phase.
+
+Not yet ported (ROADMAP.md queue 1): the mesh paths of VoiceGroup.
 """
 
 from __future__ import annotations
 
 import collections as _collections
+import dataclasses as _dataclasses
 import queue as _queue
 import threading as _threading
 import time as _time
@@ -59,7 +72,7 @@ import torch
 
 from . import _threads, ir, native, oracle
 from .engine import CompiledVoice, EngineConfig, structure_key
-from .engine.capture import make_step, tree_clone
+from .engine.capture import flatten, make_step, tree_clone
 from .engine.graph import (MAX_BLOCK, check_device, stack_params, stack_tree,
                            tree_index)
 from .metric import Metric
@@ -88,6 +101,9 @@ class Mark:
 class Status:
     buffer_start: int
     marks: List[Mark] = field(default_factory=list)
+    # A copy of the block's mix, when the tracker's send_current_buffer
+    # was set for it (the reference UI's scope).
+    buffer: Optional[np.ndarray] = None
     # Host seconds of the block's render over the block's audio seconds.
     tracker_load: Optional[float] = None
     voices: int = 0
@@ -99,6 +115,14 @@ class Status:
     # Per-voice (rms, peak), resolved at sync points, when the tracker was
     # built with levels=True.
     voice_levels: Dict[Any, Tuple[float, float]] = field(default_factory=dict)
+
+    def has_pending_mark(self, when: int, wid, mark) -> bool:
+        return any(m.waveform_id == wid and m.mark_id == mark and
+                   m.start > when for m in self.marks)
+
+    def has_active_mark(self, when: int, wid, mark) -> bool:
+        return any(m.waveform_id == wid and m.mark_id == mark and
+                   m.start <= when for m in self.marks)
 
 
 def _subtree_length(node: ir.Waveform, sample_rate: int, cap: int) -> int:
@@ -152,20 +176,105 @@ def collect_marks(w: ir.Waveform, sample_rate: int, waveform_id,
     return out
 
 
+# Mark-id sets memoized by waveform object identity: a slider move calls
+# modify() once per live voice, and the no-op guard must not walk each
+# voice's whole tree per call.  An entry holds the waveform, so its id()
+# key stays valid while the entry lives; the dict is bounded, oldest out.
+_MARK_IDS_CACHE: Dict[int, Tuple[ir.Waveform, frozenset]] = {}
+_MARK_IDS_CACHE_MAX = 512
+
+
+def _mark_ids(w: ir.Waveform) -> frozenset:
+    """All Marked ids anywhere in `w`, Fin lengths and filter
+    coefficients included (collect_marks skips those for Status parity,
+    but they are valid Modify targets)."""
+    key = id(w)
+    hit = _MARK_IDS_CACHE.get(key)
+    if hit is not None and hit[0] is w:
+        return hit[1]
+    ids = frozenset(x.id for x in w.walk() if isinstance(x, ir.Marked))
+    if len(_MARK_IDS_CACHE) >= _MARK_IDS_CACHE_MAX:
+        _MARK_IDS_CACHE.pop(next(iter(_MARK_IDS_CACHE)))
+    _MARK_IDS_CACHE[key] = (w, ids)
+    return ids
+
+
 class _CompileCache:
     """Per-structure compile cache: same-shaped waveforms share one
-    CompiledVoice."""
+    CompiledVoice.  get() may run on more than one thread (the reference
+    compiles ahead on a prewarm worker beside the serve thread), so two
+    racing threads converge on one CompiledVoice."""
 
     def __init__(self):
         self._cache: Dict[Tuple, CompiledVoice] = {}
+        self._lock = _threading.Lock()
 
     def get(self, w: ir.Waveform, cfg: EngineConfig) -> CompiledVoice:
         key = (structure_key(w, cfg.sample_rate), cfg.sample_rate,
                cfg.precision, str(cfg.device), cfg.timeline, cfg.reloc_fast)
         voice = self._cache.get(key)
         if voice is None:
-            voice = self._cache[key] = CompiledVoice(w, cfg)
+            voice = CompiledVoice(w, cfg)
+            with self._lock:
+                voice = self._cache.setdefault(key, voice)
         return voice
+
+
+def _shapes_match(a, b) -> bool:
+    """Whether two state trees have the same leaves in shape and dtype."""
+    la, lb = flatten(a)[1], flatten(b)[1]
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype for x, y in zip(la, lb))
+
+
+def carry_state(old_w: ir.Waveform, new_w: ir.Waveform, old_state,
+                new_state, replaced_mark=None):
+    """Maps generation state from an old waveform's tree onto a new one:
+    structurally matching nodes keep their state, the subtree under the
+    substituted mark (and any changed subtree) keeps the fresh state.
+    The functional analogue of the reference's in-place substitute on a
+    stateful tree (tracker.rs:415-460): untouched nodes play on without a
+    click.  The node layouts are the engine's: a node's own fields first,
+    its children's states after in children() order, and the filter's
+    (delay, real, hist, inner, ffs, fbs)."""
+    if type(old_w) is not type(new_w):
+        return new_state
+    if isinstance(new_w, (ir.Marked, ir.Captured)):
+        if isinstance(new_w, ir.Marked) and replaced_mark is not None \
+                and new_w.id == replaced_mark:
+            return new_state  # the substituted subtree starts fresh
+        return carry_state(old_w.waveform, new_w.waveform, old_state,
+                           new_state, replaced_mark)
+    ok = old_w.children()
+    nk = new_w.children()
+    if len(ok) != len(nk):
+        return new_state
+    if isinstance(new_w, ir.Filter):
+        delay, real, hist, osi, osffs, osfbs = old_state
+        ndelay, nreal, nhist, nsi, nsffs, nsfbs = new_state
+        si = carry_state(old_w.waveform, new_w.waveform, osi, nsi,
+                         replaced_mark)
+        sffs = tuple(carry_state(o, nw, os_, ns_, replaced_mark)
+                     for o, nw, os_, ns_ in zip(
+                         old_w.feed_forward, new_w.feed_forward, osffs, nsffs))
+        sfbs = tuple(carry_state(o, nw, os_, ns_, replaced_mark)
+                     for o, nw, os_, ns_ in zip(
+                         old_w.feedback, new_w.feedback, osfbs, nsfbs))
+        keep = _shapes_match((delay, real, hist), (ndelay, nreal, nhist))
+        own = (delay, real, hist) if keep else (ndelay, nreal, nhist)
+        return own + (si, sffs, sfbs)
+    if not isinstance(new_state, tuple) or not isinstance(old_state, tuple) \
+            or len(old_state) != len(new_state):
+        return new_state
+    n_own = len(new_state) - len(nk)
+    out = []
+    for i, (os_, ns_) in enumerate(zip(old_state, new_state)):
+        if i < n_own:
+            out.append(os_ if _shapes_match(os_, ns_) else ns_)
+        else:
+            ci = i - n_own
+            out.append(carry_state(ok[ci], nk[ci], os_, ns_, replaced_mark))
+    return tuple(out)
 
 
 @dataclass
@@ -188,6 +297,9 @@ class Voice:
     fast: bool = False
     # Literal Fin cutoffs: the fast path's lengths and timeline schedules.
     lits: Optional[Tuple[int, ...]] = None
+    # Host copy of the seed, set at activation: Modify reads it instead of
+    # params.seed, which lives on the card.
+    host_seed: Optional[int] = None
     # Last resolved output levels (levels=True trackers).
     level_rms: float = 0.0
     level_peak: float = 0.0
@@ -395,7 +507,8 @@ class Tracker:
                  captured_output_dir: str | Path = ".",
                  captured_date_format: str = "_%Y-%m-%d_%H-%M-%S",
                  precision: str = "fast", device="cuda",
-                 levels: bool = False, sync_interval: int = 1):
+                 levels: bool = False, sync_interval: int = 1,
+                 jit: bool = True, seed: int = 0):
         self.sample_rate = sample_rate
         self.block_size = block_size
         self.captured_output_dir = Path(captured_output_dir)
@@ -406,7 +519,11 @@ class Tracker:
         self.active: List[Voice] = []
         self.pending: List[Pending] = []
         self.now: int = 0  # next sample to be rendered
-        self._seed_counter = 0  # voice seeds 1, 2, ... as in tuun_tpu
+        # Set to copy the next block's mix into its Status.buffer.
+        self.send_current_buffer = False
+        # Voice seeds seed+1, seed+2, ... as in tuun_tpu.  Only the thread
+        # that renders blocks takes them (a Player's bakes take none).
+        self._seed_counter = seed
         self._groups: List[VoiceGroup] = []
         self._singles: List[Voice] = []
         self._groups_dirty = True
@@ -429,7 +546,9 @@ class Tracker:
         # fuse_after blocks, the whole set renders as one step, one CUDA
         # graph replay on the card.  Any set change falls back to the
         # per-voice path at once; the step stays cached per set key.
-        self.fuse = True
+        # jit=False turns it off, as the JAX tracker's unjitted mode does
+        # (the port has no jit to turn off).
+        self.fuse = jit
         self.fuse_after = 2
         # True: capture inline instead of on a worker (deterministic
         # engagement for tests; live streams keep False).
@@ -463,8 +582,9 @@ class Tracker:
         self.replays = 0
         self.window_opens = 0
         self._count_lock = _threading.Lock()
-        # Command-path phase log: every play, activation and costly window
-        # open appends (op, block_index, total_seconds, {phase: seconds}).
+        # Command-path phase log: every play, modify, activation and costly
+        # window open appends (op, block_index, total_seconds,
+        # {phase: seconds}).
         self.op_log: _collections.deque = _collections.deque(maxlen=256)
         self._staged_q: List = []
         self._fetch_thread: Optional[_threading.Thread] = None
@@ -517,6 +637,99 @@ class Tracker:
         self.op_log.append(("play", self.now // self.block_size,
                             _time.perf_counter() - t0, phases))
 
+    def modify(self, wid, mark_id, new_waveform: ir.Waveform) -> None:
+        """Replaces the subtree under `mark_id` in voice `wid` (active and
+        pending), carrying the state of every unchanged node.
+
+        A voice whose waveform does not hold the mark is untouched:
+        callers fan commands out (a slider move reaches every live id),
+        and a no-op splice would still drop the voice off the fast path
+        and exact retirement for good."""
+
+        def has_mark(w):
+            return mark_id in _mark_ids(w)
+
+        if not any(v.id == wid and has_mark(v.waveform)
+                   for v in self.active) and \
+                not any(p.id == wid and has_mark(p.waveform)
+                        for p in self.pending):
+            return
+        t0 = _time.perf_counter()
+        phases: Dict[str, float] = {}
+
+        def _mark_phase(name: str, since: float) -> float:
+            now = _time.perf_counter()
+            phases[name] = phases.get(name, 0.0) + (now - since)
+            return now
+
+        self._interrupt_window()
+        t = _mark_phase("interrupt", t0)
+        # The states, not the valid ends in flight: those go to the fetch
+        # worker (a voice whose end is still in flight gets a harmless
+        # splice: it renders zeros and retires at a later sync).  The
+        # groups' states come back onto their voices, cloned off any
+        # captured step's buffers, so no later replay reaches what is
+        # carried below.
+        self._materialize_groups(drain=False)
+        t = _mark_phase("materialize", t)
+        for voice in self.active:
+            if voice.id != wid or not has_mark(voice.waveform):
+                continue
+            new_w = ir.substitute(voice.waveform, mark_id, new_waveform)
+            compiled = self.cache.get(new_w, self.cfg)
+            old_compiled = voice.compiled
+            needs_replay = voice.fast or old_compiled._has_timeline
+            if old_compiled._has_timeline or compiled._has_timeline:
+                # A timeline keeps one position per score, and a subtree
+                # that starts fresh mid-stream has no place in a literal
+                # schedule: compile both sides as plain trees (the same
+                # const order, so params and carry_state line up) and
+                # rebuild the old tree's state by replay.
+                plain = _dataclasses.replace(self.cfg, timeline=False)
+                compiled = self.cache.get(new_w, plain)
+                old_compiled = self.cache.get(voice.waveform, plain)
+            params = compiled.params_for(new_w, seed=voice.host_seed)
+            t = _mark_phase("splice", t)
+            old_pos, old_rst = voice.state
+            if needs_replay:
+                # The fast path and the timeline schedule never advance
+                # the node tree: rebuild it at the stream position, which
+                # the host knows (every render advances it by its extent,
+                # a late start catches up at activation, and the
+                # interrupt above replayed to the serve point).  Replay in
+                # large blocks (block-size invariance is an engine
+                # contract): one render a served block since sample 0
+                # would cost a long-lived voice's first edit dearly.
+                old_rst = old_compiled.state_at(
+                    voice.params, self.now - voice.start,
+                    max(8192, self.block_size))
+                t = _mark_phase("state_at", t)
+                voice.fast = False
+            voice.lits = None
+            _, fresh_rst = compiled.init(params)
+            _set_state(voice, (old_pos, carry_state(
+                voice.waveform, new_w, old_rst, fresh_rst,
+                replaced_mark=mark_id)))
+            t = _mark_phase("carry", t)
+            voice.waveform = new_w
+            voice.compiled = compiled
+            voice.params = params
+            voice.marks = collect_marks(new_w, self.sample_rate, voice.id,
+                                        voice.start)
+            t = _mark_phase("marks", t)
+            # A subtree that starts mid-stream makes the voice's length
+            # unreadable from the IR (a stop ramp shortens it): retire by
+            # the valid end.
+            voice.total_len = None
+            self._ends_known = False
+        for p in self.pending:
+            if p.id == wid and has_mark(p.waveform):
+                p.waveform = ir.substitute(p.waveform, mark_id, new_waveform)
+                p.marks = collect_marks(p.waveform, self.sample_rate, p.id,
+                                        p.start)
+        self.op_log.append(("modify", self.now // self.block_size,
+                            _time.perf_counter() - t0, phases))
+
     def remove_pending(self, wid) -> None:
         # No window interrupt: a window opens only when every pending
         # voice starts at or after its end.
@@ -549,7 +762,8 @@ class Tracker:
         lits = compiled.lits_for(params) \
             if fast or compiled._has_timeline else None
         voice = Voice(p.id, p.waveform, compiled, params, state, p.start,
-                      list(p.marks), fast=fast, lits=lits)
+                      list(p.marks), fast=fast, lits=lits,
+                      host_seed=self._seed_counter)
         phases["lits"] = _time.perf_counter() - t
         t = _time.perf_counter()
         # Exact retirement: the symbolic length of a relocatable
@@ -863,9 +1077,9 @@ class Tracker:
     #
     # Steady-state streaming renders K blocks ahead in one step and serves
     # the sub-blocks: a block's host cost drops to a handoff.  A play that
-    # starts inside the window interrupts it: the served sub-blocks
-    # replay from the window's inputs (which the window step never
-    # changes) to rebuild the states at the consume point.
+    # starts inside the window, a modify or a stop interrupts it: the
+    # served sub-blocks replay from the window's inputs (which the window
+    # step never changes) to rebuild the states at the consume point.
 
     def _lookahead(self) -> int:
         return self.lookahead if self.lookahead is not None \
@@ -1090,10 +1304,11 @@ class Tracker:
                            self.block_size * w["K"])
 
     def _interrupt_window(self) -> None:
-        """A play arrived mid-window: discard the unserved tail and replay
-        the k served sub-blocks as one render of the window step with
-        extent k*n from its untouched inputs, so states and bookkeeping
-        stand exactly at the consume point (tuun_tpu/tracker.py:1434-
+        """A command arrived mid-window (a play that starts inside it, a
+        modify, a stop): discard the unserved tail and replay the k served
+        sub-blocks as one render of the window step with extent k*n from
+        its untouched inputs, so states and bookkeeping stand exactly at
+        the consume point (tuun_tpu/tracker.py:1434-
         1491)."""
         w = self._window
         if w is None:
@@ -1216,6 +1431,11 @@ class Tracker:
         if self.report_levels:
             status.voice_levels = {v.id: (v.level_rms, v.level_peak)
                                    for v in self.active}
+        if self.send_current_buffer:
+            status.buffer = np.array(
+                out.cpu() if isinstance(out, torch.Tensor) else out,
+                np.float32)
+            self.send_current_buffer = False
         status.tracker_load = (_time.perf_counter() - t0) * \
             self.sample_rate / n
         self.load_metric.set(status.tracker_load)
