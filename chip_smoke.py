@@ -120,10 +120,36 @@ Phases, each of which exits non-zero on failure:
      filter program with wide moves (Q 2 at 100 Hz) against a float64
      scan.
 
+ 10. the live-coding REPL (repl), at its defaults (44.1 kHz, 1024-sample
+     blocks, fast, tempo 90) on the card.  R1: examples/song.tuun (a copy)
+     through Repl.dispatch: plays A1-A4 (A1 at the next measure), A2's
+     cutoff moved within 630 Hz-5 kHz, A5's piano chord and note-offs, a
+     W2g-like keys program added in a new slot in edit mode and an FM keys
+     program over A4 through `edit` (each alone, then a chord), `key`
+     chords in edit mode, midi gestures through the simulated Launchkey,
+     undo/redo, a render to a WAV, view, stop, save, status (~20 s of
+     audio, offline at sync_interval 1): every mix finite numpy, sound
+     while programs play, exact zeros after the stop ramp, the WAV the
+     rendered mix, no error in the log; the first R1_CPU_LINES commands on
+     the port's CPU within phase 4's envelope.  R2 (a child: `--live`):
+     the Repl, the background prewarm and `audio start FIFO` with a
+     reader, ~15 s of plays, slider moves every 0.5 s and a keys chord
+     through pump.call, `audio stop`: no pump error, no command timed out,
+     the bytes read equal blocks_out x 1024 x 4, finite sound, every
+     COMMON_EXPRS structure warmed with no failure; logged: underruns and
+     worst lateness at RING_BLOCKS, blocks against the wall clock, p50/p99
+     tracker_load and dispatch ms, the prewarm's seconds, the first play's
+     time to sound, stall notes, captures.  R3: `python -m tuun_tpu_torch
+     --ui true song.tuun` in a child, stdin `play A2`, `render 1 OUT.wav`,
+     `quit`: exit 0 and 43 x 1024 finite samples.  Each kernel's launches
+     in R1 and R2 are the kernels line's `repl_launches`; every kernel
+     must launch.
+
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2;
 `--phase stream` runs only phase 8's capture check, G3 and G2's
-streaming sessions; `--phase session` only phase 9.
+streaming sessions; `--phase session` only phase 9; `--phase repl` only
+phase 10.
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
@@ -141,6 +167,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -2873,6 +2900,329 @@ def phase_session(torch, scan_ops) -> dict:
     return launched
 
 
+# -- phase 10: the live-coding REPL ----------------------------------------
+
+REPL_SR = 44100
+REPL_BLOCK = 1024
+SONG = Path(__file__).resolve().parent / "examples" / "song.tuun"
+# G2's FM voice and its W2g-like voice as keys instruments (phase 9's S2).
+FM_KEYS = ("fn(k, v) => (sine(2*pi*(@k + 30*$(5)), 0) * 0.5 * v, "
+           "Rw(0.2, 1.0))")
+W2G_KEYS = ("fn(k, v) => (reset(triangle(110), time * -(@k)) * 2 * v "
+            "| lpf(0.7, 2000), Rw(0.2, 1.0))")
+# R1: examples/song.tuun through the REPL's commands, ~20 s of audio.  A1
+# at the next measure, A2-A4 at once; A2's cutoff moves within phase 9's
+# non-stiff range (630 Hz-5 kHz); A5's pm_piano_keys chord and its
+# note-offs; a W2g-like keys program added in a new slot (A6) in edit
+# mode and an FM keys program over A4 through `edit`, each played alone,
+# then as a chord (the scans' rows forms and the prefix max, which
+# pm_piano_keys never reaches); A2 edited with `key` chords; midi
+# gestures (A2's cutoff on a knob, a pad); undo/redo; a render to a WAV;
+# view; stop; save; status; quit.  The CPU runs the commands before
+# R1_CPU_LINES (the first 6.5 s: A1-A4, the cutoff moves, the piano
+# chord) to hold the card's renders to.
+R1_SCRIPT = (
+    "play A1 measure", "play A2", "play A3", "play A4", "render 2",
+    "slider A2 cutoff 900", "render 1", "slider A2 cutoff 3000", "render 1",
+    "keys A5", "on 60 100", "on 64 90", "on 67 80", "render 1", "off 64",
+    "render 0.5", "off 60", "off 67", "render 1",
+    "select A5", "key down enter", f"type {W2G_KEYS}", "key escape",
+    "keys A6", "on 45 100", "render 0.5", "on 52 100", "render 0.5",
+    "on 57 100", "on 61 100", "render 1", "off 45", "off 52", "off 57",
+    "off 61", "render 1",
+    f"edit A4 {FM_KEYS}", "keys A4", "on 45 100", "render 0.5",
+    "on 52 100", "render 0.5", "on 57 100", "on 61 100", "render 1",
+    "off 45", "off 52", "off 57", "off 61", "render 1",
+    "edit A2", "key C-e backspace", "type 4", "key escape", "play A2",
+    "render 1",
+    "midi connect", "select A2", "midi encoder 0 20", "midi pad top 0",
+    "render 1", "undo A2", "redo A2", "slider A2 cutoff 4500", "render 1",
+    "render 3 OUT", "view 1 10", "stop", "render 0.5", "save", "status",
+)
+R1_CPU_LINES = 19
+
+
+def r1_run(device, lines, workdir: Path) -> dict:
+    """R1's commands on a Repl(sample_rate=44100, tempo=90,
+    buffer_size=1024) on `device`, in `workdir` (captures land there; the
+    edits save its copy of song.tuun).  Returns the log, every render's
+    mix, the WAV's path and each command's seconds."""
+    import io
+    from tuun_tpu_torch.repl import Repl
+    workdir.mkdir(parents=True, exist_ok=True)
+    song = workdir / "song.tuun"
+    song.write_text(SONG.read_text())
+    wav = workdir / "out.wav"
+    out = io.StringIO()
+    walls = []
+    with contextlib.chdir(workdir):
+        r = Repl(sample_rate=REPL_SR, tempo=90, buffer_size=REPL_BLOCK,
+                 out=out, device=device)
+        r.dispatch(f"load {song}")
+        for line in lines:
+            t0 = time.perf_counter()
+            r.dispatch(line.replace("OUT", str(wav)))
+            walls.append((line[:24], time.perf_counter() - t0))
+        rendered = list(r.rendered)
+        r.dispatch("quit")
+    return dict(log=out.getvalue(), rendered=rendered, wav=wav,
+                walls=walls)
+
+
+def r1_renders(lines) -> list:
+    return [line for line in lines if line.startswith(("render", "view"))]
+
+
+def check_r1(run, lines) -> dict:
+    """R1's checks: no error in the log, every render's mix numpy and
+    finite, sound in every render before `stop`, exact zeros after the
+    stop ramp, the WAV the rendered mix."""
+    log_text = run["log"]
+    check("error:" not in log_text and "usage error" not in log_text
+          and "unknown command" not in log_text,
+          f"R1: the log reports an error:\n{log_text[-3000:]}")
+    renders = r1_renders(lines)
+    mixes = run["rendered"]
+    check(len(mixes) == len(renders),
+          f"R1: {len(mixes)} mixes for {len(renders)} renders")
+    for line, mix in zip(renders, mixes):
+        check(isinstance(mix, np.ndarray) and mix.dtype == np.float32,
+              f"R1 {line}: the mix is {type(mix)}")
+        check(np.isfinite(mix).all(), f"R1 {line}: not finite")
+    playing = len(r1_renders(lines[:lines.index("stop")])) \
+        if "stop" in lines else len(renders)
+    for line, mix in zip(renders[:playing], mixes[:playing]):
+        check(float(np.abs(mix).max()) > 0.01,
+              f"R1 {line}: silent while programs play")
+    if playing < len(renders):
+        stopped = mixes[playing]
+        check(not stopped[3 * REPL_BLOCK:].any(),
+              "R1: sound after the stop ramp")
+    if "render 3 OUT" in lines:
+        from tuun_tpu_torch.wav import read_wav
+        wav, sr = read_wav(run["wav"])
+        mix = mixes[renders.index("render 3 OUT")]
+        check(sr == REPL_SR and len(wav) == len(mix)
+              and np.array_equal(wav, mix),
+              f"R1: the WAV holds {len(wav)} samples, the render "
+              f"{len(mix)}")
+    return dict(samples=sum(len(m) for m in mixes),
+                peak=float(max(np.abs(m).max() for m in mixes)))
+
+
+def r2_live() -> dict:
+    """R2 (in a child process: `--live`): a Repl on the card, the
+    background prewarm, `audio start FIFO` with a reader thread draining
+    it, then ~15 s of plays, slider moves every 0.5 s and a keys chord,
+    each through pump.call, then `audio status` and `audio stop`."""
+    import io
+    import threading
+    from tuun_tpu_torch import prewarm
+    from tuun_tpu_torch.engine import scan_ops
+    from tuun_tpu_torch.repl import Repl
+    scan_ops.reset_launches()
+    workdir = Path(tempfile.mkdtemp(prefix="tuun_r2_"))
+    song = workdir / "song.tuun"
+    song.write_text(SONG.read_text())
+    fifo = workdir / "pcm.fifo"
+    os.mkfifo(fifo)
+    pcm = bytearray()
+    first_sound = []
+
+    def reader():
+        with open(fifo, "rb") as f:
+            while True:
+                chunk = f.read(REPL_BLOCK * 4)
+                if not chunk:
+                    return
+                if not first_sound and np.frombuffer(
+                        chunk[:len(chunk) // 4 * 4], "<f4").any():
+                    first_sound.append(time.perf_counter())
+                pcm.extend(chunk)
+    reading = threading.Thread(target=reader, daemon=True)
+    reading.start()
+    out = io.StringIO()
+    started = time.perf_counter()
+    with contextlib.chdir(workdir), TrackerRuns() as runs:
+        r = Repl(sample_rate=REPL_SR, tempo=90, buffer_size=REPL_BLOCK,
+                 out=out)
+        r.dispatch(f"load {song}")
+        warm = {}
+
+        def warmed(n, failures):
+            warm.update(n=n, failures=[(t, repr(e)) for t, e in failures],
+                        seconds=time.perf_counter() - started)
+        # As repl.main: TUUN_PREWARM=0 turns the prewarm off.
+        warming = None
+        if os.environ.get("TUUN_PREWARM", "1").lower() not in ("0", "off"):
+            warming = prewarm.start_background(r.tracker, r.evaluator,
+                                               on_done=warmed)
+        r.dispatch(f"audio start {fifo}")
+        check(r.pump is not None and r.pump.alive,
+              f"R2: audio did not start:\n{out.getvalue()}")
+        pump = r.pump
+        loads, stalls = [], []
+        observe = pump.on_status
+
+        def on_status(status):
+            loads.append(status.tracker_load)
+            observe(status)
+        pump.on_status = on_status
+        note = pump.on_stall
+        pump.on_stall = lambda waited: (stalls.append(waited), note(waited))
+        t_live = time.perf_counter()
+        script = [(0.0, "play A2")]
+        script += [(0.5 * (i + 1), f"slider A2 cutoff {c}") for i, c in
+                   enumerate([900, 1500, 2500, 4000, 3000, 1800, 1200, 700,
+                              1000, 2000, 3500, 5000, 2200, 1400, 800,
+                              1600, 2400, 3200, 4200, 2800])]
+        script += [(3.0, "play A3"), (5.0, "play A1 measure"),
+                   (6.0, "keys A5"), (6.2, "on 60 100"), (6.2, "on 64 90"),
+                   (6.2, "on 67 80"), (8.5, "off 64"), (9.0, "off 60"),
+                   (9.0, "off 67"), (9.5, "play A4"), (12.0, "stop A2")]
+        script.sort(key=lambda x: x[0])
+        dispatches = []
+        t_play = None
+        for at, line in script:
+            wait = t_live + at - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            t0 = time.perf_counter()
+            if t_play is None:
+                t_play = t0
+            r.dispatch(line)
+            dispatches.append((line, time.perf_counter() - t0))
+        time.sleep(max(0.0, t_live + 15.0 - time.perf_counter()))
+        error = pump.error
+        r.dispatch("audio status")
+        # What held the audio thread: the command path's slowest entries
+        # (activations with their compile, modifies, window opens).
+        slow = sorted(r.tracker.op_log, key=lambda op: -op[2])[:8]
+        slow_ops = [(op, block, round(total * 1e3, 1),
+                     {k: round(v * 1e3, 1) for k, v in phases.items()})
+                    for op, block, total, phases in slow]
+        r.dispatch("audio stop")
+        wall = time.perf_counter() - pump._t0
+        stats = pump.stats()
+        error = error or pump.error
+        reading.join(timeout=30)
+        if warming is not None:
+            warming.join(timeout=600)
+        r.dispatch("quit")
+        # Blocks by path and the blocks rendered while a capture ran.
+        paths = runs.paths()
+    log_text = out.getvalue()
+    check(error is None, f"R2: the pump failed: {error!r}")
+    check(not reading.is_alive(), "R2: the FIFO reader did not finish")
+    check("audio thread busy:" not in log_text,
+          f"R2: a command timed out:\n{log_text[-3000:]}")
+    check("error:" not in log_text and "usage error" not in log_text,
+          f"R2: the log reports an error:\n{log_text[-3000:]}")
+    check(len(pcm) == stats["blocks_out"] * REPL_BLOCK * 4,
+          f"R2: read {len(pcm)} bytes for {stats['blocks_out']} blocks")
+    samples = np.frombuffer(bytes(pcm), "<f4")
+    check(np.isfinite(samples).all(), "R2: the PCM is not finite")
+    check(first_sound and float(np.abs(samples).max()) > 0.01,
+          "R2: the PCM stayed silent after the first play")
+    check(warming is None or (warm.get("failures") == [] and warm.get(
+        "n", 0) >= len(prewarm.COMMON_EXPRS)), f"R2: the prewarm: {warm}")
+    walls = np.asarray([w for _, w in dispatches]) * 1e3
+    return dict(
+        blocks_out=stats["blocks_out"], wall_s=wall,
+        blocks_by_wall=wall * REPL_SR / REPL_BLOCK,
+        underruns=stats["underruns"], worst_late_ms=stats["worst_late_ms"],
+        ring_ms=stats["latency_ms"],
+        tracker_load_p50=float(np.percentile(loads, 50)),
+        tracker_load_p99=float(np.percentile(loads, 99)),
+        dispatch_ms_p50=float(np.percentile(walls, 50)),
+        dispatch_ms_p99=float(np.percentile(walls, 99)),
+        dispatch_ms_max=float(walls.max()),
+        slowest_dispatch=max(dispatches, key=lambda d: d[1])[0],
+        prewarm_s=warm.get("seconds"), prewarm_warmed=warm.get("n"),
+        first_sound_ms=(first_sound[0] - t_play) * 1e3,
+        stall_notes=stalls, peak=float(np.abs(samples).max()),
+        launches=dict(scan_ops.launches), slow_ops=slow_ops, paths=paths)
+
+
+def r3_cli(tmp: Path) -> dict:
+    """R3: `python -m tuun_tpu_torch --ui true song.tuun` in a child on the
+    default device, stdin `play A2`, `render 1 OUT.wav`, `quit`."""
+    song = tmp / "song.tuun"
+    song.write_text(SONG.read_text())
+    wav = tmp / "r3.wav"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tuun_tpu_torch", "--ui", "true", str(song)],
+        input=f"play A2\nrender 1 {wav}\nquit\n", capture_output=True,
+        text=True, timeout=300, cwd=tmp,
+        env=dict(os.environ, TUUN_PREWARM="0",
+                 PYTHONPATH=str(Path(__file__).resolve().parent)))
+    check(proc.returncode == 0, f"R3: exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    check("error" not in proc.stdout, f"R3: {proc.stdout[-3000:]}")
+    from tuun_tpu_torch.wav import read_wav
+    samples, sr = read_wav(wav)
+    # `render 1` renders whole blocks: int(44100 / 1024) of 1024 samples.
+    want = int(REPL_SR / REPL_BLOCK) * REPL_BLOCK
+    check(sr == REPL_SR and len(samples) == want,
+          f"R3: {len(samples)} samples at {sr} Hz, want {want}")
+    check(np.isfinite(samples).all() and np.abs(samples).max() > 0.01,
+          "R3: the WAV is not finite or silent")
+    return dict(samples=len(samples), seconds=time.perf_counter() - t0)
+
+
+def live_in_child() -> dict:
+    """R2 in a child process (`chip_smoke.py --live`): its JSON row."""
+    argv = [sys.executable, str(Path(__file__).resolve()), "--live"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"R2: exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    row["child_s"] = time.perf_counter() - t0
+    return row
+
+
+def phase_repl(torch, scan_ops, build_s: float) -> dict:
+    """Phase 10: R1 on the card and its first R1_CPU_LINES on the CPU, R2
+    in a child, R3 in a child.  Returns each scan's launches in R1 and
+    R2."""
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scan_ops.reset_launches()
+        t0 = time.perf_counter()
+        card = r1_run("cuda", R1_SCRIPT, tmp / "card")
+        r1_s = time.perf_counter() - t0
+        launched = dict(scan_ops.launches)
+        rows["R1"] = dict(check_r1(card, R1_SCRIPT), seconds=r1_s,
+                          launches=launched,
+                          slowest=sorted(card["walls"],
+                                         key=lambda w: -w[1])[:5])
+        t0 = time.perf_counter()
+        cpu = r1_run("cpu", R1_SCRIPT[:R1_CPU_LINES], tmp / "cpu")
+        check_r1(cpu, R1_SCRIPT[:R1_CPU_LINES])
+        x = np.concatenate(card["rendered"][:len(cpu["rendered"])])
+        y = np.concatenate(cpu["rendered"])
+        stats = fast_mode_errors(x, y.astype(np.float64))
+        check(len(x) == len(y) and stats["frac_large"] == 0.0
+              and stats["max_abs"] <= 1e-4 * stats["peak"],
+              f"R1 card vs CPU: {stats}")
+        rows["R1 card vs CPU"] = dict(stats, samples=len(y),
+                                      cpu_seconds=time.perf_counter() - t0)
+        rows["R2"] = live_in_child()
+        rows["R3"] = r3_cli(tmp)
+    rows["nvcc build of phase 1 (s)"] = build_s
+    for name, row in rows.items():
+        log(f"repl {name} {json.dumps(row)}")
+    for k, c in rows["R2"]["launches"].items():
+        launched[k] += c
+    log(f"launch counts of phase 10 (R1 and R2): {launched}")
+    for k, c in launched.items():
+        check(c > 0, f"phase 10: kernel {k} was never launched")
+    return launched
+
+
 def log_phase(started: float, name: str) -> None:
     log(f"phase {name} done at {time.perf_counter() - started:.1f} s")
 
@@ -2880,12 +3230,13 @@ def log_phase(started: float, name: str) -> None:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
     ap.add_argument("--phase", choices=("kernels", "times", "stream",
-                                        "session"),
+                                        "session", "repl"),
                     help="kernels: stop after phase 2; times: only the "
                     "single-voice scans' times; stream: only phase 8's "
                     "capture check, G3 and G2's streaming sessions; "
-                    "session: only phase 9's live sessions and server "
-                    "(see the module docstring)")
+                    "session: only phase 9's live sessions and server; "
+                    "repl: only phase 10's REPL (see the module "
+                    "docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
@@ -2895,6 +3246,9 @@ def main(argv) -> int:
                     "G1one, G2) in one profiler session and print a JSON "
                     "row each (phases 6 and 8 run them in children), or "
                     "`launches`: phase 2's one-kernel-a-call check")
+    ap.add_argument("--live", action="store_true",
+                    help="phase 10's R2 alone, in this process (phase 10 "
+                    "runs it in a child), and print its JSON row")
     args = ap.parse_args(argv)
     if args.tree is not None and args.phase != "times":
         ap.error("--tree needs --phase times")
@@ -2907,6 +3261,9 @@ def main(argv) -> int:
         scan_ops = tree_scan_ops(args.tree.resolve())
     else:
         from tuun_tpu_torch.engine import scan_ops
+    if args.live:
+        print(json.dumps(r2_live()), flush=True)
+        return 0
     if args.profile == LAUNCH_PROFILE:
         scan_ops.load_library()
         check_one_launch(torch, np, scan_ops, np.random.default_rng(0))
@@ -2940,7 +3297,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     lib = scan_ops.build_library()
     scan_ops.load_library()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"build: {lib.name} in {build_s:.1f} s")
     if args.phase == "times":
         phase_times(torch, np, scan_ops, str(args.tree or "."))
         return 0
@@ -2951,6 +3309,9 @@ def main(argv) -> int:
         return 0
     if args.phase == "session":
         phase_session(torch, scan_ops)
+        return 0
+    if args.phase == "repl":
+        phase_repl(torch, scan_ops, build_s)
         return 0
 
     results = {k: [] for k in scan_ops.launches}
@@ -3007,6 +3368,8 @@ def main(argv) -> int:
     log_phase(started, "8, profiles")
     session = phase_session(torch, scan_ops)
     log_phase(started, "9")
+    repl = phase_repl(torch, scan_ops, build_s)
+    log_phase(started, "10")
 
     kernels = []
     for k in scan_ops.launches:
@@ -3023,6 +3386,7 @@ def main(argv) -> int:
             "source": "tuun_tpu_torch/csrc/scan.cu",
             "replaces": REPLACES[k], "launches": counts[k],
             "session_launches": session[k],
+            "repl_launches": repl[k],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "device_ms": main_row["device_ms"],

@@ -51,8 +51,7 @@ def test_cli_matches_jax_cli(tmp_path, expr, stems, atol):
 
 
 def test_cli_refuses_unported_options(capsys):
-    assert torch_cli.main(["--expr", "$5", "--device", "cpu", "--ui",
-                           "true"]) == 2
+    # `--ui true` is ported (tests/test_torch_repl.py drives it).
     assert torch_cli.main(["--expr", "$5", "--device", "cpu", "--precision",
                            "exact_df"]) == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -16,6 +16,9 @@ independence from the JAX package.
 import ast
 import enum
 import functools
+import re
+import subprocess
+import sys
 import types
 from importlib import import_module
 from pathlib import Path
@@ -75,6 +78,28 @@ def test_import_walk_covers_the_live_session():
     for rel in ("tuun_tpu_torch/session.py", "tuun_tpu_torch/player.py",
                 "tuun_tpu_torch/tools/web_demo.py"):
         assert rel in PORT_FILES
+
+
+@pytest.mark.parametrize("name", [
+    "repl", "effects", "audio", "prewarm", "printer", "actions", "keymap",
+    "launchkey", "midi", "tui", "tools/midi_probe"])
+def test_import_walk_covers_the_repl(name):
+    assert f"tuun_tpu_torch/{name}.py" in PORT_FILES
+
+
+def test_repl_modules_load_neither_jax_nor_tuun_tpu():
+    """The REPL's modules import in a fresh process, as `python -m
+    tuun_tpu_torch.repl` starts, with neither jax nor tuun_tpu loaded."""
+    code = ("import sys\n"
+            "import tuun_tpu_torch.repl, tuun_tpu_torch.audio, "
+            "tuun_tpu_torch.prewarm, tuun_tpu_torch.printer, "
+            "tuun_tpu_torch.tui, tuun_tpu_torch.tools.midi_probe\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'tuun_tpu')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_port_package_owns_its_stdlib():
@@ -345,12 +370,27 @@ def test_metric_series_the_same(steps):
 # -- modules the port copies verbatim -------------------------------------
 
 # Each copied module of tuun_tpu that holds no front-end behaviour of its
-# own, with the only edits its copy may have.
+# own, with the only edits its copy may have (besides _relative_reference).
 COPIED = {
     "metric": (),
     "_threads": (('print(f"tuun_tpu: worker',
                   'print(f"tuun_tpu_torch: worker'),),
+    "printer": (),
+    "actions": (),
+    "keymap": (),
+    "launchkey": (),
+    "midi": (),
+    "tui": (),
+    "tools/midi_probe": (("python -m tuun_tpu.tools.midi_probe",
+                          "python -m tuun_tpu_torch.tools.midi_probe"),),
 }
+
+
+def _relative_reference(text: str) -> str:
+    """The copies cite the reference's sources relative to its checkout
+    (reference/src/...), not by a directory of the machine they were
+    written on."""
+    return re.sub(r"/\w+/reference/", "reference/", text)
 
 
 @pytest.mark.parametrize("name", sorted(COPIED))
@@ -359,4 +399,4 @@ def test_copied_module_is_verbatim(name):
     for old, new in COPIED[name]:
         assert old in text, (name, old)
         text = text.replace(old, new)
-    assert (PORT / f"{name}.py").read_text() == text
+    assert (PORT / f"{name}.py").read_text() == _relative_reference(text)

@@ -763,3 +763,100 @@ def test_affine_scratch_made_during_capture_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="before capturing"):
         scan_ops.affine_scratch(3, 9, 1 << 20)
     assert len(made) == 1
+
+
+# -- first use from several threads ------------------------------------------
+
+
+class _FakeFn:
+    """A ctypes function of the fake library: argtypes/restype settable."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __call__(self, *args):
+        return self.value
+
+
+class _FakeLib:
+    def __init__(self):
+        self.tuun_affine_max_j = _FakeFn(scan_ops.MAX_J)
+        self.tuun_scan_tile = _FakeFn(4096)
+        self.tuun_affine_tile = _FakeFn(2048)
+        self.tuun_scan_scratch_words = _FakeFn(64)
+        self.tuun_affine_scratch_words = _FakeFn(16)
+        for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32",
+                     "tuun_affine_scan_rows_f32"):
+            setattr(self, name, _FakeFn(0))
+
+
+def _race(fn, threads=16):
+    """Runs fn in `threads` threads released together, under a short
+    switch interval; returns their results."""
+    import sys
+    import threading
+    start = threading.Barrier(threads)
+    out = [None] * threads
+
+    def run(i):
+        start.wait(timeout=30)
+        out[i] = fn()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+        for t_ in ts:
+            t_.start()
+        for t_ in ts:
+            t_.join(timeout=60)
+        assert not any(t_.is_alive() for t_ in ts)
+    finally:
+        sys.setswitchinterval(old)
+    return out
+
+
+def test_load_library_builds_and_loads_once_under_a_race(monkeypatch):
+    """Threads at first use (the audio thread, the prewarm, the bake and
+    capture workers) get one library, built and loaded once."""
+    import ctypes
+    import time
+    builds, loads = [], []
+
+    def build():
+        builds.append(1)
+        time.sleep(0.05)  # an nvcc build takes seconds: widen the window
+        return "libtuun_scan_fake.so"
+
+    def cdll(path):
+        loads.append(path)
+        return _FakeLib()
+    monkeypatch.setattr(scan_ops, "_lib", None)
+    monkeypatch.setattr(scan_ops, "build_library", build)
+    monkeypatch.setattr(ctypes, "CDLL", cdll)
+    libs = _race(scan_ops.load_library)
+    assert len(builds) == 1 and len(loads) == 1
+    assert all(lib is libs[0] for lib in libs)
+    assert scan_ops._scan_tile == 4096 and scan_ops._affine_tile == 2048
+
+
+def test_scratch_made_once_under_a_race(monkeypatch):
+    """Each (device, stream) gets one prefix and one affine scratch
+    buffer, whichever threads ask first: no thread launches on a buffer
+    that the table then drops."""
+    import time
+    monkeypatch.setattr(scan_ops, "_scratch", {})
+    monkeypatch.setattr(scan_ops, "_affine_scratch", {})
+    monkeypatch.setattr(scan_ops, "_affine_retired", [])
+    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
+    made = []
+
+    def alloc(device, *tiles):
+        time.sleep(0.01)
+        made.append(object())
+        return made[-1]
+    prefix = _race(lambda: scan_ops.prefix_scratch(0, 7, alloc=alloc))
+    assert len(made) == 1 and all(b is made[0] for b in prefix)
+    made.clear()
+    affine = _race(lambda: scan_ops.affine_scratch(0, 7, 3, alloc=alloc))
+    assert len(made) == 1 and all(e[0] is made[0] for e in affine)
+    assert scan_ops._affine_retired == []

@@ -13,10 +13,10 @@ jitted path: valid ends resolve every 16 blocks, the fused session step
 and 16-block lookahead windows engage once the voice set is stable (on
 the card, as CUDA graph replays).
 
-Not yet ported: `--ui true` (the REPL, ROADMAP.md queue 1 item 4) and
-`--precision exact_df` (ROADMAP.md queue 1 item 6).  `--no-jit` is
-accepted for flag parity and has no effect: the port has no unjitted
-debug path to select.
+`--ui true` launches the live-coding REPL (repl.py) on `--device`, as
+tuun_tpu/cli.py:112-124 does.  Not yet ported: `--precision exact_df`
+(ROADMAP.md queue 1 item 6).  `--no-jit` is accepted for flag parity and
+has no effect: the port has no unjitted debug path to select.
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--date_format", default="_%Y-%m-%d_%H-%M-%S")
     p.add_argument("--precompute", default="true", choices=["true", "false"])
     p.add_argument("--ui", default="false", choices=["true", "false"],
-                   help="not yet ported: only batch mode exists")
+                   help="true: the live-coding REPL instead of a batch "
+                        "render")
     p.add_argument("--library_root", type=Path, default=None)
     p.add_argument("input_file", nargs="?", default=None)
     p.add_argument("-O", "--output_dir", default=".")
@@ -93,10 +94,6 @@ def _as_waveform(value):
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    if args.ui == "true":
-        print("error: --ui true is not yet ported (ROADMAP.md queue 1 "
-              "item 4, the app layer)", file=sys.stderr)
-        return 2
     if args.precision == "exact_df":
         print("error: --precision exact_df is not yet ported (ROADMAP.md "
               "queue 1 item 6, df32 and exact_df)", file=sys.stderr)
@@ -108,6 +105,21 @@ def main(argv=None) -> int:
     if args.input_file is None and args.expr is None:
         print("error: provide an input file or --expr", file=sys.stderr)
         return 2
+
+    if args.ui == "true":
+        # The interactive surface is the live-coding REPL (the
+        # reference's --ui launches its SDL2 window).
+        from .repl import Repl
+        repl = Repl(sample_rate=args.sample_rate, tempo=args.tempo,
+                    beats_per_measure=args.beats_per_measure,
+                    buffer_size=args.buffer_size,
+                    library_root=resolve_library_root(args),
+                    precision=args.precision, jit=not args.no_jit,
+                    device=args.device)
+        if args.input_file:
+            repl.dispatch(f"load {args.input_file}")
+        repl.run()
+        return 0
 
     evaluator = Evaluator(args.sample_rate, args.tempo,
                           resolve_library_root(args))

@@ -104,6 +104,12 @@ _owner_retired: Dict[Any, List[torch.Tensor]] = {}
 # Per thread: the graph_scope's owner and, while a graph captures, the
 # launches its scans recorded.
 _tls = threading.local()
+# Held for the first load of the library and for each scratch creation
+# (never by a launch that finds its buffer): threads at first use (the
+# audio thread, the prewarm, the bake and capture workers) would each
+# build or allocate, and a launch could take the pointer of a buffer that
+# the table then drops.
+_first_use = threading.RLock()
 
 
 def reset_launches() -> None:
@@ -151,10 +157,11 @@ def release_scratch(owner) -> None:
     """Frees every scratch buffer of `owner` (its graph is gone).  The
     tables hold `owner` in their keys until then: an owner that may be
     dropped passes a token of its own and releases with a finalizer."""
-    for table in (_scratch, _affine_scratch):
-        for key in [k for k in table if len(k) == 3 and k[2] is owner]:
-            del table[key]
-    _owner_retired.pop(owner, None)
+    with _first_use:
+        for table in (_scratch, _affine_scratch):
+            for key in [k for k in table if len(k) == 3 and k[2] is owner]:
+                del table[key]
+        _owner_retired.pop(owner, None)
 
 
 def _nvcc() -> str:
@@ -183,31 +190,38 @@ def build_library() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
+    """The scan library, built and loaded on first use (once, whichever
+    threads get here first)."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build_library()))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name in ("tuun_scan_tile", "tuun_affine_tile", "tuun_affine_max_j"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i32
-    lib.tuun_scan_scratch_words.argtypes = []
-    lib.tuun_scan_scratch_words.restype = i64
-    lib.tuun_affine_scratch_words.argtypes = [i64]
-    lib.tuun_affine_scratch_words.restype = i64
-    for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
-        getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
-        getattr(lib, name).restype = i32
-    lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [i64, i64, i64, i32, p]
-    lib.tuun_affine_scan_rows_f32.restype = i32
-    if lib.tuun_affine_max_j() != MAX_J:
-        raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
-    global _scan_tile, _scratch_words, _affine_tile
-    _scan_tile = lib.tuun_scan_tile()
-    _scratch_words = lib.tuun_scan_scratch_words()
-    _affine_tile = lib.tuun_affine_tile()
-    _lib = lib
-    return lib
+    with _first_use:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build_library()))
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for name in ("tuun_scan_tile", "tuun_affine_tile",
+                     "tuun_affine_max_j"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        lib.tuun_scan_scratch_words.argtypes = []
+        lib.tuun_scan_scratch_words.restype = i64
+        lib.tuun_affine_scratch_words.argtypes = [i64]
+        lib.tuun_affine_scratch_words.restype = i64
+        for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
+            getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
+            getattr(lib, name).restype = i32
+        lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [i64, i64, i64,
+                                                              i32, p]
+        lib.tuun_affine_scan_rows_f32.restype = i32
+        if lib.tuun_affine_max_j() != MAX_J:
+            raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
+        global _scan_tile, _scratch_words, _affine_tile
+        _scan_tile = lib.tuun_scan_tile()
+        _scratch_words = lib.tuun_scan_scratch_words()
+        _affine_tile = lib.tuun_affine_tile()
+        _lib = lib
+        return lib
 
 
 def _check(status: int, name: str) -> None:
@@ -275,7 +289,10 @@ def prefix_scratch(device: int, stream: int,
     key = _scratch_key(device, stream)
     buf = _scratch.get(key)
     if buf is None:
-        buf = _scratch[key] = alloc(device)
+        with _first_use:
+            buf = _scratch.get(key)
+            if buf is None:
+                buf = _scratch[key] = alloc(device)
     return buf
 
 
@@ -460,16 +477,20 @@ def affine_scratch(device: int, stream: int, tiles: int,
     entry = _affine_scratch.get(key)
     if entry is not None and entry[1] >= tiles:
         return entry
-    cap = max(tiles, -(-AFFINE_SCRATCH_MIN_LANES // _affine_tile))
-    if entry is not None:
-        cap = max(cap, 2 * entry[1])
-    buf = alloc(device, cap)
-    if entry is not None:
-        retired = _affine_retired if len(key) == 2 else \
-            _owner_retired.setdefault(key[2], [])
-        retired.append(entry[0])
-    entry = _affine_scratch[key] = (buf, cap)
-    return entry
+    with _first_use:
+        entry = _affine_scratch.get(key)
+        if entry is not None and entry[1] >= tiles:
+            return entry
+        cap = max(tiles, -(-AFFINE_SCRATCH_MIN_LANES // _affine_tile))
+        if entry is not None:
+            cap = max(cap, 2 * entry[1])
+        buf = alloc(device, cap)
+        if entry is not None:
+            retired = _affine_retired if len(key) == 2 else \
+                _owner_retired.setdefault(key[2], [])
+            retired.append(entry[0])
+        entry = _affine_scratch[key] = (buf, cap)
+        return entry
 
 
 def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,

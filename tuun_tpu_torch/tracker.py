@@ -587,6 +587,9 @@ class Tracker:
         # {phase: seconds}).
         self.op_log: _collections.deque = _collections.deque(maxlen=256)
         self._staged_q: List = []
+        # (window, block, k) of the block render_block last served from a
+        # lookahead window, for stage_host.
+        self._served = None
         self._fetch_thread: Optional[_threading.Thread] = None
         self._prefetch_thread: Optional[_threading.Thread] = None
 
@@ -1273,6 +1276,7 @@ class Tracker:
         w = self._window
         n = self.block_size
         y = w["acc"][w["k"] * n:(w["k"] + 1) * n]
+        self._served = (w, y, w["k"])
         w["k"] += 1
         if w["k"] >= w["K"]:
             self._finalize_window()
@@ -1350,6 +1354,7 @@ class Tracker:
         n = self.block_size
         block_start = self.now
         block_end = block_start + n
+        self._served = None
 
         still_pending: List[Pending] = []
         for p in self.pending:
@@ -1441,6 +1446,25 @@ class Tracker:
         self.load_metric.set(status.tracker_load)
         self.dispatch_metric.set(float(status.dispatches))
         return out, status
+
+    def stage_host(self, y):
+        """Starts the copy to host memory of the block that render_block
+        has just returned, for a reader on another thread, without
+        waiting for it: (staged, lo, hi), the block being
+        `_staged_host(staged)[lo:hi]`, which waits on the copy's event.
+        The blocks of a lookahead window share one copy of the window,
+        started with its first staged block, so no block is copied twice;
+        a host block is its own copy."""
+        if isinstance(y, np.ndarray):
+            return (y, None, None), 0, len(y)
+        served = self._served
+        if served is not None and served[1] is y:
+            w, _, k = served
+            if "staged" not in w:
+                w["staged"] = _start_host_copies(w["acc"])
+            n = self.block_size
+            return w["staged"], k * n, (k + 1) * n
+        return _start_host_copies(y), 0, y.shape[0]
 
     # -- deferred sync ---------------------------------------------------
 
