@@ -7,7 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which exits non-zero on failure:
   0. device: the card's name and power limit; no CUDA -> exit 1.
-  1. build: compile the hand-written scan kernels (csrc/scan.cu) with nvcc.
+  1. build: compile the hand-written kernels with nvcc, one process per
+     source, all at once: the scans (csrc/scan.cu) and the exact
+     precisions' recurrence and df prefix sum (csrc/exact.cu).
   2. kernels: each kernel against its plain PyTorch version on the card,
      with timings; noise_torch against the numpy oracle's noise; sin at
      every NCO grid angle on the card against the CPU.
@@ -15,7 +17,10 @@ Phases, each of which exits non-zero on failure:
      at J = 1, 2, 3, 4, 8 and up to 2^20 + 5 lanes, each also: on
      misaligned inputs (x[1:]; a[1:], ff[1:], live[1:]); exactly one CUDA
      kernel per call, no memset (torch.profiler, in a child process:
-     `--profile launches`); the same bits on every
+     `--profile launches`; a child whose profiler saw fewer kernels than
+     the wrappers launched is run again, up to three children, while
+     more device work than one kernel a call fails at once); the same
+     bits on every
      call (the sum up to 2^26 lanes, the affine scan at 65536 and 2^20 + 5
      lanes); captured CUDA graphs on one stream, one per op (per J of the
      affine scan) at each of two lengths, each replayed three times in
@@ -116,7 +121,7 @@ Phases, each of which exits non-zero on failure:
      Logged: per session x realtime, p50/p99 block ms, blocks by path,
      captures; per modify p50/p99 ms and its op_log phases; state_at's
      replay; each kernel's launches in the phase (the kernels line's
-     `session_launches`; every kernel must launch); and, not held, the
+     `session_launches`; every scan kernel must launch); and, not held, the
      filter program with wide moves (Q 2 at 100 Hz) against a float64
      scan.
 
@@ -142,14 +147,47 @@ Phases, each of which exits non-zero on failure:
      time to sound, stall notes, captures.  R3: `python -m tuun_tpu_torch
      --ui true song.tuun` in a child, stdin `play A2`, `render 1 OUT.wav`,
      `quit`: exit 0 and 43 x 1024 finite samples.  Each kernel's launches
-     in R1 and R2 are the kernels line's `repl_launches`; every kernel
-     must launch.
+     in R1 and R2 are the kernels line's `repl_launches`; every scan
+     kernel must launch.
+ 11. the exact precisions (exact), on the card at full shapes; every
+     failure fails the run (no budget stop, no caught exception).  First
+     the two kernels of csrc/exact.cu against their plain versions: the
+     linear recurrence (K1, exact mode's IIR) in f32 and f64 at J = 1, 2,
+     3, 8, 9, 12, bit for bit the plain version at 1000 and 4101 lanes
+     (aligned and on a[1:], ff[1:], live[1:]) and at 2^17 + 5 lanes for J =
+     2, and at 2^17 + 5 lanes for every J each lane the step from its own
+     history (which makes it the plain version's bits by induction), the
+     same bits on a repeat; its rows form row for row a single call; the df
+     prefix sum (K2, exact_df's phase) at 2^10 to 2^20 lanes within 2^-40
+     of sum |x| of the float64 cumsum (as its plain doubling scan is), 10^3
+     below the f32 cumsum's drift, the same bits on 20 repeats, its rows
+     form row for row a single call; both captured in CUDA graphs replayed
+     in turns; each timed at 2^17 lanes, 1024 lanes and (8, 1024) (events,
+     device, host, the plain version, and for K2 torch.cumsum in float64).
+     Then the path, whose launches, and only those, make each kernel's
+     `exact_launches`: the fuzz gate (bench.py's fuzz_tpu lane on the port:
+     seeds 5000-5015 at depth 4/5, 4 const-jitter variants, n = 256, sr =
+     4, blocks (256, 97, 64); fast with the statistical gates, exact_df and
+     exact at atol 2e-4 / rtol 1e-3; all 64 cases with no failure), the
+     shape gate (nco, fm, filter and reset at 2^17 lanes and 44.1 kHz,
+     offline and in 1024-lane blocks, in exact_df and exact, within
+     SHAPE_TOL), the long render (LONGSONG_EXPR, 64 s at 44.1 kHz in
+     2^17-lane blocks, exact_df, against the native oracle within
+     LONGRENDER_TOL), G2's live-block session cut to its first third
+     (EXACT_SESSION) in exact_df with the fused step at sync_interval 1 and
+     4 (the mix against its voices' own renders, phase 8's bound), and W2
+     and W3 through the CLI in exact_df and exact against the oracle over 2
+     s.  Every kernel on this path must launch: all but the float64
+     recurrence (the reference's IIR is float32 in both exact precisions,
+     so no engine path runs it) and the fast mode's voices x lanes forms of
+     the prefix sum and affine scan (fast groups only: phase 8).
 
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2;
 `--phase stream` runs only phase 8's capture check, G3 and G2's
 streaming sessions; `--phase session` only phase 9; `--phase repl` only
-phase 10.
+phase 10; `--phase exact` only phase 11 (after phase 2's one-kernel-a-
+call check in a child).
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
@@ -342,7 +380,8 @@ def stable_feedback(J: int):
         return np.array([-2 * math.cos(w0) / a0, (1 - alpha) / a0])
     if J == 3:  # filter_4_3 (bench.py:80-83)
         return np.array([-2.5610316, 2.2132402, -0.6435727])
-    roots = [0.9, 0.8, 0.5 + 0.3j, 0.5 - 0.3j, -0.6, 0.7j, -0.7j, 0.3][:J]
+    roots = [0.9, 0.8, 0.5 + 0.3j, 0.5 - 0.3j, -0.6, 0.7j, -0.7j, 0.3,
+             -0.4, 0.2 + 0.5j, 0.2 - 0.5j, -0.85][:J]
     return np.real(np.poly(roots))[1:]
 
 
@@ -439,7 +478,7 @@ def phase_kernels(torch, np, scan_ops, results):
                 f"lanes: max_abs_err={err:.3e} = {err / scale:.2e} of scale")
     # In a child: the first profiler session of a process that has run no
     # graph or second stream (events went missing once after both).
-    profile_in_child([LAUNCH_PROFILE])
+    check_launches_in_child()
     check_affine_repeatable(torch, np, scan_ops, rng)
     check_affine_graph(torch, np, scan_ops, rng, (MAIN_N, (1 << 20) + 5))
     check_affine_streams(torch, np, scan_ops, rng, (1 << 20) + 5)
@@ -852,7 +891,7 @@ def one_launch_calls(torch, np, scan_ops, rng) -> list:
     prefix scans from 128 to 2^26 lanes and on x[1:]; the affine scan at
     J = 2 and 8 at every length of phase 2, on one tile (1000 lanes), and
     on a[1:], ff[1:], live[1:]; the voices x lanes forms at every shape of
-    phase_rows."""
+    phase_rows; phase 11's kernels (exact_one_launch_calls)."""
     xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
           for n in PREFIX_SIZES]
     xs.append(torch.from_numpy(
@@ -878,14 +917,15 @@ def one_launch_calls(torch, np, scan_ops, rng) -> list:
         calls.append((scan_ops.affine_scan_rows_f32,
                       affine_rows_input(torch, np, rng, J, B, n),
                       "affine_single_pass", f"<{J},"))
-    return calls
+    return calls + exact_one_launch_calls(torch, np, scan_ops, rng)
 
 
 def profile_calls(torch, scan_ops, calls, rounds: int = 1):
     """Every call once (so that each stream's scratch exists), then
     `rounds` times under torch.profiler.  Returns the device kernels the
-    profiler saw, the host-side kernel launch calls it saw (the CUDA
-    runtime's or driver's), and the launches the wrappers counted."""
+    profiler saw, in the order they started, the host-side kernel launch
+    calls it saw (cudaLaunchKernel or cuLaunchKernel), and the launches
+    the wrappers counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn, args, _, _ in calls:
@@ -899,29 +939,85 @@ def profile_calls(torch, scan_ops, calls, rounds: int = 1):
                 fn(*args)
         torch.cuda.synchronize()
     events = prof.events()
-    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e.name for e in sorted(
+        (e for e in events if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
     host = [e.name for e in events if e.device_type == DeviceType.CPU
             and "LaunchKernel" in e.name]
     return kernels, host, sum(scan_ops.launches.values()) - before
 
 
-def check_one_launch(torch, np, scan_ops, rng) -> None:
-    """Every call of one_launch_calls is exactly one CUDA kernel: no
-    memset, no set-up or second kernel (torch.profiler)."""
+def check_one_launch(torch, np, scan_ops, rng) -> dict:
+    """Every call of one_launch_calls is one CUDA kernel: no memset, no
+    set-up or second kernel (torch.profiler).  More device work than
+    that fails here.  Fewer kernels than calls is returned, not failed:
+    the row names each (kernel, tag) that came up short, the calls whose
+    kernel the profiler did not see (in call order), and the host's and
+    the wrappers' counts of launches, for check_launches_in_child."""
     calls = one_launch_calls(torch, np, scan_ops, rng)
-    names, _, _ = profile_calls(torch, scan_ops, calls)
-    for kernel, tag in sorted({(k, t) for _, _, k, t in calls}):
-        want = sum(k == kernel and t == tag for _, _, k, t in calls)
-        mine = [k for k in names if kernel in k and tag in k]
-        check(len(mine) == want, f"{kernel} {tag}: {len(mine)} kernels for "
-              f"{want} calls; all kernels: {sorted(names)}")
-    check(len(names) == len(calls),
-          f"scan calls ran other device work: {sorted(set(names))}")
-    log(f"one launch per call: {len(names)} calls (prefix sum/max at "
-        f"{len(PREFIX_SIZES) + 1} lengths from 128 to 2^26 and x[1:]; affine "
-        f"scan at J = 2, 8 from 1000 to 2^20 + 5 lanes and on a[1:]; the "
-        f"voices x lanes forms at {PREFIX_ROWS} and {AFFINE_ROWS}) ran "
-        f"exactly one kernel each, no memset")
+    names, host, counted = profile_calls(torch, scan_ops, calls)
+    pairs = sorted({(k, t) for _, _, k, t in calls})
+    seen, want = {}, {}
+    for kernel, tag in pairs:
+        key = f"{kernel} {tag}"
+        want[key] = sum(k == kernel and t == tag for _, _, k, t in calls)
+        seen[key] = sum(kernel in k and tag in k for k in names)
+    other = sorted({k for k in names
+                    if not any(kernel in k and tag in k
+                               for kernel, tag in pairs)})
+    extra = {k: [seen[k], want[k]] for k in want if seen[k] > want[k]}
+    check(not extra and not other,
+          f"scan calls ran more device work than one kernel each: "
+          f"[seen, calls] {extra}; other device work {other}")
+    short = {k: [seen[k], want[k]] for k in want if seen[k] < want[k]}
+    if not short:
+        check(len(names) == len(calls),
+              f"{len(names)} device kernels for {len(calls)} calls")
+    # The calls whose kernel is missing: the device kernels, in the order
+    # they started, matched to the calls in order.
+    missing, i = [], 0
+    for c, (_, _, kernel, tag) in enumerate(calls):
+        if i < len(names) and kernel in names[i] and tag in names[i]:
+            i += 1
+        else:
+            missing.append(c)
+    if not short:
+        log(f"one launch per call: {len(names)} calls (prefix sum/max at "
+            f"{len(PREFIX_SIZES) + 1} lengths from 128 to 2^26 and x[1:]; "
+            f"affine scan at J = 2, 8 from 1000 to 2^20 + 5 lanes and on "
+            f"a[1:]; the voices x lanes forms at {PREFIX_ROWS} and "
+            f"{AFFINE_ROWS}; the linear recurrence in f32 and f64 at J = 2, "
+            f"9 and its rows form; the df prefix sum from 1000 to 2^20 "
+            f"lanes and its rows form) ran exactly one kernel each, no "
+            f"memset")
+    return dict(profile=LAUNCH_PROFILE, ok=not short, calls=len(calls),
+                device_kernels=len(names), host_launch_calls=len(host),
+                wrapper_launches=counted, short=short,
+                missing_calls=missing)
+
+
+def check_launches_in_child() -> None:
+    """check_one_launch in a child process: the first profiler session
+    of a process that has run no graph or second stream (kernel events
+    went missing after both).  This card's profiler has also lost kernel
+    records in a fresh process: where it saw fewer kernels than calls
+    while the wrappers counted every launch, a new child runs the check
+    again, up to LAUNCH_ATTEMPTS children.  The same short count in
+    every child, or a wrapper that did not count its launch, fails."""
+    for attempt in range(1, LAUNCH_ATTEMPTS + 1):
+        row = profile_in_child([LAUNCH_PROFILE])[0]
+        if row["ok"]:
+            return
+        check(row["wrapper_launches"] == row["calls"],
+              f"one-launch check: the wrappers counted "
+              f"{row['wrapper_launches']} launches for {row['calls']} calls")
+        log(f"one-launch check, child {attempt} of {LAUNCH_ATTEMPTS}: the "
+            f"profiler saw {row['device_kernels']} kernels for "
+            f"{row['calls']} calls, each of which its wrapper launched "
+            f"([seen, calls] {row['short']}, calls missing "
+            f"{row['missing_calls']})")
+    check(False, f"one-launch check: fewer kernels than calls in all "
+          f"{LAUNCH_ATTEMPTS} children, the last {json.dumps(row)}")
 
 
 def launches_in_process(torch, np, scan_ops) -> dict:
@@ -1608,6 +1704,8 @@ G2_SESSIONS = ((1024, 24, 1.6, (0.12, 0.18, 0.24, 0.3), 1.5e-5),
 ROWS_OF = {"prefix_sum_f32": "prefix_sum_rows_f32",
            "prefix_max_f32": "prefix_max_rows_f32",
            "affine_scan_f32": "affine_scan_rows_f32"}
+# The fast mode's kernels (csrc/scan.cu), which phases 3-10 drive.
+SCAN_KERNELS = tuple(ROWS_OF) + tuple(ROWS_OF.values())
 
 
 def g1_voices(torch, np):
@@ -1758,7 +1856,8 @@ def g2_waveforms(notes):
             for expr in sorted({n[2] for n in notes})}
 
 
-def g2_session(torch, session, waves, fuse=False, sync_interval=1):
+def g2_session(torch, session, waves, fuse=False, sync_interval=1,
+               precision="fast"):
     """One G2 session through Tracker.play / render_block until every
     voice has retired.  Returns (the mix, per-block host seconds, per-block
     (dispatches, voices, group sizes), the session's wall seconds).  With
@@ -1767,7 +1866,7 @@ def g2_session(torch, session, waves, fuse=False, sync_interval=1):
     import numpy as np
     from tuun_tpu_torch.tracker import Tracker
     block = session[0]
-    t = Tracker(SR, block, precision="fast", device="cuda",
+    t = Tracker(SR, block, precision=precision, device="cuda",
                 sync_interval=sync_interval)
     t.fuse = fuse
     for wid, _, expr, start in g2_notes(session):
@@ -1795,8 +1894,10 @@ def g2_session(torch, session, waves, fuse=False, sync_interval=1):
 # 221k device events took most of the run's time to read).
 GROUP_PROFILES = ("G1", "G1one", "G2")
 G2_PROFILE_SESSION = (1024, 8, 0.53) + G2_SESSIONS[0][3:]
-# Phase 2's count of kernels per call, in a child of its own.
+# Phase 2's count of kernels per call, in a child of its own, and the
+# most children that check_launches_in_child runs.
 LAUNCH_PROFILE = "launches"
+LAUNCH_ATTEMPTS = 3
 
 
 def group_profile(torch, name: str):
@@ -2194,25 +2295,34 @@ def phase_capture_check(torch, np) -> None:
               "capture check: a fused block differs from the eager one")
     check(A.captures_finished >= 1 and A.replays >= 1,
           "capture check: A's fused step did not engage")
-    B = tracker(True, block=BUFFER)
-    B.fuse_blocking = False
-    play(B, notes + [(f"{w}x", e, 0) for w, e, _ in notes])
-    overlapped = 0
-    deadline = time.perf_counter() + 120
-    while not B.captures_finished and time.perf_counter() < deadline:
-        if not B.captures_started:
-            B.render_block()
-        elif overlapped < 50:
-            replays = A.replays
-            ya, yb = A.render_block()[0], E.render_block()[0]
-            overlapped += A.replays > replays and not B.captures_finished
-            check(np.array_equal(ya, yb), "capture check: a replay during "
-                  "another capture differs from the eager block")
-        else:
-            time.sleep(0.01)
-    B.close()  # waits for the capture
-    check(overlapped >= 1 and B.captures_finished == 1,
-          f"capture check: {overlapped} replays overlapped the capture")
+    # Whether a replay of A lands inside B's capture is up to the threads'
+    # timing: a capture that ends before A's next block overlaps nothing
+    # (seen on a fast host).  So up to three fresh Bs, until one capture
+    # has a replay inside it.
+    overlapped = attempts = 0
+    while not overlapped and attempts < 3:
+        attempts += 1
+        B = tracker(True, block=BUFFER)
+        B.fuse_blocking = False
+        play(B, notes + [(f"{w}x", e, 0) for w, e, _ in notes])
+        deadline = time.perf_counter() + 120
+        while not B.captures_finished and time.perf_counter() < deadline:
+            if not B.captures_started:
+                B.render_block()
+            elif overlapped < 50:
+                replays = A.replays
+                ya, yb = A.render_block()[0], E.render_block()[0]
+                overlapped += A.replays > replays and not B.captures_finished
+                check(np.array_equal(ya, yb), "capture check: a replay "
+                      "during another capture differs from the eager block")
+            else:
+                time.sleep(0.01)
+        B.close()  # waits for the capture
+        check(B.captures_finished == 1,
+              "capture check: the second tracker's capture did not finish")
+    check(overlapped >= 1,
+          f"capture check: {overlapped} replays overlapped {attempts} "
+          f"captures")
     sa, se = state_leaves(torch, A), state_leaves(torch, E)
     check(all(torch.equal(x, y) for la, le in zip(sa, se)
               for x, y in zip(la, le)),
@@ -2276,7 +2386,8 @@ def phase_capture_check(torch, np) -> None:
     check(worst <= 2e-4, f"capture check: states differ by {worst:.3e}")
     W.close()
     log(f"capture check: {overlapped} replays of a captured step during "
-        f"another tracker's capture, the same bits and states as the "
+        f"another tracker's capture ({attempts} captures tried), the same "
+        f"bits and states as the "
         f"eager path; a same-key set swapped in replayed the cached step "
         f"({swapped} replays, no new capture), the same bits and "
         f"states; a play interrupting a window at block 2 of 4: mix "
@@ -2895,8 +3006,8 @@ def phase_session(torch, scan_ops) -> dict:
     for name, row in rows.items():
         log(f"session {name} {json.dumps(row)}")
     log(f"launch counts of phase 9 (the card's sessions): {launched}")
-    for k, c in launched.items():
-        check(c > 0, f"phase 9: kernel {k} was never launched")
+    for k in SCAN_KERNELS:
+        check(launched[k] > 0, f"phase 9: kernel {k} was never launched")
     return launched
 
 
@@ -3218,9 +3329,754 @@ def phase_repl(torch, scan_ops, build_s: float) -> dict:
     for k, c in rows["R2"]["launches"].items():
         launched[k] += c
     log(f"launch counts of phase 10 (R1 and R2): {launched}")
-    for k, c in launched.items():
-        check(c > 0, f"phase 10: kernel {k} was never launched")
+    for k in SCAN_KERNELS:
+        check(launched[k] > 0, f"phase 10: kernel {k} was never launched")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the exact precisions (exact and exact_df)
+# ---------------------------------------------------------------------------
+
+# The two kernels of phase 11, and what each replaces (neither was a
+# Pallas kernel: the TPU ran both as XLA scans).
+EXACT_KERNELS = ("linear_recurrence_f32", "linear_recurrence_f64",
+                 "linear_recurrence_rows_f32", "linear_recurrence_rows_f64",
+                 "df_prefix_sum_f32", "df_prefix_sum_rows_f32")
+REPLACES.update({k: "tuun_tpu/engine/graph.py:852" for k in EXACT_KERNELS
+                 if k.startswith("linear")})
+REPLACES.update({k: "tuun_tpu/engine/df32.py:118" for k in EXACT_KERNELS
+                 if k.startswith("df")})
+EXACT_SOURCE = "tuun_tpu_torch/csrc/exact.cu"
+# The kernels no engine path reaches: the reference's IIR rounds in float32
+# in both exact precisions (oracle.py:330-337; the JAX engine's scan
+# carries float32), so the engine runs the float32 recurrence, and the
+# float64 forms are held and timed by the kernel checks alone.  The fast
+# kernels' voices x lanes forms serve only fast-mode groups (phase 8).
+EXACT_OFF_PATH = ("linear_recurrence_f64", "linear_recurrence_rows_f64",
+                  "prefix_sum_rows_f32", "affine_scan_rows_f32")
+# The recurrence's depths and lengths: every J the engine renders (the
+# fuzz trees' 1-2, lpf's 2, filter_4_3's 3, MAX_J, and exact mode's
+# deeper filters 9 and 12).  Up to REC_PLAIN_N lanes every result is held
+# bit for bit against the plain version; at REC_LONG_N the plain version
+# (a Python loop over lanes, ~5-40 us a lane on the host) runs only at
+# J = 2, and every J is held by the one-step check.
+REC_JS = (1, 2, 3, 8, 9, 12)
+REC_PLAIN_N = (1000, 4096 + 5)
+REC_LONG_N = (1 << 17) + 5
+# The df prefix sum's lengths, and its bound against the float64 cumsum,
+# as a fraction of sum |x|: the CPU's plain scan and JAX's df_cumsum err
+# 2-3e-14 of it at 2^10-2^20 lanes of FM phase increments (df_div_f32 of
+# 2 pi (220 + 55 sin) / 44100), ~40x under 2^-40 = 9.1e-13.
+DF_SIZES = (1 << 10, (1 << 12) + 3, 1 << 14, 1 << 17, 1 << 20)
+DF_REL_TOL = 2.0 ** -40
+# Shapes of the times, (B, N): the long render's and the shape gate's
+# offline block, the live block, and a live group of 8 (rows forms).
+EXACT_MAIN_N = 1 << 17
+EXACT_TIMES = ((1, EXACT_MAIN_N), (1, 1024), (8, 1024))
+# H100 SXM peaks (NVIDIA data sheet, 700 W) for the operations bound, and
+# the dependent chain's model: one f32 (f64) multiply or subtract takes 4
+# (8) cycles of latency at the 1.98 GHz boost clock.
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+CHAIN_CYCLES = {"f32": 4, "f64": 8}
+SM_CLOCK_HZ = 1.98e9
+
+EXACT_SR = 44100
+EXACT_ATOL, EXACT_RTOL = 2e-4, 1e-3
+# bench.py:848-1014's gates, copied (bench.py imports jax): the four
+# production-shape classes and their bounds, and the 64-second score.
+SHAPE_TOL = {"nco": 2e-4, "fm": 2e-4, "filter": 2e-4, "reset": 2e-4}
+LONGSONG_EXPR = "<[" + ", ".join(
+    seg for f_lead, f_fm, f_pad in (
+        (440.37, 220.11, 110.0), (329.63, 164.81, 82.41),
+        (493.88, 246.94, 123.47), (392.0, 196.0, 98.0))
+    for seg in (
+        f"sine(2*pi * {f_lead}, 0) * 0.4 | ADSR(0.01, 0.3, 0.2, 0.5, 3.0)"
+        " | fin(time - 4) | seq(time - 4)",
+        f"sine(2*pi * {f_fm}, 4 * sine(2*pi * 3.7, 0)) * 0.3"
+        " | fin(time - 4) | seq(time - 4)",
+        f"(sawtooth({f_pad}) + sawtooth({f_pad * 1.003:.5f})) * 0.25"
+        " | lpf(0.7, 1200) | fin(time - 4) | seq(time - 4)",
+        "noise * 0.2 | moving_average(4) | fin(time - 4) | seq(time - 4)",
+    )) + "]>"
+LONGRENDER_TOL = 2e-4
+# The workloads of phase 3 driven through the CLI in both exact
+# precisions, each held over its first PREFIX_SECONDS to the strict bound.
+EXACT_CLI = ("W2", "W3")
+
+
+def recurrence_input(torch, np, rng, J, n, dtype, B=None, offset=0):
+    """(a, ff, live, h0) on the card: a stable all-pole section with a
+    per-lane jitter of 1e-3 (a time-varying filter), unit normal ff, 5%
+    dead lanes and a dead run of 64, a random entering history.  With B,
+    B rows; with offset=1 (single rows only), a, ff and live are views
+    [1:] of tensors one lane longer."""
+    lead = () if B is None else (B,)
+    a = stable_feedback(J) + 1e-3 * rng.standard_normal((*lead, n + offset,
+                                                         J))
+    ff = rng.standard_normal((*lead, n + offset))
+    live = rng.random((*lead, n + offset)) > 0.05
+    live[..., n // 3:n // 3 + 64] = False
+    h0 = rng.standard_normal((*lead, J))
+
+    def card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    return (card(a).to(dtype)[..., offset:, :],
+            card(ff).to(dtype)[..., offset:], card(live)[..., offset:],
+            card(h0).to(dtype))
+
+
+def bits(torch, x):
+    """x's bits as integers (torch.equal on floats takes -0 == +0)."""
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int64)
+
+
+def recurrence_one_step(torch, args, y, hist) -> bool:
+    """Whether every lane of (y, hist) is the recurrence's step from the
+    kernel's own history: h[j] = the (j+1)-th live y before the lane (h0
+    before the first), y = where(live, ff - a_0 h_0 - ... , 0) in the
+    reference's op order, each op its own kernel.  Equal at every lane,
+    by induction y is the sequential result bit for bit."""
+    a, ff, live, h0 = args
+    J = a.shape[1]
+    li = live.to(torch.int64)
+    before = torch.cumsum(li, 0) - li
+    ext = torch.cat([h0.flip(0), y[live]])
+    j = torch.arange(J, device=y.device)
+    hs = ext[(J - 1) + before[:, None] - j[None, :]]
+    acc = ff.clone()
+    for k in range(J):
+        acc = acc - a[:, k] * hs[:, k]
+    want = torch.where(live, acc, torch.zeros_like(acc))
+    want_hist = ext[(J - 1) + int(li.sum()) - j]
+    return torch.equal(bits(torch, want), bits(torch, y)) \
+        and torch.equal(bits(torch, want_hist), bits(torch, hist))
+
+
+def check_recurrence_plain(torch, scan_ops, args, y, hist, what) -> None:
+    """(y, hist) bit for bit against the plain version on the same inputs
+    (run on host copies: its Python loop over lanes launches ~3J ops a
+    lane, and IEEE rounding makes the host's bits the card's)."""
+    cpu = [x.cpu() for x in args]
+    if cpu[0].dim() == 3:
+        ry, rh = scan_ops.linear_recurrence_rows(*cpu)
+    else:
+        ry, rh = scan_ops.linear_recurrence(*cpu)
+    same = torch.equal(bits(torch, ry), bits(torch, y.cpu())) \
+        and torch.equal(bits(torch, rh), bits(torch, hist.cpu()))
+    bad = int((bits(torch, ry) != bits(torch, y.cpu())).sum())
+    check(same, f"linear_recurrence {what}: {bad} lanes differ from the "
+          f"plain version")
+
+
+def rec_times(torch, np, scan_ops, dtype, B, n, rng):
+    """The recurrence at J = 2 on (B, n): events, device and host time,
+    the plain version once on the card, the bound (bytes or operations)
+    and the dependent chain's time."""
+    args = recurrence_input(torch, np, rng, 2, n, dtype,
+                            None if B == 1 else B)
+    fn = (lambda: scan_ops.linear_recurrence(*args)) if B == 1 else \
+        (lambda: scan_ops.linear_recurrence_rows(*args))
+    ref = lambda: scan_ops.linear_recurrence_ref(*args)  # noqa: E731
+    big = n > 4096
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    item = 4 if sfx == "f32" else 8
+    J = 2
+    lane_bytes = item * (J + 2) + 1
+    bytes_ = B * (n * lane_bytes + 2 * J * item)
+    ops = B * n * 2 * J
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FLOPS[sfx] * 1e3
+    row = dict(B=B, n=n, J=J, dtype=sfx,
+               ms=cuda_ms(torch, fn, 5 if big else 50),
+               device_ms=graph_ms(torch, fn, calls=5 if big else 50,
+                                  replays=2 if big else 5),
+               host_us=host_us(torch, fn, calls=20 if big else 200),
+               plain_ms=cuda_ms(torch, ref, 1),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               chain_bound_ms=n * (J + 1) * CHAIN_CYCLES[sfx] / SM_CLOCK_HZ
+               * 1e3, library_ms=None)
+    return row
+
+
+def df_input(torch, np, rng, n, B=None, offset=0):
+    """FM phase increments as exact_df makes them: df_div_f32 of 2 pi (220
+    + 55 sin(0.001 i + phase)) by 44100, each row its own phase."""
+    from tuun_tpu_torch.engine import df32
+    lead = () if B is None else (B,)
+    ph = rng.uniform(0, 6, lead + (1,)) if lead else rng.uniform(0, 6)
+    i = np.arange(n + offset)
+    f = (2 * np.pi * (220 + 55 * np.sin(0.001 * i + ph))).astype(np.float32)
+    f = torch.from_numpy(np.ascontiguousarray(f)).cuda()
+    sr = torch.full((), float(EXACT_SR), dtype=torch.float32, device="cuda")
+    xh, xl = df32.df_div_f32(f, sr)
+    return xh[..., offset:], xl[..., offset:]
+
+
+def check_df(torch, xh, xl, oh, ol, what) -> float:
+    """(oh, ol) against the float64 cumsum of xh + xl within DF_REL_TOL of
+    sum |x|, per row; returns the error as a fraction of that."""
+    x = xh.double() + xl.double()
+    ref = torch.cumsum(x, -1)
+    err = (oh.double() + ol.double() - ref).abs().amax(-1)
+    scale = x.abs().sum(-1)
+    rel = float((err / scale).max())
+    check(rel <= DF_REL_TOL and bool(torch.isfinite(oh).all()),
+          f"df_prefix_sum {what}: error {rel:.3e} of sum|x| above "
+          f"{DF_REL_TOL:.3e}")
+    return rel
+
+
+def df_times(torch, np, scan_ops, B, n, rng):
+    xh, xl = df_input(torch, np, rng, n, None if B == 1 else B)
+    fn = (lambda: scan_ops.df_prefix_sum_f32(xh, xl)) if B == 1 else \
+        (lambda: scan_ops.df_prefix_sum_rows_f32(xh, xl))
+    ref = lambda: scan_ops.df_prefix_sum_ref(xh, xl)  # noqa: E731
+    x64 = xh.double() + xl.double()
+    lib = lambda: torch.cumsum(x64, -1)  # noqa: E731
+    big = n > 4096
+    bytes_ms = B * n * 16 / HBM_BYTES_PER_S * 1e3
+    # 11 float32 operations a df_add, one df_add a lane at the least.
+    ops_ms = B * n * 11 / PEAK_FLOPS["f32"] * 1e3
+    return dict(B=B, n=n,
+                ms=cuda_ms(torch, fn, 50 if big else 200),
+                device_ms=graph_ms(torch, fn),
+                host_us=host_us(torch, fn),
+                plain_ms=cuda_ms(torch, ref, 10 if big else 50),
+                library_ms=cuda_ms(torch, lib, 50 if big else 200),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def exact_graph_check(torch, np, scan_ops, rng) -> None:
+    """Both kernels, single and rows forms, captured in CUDA graphs on one
+    stream (after a plain call each on it, so that the df scratch exists),
+    replayed in turns three times over new data copied into the static
+    inputs, each replay equal to an eager call on the same data."""
+    s = torch.cuda.Stream()
+    cases = []
+    for B, n in ((1, EXACT_MAIN_N), (8, 1024)):
+        rec = recurrence_input(torch, np, rng, 2, n, torch.float32,
+                               None if B == 1 else B)
+        rfn = scan_ops.linear_recurrence if B == 1 \
+            else scan_ops.linear_recurrence_rows
+        cases.append((rfn, rec, lambda r=rng, n=n, B=B: recurrence_input(
+            torch, np, r, 2, n, torch.float32, None if B == 1 else B)))
+        dfx = df_input(torch, np, rng, n, None if B == 1 else B)
+        dfn = scan_ops.df_prefix_sum_f32 if B == 1 \
+            else scan_ops.df_prefix_sum_rows_f32
+        cases.append((dfn, tuple(x.clone() for x in dfx),
+                      lambda r=rng, n=n, B=B: df_input(
+                          torch, np, r, n, None if B == 1 else B)))
+    graphs = []
+    for fn, static, fresh in cases:
+        static = tuple(x.clone() for x in static)
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            fn(*static)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            out = fn(*static)
+        graphs.append((fn, static, fresh, g, out))
+    torch.cuda.synchronize()
+    for turn in range(3):
+        for fn, static, fresh, g, out in graphs:
+            new = fresh()
+            for dst, src in zip(static, new):
+                dst.copy_(src)
+            g.replay()
+            want = fn(*static)
+            torch.cuda.synchronize()
+            check(all(torch.equal(bits(torch, o), bits(torch, w))
+                      for o, w in zip(out, want)),
+                  f"{fn.__name__} graph replay {turn}: differs from an "
+                  f"eager call")
+    log(f"exact kernels: {len(graphs)} graphs (recurrence and df sum, "
+        f"single at {EXACT_MAIN_N} lanes and rows at (8, 1024)) on one "
+        f"stream, replayed in turns 3 times over new data: each replay "
+        f"equal to an eager call")
+
+
+def phase_exact_kernels(torch, np, scan_ops, results) -> None:
+    """K1 (the linear recurrence) and K2 (the df prefix sum) against their
+    plain versions, repeat bits, rows against single calls, graphs, and
+    times at EXACT_TIMES."""
+    rng = np.random.default_rng(11)
+    # -- K1 ------------------------------------------------------------
+    for dtype in (torch.float32, torch.float64):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        for J in REC_JS:
+            for n in REC_PLAIN_N:
+                for offset in (0, 1):
+                    args = recurrence_input(torch, np, rng, J, n, dtype,
+                                            offset=offset)
+                    y, hist = scan_ops.linear_recurrence(*args)
+                    torch.cuda.synchronize()
+                    check_recurrence_plain(torch, scan_ops, args, y, hist,
+                                           f"{sfx} J={J} n={n} off={offset}")
+                    check(recurrence_one_step(torch, args, y, hist),
+                          f"linear_recurrence {sfx} J={J} n={n}: one-step "
+                          f"check failed")
+            args = recurrence_input(torch, np, rng, J, REC_LONG_N, dtype,
+                                    offset=1)
+            y, hist = scan_ops.linear_recurrence(*args)
+            again = scan_ops.linear_recurrence(*args)
+            check(recurrence_one_step(torch, args, y, hist),
+                  f"linear_recurrence {sfx} J={J} n={REC_LONG_N}: a lane "
+                  f"is not the step from its own history")
+            check(torch.equal(bits(torch, y), bits(torch, again[0]))
+                  and torch.equal(bits(torch, hist), bits(torch, again[1])),
+                  f"linear_recurrence {sfx} J={J}: a repeat differs")
+            if J == 2:
+                check_recurrence_plain(torch, scan_ops, args, y, hist,
+                                       f"{sfx} J=2 n={REC_LONG_N}")
+            scale = max(1.0, float(y.abs().max()))
+            log(f"linear_recurrence_{sfx} J={J}: bit for bit the plain "
+                f"version at {REC_PLAIN_N} lanes (aligned and on a[1:], "
+                f"ff[1:], live[1:])" + (f" and at {REC_LONG_N}" if J == 2
+                                        else "")
+                + f"; every lane the step from its own history at "
+                f"{REC_LONG_N} lanes on a[1:], the same bits on a repeat "
+                f"(max |y| {scale:.3g})")
+        # Rows: each row the bits of a single call on it.
+        for B, n in ((8, 1024), (4, 65536 + 3)):
+            args = recurrence_input(torch, np, rng, 3, n, dtype, B)
+            y, hist = scan_ops.linear_recurrence_rows(*args)
+            for r in range(B):
+                ys, hs = scan_ops.linear_recurrence(
+                    *(x[r].contiguous() for x in args))
+                check(torch.equal(bits(torch, ys), bits(torch, y[r]))
+                      and torch.equal(bits(torch, hs), bits(torch, hist[r])),
+                      f"linear_recurrence_rows_{sfx} ({B}, {n}): row {r} "
+                      f"differs from a single call")
+            if n <= 1024:
+                check_recurrence_plain(torch, scan_ops, args, y, hist,
+                                       f"rows {sfx} ({B}, {n})")
+        log(f"linear_recurrence_rows_{sfx}: every row of (8, 1024) and "
+            f"(4, 65539) at J = 3 bit for bit a single call on it (and the "
+            f"plain version at (8, 1024))")
+        for B, n in EXACT_TIMES:
+            row = rec_times(torch, np, scan_ops, dtype, B, n, rng)
+            key = f"linear_recurrence_{'rows_' if B > 1 else ''}{sfx}"
+            results[key].append(dict(row, err=0.0))
+            log(f"{key} {json.dumps(row)}")
+    # -- K2 ------------------------------------------------------------
+    errs = {}
+    for n in DF_SIZES:
+        for offset in (0, 1):
+            xh, xl = df_input(torch, np, rng, n, offset=offset)
+            oh, ol = scan_ops.df_prefix_sum_f32(xh, xl)
+            rel = check_df(torch, xh, xl, oh, ol,
+                           f"n={n} off={offset}")
+            ph, pl = scan_ops.df_prefix_sum_ref(xh, xl)
+            plain = check_df(torch, xh, xl, ph, pl,
+                             f"plain n={n}")
+            vs_plain = float((oh.double() + ol.double() - ph.double()
+                              - pl.double()).abs().max())
+            f32 = float((torch.cumsum(xh, 0).double() - torch.cumsum(
+                xh.double() + xl.double(), 0)).abs().max())
+            abs_err = float((oh.double() + ol.double() - torch.cumsum(
+                xh.double() + xl.double(), 0)).abs().max())
+            check(abs_err < 1e-4 and (n < 1 << 17 or abs_err < f32 / 1e3),
+                  f"df_prefix_sum n={n}: {abs_err:.3e} rad, f32 cumsum "
+                  f"{f32:.3e}")
+            same = sum(not (torch.equal(bits(torch, oh), bits(torch, o2))
+                            and torch.equal(bits(torch, ol), bits(torch, l2)))
+                       for o2, l2 in (scan_ops.df_prefix_sum_f32(xh, xl)
+                                      for _ in range(20)))
+            check(same == 0, f"df_prefix_sum n={n}: {same} of 20 repeats "
+                  f"differ")
+            errs[(n, offset)] = vs_plain
+            log(f"df_prefix_sum_f32 n={n} off={offset}: {rel:.3e} of sum|x|"
+                f" ({abs_err:.3e} rad; plain {plain:.3e} of sum|x|, "
+                f"{vs_plain:.3e} rad from the kernel; f32 cumsum {f32:.3e} "
+                f"rad), the same bits on 20 repeats")
+    for B, n in ((8, 1024), (4, (1 << 17) + 3), (32, 65536)):
+        xh, xl = df_input(torch, np, rng, n, B)
+        oh, ol = scan_ops.df_prefix_sum_rows_f32(xh, xl)
+        check_df(torch, xh, xl, oh, ol, f"rows ({B}, {n})")
+        for r in range(B):
+            sh, sl = scan_ops.df_prefix_sum_f32(xh[r].contiguous(),
+                                                xl[r].contiguous())
+            check(torch.equal(bits(torch, sh), bits(torch, oh[r]))
+                  and torch.equal(bits(torch, sl), bits(torch, ol[r])),
+                  f"df_prefix_sum_rows ({B}, {n}): row {r} differs from a "
+                  f"single call")
+    log("df_prefix_sum_rows_f32: every row of (8, 1024), (4, 131075) and "
+        "(32, 65536) bit for bit a single call on it, within the bound")
+    for B, n in EXACT_TIMES:
+        row = df_times(torch, np, scan_ops, B, n, rng)
+        key = "df_prefix_sum_rows_f32" if B > 1 else "df_prefix_sum_f32"
+        results[key].append(dict(row, err=max(errs.values())))
+        log(f"{key} {json.dumps(row)}")
+    exact_graph_check(torch, np, scan_ops, rng)
+
+
+def exact_one_launch_calls(torch, np, scan_ops, rng) -> list:
+    """The recurrence and the df sum for check_one_launch: each form and
+    type at one tile and at many, on a[1:], and the rows forms."""
+    calls = []
+    for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
+        for J, tag in ((2, 2), (9, 0)):
+            for n, off in ((1000, 0), (REC_LONG_N, 1)):
+                calls.append((scan_ops.linear_recurrence, recurrence_input(
+                    torch, np, rng, J, n, dtype, offset=off),
+                    "linear_recurrence", f"<{name}, {tag}>"))
+        calls.append((scan_ops.linear_recurrence_rows, recurrence_input(
+            torch, np, rng, 2, 1024, dtype, 8), "linear_recurrence",
+            f"<{name}, 2>"))
+    for n, B, off in ((1000, None, 0), (EXACT_MAIN_N, None, 1),
+                      (1 << 20, None, 0), (1024, 8, 0), (65536, 32, 0)):
+        fn = scan_ops.df_prefix_sum_f32 if B is None \
+            else scan_ops.df_prefix_sum_rows_f32
+        calls.append((fn, df_input(torch, np, rng, n, B, off),
+                      "df_prefix_sum", "df_prefix_sum"))
+    return calls
+
+
+def shape_programs(ir):
+    """bench.py's four production-shape classes (fixed structures, non-
+    round frequencies so that phase-increment rounding shows), in `ir`."""
+    C = ir.Const
+
+    def mul(a, b):
+        return ir.BinaryPointOp(ir.Operator.MULTIPLY, a, b)
+
+    def add(a, b):
+        return ir.BinaryPointOp(ir.Operator.ADD, a, b)
+
+    tau = 2 * math.pi
+    nco = add(ir.Sine(C(tau * 440.37), C(0.0)),
+              add(mul(ir.Sine(C(tau * 554.12), C(0.0)), C(0.5)),
+                  mul(ir.Sine(C(tau * 659.93), C(0.0)), C(0.25))))
+    fm = ir.Sine(add(C(tau * 220.11),
+                     mul(ir.Sine(C(tau * 3.7), C(0.0)), C(tau * 55.3))),
+                 C(0.0))
+    filt = ir.Filter(ir.Sine(C(tau * 330.41), C(0.0)),
+                     [C(0.21), C(0.34), C(0.21)], [C(0.45), C(-0.22)])
+    saw = mul(add(ir.Reset(ir.Sine(C(tau * 441.3), C(0.0)),
+                           mul(C(-441.3), ir.Time())),
+                  C(0.5)), C(2.0))
+    return {"nco": nco, "fm": fm, "filter": filt, "reset": saw}
+
+
+def gate_fuzz(device, seed0=5000, n_structs=16, n_variants=4, n=256, sr=4):
+    """bench.py's fuzz_tpu lane (bench.py:704-846) on the port: seed-logged
+    random trees (fuzzgen), n_structs structures at depth 4/5 x n_variants
+    const-jittered variants, rendered on `device` in three precisions
+    against the per-sample oracle: fast with the differential suite's
+    statistical gates (exact length, finite, median error < 1e-3 scale,
+    < 10% of samples off by > 5% of scale), exact_df and exact at the
+    strict tolerances (atol 2e-4, rtol 1e-3).  No budget stop; a render
+    that raises is not caught.  Returns (ok, fail, skip, failures)."""
+    import random
+
+    from tuun_tpu_torch import fuzzgen, ir, optimizer, oracle
+    from tuun_tpu_torch.engine import render
+
+    ok = fail = skip = 0
+    failures = []
+    class_counts: dict = {}
+    cases = []
+    for si in range(n_structs):
+        seed = seed0 + si
+        w0 = fuzzgen.random_waveform(random.Random(seed), depth=4 + seed % 2)
+        block = (n, 97, 64)[si % 3]  # full-piece, odd, and small blocks
+        for vi in range(n_variants):
+            wv = w0 if vi == 0 else fuzzgen.jitter_consts(
+                w0, random.Random(seed * 1000 + vi))
+            cases.append((seed, vi, wv, block))
+    for seed, vi, w, block in cases:
+        try:
+            ref0 = oracle.render(w, n, sr, seed=seed)
+        except AssertionError:
+            skip += 1  # reference-undefined (see below)
+            continue
+        if not np.all(np.isfinite(ref0)) or \
+                fuzzgen.ill_conditioned(w, n, sr, seed):
+            skip += 1
+            continue
+        has_noise = any(isinstance(x, ir.Noise) for x in w.walk())
+        for x in w.walk():
+            cname = type(x).__name__
+            class_counts[cname] = class_counts.get(cname, 0) + 1
+        form = w if has_noise else optimizer.optimize(w)
+        try:
+            ref = oracle.render(form, n, sr, seed=seed, block=block)
+        except AssertionError:
+            # A non-monotone Fin length inside a Filter: the reference
+            # panics on the same program at the same segmentation.
+            skip += 1
+            continue
+        err = None
+        got = render(form, n, sr, precision="fast", seed=seed, block=block,
+                     device=device)
+        if len(got) != len(ref):
+            err = f"fast length {len(got)} != {len(ref)}"
+        elif len(got):
+            if not np.all(np.isfinite(got)):
+                err = "fast non-finite samples"
+            else:
+                d = np.abs(np.asarray(got, np.float64) - ref)
+                scale = max(1.0, float(np.abs(ref).max()))
+                med = float(np.median(d))
+                frac = float(np.mean(d > 0.05 * scale))
+                if med > 1e-3 * scale:
+                    err = f"fast median error {med:.5f} (scale {scale:.3g})"
+                elif frac > 0.1:
+                    err = f"fast {frac * 100:.1f}% samples off >5% of scale"
+        for prec in ("exact_df", "exact"):
+            if err is not None:
+                break
+            got = render(form, n, sr, precision=prec, seed=seed,
+                         block=block, device=device)
+            if len(got) != len(ref):
+                err = f"{prec} length {len(got)} != {len(ref)}"
+            elif len(got) and not np.allclose(got, ref, atol=EXACT_ATOL,
+                                              rtol=EXACT_RTOL):
+                d = np.abs(np.asarray(got, np.float64) - ref)
+                err = f"{prec} strict diff: max {float(d.max()):.2e}"
+        if err:
+            fail += 1
+            failures.append((f"{seed}/v{vi}", err))
+        else:
+            ok += 1
+    classes = " ".join(f"{k}:{v}" for k, v in sorted(
+        class_counts.items(), key=lambda kv: -kv[1]))
+    log(f"# fuzz: {ok} ok / {fail} fail / {skip} skip "
+        f"({ok + fail + skip}/{len(cases)} cases: {n_structs} structures "
+        f"(seeds {seed0}..{seed0 + n_structs - 1}, depth=4/5) x "
+        f"{n_variants} const-jitter variants, n={n}, sr={sr}, blocks per "
+        f"struct%3 of {(n, 97, 64)}, fast+exact_df+exact on {device}; node "
+        f"classes [{classes}])")
+    for case, msg in failures[:8]:
+        log(f"#   fuzz FAIL seed={case}: {msg}")
+    return ok, fail, skip, failures
+
+
+def gate_shapes(device, n=1 << 17, sr=EXACT_SR,
+                precisions=("exact_df", "exact")) -> bool:
+    """bench.py's production-shape tier (bench.py:848-955) on the port:
+    the nco, fm, filter and reset classes in each precision, one n-lane
+    render (offline) and n / 1024 state-carried 1024-lane blocks
+    (stream), against the oracle within SHAPE_TOL of scale."""
+    from tuun_tpu_torch import ir, oracle
+    from tuun_tpu_torch.engine import render
+
+    fail = ok = 0
+    lines = []
+    for cname, w in shape_programs(ir).items():
+        ref = np.asarray(oracle.render(w, n, sr, seed=0), np.float64)
+        tol = SHAPE_TOL[cname]
+        for prec in precisions:
+            for shape_name, blk in (("offline", n), ("stream", 1024)):
+                got = render(w, n, sr, precision=prec, seed=0, block=blk,
+                             device=device)
+                err = None
+                if len(got) != len(ref):
+                    err = f"length {len(got)} != {len(ref)}"
+                elif not np.all(np.isfinite(got)):
+                    err = "non-finite samples"
+                else:
+                    d = np.abs(np.asarray(got, np.float64) - ref)
+                    scale = max(1.0, float(np.abs(ref).max()))
+                    mx, med = float(d.max()), float(np.median(d))
+                    if mx > tol * scale:
+                        err = (f"max err {mx:.2e} > {tol:.0e}*{scale:.2f} "
+                               f"(median {med:.2e})")
+                    else:
+                        lines.append(f"{cname}/{shape_name}/{prec} "
+                                     f"max={mx:.1e} med={med:.1e}")
+                if err:
+                    fail += 1
+                    lines.append(f"{cname}/{shape_name}/{prec} FAIL: {err}")
+                else:
+                    ok += 1
+    log(f"# fuzz_shapes: {ok} ok / {fail} fail ({'+'.join(precisions)} on "
+        f"{device}, n={n} sr={sr}, offline 1x{n}-lane + streaming "
+        f"{n // 1024}x1024-lane; strict per-class bounds "
+        f"{sorted(SHAPE_TOL.items())})")
+    for ln in lines:
+        log(f"#   fuzz_shapes {ln}")
+    return fail == 0
+
+
+def gate_longrender(device, sr=EXACT_SR, n=None, block=1 << 17):
+    """bench.py's long render (bench.py:957-1014) on the port: the
+    64-second four-class score from source through the evaluator, the
+    optimizer and the engine in exact_df, against the native oracle
+    sample by sample within LONGRENDER_TOL of scale.  Returns (passed,
+    row)."""
+    from tuun_tpu_torch import cli, native, optimizer
+    from tuun_tpu_torch.engine import render
+    from tuun_tpu_torch.evaluator import Evaluator
+    from tuun_tpu_torch.expr import ESeq, EWaveform
+
+    out = Evaluator(sr, 120, cli.DEFAULT_LIBRARY).evaluate_source(
+        LONGSONG_EXPR, opens=("std",))
+    if isinstance(out, ESeq):
+        out = out.waveform
+    check(isinstance(out, EWaveform), f"longsong eval: {out!r}")
+    form = optimizer.optimize(out.waveform)
+    if n is None:
+        n = 64 * sr + sr // 2  # past the score's end: lengths must agree
+    t0 = time.perf_counter()
+    ref = native.render(form, n, sr, seed=0)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = render(form, n, sr, precision="exact_df", seed=0, block=block,
+                 device=device)
+    t_engine = time.perf_counter() - t0
+    err = None
+    mx = med = 0.0
+    scale = 1.0
+    if len(got) != len(ref):
+        err = f"length {len(got)} != {len(ref)}"
+    elif not np.all(np.isfinite(got)):
+        err = "non-finite samples"
+    else:
+        d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+        scale = max(1.0, float(np.abs(ref).max()))
+        mx, med = float(d.max()), float(np.median(d))
+        if mx > LONGRENDER_TOL * scale:
+            err = f"max err {mx:.2e} > {LONGRENDER_TOL:.0e}*{scale:.2f}"
+    log(f"# longrender: {'FAIL ' + err if err else 'PASS'} - {len(ref)} "
+        f"samples ({len(ref) / sr:.1f}s at {sr} Hz) of the 4-class score, "
+        f"exact_df on {device} vs native oracle: max {mx:.1e} median "
+        f"{med:.1e} (scale {scale:.2f}, bound {LONGRENDER_TOL:.0e}); engine "
+        f"{t_engine:.1f}s native {t_native:.1f}s")
+    return err is None, dict(samples=len(ref), max=mx, median=med,
+                             scale=scale, engine_s=t_engine,
+                             native_s=t_native)
+
+
+# G2's live-block session cut to its first third, as its profile is (8
+# notes an instrument over 0.53 s): in exact_df the whole session's two
+# runs took 54.5 s on the H100, and half of it 62.4 s on a slower host,
+# most of what a full run took over its time budget of about 560 s.
+EXACT_SESSION = G2_PROFILE_SESSION
+
+
+def exact_session(torch, np) -> dict:
+    """EXACT_SESSION in exact_df with the fused step on, at sync_interval
+    1 and 4: each mix against the sum of its voices' own renders within
+    phase 8's bound, the blocks' paths logged."""
+    session = EXACT_SESSION
+    block, tol = session[0], session[4]
+    waves = g2_waveforms(g2_notes(session))
+    rows = {}
+    for si in (1, 4):
+        with TrackerRuns() as runs:
+            mix, walls, shape, wall = g2_session(
+                torch, session, waves, fuse=True, sync_interval=si,
+                precision="exact_df")
+        ref, mag = g2_reference(torch, np, runs.voices, block, len(mix))
+        err = check_mix(np, f"exact_df session sync_interval={si}", mix, ref,
+                        g2_bound(np, ref, mag, runs.voices,
+                                 stream_tol(tol, si)))
+        paths = runs.paths()
+        check_paths(f"exact_df session sync_interval={si}", paths)
+        rows[si] = dict(session_row(np, mix, walls, shape, wall),
+                        max_err=err, voices=len(runs.voices),
+                        max_group=max(max(x[2], default=0) for x in shape),
+                        paths={k: v for k, v in paths.items()
+                               if k in ("pervoice", "fused", "open",
+                                        "served", "replays",
+                                        "captures_finished")})
+    log(f"exact_df session {json.dumps(rows)}")
+    return rows
+
+
+def exact_cli(np, tmp: Path) -> None:
+    """W2 and W3 through the CLI in exact_df and exact (48 kHz, 65536-
+    sample blocks, --precompute false): the WAV's length the native
+    oracle's, its first PREFIX_SECONDS within the strict bound of the
+    oracle."""
+    from tuun_tpu_torch import cli, oracle
+    from tuun_tpu_torch.player import build_top_level_waveform
+    from tuun_tpu_torch.wav import read_wav
+    exprs = {name: expr for name, expr, _, _ in WORKLOADS}
+    m = int(PREFIX_SECONDS * SR)
+    for name in EXACT_CLI:
+        w, want_len = workload_waveform(exprs[name])
+        top = build_top_level_waveform(w, 0.0)
+        ref = oracle.render(top, m, SR, seed=1).astype(np.float64)
+        scale = max(1.0, float(np.abs(ref).max()))
+        for prec in ("exact_df", "exact"):
+            out = tmp / f"{name}_{prec}.wav"
+            t0 = time.perf_counter()
+            rc = cli.main(["--expr", exprs[name], "--sample_rate", str(SR),
+                           "--buffer_size", str(BUFFER), "--device", "cuda",
+                           "--precision", prec, "--precompute", "false",
+                           "--render-out", str(out), "-O", str(tmp),
+                           "--quiet"])
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"{name} {prec}: the CLI exited {rc}")
+            got, sr = read_wav(out)
+            check(sr == SR and len(got) == want_len
+                  and np.isfinite(got).all(),
+                  f"{name} {prec}: {len(got)} samples at {sr} Hz, the "
+                  f"oracle's length is {want_len}")
+            d = np.abs(got[:m].astype(np.float64) - ref)
+            check(bool(np.all(d <= EXACT_ATOL * scale + EXACT_RTOL
+                              * np.abs(ref))),
+                  f"{name} {prec}: max error {d.max():.3e} against the "
+                  f"oracle")
+            log(f"{name} {prec} through the CLI: {len(got)} samples "
+                f"({len(got) / SR:.1f} s) in {wall:.1f} s; first "
+                f"{PREFIX_SECONDS:.0f} s vs oracle max {d.max():.2e} median "
+                f"{float(np.median(d)):.2e}")
+
+
+def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
+    """Phase 11: the kernel checks, then the path (the three gates, the
+    exact_df session, W2 and W3 through the CLI), whose launches, and
+    only those, make each kernel's `exact_launches`."""
+    phase_exact_kernels(torch, np, scan_ops, results)
+    scan_ops.reset_launches()
+    t0 = time.perf_counter()
+    ok, fail, skip, failures = gate_fuzz("cuda")
+    check(fail == 0 and ok >= 32, f"fuzz gate: {ok} ok, {fail} fail, "
+          f"{skip} skip: {failures[:8]}")
+    t1 = time.perf_counter()
+    check(gate_shapes("cuda"), "shape gate failed")
+    t2 = time.perf_counter()
+    passed, row = gate_longrender("cuda")
+    check(passed, f"long render failed: {row}")
+    t3 = time.perf_counter()
+    exact_session(torch, np)
+    t4 = time.perf_counter()
+    exact_cli(np, tmp)
+    t5 = time.perf_counter()
+    counts = dict(scan_ops.launches)
+    log(f"phase 11 seconds: fuzz {t1 - t0:.1f}, shapes {t2 - t1:.1f}, long "
+        f"render {t3 - t2:.1f}, session {t4 - t3:.1f}, cli {t5 - t4:.1f}")
+    log(f"launch counts of phase 11: {counts}")
+    for k, c in counts.items():
+        if k not in EXACT_OFF_PATH:
+            check(c > 0, f"kernel {k} was never launched in phase 11")
+    return counts
+
+
+def exact_kernel_rows(results, counts) -> list:
+    """The kernels line's rows of K1 and K2: the main shape's times (J = 2
+    at EXACT_MAIN_N lanes; (8, 1024) for the rows forms)."""
+    rows = []
+    for k in EXACT_KERNELS:
+        main = results[k][0]
+        rows.append({
+            "name": k, "route": "cuda", "source": EXACT_SOURCE,
+            "replaces": REPLACES[k], "launches": counts[k],
+            "exact_launches": counts[k], "on_path": k not in EXACT_OFF_PATH,
+            "max_abs_err": max(r["err"] for r in results[k]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["device_ms"], "host_us": main["host_us"],
+            "shape": [main["B"], main["n"]],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "chain_bound_ms": main.get("chain_bound_ms"),
+            "library_ms": main["library_ms"]})
+    return rows
 
 
 def log_phase(started: float, name: str) -> None:
@@ -3230,13 +4086,13 @@ def log_phase(started: float, name: str) -> None:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
     ap.add_argument("--phase", choices=("kernels", "times", "stream",
-                                        "session", "repl"),
+                                        "session", "repl", "exact"),
                     help="kernels: stop after phase 2; times: only the "
                     "single-voice scans' times; stream: only phase 8's "
                     "capture check, G3 and G2's streaming sessions; "
                     "session: only phase 9's live sessions and server; "
-                    "repl: only phase 10's REPL (see the module "
-                    "docstring)")
+                    "repl: only phase 10's REPL; exact: only phase 11's "
+                    "exact precisions (see the module docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
@@ -3266,8 +4122,8 @@ def main(argv) -> int:
         return 0
     if args.profile == LAUNCH_PROFILE:
         scan_ops.load_library()
-        check_one_launch(torch, np, scan_ops, np.random.default_rng(0))
-        print(json.dumps({"profile": LAUNCH_PROFILE, "ok": True}),
+        print(json.dumps(check_one_launch(torch, np, scan_ops,
+                                          np.random.default_rng(0))),
               flush=True)
         return 0
     if args.profile is not None:
@@ -3295,10 +4151,15 @@ def main(argv) -> int:
     log(smi.stdout.strip().splitlines()[0])
 
     t0 = time.perf_counter()
-    lib = scan_ops.build_library()
+    if args.tree is not None:
+        libs = [scan_ops.build_library()]
+    else:
+        libs = scan_ops.build_libraries()
+        scan_ops.load_exact_library()
     scan_ops.load_library()
     build_s = time.perf_counter() - t0
-    log(f"build: {lib.name} in {build_s:.1f} s")
+    log(f"build: {', '.join(lib.name for lib in libs)} in {build_s:.1f} s "
+        f"(one nvcc each, at once)")
     if args.phase == "times":
         phase_times(torch, np, scan_ops, str(args.tree or "."))
         return 0
@@ -3312,6 +4173,13 @@ def main(argv) -> int:
         return 0
     if args.phase == "repl":
         phase_repl(torch, scan_ops, build_s)
+        return 0
+    if args.phase == "exact":
+        check_launches_in_child()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_exact(torch, np, scan_ops,
+                        {k: [] for k in scan_ops.launches}, Path(tmp))
+        log_phase(started, "11")
         return 0
 
     results = {k: [] for k in scan_ops.launches}
@@ -3370,9 +4238,12 @@ def main(argv) -> int:
     log_phase(started, "9")
     repl = phase_repl(torch, scan_ops, build_s)
     log_phase(started, "10")
+    with tempfile.TemporaryDirectory() as tmp:
+        exact = phase_exact(torch, np, scan_ops, results, Path(tmp))
+    log_phase(started, "11")
 
     kernels = []
-    for k in scan_ops.launches:
+    for k in SCAN_KERNELS:
         rows = results[k]
         affine = k.startswith("affine")
         # The main path's shape: MAIN_N lanes (J = 2, lpf, for the affine
@@ -3387,6 +4258,7 @@ def main(argv) -> int:
             "replaces": REPLACES[k], "launches": counts[k],
             "session_launches": session[k],
             "repl_launches": repl[k],
+            "exact_launches": exact[k],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "device_ms": main_row["device_ms"],
@@ -3399,6 +4271,7 @@ def main(argv) -> int:
             # calls (torch.cumsum, torch.cummax along the lanes); no
             # single call computes the affine scan.
             "library_ms": None if affine else main_row["plain_ms"]})
+    kernels += exact_kernel_rows(results, exact)
     log(f"elapsed: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

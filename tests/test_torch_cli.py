@@ -51,10 +51,39 @@ def test_cli_matches_jax_cli(tmp_path, expr, stems, atol):
 
 
 def test_cli_refuses_unported_options(capsys):
-    # `--ui true` is ported (tests/test_torch_repl.py drives it).
-    assert torch_cli.main(["--expr", "$5", "--device", "cpu", "--precision",
-                           "exact_df"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    # `--ui true` and `--precision exact_df` are ported (the REPL's and the
+    # exact precisions' tests drive them); `--platform` is not: the port
+    # takes `--device` in its place.
+    with pytest.raises(SystemExit) as e:
+        torch_cli.main(["--expr", "$5", "--platform", "cpu"])
+    assert e.value.code == 2
+    assert "--platform" in capsys.readouterr().err
+
+
+# The exact precisions through both CLIs: exact_df (double-single phase)
+# and exact (f64 phase), each with the sequential IIR, on an FM voice and
+# a filtered reset.  The engines differ only in float32 sin and in the
+# last compensated bits of the phase sums (another grouping of df_add;
+# XLA's and torch's float64 sums): 2e-6 on unit-amplitude output.
+EXACT_EXPR = ("sine(2*pi*(220 + 30*$(5)), 0) * 0.5 + sawtooth(110) "
+              "| lpf(0.7, 800) | fin(time - 0.5)")
+
+
+@pytest.mark.parametrize("precision", ["exact_df", "exact"])
+def test_cli_exact_precisions_match_jax_cli(tmp_path, precision):
+    outs = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("torch", torch_cli.main, ["--device", "cpu"])):
+        d = tmp_path / name
+        d.mkdir()
+        rc = main(["--expr", EXACT_EXPR, "--render-out", str(d / "mix.wav"),
+                   "-O", str(d), "--precision", precision, *COMMON, *extra])
+        assert rc == 0, name
+        outs[name] = d
+    want, _ = read_wav(outs["jax"] / "mix.wav")
+    got, sr = read_wav(outs["torch"] / "mix.wav")
+    assert sr == 8000 and len(got) == len(want) == 4000
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
 
 
 def test_cli_without_cuda_fails_loudly(capsys):

@@ -1,0 +1,275 @@
+"""The port's double-single arithmetic (tuun_tpu_torch/engine/df32.py).
+
+Twins of tests/test_df32.py on the port's df32; each elementwise op
+against tuun_tpu's on the same inputs; and the compensated prefix sum's
+plain version (scan_ops.df_prefix_sum_ref, a doubling scan) against
+tuun_tpu's df_cumsum and the float64 cumsum, single and over rows."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tuun_tpu.engine import df32 as jdf32
+from tuun_tpu_torch.engine import df32, scan_ops
+
+torch.set_num_threads(1)
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# -- twins of test_df32.py ---------------------------------------------------
+
+
+def test_two_sum_is_error_free():
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-1e6, 1e6, 4096).astype(np.float32)
+    b = rng.uniform(-1e-3, 1e-3, 4096).astype(np.float32)
+    s, err = df32.two_sum(t(a), t(b))
+    got = s.numpy().astype(np.float64) + err.numpy().astype(np.float64)
+    assert np.array_equal(got, a.astype(np.float64) + b.astype(np.float64))
+
+
+def test_two_prod_is_error_free():
+    rng = np.random.default_rng(1)
+    a = rng.uniform(-1e3, 1e3, 4096).astype(np.float32)
+    b = rng.uniform(-1e3, 1e3, 4096).astype(np.float32)
+    p, err = df32.two_prod(t(a), t(b))
+    got = p.numpy().astype(np.float64) + err.numpy().astype(np.float64)
+    assert np.array_equal(got, a.astype(np.float64) * b.astype(np.float64))
+
+
+def test_df_cumsum_holds_f64_accuracy_where_f32_drifts():
+    rng = np.random.default_rng(2)
+    inc = (0.1727 + 0.01 * rng.standard_normal(1 << 18)).astype(np.float32)
+    ref = np.cumsum(inc.astype(np.float64))
+    plain = torch.cumsum(t(inc), 0).numpy().astype(np.float64)
+    h, l = df32.df_cumsum(t(inc))
+    comp = df32.df_to_f64(h, l)
+    err_plain = np.abs(plain - ref).max()
+    err_comp = np.abs(comp - ref).max()
+    assert err_comp < 1e-4
+    assert err_comp < err_plain / 1e3
+    assert err_plain > 1e-3
+
+
+def test_df_mod_tau_and_sin_match_f64():
+    rng = np.random.default_rng(3)
+    phases64 = rng.uniform(0, 5e4, 2048)
+    h64 = phases64.astype(np.float32)
+    l64 = (phases64 - h64.astype(np.float64)).astype(np.float32)
+    mh, ml = df32.df_mod_tau(t(h64), t(l64))
+    red = df32.df_to_f64(mh, ml)
+    d = np.abs(red - np.mod(phases64, 2 * math.pi))
+    d = np.minimum(d, 2 * math.pi - d)
+    assert d.max() < 1e-5
+    got = df32.df_sin(mh, ml).numpy().astype(np.float64)
+    assert np.abs(got - np.sin(phases64)).max() < 2e-6
+
+
+def test_df_mul_accuracy():
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-100, 100, 1024)
+    y = rng.uniform(-100, 100, 1024)
+    xh, xl = df32.df_from_f64(x)
+    yh, yl = df32.df_from_f64(y)
+    ph, pl = df32.df_mul(xh, xl, yh, yl)
+    got = df32.df_to_f64(ph, pl)
+    rel = np.abs(got - x * y) / np.maximum(np.abs(x * y), 1e-30)
+    assert rel.max() < 1e-13
+
+
+# -- each op against tuun_tpu's ----------------------------------------------
+
+
+def _pair(rng, n, lo, hi):
+    x = rng.uniform(lo, hi, n)
+    h = x.astype(np.float32)
+    return h, (x - h.astype(np.float64)).astype(np.float32)
+
+
+def _op_inputs():
+    rng = np.random.default_rng(5)
+    n = 1 << 14
+    a = rng.uniform(-1e4, 1e4, n).astype(np.float32)
+    b = rng.uniform(-1e2, 1e2, n).astype(np.float32)
+    xh, xl = _pair(rng, n, -1e3, 1e3)
+    yh, yl = _pair(rng, n, -1e3, 1e3)
+    ph, pl = _pair(rng, n, 0, 5e4)
+    return {"two_sum": (a, b), "fast_two_sum": (a, b), "split": (a,),
+            "two_prod": (a, b), "df_add": (xh, xl, yh, yl),
+            "df_mul": (xh, xl, yh, yl), "df_div_f32": (a, b),
+            "df_mod_tau": (ph, pl), "df_sin": (ph, pl)}
+
+
+@pytest.mark.parametrize("name", sorted(_op_inputs()))
+def test_op_matches_tuun_tpu(name):
+    """The same bits as tuun_tpu's op on the same inputs: neither XLA's
+    CPU backend nor eager torch contracts a product into a fused
+    multiply-add here.  df_sin alone differs, by at most 1 ulp: torch's
+    and XLA's sin and cos are other implementations."""
+    args = _op_inputs()[name]
+    want = getattr(jdf32, name)(*[jnp.asarray(x) for x in args])
+    got = getattr(df32, name)(*[t(x) for x in args])
+    if not isinstance(want, tuple):
+        want, got = (want,), (got,)
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        g = g.numpy()
+        assert g.dtype == w.dtype == np.float32
+        if name == "df_sin":
+            ulp = np.spacing(np.abs(w).astype(np.float32))
+            assert np.all(np.abs(g.astype(np.float64) - w) <= ulp)
+        else:
+            assert np.array_equal(g.view(np.int32), w.view(np.int32))
+
+
+# -- the compensated prefix sum's plain version ------------------------------
+
+
+def _fm_increments(rng, shape):
+    """FM phase increments as exact_df makes them: df_div_f32 of 2 pi
+    (220 + 55 sin(0.001 i + phase)) by 44100."""
+    n = shape[-1]
+    phase = rng.uniform(0, 6, shape[:-1] + (1,))
+    f = (2 * np.pi * (220 + 55 * np.sin(0.001 * np.arange(n) + phase))
+         ).astype(np.float32)
+    return df32.df_div_f32(t(f), torch.tensor(44100.0))
+
+
+@pytest.mark.parametrize("n", [1, 5, 1000, 1 << 18])
+def test_df_prefix_sum_ref_against_jax_and_f64(n):
+    """The doubling scan and tuun_tpu's df_cumsum (an associative_scan,
+    another grouping) both within test_df32.py's bounds of the float64
+    cumsum: < 1e-4 rad, and at the longest 10^3 below the f32 cumsum's
+    drift."""
+    xh, xl = _fm_increments(np.random.default_rng(6), (n,))
+    ref = np.cumsum(xh.numpy().astype(np.float64)
+                    + xl.numpy().astype(np.float64))
+    h, l = scan_ops.df_prefix_sum_ref(xh, xl)
+    jh, jl = jdf32.df_cumsum(jnp.asarray(xh.numpy()), jnp.asarray(xl.numpy()))
+    err = np.abs(df32.df_to_f64(h, l) - ref).max()
+    jerr = np.abs(jdf32.df_to_f64(jh, jl) - ref).max()
+    f32 = np.abs(np.cumsum(xh.numpy()).astype(np.float64) - ref).max()
+    assert err < 1e-4 and jerr < 1e-4
+    if n == 1 << 18:
+        assert err < f32 / 1e3 and f32 > 1e-3
+    # Both f64-class: within 2^-40 of sum |x|, as chip_smoke.py holds
+    # the kernel.
+    bound = 2.0 ** -40 * np.abs(ref[-1])
+    assert err <= bound and jerr <= bound
+
+
+def test_df_prefix_sum_rows_are_single_rows():
+    """The rows form's plain version: each row the bits of a single call
+    on it, within the float64 bound."""
+    xh, xl = _fm_increments(np.random.default_rng(7), (5, 3000))
+    h, l = scan_ops.df_prefix_sum_rows_f32(xh, xl)
+    for r in range(5):
+        sh, sl = scan_ops.df_prefix_sum_f32(xh[r].contiguous(),
+                                            xl[r].contiguous())
+        assert torch.equal(sh.view(torch.int32), h[r].view(torch.int32))
+        assert torch.equal(sl.view(torch.int32), l[r].view(torch.int32))
+        ref = np.cumsum(xh[r].double().numpy() + xl[r].double().numpy())
+        assert np.abs(df32.df_to_f64(sh, sl) - ref).max() \
+            <= 2.0 ** -40 * ref[-1]
+
+
+def test_df_cumsum_under_vmap_takes_the_rows_form():
+    """df_cumsum on batched tensors (a voice group's render) reaches the
+    rows form through the custom op's batching rule, with no warning of a
+    loop over voices, and gives each row's single-call bits."""
+    import warnings
+    xh, xl = _fm_increments(np.random.default_rng(8), (4, 700))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        h, l = torch.func.vmap(df32.df_cumsum)(xh, xl)
+    want = scan_ops.df_prefix_sum_rows_f32(xh, xl)
+    assert torch.equal(h, want[0]) and torch.equal(l, want[1])
+
+
+def test_wrappers_check_their_inputs():
+    x = torch.zeros(8)
+    with pytest.raises(ValueError):
+        scan_ops.df_prefix_sum_f32(x, torch.zeros(7))
+    with pytest.raises(ValueError):
+        scan_ops.df_prefix_sum_f32(x.double(), x.double())
+    with pytest.raises(ValueError):
+        scan_ops.df_prefix_sum_rows_f32(x, x)
+
+
+# -- the library and the df prefix sum's scratch -----------------------------
+
+
+def test_build_libraries_runs_one_nvcc_per_source(monkeypatch, tmp_path):
+    """Both kernel sources build at once, each into a library of its own
+    keyed by its hash; a second call finds both built."""
+    import types
+    calls = []
+    monkeypatch.setattr(scan_ops, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(scan_ops, "_nvcc", lambda: "nvcc")
+
+    def run(argv, **kw):
+        calls.append(argv)
+        (tmp_path / argv[argv.index("-o") + 1]).write_bytes(b"so")
+        return types.SimpleNamespace(returncode=0, stderr="")
+    monkeypatch.setattr(scan_ops.subprocess, "run", run)
+    libs = scan_ops.build_libraries()
+    assert sorted(p.name.split("_")[1] for p in libs) == ["exact", "scan"]
+    assert sorted(c[-1] for c in calls) == sorted(
+        [str(scan_ops.SOURCE), str(scan_ops.EXACT_SOURCE)])
+    assert scan_ops.build_libraries() == libs and len(calls) == 2
+
+
+def test_df_scratch_grows_keeps_the_old_and_is_released(monkeypatch):
+    """The df prefix sum's scratch follows the affine scan's rule: made
+    at DF_SCRATCH_MIN_LANES' tiles, a longer scan gets a buffer of twice
+    the capacity and the old one is kept; inside a graph_scope a scan
+    takes its owner's buffer, freed with release_scratch."""
+    monkeypatch.setattr(scan_ops, "_df_scratch", {})
+    monkeypatch.setattr(scan_ops, "_affine_retired", [])
+    monkeypatch.setattr(scan_ops, "_df_tile", 2048)
+    made = []
+
+    def alloc(device, cap):
+        made.append((device, cap))
+        return object()
+    first = -(-scan_ops.DF_SCRATCH_MIN_LANES // 2048)
+    buf, cap = scan_ops.df_scratch(0, 7, 3, alloc)
+    assert cap == first and scan_ops.df_scratch(0, 7, first, alloc)[0] is buf
+    buf2, cap2 = scan_ops.df_scratch(0, 7, first + 1, alloc)
+    assert cap2 == 2 * first and scan_ops._affine_retired == [buf]
+    owner = object()
+    with scan_ops.graph_scope(owner):
+        own, _ = scan_ops.df_scratch(0, 7, 3, alloc)
+    assert own is not buf2 and (0, 7, owner) in scan_ops._df_scratch
+    scan_ops.release_scratch(owner)
+    assert (0, 7, owner) not in scan_ops._df_scratch
+    assert made == [(0, first), (0, 2 * first), (0, first)]
+
+
+def test_exact_kernels_round_each_op_on_its_own():
+    """csrc/exact.cu writes the recurrence's products and differences and
+    df_add's sums as intrinsics that round on their own (nvcc would
+    contract a*b+c into a fused multiply-add), and its C entry points
+    match scan_ops' bindings."""
+    src = scan_ops.EXACT_SOURCE.read_text()
+    for intrinsic in ("__fmul_rn", "__fsub_rn", "__dmul_rn", "__dsub_rn",
+                      "__fadd_rn"):
+        assert intrinsic in src
+    import re
+    lane = re.search(r"T rec_lane\(.*?\n}\n", src, re.S).group(0)
+    ring = re.search(r"void rec_tile_ring\(.*?\n}\n", src, re.S).group(0)
+    for body in (lane, ring):
+        assert "sub_rn(acc, mul_rn(" in body
+        assert not re.search(r"acc\s*[-+]=|acc\s*=\s*acc\s*[-+]", body)
+    for name in ("tuun_linear_recurrence_rows_f32",
+                 "tuun_linear_recurrence_rows_f64",
+                 "tuun_df_prefix_sum_rows_f32", "tuun_df_scratch_words",
+                 "tuun_df_tile", "tuun_recurrence_max_j"):
+        assert re.search(rf"\b{name}\(", src)
+    assert f"kRecMaxJ = {scan_ops.MAX_RECURRENCE_J};" in src

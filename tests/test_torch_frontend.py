@@ -383,6 +383,7 @@ COPIED = {
     "tui": (),
     "tools/midi_probe": (("python -m tuun_tpu.tools.midi_probe",
                           "python -m tuun_tpu_torch.tools.midi_probe"),),
+    "fuzzgen": (),
 }
 
 

@@ -14,9 +14,13 @@ and 16-block lookahead windows engage once the voice set is stable (on
 the card, as CUDA graph replays).
 
 `--ui true` launches the live-coding REPL (repl.py) on `--device`, as
-tuun_tpu/cli.py:112-124 does.  Not yet ported: `--precision exact_df`
-(ROADMAP.md queue 1 item 6).  `--no-jit` is accepted for flag parity and
-has no effect: the port has no unjitted debug path to select.
+tuun_tpu/cli.py:112-124 does.  `--precision` picks one of the engine's
+three precisions, on either device: fast (the default: u32 NCO, f32 FM
+phase, the affine-scan IIR), exact (the reference's f64 phase and its
+sequential IIR) or exact_df (the exact semantics in float32: a
+double-single phase and the sequential IIR).  `--no-jit` is accepted for
+flag parity and has no effect: the port has no unjitted debug path to
+select.
 """
 
 from __future__ import annotations
@@ -68,7 +72,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--duration", type=float, default=600.0,
                    help="maximum seconds to render")
     p.add_argument("--precision", default="fast",
-                   choices=["fast", "exact", "exact_df"])
+                   choices=["fast", "exact", "exact_df"],
+                   help="fast: u32 NCO, f32 FM phase, the affine-scan IIR; "
+                        "exact: f64 phase and the sequential IIR; "
+                        "exact_df: double-single (two-float) phase and the "
+                        "sequential IIR")
     p.add_argument("--no-jit", action="store_true",
                    help="accepted for flag parity; no effect")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -94,10 +102,6 @@ def _as_waveform(value):
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    if args.precision == "exact_df":
-        print("error: --precision exact_df is not yet ported (ROADMAP.md "
-              "queue 1 item 6, df32 and exact_df)", file=sys.stderr)
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda requested but torch.cuda.is_available() "
               "is false (use --device cpu for a CPU render)", file=sys.stderr)

@@ -14,7 +14,9 @@ JAX engine's fast mode: the stateful interval path (leaves, arithmetic,
 Append, Fin, NCO and FM sines, filters, Reset, Alt, captures), literal
 Fin cutoffs (`lits`), the relocatable fast path (`reloc_block`, closed-
 form state, `note_fn`), the analytic Reset tiers and the timeline form of
-Merge/Append trees (timeline.py).
+Merge/Append trees (timeline.py); and its two verification precisions,
+exact (f64 phase) and exact_df (double-single phase, df32.py), each with
+the sequential IIR.
 
 Decisions where the JAX engine's form was a fact of XLA or the TPU:
 
@@ -67,8 +69,10 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
   * The timeline's step sums scatter each block's deltas at points that
     are host ints merged on the host, so no two deltas meet in one slot
     and the scatter needs no float atomics: the same bits every call.
-  * Exact-mode IIR feedback is a Python loop over lanes (a lax.scan in
-    JAX): fine for tests on the CPU, slow on the card.  Fast mode runs the
+  * Exact-mode IIR feedback (both exact precisions) runs the linear
+    recurrence kernel (a lax.scan in JAX), in float32 as the JAX engine
+    and the oracle run it; exact_df's phase prefix sum runs the df prefix
+    sum kernel (an associative_scan of df_add in JAX).  Fast mode runs the
     affine-scan kernel (scan_ops.py).
 """
 
@@ -85,7 +89,7 @@ import torch
 
 from .. import ir
 from ..noisegen import noise_torch
-from . import scan_ops
+from . import df32, scan_ops
 
 TAU = math.tau
 f32 = torch.float32
@@ -150,6 +154,9 @@ def _len_mask(li, y, L):
 class EngineConfig:
     sample_rate: int
     # "exact": f64 phase + sequential IIR (comparable with the oracle).
+    # "exact_df": the exact semantics in float32 only -- double-single
+    #         (two-float) phase accumulation (df32.py, ~48 bits) + the
+    #         sequential IIR.
     # "fast": the production mode -- u32 NCO, f32 FM prefix sum, the
     #         affine-scan IIR.
     precision: str = "exact"
@@ -167,11 +174,7 @@ class EngineConfig:
     reloc_fast: bool = False
 
     def __post_init__(self):
-        if self.precision == "exact_df":
-            raise NotImplementedError(
-                "precision 'exact_df' is not yet ported (ROADMAP.md queue 1: "
-                "df32 and exact_df)")
-        if self.precision not in ("exact", "fast"):
+        if self.precision not in ("exact", "exact_df", "fast"):
             raise ValueError(f"unknown precision {self.precision!r}")
         self.device = torch.device(self.device)
 
@@ -180,8 +183,13 @@ class EngineConfig:
         return f64 if self.precision == "exact" else f32
 
     @property
+    def df_phase(self) -> bool:
+        """Double-single (two-float) phase accumulation (exact_df)."""
+        return self.precision == "exact_df"
+
+    @property
     def sequential_iir(self) -> bool:
-        return self.precision == "exact"
+        return self.precision in ("exact", "exact_df")
 
 
 def check_device(device: torch.device) -> None:
@@ -650,7 +658,10 @@ class CSine(Node):
     Fast mode: a 32-bit NCO for constant frequencies (integer wrap-around
     is the exact mod-tau reduction; per-lane phase is one multiply), and
     for dynamic frequencies an f32 phase integrated with the prefix-sum
-    kernel.  Exact mode: the reference's f64 radian accumulator."""
+    kernel.  Exact mode: the reference's f64 radian accumulator.  exact_df:
+    the same accumulator as a double-single (hi, lo) pair, integrated
+    with the df prefix-sum kernel and reduced mod 2 pi in df before the
+    sin (tuun_tpu graph.py:635-648, 670-677, 699-718)."""
 
     NCO_SCALE = float(2.0 ** 32)
     NCO_TO_RAD = float(TAU / 2.0 ** 24)
@@ -669,6 +680,19 @@ class CSine(Node):
                     ph = _mul_u32(li, self._nco_inc(P))
                     y = torch.sin(_nco_angle(ph) + yp)
                     return _len_mask(li, y, lp), lp
+            elif cfg.df_phase:
+                def reloc(P, li, lits=None):
+                    # li * (f/sr) mod 2 pi in double-single (li is exact
+                    # in f32 below 2^24 lanes, as on the fast path).
+                    fc = freq.const_expr(P).to(f32)
+                    fh, fl = df32.df_div_f32(
+                        fc, torch.full((), sr, dtype=f32, device=fc.device))
+                    yp, lp = phase.reloc(P, li, lits)
+                    lif = li.to(f32)
+                    ph, pl = df32.df_mul(lif, torch.zeros_like(lif), fh, fl)
+                    ph, pl = df32.df_add(ph, pl, yp, torch.zeros_like(yp))
+                    ph, pl = df32.df_mod_tau(ph, pl)
+                    return _len_mask(li, df32.df_sin(ph, pl), lp), lp
             else:
                 def reloc(P, li, lits=None):
                     inc = _div(freq.const_expr(P).to(pd), sr)
@@ -690,8 +714,12 @@ class CSine(Node):
         return (xm.to(I64) + torch.where(big, 2 ** 31, 0)) & M32
 
     def init(self, P):
-        dtype = I64 if self.nco else self.cfg.phase_dtype
-        acc = torch.zeros((), dtype=dtype, device=P.device)
+        if self.cfg.df_phase and not self.nco:
+            acc = (torch.zeros((), dtype=f32, device=P.device),
+                   torch.zeros((), dtype=f32, device=P.device))
+        else:
+            dtype = I64 if self.nco else self.cfg.phase_dtype
+            acc = torch.zeros((), dtype=dtype, device=P.device)
         return (acc, self.freq.init(P), self.phase.init(P))
 
     def render(self, P, st, s, e, ctx):
@@ -712,6 +740,24 @@ class CSine(Node):
         pd = self.cfg.phase_dtype
         yf, vf, wf, sf = self.freq.render(P, sf, s, e, ctx)
         yp, vp, wp, sp = self.phase.render(P, sp, s, vf, ctx)
+        if self.cfg.df_phase:
+            # Per-lane phases reduce mod 2 pi before the sin: an f32 hi
+            # word at a large absolute phase has an ulp far above the
+            # resolution the reference keeps.
+            live = _mask(ctx, s, vf)
+            fv = torch.where(live, yf, 0.0)
+            ih, il = df32.df_div_f32(fv, torch.full(
+                (), float(self.cfg.sample_rate), dtype=f32, device=fv.device))
+            ch, cl = df32.df_cumsum(ih, il)          # inclusive prefix
+            ah, al = acc
+            ph, pl = df32.df_add(ch, cl, -ih, -il)   # exclusive prefix
+            ph, pl = df32.df_add(ph, pl, ah, al)
+            ph, pl = df32.df_add(ph, pl, yp, torch.zeros_like(yp))
+            ph, pl = df32.df_mod_tau(ph, pl)
+            y = torch.where(live, df32.df_sin(ph, pl), yf)
+            nh, nl = df32.df_add(ah, al, ch[-1], cl[-1])
+            nh, nl = df32.df_mod_tau(nh, nl)
+            return y, vp, torch.maximum(wf, vf), ((nh, nl), sf, sp)
         inc = _div(torch.where(_mask(ctx, s, vf), yf, 0.0).to(pd),
                    float(self.cfg.sample_rate))
         pre = _cumsum(inc) - inc
@@ -735,8 +781,9 @@ class CFilter(Node):
                  ff_consts: List[Optional[Callable]],
                  fb_consts: List[Optional[Callable]]):
         super().__init__(cfg)
-        # Exact mode runs the recurrence lane by lane and takes any depth;
-        # fast mode's affine scan takes at most MAX_J, on either device.
+        # The exact precisions run the recurrence lane by lane and take
+        # any depth; fast mode's affine scan takes at most MAX_J, on
+        # either device.
         if not cfg.sequential_iir and len(fbs) > scan_ops.MAX_J:
             raise NotImplementedError(
                 f"filter with {len(fbs)} feedback coefficients in fast mode: "
@@ -828,35 +875,22 @@ class CFilter(Node):
         return vals, tuple(new_states)
 
     def _feedback(self, ff, fb_vals, hist, live):
-        """y[i] = ff[i] - sum_j a_j[i] * y[i-1-j]; hist[j] = y[-1-j]."""
+        """y[i] = ff[i] - sum_j a_j[i] * y[i-1-j]; hist[j] = y[-1-j].
+
+        The exact precisions: the linear recurrence kernel, in the
+        reference's op order (tuun_tpu graph.py:852-864), in float32 as
+        the JAX engine's scan and the oracle run it.  Fast mode: the
+        affine-scan kernel over composed companion maps."""
         J = self.J
-        if self.cfg.sequential_iir:
-            return self._feedback_sequential(ff, fb_vals, hist, live)
         a_rows = torch.stack(fb_vals, dim=1)  # [N, J]
+        if self.cfg.sequential_iir:
+            y, hist_out = scan_ops.linear_recurrence(
+                a_rows, ff, live, hist[:J].contiguous())
+            return y, _pad_hist(hist_out, J)
         hs, hist_out = scan_ops.affine_scan_f32(a_rows, ff, live,
                                                 hist[:J].contiguous())
         y = torch.where(live, hs[:, 0], 0.0)
         return y, _pad_hist(hist_out, J)
-
-    def _feedback_sequential(self, ff, fb_vals, hist, live):
-        """Exact mode: the recurrence lane by lane in the reference's op
-        order (tuun_tpu graph.py:852-864)."""
-        J = self.J
-        ffl = ff.unbind(0)
-        lvl = live.unbind(0)
-        cols = [c.unbind(0) for c in fb_vals]
-        h = list(hist[:J].unbind(0))
-        ys = []
-        for i in range(ff.shape[0]):
-            lv = lvl[i]
-            acc = ffl[i]
-            for j in range(J):
-                acc = acc - cols[j][i] * h[j]
-            acc = torch.where(lv, acc, 0.0)
-            h = [torch.where(lv, acc, h[0])] + [
-                torch.where(lv, h[j - 1], h[j]) for j in range(1, J)]
-            ys.append(acc)
-        return torch.stack(ys), _pad_hist(torch.stack(h), J)
 
     def advance(self, P, st, s, e, ctx):
         delay, real, hist, si, sffs, sfbs = st

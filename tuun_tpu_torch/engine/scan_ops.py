@@ -1,23 +1,29 @@
 """The engine's cross-lane scans: inclusive prefix sum, running max, and
-the affine scan that runs IIR filter feedback.
+the affine scan that runs IIR filter feedback; and the exact precisions'
+two: the sequential linear recurrence (exact-mode IIR feedback) and the
+compensated (double-single) prefix sum of exact_df's phase.
 
 Counterpart of tuun_tpu/engine/pallas_ops.py.  Each public entry point
 dispatches on the device of its input:
 
   * a CPU tensor takes the plain PyTorch version beside it (`*_ref`);
-  * a CUDA tensor launches the hand-written kernel in csrc/scan.cu, or
+  * a CUDA tensor launches the hand-written kernel in csrc/scan.cu (the
+    scans) or csrc/exact.cu (the recurrence and the df prefix sum), or
     raises.  Nothing falls back to the plain version.
 
-The kernels build with nvcc into `_build/` at the first CUDA call, keyed
-by a hash of the source and flags, and bind through ctypes.  Each entry
-point counts its kernel launches in `launches` (reset with
+Each source builds with nvcc into its own library in `_build/` at the
+first CUDA call that needs it, keyed by a hash of the source and flags,
+and binds through ctypes (`build_libraries` runs both nvcc at once).
+Each entry point counts its kernel launches in `launches` (reset with
 `reset_launches`), so a run can show which kernels its path reached.
 
 Each kernel is one launch per call: a single-pass scan with decoupled
 look-back, in a fixed grouping, so a call gives the same bits every
-time.  Each keeps a persistent scratch per (device, stream), zeroed once
-when it is allocated and left clean by every call, so calls and replays
-of a captured CUDA graph need no set-up:
+time (the linear recurrence instead runs each row's chain in sequence,
+one block a row, and needs no scratch).  Each scan keeps a persistent
+scratch per (device, stream), zeroed once when it is allocated and left
+clean by every call, so calls and replays of a captured CUDA graph need
+no set-up:
 
   * the prefix scans' (two counters and one status word per 4096-lane
     tile) is sized once for the longest scan (4 MiB) and never grows;
@@ -25,7 +31,9 @@ of a captured CUDA graph need no set-up:
     floats per 2048-lane tile) would be ~300 MB for the longest scan, so
     it starts at the tiles of 2^22 lanes (0.6 MB) and grows by a new
     buffer when a longer scan comes; an outgrown buffer is kept, never
-    freed, because a captured graph may hold its pointer.
+    freed, because a captured graph may hold its pointer;
+  * the df prefix sum's (two counters, a flag and a (hi, lo) record per
+    2048-lane tile) follows the affine scan's rule, from 2^22 lanes.
 
 Call a scan once on a stream, at the longest length it will capture,
 before capturing it there, so that its scratch exists outside the
@@ -69,6 +77,7 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "scan.cu"
+EXACT_SOURCE = PKG_DIR / "csrc" / "exact.cu"
 BUILD_DIR = PKG_DIR / "_build"
 # No --use_fast_math: it would swap in approximate division and
 # transcendentals (see the FMA and sinf notes in ROADMAP.md queue 3).
@@ -76,17 +85,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_J = 8
 MAX_N = 2 ** 31 - 1
+# The linear recurrence takes any feedback depth up to this.
+MAX_RECURRENCE_J = 4096
 
 launches: Dict[str, int] = {"prefix_sum_f32": 0, "prefix_max_f32": 0,
                             "affine_scan_f32": 0, "prefix_sum_rows_f32": 0,
                             "prefix_max_rows_f32": 0,
-                            "affine_scan_rows_f32": 0}
+                            "affine_scan_rows_f32": 0,
+                            "linear_recurrence_f32": 0,
+                            "linear_recurrence_f64": 0,
+                            "linear_recurrence_rows_f32": 0,
+                            "linear_recurrence_rows_f64": 0,
+                            "df_prefix_sum_f32": 0,
+                            "df_prefix_sum_rows_f32": 0}
+# The df prefix sum's first scratch covers this many lanes; a longer scan
+# grows it, as the affine scan's does.
+DF_SCRATCH_MIN_LANES = 1 << 22
 
 # The affine scan's first scratch covers this many lanes (0.6 MB at
 # 2048-lane tiles); a longer scan grows it.
 AFFINE_SCRATCH_MIN_LANES = 1 << 22
 
 _lib = None
+_exact_lib = None
+_df_tile = 0
 # Read from the library once: lanes per prefix-scan tile, the 64-bit
 # words of a stream's prefix-scan scratch, and lanes per affine tile.
 _scan_tile = 0
@@ -97,8 +119,10 @@ _affine_tile = 0
 _scratch: Dict[Tuple, torch.Tensor] = {}
 # Persistent affine-scan scratch, keyed likewise: (buffer, tiles it holds).
 _affine_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
-# Outgrown affine scratch: never freed (a captured graph may use it), and
-# an owner's until the owner releases it.
+# The df prefix sum's, likewise.
+_df_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
+# Outgrown affine and df scratch: never freed (a captured graph may use
+# it), and an owner's until the owner releases it.
 _affine_retired: List[torch.Tensor] = []
 _owner_retired: Dict[Any, List[torch.Tensor]] = {}
 # Per thread: the graph_scope's owner and, while a graph captures, the
@@ -158,7 +182,7 @@ def release_scratch(owner) -> None:
     tables hold `owner` in their keys until then: an owner that may be
     dropped passes a token of its own and releases with a finalizer."""
     with _first_use:
-        for table in (_scratch, _affine_scratch):
+        for table in (_scratch, _affine_scratch, _df_scratch):
             for key in [k for k in table if len(k) == 3 and k[2] is owner]:
                 del table[key]
         _owner_retired.pop(owner, None)
@@ -172,21 +196,31 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build_library() -> Path:
-    """Compiles csrc/scan.cu unless a build of this exact source exists."""
-    src = SOURCE.read_bytes()
+def build_library(source: Path = SOURCE) -> Path:
+    """Compiles `source` (csrc/scan.cu by default) unless a build of this
+    exact source exists."""
+    src = source.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libtuun_scan_{digest[:16]}.so"
+    lib = BUILD_DIR / f"libtuun_{source.stem}_{digest[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}"
+                        f".tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: concurrent builders converge
     return lib
+
+
+def build_libraries() -> List[Path]:
+    """Builds every kernel source at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+    sources = (SOURCE, EXACT_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(build_library, sources))
 
 
 def load_library() -> ctypes.CDLL:
@@ -221,6 +255,37 @@ def load_library() -> ctypes.CDLL:
         _scratch_words = lib.tuun_scan_scratch_words()
         _affine_tile = lib.tuun_affine_tile()
         _lib = lib
+        return lib
+
+
+def load_exact_library() -> ctypes.CDLL:
+    """The exact precisions' library (csrc/exact.cu), built and loaded on
+    first use."""
+    global _exact_lib, _df_tile
+    if _exact_lib is not None:
+        return _exact_lib
+    with _first_use:
+        if _exact_lib is not None:
+            return _exact_lib
+        lib = ctypes.CDLL(str(build_library(EXACT_SOURCE)))
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for name in ("tuun_df_tile", "tuun_recurrence_max_j"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        lib.tuun_df_scratch_words.argtypes = [i64]
+        lib.tuun_df_scratch_words.restype = i64
+        for name in ("tuun_linear_recurrence_rows_f32",
+                     "tuun_linear_recurrence_rows_f64"):
+            getattr(lib, name).argtypes = [p] * 6 + [i64, i64, i32, p]
+            getattr(lib, name).restype = i32
+        lib.tuun_df_prefix_sum_rows_f32.argtypes = [p] * 5 + [i64, i64, i64,
+                                                              p]
+        lib.tuun_df_prefix_sum_rows_f32.restype = i32
+        if lib.tuun_recurrence_max_j() != MAX_RECURRENCE_J:
+            raise RuntimeError("exact.cu and scan_ops.MAX_RECURRENCE_J "
+                               "disagree")
+        _df_tile = lib.tuun_df_tile()
+        _exact_lib = lib
         return lib
 
 
@@ -473,15 +538,24 @@ def affine_scratch(device: int, stream: int, tiles: int,
     may hold its raw pointer.  The kernel leaves the counters and flags
     zero after each call.  Inside a graph_scope the buffers are the scope
     owner's own."""
+    return _grown_scratch(_affine_scratch, device, stream, tiles,
+                          -(-AFFINE_SCRATCH_MIN_LANES // _affine_tile), alloc)
+
+
+def _grown_scratch(table, device: int, stream: int, tiles: int,
+                   min_tiles: int, alloc) -> Tuple[torch.Tensor, int]:
+    """affine_scratch's rule on `table`: (buffer, capacity) of at least
+    max(tiles, min_tiles) tiles, grown by a new buffer of at least twice
+    the capacity, an outgrown one kept."""
     key = _scratch_key(device, stream)
-    entry = _affine_scratch.get(key)
+    entry = table.get(key)
     if entry is not None and entry[1] >= tiles:
         return entry
     with _first_use:
-        entry = _affine_scratch.get(key)
+        entry = table.get(key)
         if entry is not None and entry[1] >= tiles:
             return entry
-        cap = max(tiles, -(-AFFINE_SCRATCH_MIN_LANES // _affine_tile))
+        cap = max(tiles, min_tiles)
         if entry is not None:
             cap = max(cap, 2 * entry[1])
         buf = alloc(device, cap)
@@ -489,7 +563,7 @@ def affine_scratch(device: int, stream: int, tiles: int,
             retired = _affine_retired if len(key) == 2 else \
                 _owner_retired.setdefault(key[2], [])
             retired.append(entry[0])
-        entry = _affine_scratch[key] = (buf, cap)
+        entry = table[key] = (buf, cap)
         return entry
 
 
@@ -549,6 +623,229 @@ def _affine_launch(a_rows, ff, live, h0, rows: int, entry: str):
 
 
 # ---------------------------------------------------------------------------
+# Linear recurrence (exact-mode IIR feedback)
+# ---------------------------------------------------------------------------
+
+
+def linear_recurrence_ref(a_rows: torch.Tensor, ff: torch.Tensor,
+                          live: torch.Tensor, h0: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence lane by lane in the reference's op order
+    (tuun_tpu/engine/graph.py:852-864): acc = ff[i], then acc = acc -
+    a[i, j] * h[j] for j = 0..J-1, each op rounded on its own; a dead lane
+    yields 0 and passes the history through.  The plain version of both
+    forms, in the inputs' dtype: leading axes (a [..., N, J], ff and live
+    [..., N], h0 [..., J]) are rows run side by side."""
+    J = a_rows.shape[-1]
+    n = ff.shape[-1]
+    ffl = ff.unbind(-1)
+    lvl = live.unbind(-1)
+    cols = [c.unbind(-1) for c in a_rows.unbind(-1)]
+    h = list(h0.unbind(-1))
+    # Lanes live (or dead) in every row skip the selects, which would
+    # leave every value as it is: the same bits in fewer ops.
+    flat = live.reshape(-1, n)
+    all_live = flat.all(0).tolist()
+    any_live = flat.any(0).tolist()
+    ys = []
+    for i in range(n):
+        acc = ffl[i]
+        for j in range(J):
+            acc = acc - cols[j][i] * h[j]
+        if all_live[i]:
+            h = [acc] + h[:-1]
+        elif not any_live[i]:
+            acc = torch.zeros_like(acc)
+        else:
+            lv = lvl[i]
+            acc = torch.where(lv, acc, 0.0)
+            h = [torch.where(lv, acc, h[0])] + [
+                torch.where(lv, h[j - 1], h[j]) for j in range(1, J)]
+        ys.append(acc)
+    return torch.stack(ys, -1), torch.stack(h, -1)
+
+
+def _check_recurrence(a_rows, ff, live, h0, rows: bool) -> None:
+    # Runs on every call, so each message is formatted only when its
+    # check fails.
+    name = "linear_recurrence_rows" if rows else "linear_recurrence"
+    lead = 1 if rows else 0
+    if a_rows.dtype not in (torch.float32, torch.float64) \
+            or a_rows.dim() != 2 + lead:
+        raise ValueError(f"{name}: a_rows must be float32 or float64 "
+                         f"{'[B, N, J]' if rows else '[N, J]'}, got "
+                         f"{a_rows.dtype} {tuple(a_rows.shape)}")
+    n, J = a_rows.shape[-2:]
+    if not 1 <= J <= MAX_RECURRENCE_J:
+        raise ValueError(f"{name}: feedback depth J={J} outside 1.."
+                         f"{MAX_RECURRENCE_J}")
+    if not 1 <= n <= MAX_N or (rows and a_rows.shape[0] < 1):
+        raise ValueError(f"{name}: shape {tuple(a_rows.shape)} outside the "
+                         f"kernel's range")
+    lead_shape = tuple(a_rows.shape[:lead])
+    if ff.dtype != a_rows.dtype or ff.shape != (*lead_shape, n):
+        raise ValueError(f"{name}: ff must be {a_rows.dtype} "
+                         f"{(*lead_shape, n)}")
+    if live.dtype != torch.bool or live.shape != (*lead_shape, n):
+        raise ValueError(f"{name}: live must be bool {(*lead_shape, n)}")
+    if h0.dtype != a_rows.dtype or h0.shape != (*lead_shape, J):
+        raise ValueError(f"{name}: h0 must be {a_rows.dtype} "
+                         f"{(*lead_shape, J)}")
+    if not ff.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
+    _check_layout(a_rows, ff, live, h0, name)
+
+
+def _suffix(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def linear_recurrence(a_rows: torch.Tensor, ff: torch.Tensor,
+                      live: torch.Tensor, h0: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs y[i] = ff[i] - sum_j a_rows[i, j] * y[i-1-j] in sequence.
+
+    a_rows [N, J], ff [N], h0 [J] = [y[-1] ... y[-J]], all float32 or all
+    float64; live bool[N] (a dead lane yields 0 and passes the history
+    through).  Returns (y [N], hist [J], the history after lane N - 1).
+    Any J up to MAX_RECURRENCE_J.
+
+    The CUDA kernel (tuun_linear_recurrence_rows_{f32,f64}) runs the
+    chain in the plain version's op order, every product and difference
+    rounded on its own: the same bits as linear_recurrence_ref."""
+    if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
+            or _is_batched(h0):
+        return _vmap_op("linear_recurrence")(a_rows, ff, live, h0)
+    _check_recurrence(a_rows, ff, live, h0, rows=False)
+    if ff.is_cpu:
+        return linear_recurrence_ref(a_rows, ff, live, h0)
+    return _recurrence_launch(a_rows, ff, live, h0, 1,
+                              f"linear_recurrence_{_suffix(ff.dtype)}")
+
+
+def linear_recurrence_rows(a_rows: torch.Tensor, ff: torch.Tensor,
+                           live: torch.Tensor, h0: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """linear_recurrence of each of B rows in one launch: a [B, N, J], ff
+    and live [B, N], h0 [B, J] -> (y [B, N], hist [B, J]); row r has the
+    bits of a single call on row r."""
+    _check_recurrence(a_rows, ff, live, h0, rows=True)
+    if ff.is_cpu:
+        return linear_recurrence_ref(a_rows, ff, live, h0)
+    return _recurrence_launch(a_rows, ff, live, h0, ff.shape[0],
+                              f"linear_recurrence_rows_{_suffix(ff.dtype)}")
+
+
+def _recurrence_launch(a_rows, ff, live, h0, rows: int, entry: str):
+    lib = load_exact_library()
+    n, J = a_rows.shape[-2:]
+    dev = ff.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    y = torch.empty_like(ff)
+    hist = torch.empty_like(h0)
+    fn = lib.tuun_linear_recurrence_rows_f32 if ff.dtype == torch.float32 \
+        else lib.tuun_linear_recurrence_rows_f64
+    status = fn(a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(),
+                h0.data_ptr(), y.data_ptr(), hist.data_ptr(), rows, n, J,
+                stream)
+    _check(status, entry)
+    _launched(entry)
+    return y, hist
+
+
+# ---------------------------------------------------------------------------
+# Compensated (double-single) prefix sum
+# ---------------------------------------------------------------------------
+
+
+def df_prefix_sum_ref(xh: torch.Tensor, xl: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive prefix of df32.df_add over (hi, lo) pairs along the last
+    axis, by doubling (Hillis-Steele): after the step of width k, lane i
+    holds the sum of lanes (i - 2k, i], the earlier operand first.  The
+    plain version of both forms."""
+    from .df32 import df_add
+    n = xh.shape[-1]
+    xh, xl = xh.clone(), xl.clone()
+    k = 1
+    while k < n:
+        sh, sl = df_add(xh[..., :-k], xl[..., :-k], xh[..., k:], xl[..., k:])
+        xh = torch.cat([xh[..., :k], sh], dim=-1)
+        xl = torch.cat([xl[..., :k], sl], dim=-1)
+        k *= 2
+    return xh, xl
+
+
+def _check_df(xh, xl, dims: int, name: str) -> None:
+    _check_vector(xh, f"{name} hi", dims)
+    _check_vector(xl, f"{name} lo", dims)
+    if xl.shape != xh.shape or xl.device != xh.device:
+        raise ValueError(f"{name}: hi and lo differ in shape or device")
+
+
+def df_prefix_sum_f32(xh: torch.Tensor, xl: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compensated inclusive prefix sum of a 1-D float32 (hi, lo) pair:
+    df32.df_cumsum's scan (tuun_tpu/engine/df32.py:118-130).
+
+    The CUDA kernel (tuun_df_prefix_sum_rows_f32) is a single-pass scan
+    with decoupled look-back over pairs in a fixed grouping: every call
+    gives the same bits.  df_add is not associative, so those bits differ
+    from the plain doubling scan's (and XLA's) in the last compensated
+    bits; each holds f64-class accuracy against the float64 cumsum."""
+    if _is_batched(xh) or _is_batched(xl):
+        return _vmap_op("df_prefix_sum")(xh, xl)
+    _check_df(xh, xl, 1, "df_prefix_sum_f32")
+    if xh.is_cpu:
+        return df_prefix_sum_ref(xh, xl)
+    return _df_launch(xh, xl, 1, "df_prefix_sum_f32")
+
+
+def df_prefix_sum_rows_f32(xh: torch.Tensor, xl: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """df_prefix_sum_f32 of each row of [B, N] float32 pairs in one
+    launch; row r has the bits of a single call on row r."""
+    _check_df(xh, xl, 2, "df_prefix_sum_rows_f32")
+    if xh.is_cpu:
+        return df_prefix_sum_ref(xh, xl)
+    return _df_launch(xh, xl, xh.shape[0], "df_prefix_sum_rows_f32")
+
+
+def _zeroed_df_scratch(device: int, tiles: int) -> torch.Tensor:
+    words = load_exact_library().tuun_df_scratch_words(tiles)
+    return _zeroed(words, torch.int32, device, "df prefix sum")
+
+
+def df_scratch(device: int, stream: int, tiles: int,
+               alloc=_zeroed_df_scratch) -> Tuple[torch.Tensor, int]:
+    """The df prefix sum's persistent scratch of (device, stream), as
+    affine_scratch's: (buffer, capacity in tiles), grown by a new buffer
+    for a longer scan, an outgrown one kept."""
+    return _grown_scratch(_df_scratch, device, stream, tiles,
+                          -(-DF_SCRATCH_MIN_LANES // _df_tile), alloc)
+
+
+def _df_launch(xh, xl, rows: int, entry: str):
+    lib = load_exact_library()
+    n = xh.shape[-1]
+    dev = xh.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    per_row = -(-n // _df_tile)
+    scratch, cap = df_scratch(dev, stream, rows * per_row) \
+        if per_row > 1 else (None, 0)
+    oh = torch.empty_like(xh)
+    ol = torch.empty_like(xl)
+    sp = scratch.data_ptr() if scratch is not None else 0
+    status = lib.tuun_df_prefix_sum_rows_f32(
+        xh.data_ptr(), xl.data_ptr(), oh.data_ptr(), ol.data_ptr(), sp, cap,
+        rows, n, stream)
+    _check(status, entry)
+    _launched(entry)
+    return oh, ol
+
+
+
+# ---------------------------------------------------------------------------
 # Batching rules: the scans under torch.func.vmap
 # ---------------------------------------------------------------------------
 
@@ -589,7 +886,29 @@ def _make_vmap_op(kind: str):
     lib = torch.library
     # Annotations name module-level types: custom_op reads them as
     # strings (from __future__ import annotations).
-    if kind == "affine_scan":
+    if kind == "linear_recurrence":
+        @lib.custom_op("tuun_tpu_torch::linear_recurrence", mutates_args=())
+        def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
+               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            y, hist = linear_recurrence(a_rows, ff, live, h0)
+            return y, hist
+
+        def rule(info, dims, a_rows, ff, live, h0):
+            args = [_rows(x, d, info.batch_size)
+                    for x, d in zip((a_rows, ff, live, h0), dims)]
+            return linear_recurrence_rows(*args), (0, 0)
+    elif kind == "df_prefix_sum":
+        @lib.custom_op("tuun_tpu_torch::df_prefix_sum_f32", mutates_args=())
+        def op(xh: torch.Tensor, xl: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+            oh, ol = df_prefix_sum_f32(xh, xl)
+            return oh, ol
+
+        def rule(info, dims, xh, xl):
+            return df_prefix_sum_rows_f32(
+                _rows(xh, dims[0], info.batch_size),
+                _rows(xl, dims[1], info.batch_size)), (0, 0)
+    elif kind == "affine_scan":
         @lib.custom_op("tuun_tpu_torch::affine_scan_f32", mutates_args=())
         def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
