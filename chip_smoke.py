@@ -182,12 +182,40 @@ Phases, each of which exits non-zero on failure:
      so no engine path runs it) and the fast mode's voices x lanes forms of
      the prefix sum and affine scan (fast groups only: phase 8).
 
+ 12. the tools and fast-mode filters deeper than the affine scan
+     (tools), on the card at full size; every failure fails the run.
+     Deep filters: the ramp of tests/test_torch_stream.py's _deep through
+     J = 9, 12 and 16 feedback coefficients (past the affine scan's
+     MAX_J = 8: fast mode runs the linear recurrence), 2^17 samples at 48
+     kHz in 65536- and 1024-lane blocks, each within DEEP_TOL of scale of
+     the native oracle, the time a block logged; four J = 12 voices in
+     one group through the fast Tracker at 1024-sample blocks, the fused
+     step at sync_interval 4 (captured inline, replayed), the mix against
+     the voices' own renders within phase 8's bound.  The corpus:
+     tools/web_checker over web/index.html and docs/*.md rendering every
+     example (22050 samples at 44.1 kHz, bench.py's corpus lane) against
+     the native oracle on the card: none fails, at least 6 pass, the same
+     labels as on the CPU; with --reference DIR, also every example of
+     the reference system's docs/ and web/ pages in the checkout at DIR
+     (none by default).  tools/profile in this process at its defaults
+     on harmonica(1.0, 440), W3's FM voice and W2g: its lines parse, and
+     its census names each expression's scans.  tools/scope on a clipping
+     lpf: a PNG that decodes, its clip count the render's.  tools/spectra:
+     the flute and ukulele of tests/test_instruments.py at 44.1 kHz fast
+     on their f0 and envelope targets and within the fast-mode envelope
+     of their CPU exact renders.  The path's launches, and only those,
+     are each kernel's `tools_launches`; every kernel of TOOLS_KERNELS
+     must launch.  Then (not counted) the recurrence at J = 12 on 2^17 +
+     5 lanes, each lane the plain version's step, and the single-voice
+     times of the recurrence at J = 9, 12, 16 beside the affine scan at
+     J = 8, at 2^17 lanes.
+
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2;
 `--phase stream` runs only phase 8's capture check, G3 and G2's
 streaming sessions; `--phase session` only phase 9; `--phase repl` only
 phase 10; `--phase exact` only phase 11 (after phase 2's one-kernel-a-
-call check in a child).
+call check in a child); `--phase tools` only phase 12.
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
@@ -368,6 +396,13 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return t / calls * 1e6
 
 
+# Poles of the all-pole sections deeper than filter_4_3 (stable_feedback):
+# the first J, then a real tail from -0.5 up; conjugate pairs are whole at
+# every J the phases use (4, 8, 9, 12, 16, 17).
+POLES = [0.9, 0.8, 0.5 + 0.3j, 0.5 - 0.3j, -0.6, 0.7j, -0.7j, 0.3, -0.4,
+         0.2 + 0.5j, 0.2 - 0.5j, -0.85, 0.35, -0.45, 0.15, -0.2]
+
+
 def stable_feedback(J: int):
     """Feedback coefficients a_1..a_J of a stable all-pole section."""
     import numpy as np
@@ -380,9 +415,8 @@ def stable_feedback(J: int):
         return np.array([-2 * math.cos(w0) / a0, (1 - alpha) / a0])
     if J == 3:  # filter_4_3 (bench.py:80-83)
         return np.array([-2.5610316, 2.2132402, -0.6435727])
-    roots = [0.9, 0.8, 0.5 + 0.3j, 0.5 - 0.3j, -0.6, 0.7j, -0.7j, 0.3,
-             -0.4, 0.2 + 0.5j, 0.2 - 0.5j, -0.85][:J]
-    return np.real(np.poly(roots))[1:]
+    roots = POLES + [-0.5 + 0.05 * k for k in range(J - len(POLES))]
+    return np.real(np.poly(roots[:J]))[1:]
 
 
 def phase_kernels(torch, np, scan_ops, results):
@@ -896,27 +930,25 @@ def one_launch_calls(torch, np, scan_ops, rng) -> list:
           for n in PREFIX_SIZES]
     xs.append(torch.from_numpy(
         rng.standard_normal(4097).astype(np.float32)).cuda()[1:])
-    prefix = ((scan_ops.prefix_sum_f32, "SumOp"),
-              (scan_ops.prefix_max_f32, "MaxOp"))
-    calls = [(fn, (x,), "scan_single_pass", op)
-             for x in xs for fn, op in prefix]
+    sym = scan_ops.KERNEL_SYMBOLS
+    prefix = (("prefix_sum_f32", "SumOp"), ("prefix_max_f32", "MaxOp"))
+    calls = [(getattr(scan_ops, key), (x,), sym[key], op)
+             for x in xs for key, op in prefix]
     for J in (2, 8):
         for n, offset in [(n, 0) for n in AFFINE_SIZES + (1000,)] + [
                 (1000, 1), (1 << 20, 1)]:
             calls.append((scan_ops.affine_scan_f32,
                           affine_input(torch, np, rng, J, n, offset),
-                          "affine_single_pass", f"<{J},"))
+                          sym["affine_scan_f32"], f"<{J},"))
     # The voices x lanes forms, at every shape of phase_rows.
     for B, n in PREFIX_ROWS:
         x = rows_input(torch, np, rng, "sum", B, n)
-        calls += [(scan_ops.prefix_sum_rows_f32, (x,), "scan_single_pass",
-                   "SumOp"),
-                  (scan_ops.prefix_max_rows_f32, (x,), "scan_single_pass",
-                   "MaxOp")]
+        calls += [(getattr(scan_ops, f"{key[:10]}_rows_f32"), (x,),
+                   sym[f"{key[:10]}_rows_f32"], op) for key, op in prefix]
     for B, n, J in AFFINE_ROWS:
         calls.append((scan_ops.affine_scan_rows_f32,
                       affine_rows_input(torch, np, rng, J, B, n),
-                      "affine_single_pass", f"<{J},"))
+                      sym["affine_scan_rows_f32"], f"<{J},"))
     return calls + exact_one_launch_calls(torch, np, scan_ops, rng)
 
 
@@ -3356,12 +3388,14 @@ EXACT_SOURCE = "tuun_tpu_torch/csrc/exact.cu"
 EXACT_OFF_PATH = ("linear_recurrence_f64", "linear_recurrence_rows_f64",
                   "prefix_sum_rows_f32", "affine_scan_rows_f32")
 # The recurrence's depths and lengths: every J the engine renders (the
-# fuzz trees' 1-2, lpf's 2, filter_4_3's 3, MAX_J, and exact mode's
-# deeper filters 9 and 12).  Up to REC_PLAIN_N lanes every result is held
+# fuzz trees' 1-2, lpf's 2, filter_4_3's 3, MAX_J, and the deeper filters
+# 9, 12 and 16 of both modes: the history in registers up to J = 16), and
+# 17, the first depth whose history is a ring in shared memory.  Up to
+# REC_PLAIN_N lanes every result is held
 # bit for bit against the plain version; at REC_LONG_N the plain version
 # (a Python loop over lanes, ~5-40 us a lane on the host) runs only at
 # J = 2, and every J is held by the one-step check.
-REC_JS = (1, 2, 3, 8, 9, 12)
+REC_JS = (1, 2, 3, 8, 9, 12, 16, 17)
 REC_PLAIN_N = (1000, 4096 + 5)
 REC_LONG_N = (1 << 17) + 5
 # The df prefix sum's lengths, and its bound against the float64 cumsum,
@@ -3405,8 +3439,9 @@ LONGRENDER_TOL = 2e-4
 EXACT_CLI = ("W2", "W3")
 
 
-def recurrence_input(torch, np, rng, J, n, dtype, B=None, offset=0):
-    """(a, ff, live, h0) on the card: a stable all-pole section with a
+def recurrence_input(torch, np, rng, J, n, dtype, B=None, offset=0,
+                     device="cuda"):
+    """(a, ff, live, h0) on `device`: a stable all-pole section with a
     per-lane jitter of 1e-3 (a time-varying filter), unit normal ff, 5%
     dead lanes and a dead run of 64, a random entering history.  With B,
     B rows; with offset=1 (single rows only), a, ff and live are views
@@ -3420,7 +3455,7 @@ def recurrence_input(torch, np, rng, J, n, dtype, B=None, offset=0):
     h0 = rng.standard_normal((*lead, J))
 
     def card(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return (card(a).to(dtype)[..., offset:, :],
             card(ff).to(dtype)[..., offset:], card(live)[..., offset:],
             card(h0).to(dtype))
@@ -3716,22 +3751,24 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
 def exact_one_launch_calls(torch, np, scan_ops, rng) -> list:
     """The recurrence and the df sum for check_one_launch: each form and
     type at one tile and at many, on a[1:], and the rows forms."""
-    calls = []
+    calls, sym = [], scan_ops.KERNEL_SYMBOLS
     for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
-        for J, tag in ((2, 2), (9, 0)):
+        # J = 12: a register-history depth past the affine scan's (fast
+        # mode's deep filters); 17: the history in a ring.
+        for J, tag in ((2, 2), (12, 12), (17, 0)):
             for n, off in ((1000, 0), (REC_LONG_N, 1)):
                 calls.append((scan_ops.linear_recurrence, recurrence_input(
                     torch, np, rng, J, n, dtype, offset=off),
-                    "linear_recurrence", f"<{name}, {tag}>"))
+                    sym["linear_recurrence_f32"], f"<{name}, {tag}>"))
         calls.append((scan_ops.linear_recurrence_rows, recurrence_input(
-            torch, np, rng, 2, 1024, dtype, 8), "linear_recurrence",
-            f"<{name}, 2>"))
+            torch, np, rng, 2, 1024, dtype, 8),
+            sym["linear_recurrence_rows_f32"], f"<{name}, 2>"))
     for n, B, off in ((1000, None, 0), (EXACT_MAIN_N, None, 1),
                       (1 << 20, None, 0), (1024, 8, 0), (65536, 32, 0)):
         fn = scan_ops.df_prefix_sum_f32 if B is None \
             else scan_ops.df_prefix_sum_rows_f32
         calls.append((fn, df_input(torch, np, rng, n, B, off),
-                      "df_prefix_sum", "df_prefix_sum"))
+                      sym["df_prefix_sum_f32"], "df_prefix_sum"))
     return calls
 
 
@@ -4059,16 +4096,18 @@ def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
     return counts
 
 
-def exact_kernel_rows(results, counts) -> list:
+def exact_kernel_rows(results, counts, tools) -> list:
     """The kernels line's rows of K1 and K2: the main shape's times (J = 2
-    at EXACT_MAIN_N lanes; (8, 1024) for the rows forms)."""
+    at EXACT_MAIN_N lanes; (8, 1024) for the rows forms), and phase 11's
+    and phase 12's launches."""
     rows = []
     for k in EXACT_KERNELS:
         main = results[k][0]
         rows.append({
             "name": k, "route": "cuda", "source": EXACT_SOURCE,
             "replaces": REPLACES[k], "launches": counts[k],
-            "exact_launches": counts[k], "on_path": k not in EXACT_OFF_PATH,
+            "exact_launches": counts[k], "tools_launches": tools[k],
+            "on_path": k not in EXACT_OFF_PATH,
             "max_abs_err": max(r["err"] for r in results[k]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "device_ms": main["device_ms"], "host_us": main["host_us"],
@@ -4079,6 +4118,420 @@ def exact_kernel_rows(results, counts) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: fast-mode filters deeper than the affine scan, and the tools
+# ---------------------------------------------------------------------------
+
+DEEP_JS = (9, 12, 16)
+DEEP_N = 1 << 17
+DEEP_BLOCKS = (65536, 1024)
+# Against the native oracle, as a fraction of the render's peak: the
+# bound tests/test_torch_stream.py holds the port and tuun_tpu's fast
+# mode to (the recurrence rounds as the oracle does; tuun_tpu's composed
+# maps err 8.7e-7 to 3.3e-6 of scale there).
+DEEP_TOL = 1e-5
+DEEP_REC_N = (1 << 17) + 5
+# The deep voice group's session: (sample rate, block, note seconds,
+# sync_interval), four J = 12 voices in one group, the fused step on.
+DEEP_SESSION = (SR, 1024, 0.5, 4)
+# The tools' rate (web_checker's and scope's default) and the corpus
+# lane's render length (bench.py:1105's defaults).
+TOOLS_SR = 44100
+CORPUS_SAMPLES = 22050
+# profile's expressions and the kernels each block must launch: the
+# affine scan (harmonica's lpf), W3's FM voice (the prefix sum), W2g (an
+# outer reset no analytic tier takes: the prefix max, and lpf).
+PROFILE_EXPRS = (
+    ("harmonica(1.0, 440)", ("affine_scan_f32",)),
+    ("sine(2*pi*(220 + 30*$(5)), 0) * 0.5", ("prefix_sum_f32",)),
+    ("reset(triangle(110), time * -110) * 2 | lpf(0.7, 2000)",
+     ("prefix_max_f32", "affine_scan_f32")))
+SCOPE_EXPR = "(square(220) | lpf(0.7, 2000)) * 1.5"
+# tests/test_instruments.py's programs: (name, expression, seconds,
+# opens).  They reach no scan kernel: their carriers are NCOs, and
+# pm_ukulele modulates phase, not frequency.
+INSTRUMENTS = (
+    ("flute", "$546 | ADSR(0.32, 0.0, 1.0, 1.25, 0.18)", 2.2, ("std",)),
+    ("ukulele", "pm_ukulele(10, 0.41, 0.2)(2.0, 276)", 3.0,
+     ("std", "pm_synth")))
+# The kernels phase 12's path must launch.
+TOOLS_KERNELS = ("prefix_sum_f32", "prefix_max_f32", "affine_scan_f32",
+                 "linear_recurrence_f32", "linear_recurrence_rows_f32")
+
+
+def deep_filter(ir, J, inner, b=(0.5, 0.25)):
+    """inner through a J-deep all-pole section (stable_feedback(J)) with
+    feed-forward b."""
+    a = stable_feedback(J)
+    return ir.Filter(inner, tuple(ir.Const(float(x)) for x in b),
+                     tuple(ir.Const(float(x)) for x in a))
+
+
+def deep_offline(device, n=DEEP_N, blocks=DEEP_BLOCKS) -> dict:
+    """The ramp of tests/test_torch_stream.py's _deep through J = 9, 12 and
+    16 feedback coefficients in fast mode, n samples in each block size,
+    each within DEEP_TOL of scale of the native oracle.  Logs the error and
+    the engine's wall time a block."""
+    from tuun_tpu_torch import ir, native
+    from tuun_tpu_torch.engine import render
+    sr = SR
+    rows = {}
+    for J in DEEP_JS:
+        w = deep_filter(ir, J, ir.Fin(ir.BinaryPointOp(
+            ir.Operator.SUBTRACT, ir.Time(), ir.Const(40.0)), ir.Time()))
+        ref = native.render(w, n, sr).astype(np.float64)
+        check(len(ref) == n, f"deep J={J}: the oracle gave {len(ref)} "
+              f"samples, not {n}")
+        scale = max(1.0, float(np.abs(ref).max()))
+        for block in blocks:
+            # A warm-up block first: the time is the render's, not the
+            # first call's set-up.
+            render(w, block, sr, precision="fast", block=block,
+                   device=device)
+            t0 = time.perf_counter()
+            got = render(w, n, sr, precision="fast", block=block,
+                         device=device)
+            wall = time.perf_counter() - t0
+            check(len(got) == n and bool(np.isfinite(got).all()),
+                  f"deep J={J} in {block}-lane blocks: {len(got)} samples")
+            err = float(np.abs(got - ref).max()) / scale
+            check(err <= DEEP_TOL, f"deep J={J} in {block}-lane blocks: "
+                  f"{err:.3e} of scale from the oracle, above {DEEP_TOL}")
+            rows[f"J{J}/{block}"] = dict(
+                err_of_scale=err, scale=scale,
+                ms_per_block=wall * 1e3 / -(-n // block))
+    log(f"deep fast filters ({n} samples at {sr} Hz, {device}): "
+        f"{json.dumps(rows)}")
+    return rows
+
+
+def deep_recurrence_bits(torch, scan_ops, device, n=DEEP_REC_N) -> None:
+    """The recurrence at J = 12 on n float32 lanes, each lane the step
+    from its own history (so the plain version's bits, by induction)."""
+    args = recurrence_input(torch, np, np.random.default_rng(12), 12, n,
+                            torch.float32, device=device)
+    y, hist = scan_ops.linear_recurrence(*args)
+    check(recurrence_one_step(torch, args, y, hist),
+          f"linear_recurrence J=12 at {n} lanes: not the plain version's "
+          f"bits")
+    log(f"linear_recurrence J=12 at {n} lanes ({device}): each lane the "
+        f"plain version's step")
+
+
+def deep_session(torch, scan_ops, device, session=DEEP_SESSION) -> dict:
+    """Four J = 12 voices that differ only in constants (one group)
+    through the fast Tracker with the fused step at the session's
+    sync_interval (captured inline): the mix against the sum of each
+    voice's own render within phase 8's bound (no FM term)."""
+    from tuun_tpu_torch import ir
+    from tuun_tpu_torch.player import build_top_level_waveform
+    from tuun_tpu_torch.tracker import Tracker
+    sr, block, seconds, si = session
+    t = Tracker(sr, block, precision="fast", device=device,
+                sync_interval=si)
+    t.fuse_blocking = True
+    with GroupCalls(scan_ops) as calls:
+        for i in range(4):
+            sine = ir.Sine(ir.Const(2 * math.pi * (220 + 55 * i)),
+                           ir.Const(0.0))
+            inner = ir.Fin(ir.BinaryPointOp(ir.Operator.SUBTRACT, ir.Time(),
+                                            ir.Const(seconds)), sine)
+            w = deep_filter(ir, 12, inner, b=(0.05 + 0.01 * i, 0.02))
+            t.play(f"deep{i}", build_top_level_waveform(w, 0.0),
+                   start=37 * i)
+        out = []
+        while t.active or t.pending:
+            out.append(t.render_block()[0])
+        mix = np.concatenate([y if isinstance(y, np.ndarray)
+                              else y.cpu().numpy() for y in out])
+        counters = dict(blocks=len(out), replays=t.replays,
+                        window_opens=t.window_opens,
+                        captures=t.captures_finished)
+        t.close()
+        ref, mag = g2_reference(torch, np, calls.voices, block, len(mix))
+    if device == "cuda":
+        check(counters["replays"] > 0, f"deep session: the fused step never "
+              f"replayed: {counters}")
+    groups = [g[1] for g in calls.groups]
+    check(len(calls.voices) == 4 and max(groups, default=0) == 4,
+          f"deep session: group sizes {sorted(set(groups))} of "
+          f"{len(calls.voices)} voices, not one group of 4")
+    err = check_mix(np, f"deep session sync_interval={si}", mix, ref,
+                    g2_bound(np, ref, mag, calls.voices, 0.0))
+    row = dict(counters, max_err=err, peak=float(np.abs(ref).max()))
+    log(f"deep session (4 J=12 voices, {block}-sample blocks, "
+        f"sync_interval {si}, {device}): {json.dumps(row)}")
+    return row
+
+
+def deep_times(torch, scan_ops) -> dict:
+    """Single-voice times at DEEP_N lanes: the recurrence at each deep J
+    beside the affine scan at J = 8 (events, device time alone, host µs),
+    with the bytes bound and, for the recurrence, its chain model."""
+    rng = np.random.default_rng(16)
+    rows = {}
+    for J in DEEP_JS:
+        args = recurrence_input(torch, np, rng, J, DEEP_N, torch.float32)
+        fn = lambda a=args: scan_ops.linear_recurrence(*a)  # noqa: E731
+        rows[f"recurrence J={J}"] = dict(
+            ms=cuda_ms(torch, fn, 5),
+            device_ms=graph_ms(torch, fn, calls=5, replays=2),
+            host_us=host_us(torch, fn, calls=20),
+            bound_ms=DEEP_N * (4 * (J + 2) + 1) / HBM_BYTES_PER_S * 1e3,
+            chain_bound_ms=DEEP_N * (J + 1) * CHAIN_CYCLES["f32"]
+            / SM_CLOCK_HZ * 1e3)
+    args = affine_input(torch, np, rng, 8, DEEP_N)
+    fn = lambda: scan_ops.affine_scan_f32(*args)  # noqa: E731
+    rows["affine J=8"] = dict(
+        ms=cuda_ms(torch, fn, 50), device_ms=graph_ms(torch, fn),
+        host_us=host_us(torch, fn),
+        bound_ms=DEEP_N * (8 * 8 + 5) / HBM_BYTES_PER_S * 1e3)
+    log(f"deep times at {DEEP_N} lanes: {json.dumps(rows)}")
+    return rows
+
+
+def corpus_files() -> list:
+    root = Path(__file__).resolve().parent
+    return [root / "web" / "index.html", *sorted((root / "docs").glob("*.md"))]
+
+
+def tools_corpus(device, render_samples=CORPUS_SAMPLES,
+                 reference=None) -> dict:
+    """web_checker over web/index.html and docs/*.md, rendering every
+    example (fast, render_samples at 44.1 kHz) against the native oracle:
+    none fails, at least 6 pass; on the card also the same labels as the
+    CPU's in this process.  With `reference` (a checkout of the reference
+    system, given by --reference), also its docs/ and web/ pages: none
+    fails."""
+    from tuun_tpu_torch.tools import web_checker
+    t0 = time.perf_counter()
+    report = web_checker.check_files(corpus_files(),
+                                     render_samples=render_samples,
+                                     device=device)
+    wall = time.perf_counter() - t0
+    check(not report.failed and len(report.ok) >= 6,
+          f"corpus on {device}: {len(report.ok)} ok, "
+          f"{len(report.skipped)} skipped, failed {report.failed}")
+    row = dict(ok=len(report.ok), skipped=len(report.skipped), failed=0,
+               seconds=wall)
+    if device != "cpu":
+        cpu = web_checker.check_files(corpus_files(),
+                                      render_samples=render_samples,
+                                      device="cpu")
+        check((cpu.ok, cpu.skipped, cpu.failed)
+              == (report.ok, report.skipped, report.failed),
+              f"corpus: {device}'s labels {report} differ from the CPU's "
+              f"{cpu}")
+    row["reference"] = None
+    if reference is not None:
+        docs = Path(reference) / "docs"
+        check(docs.is_dir(), f"--reference: {docs} is not a directory")
+        files = sorted(docs.glob("**/*.md")) + sorted(docs.glob("**/*.html"))
+        files += sorted((Path(reference) / "web").glob("*.html"))
+        ref = web_checker.check_files(files, render_samples=render_samples,
+                                      device=device)
+        check(not ref.failed, f"reference docs on {device}: failed "
+              f"{ref.failed}")
+        row["reference"] = dict(ok=len(ref.ok), skipped=len(ref.skipped))
+    log(f"corpus ({render_samples} samples a block, {device}): "
+        f"{json.dumps(row)}")
+    return row
+
+
+PROFILE_LINES = {
+    "first": r"compile\+first block: ([\d.]+)s \(device=(.+)\)$",
+    "steady": r"steady block: ([\d.]+) ms -> ([\d.]+) Msamples/s "
+              r"\((\d+)x realtime@(\d+)\)$",
+    "census": r"(?:device events|cpu operators): (\d+)/block  top: (\{.*\})$",
+    "kernels": r"hand-written kernels: (\{.*\})  profiler saw: (\d+) of "
+               r"(\d+)$",
+    "busy": r"device busy: ([\d.]+) ms of ([\d.]+) ms wall \(([\d.]+)%\)$",
+}
+
+
+def parse_profile(text: str) -> dict:
+    """profile.main's printed lines as numbers; every group must be
+    there."""
+    import re
+    found = {}
+    for line in text.splitlines():
+        for key, pat in PROFILE_LINES.items():
+            m = re.match(pat, line)
+            if m:
+                found[key] = m.groups()
+    check(set(found) == set(PROFILE_LINES),
+          f"profile: lines missing: {sorted(set(PROFILE_LINES) - set(found))}"
+          f" in {text!r}")
+    return dict(first_s=float(found["first"][0]), device=found["first"][1],
+                steady_ms=float(found["steady"][0]),
+                msamples_s=float(found["steady"][1]),
+                x_realtime=int(found["steady"][2]),
+                events=int(found["census"][0]),
+                top=json.loads(found["census"][1]),
+                launched=json.loads(found["kernels"][0]),
+                profiler_saw=int(found["kernels"][1]),
+                busy_ms=float(found["busy"][0]),
+                wall_ms=float(found["busy"][1]))
+
+
+def tools_profile(device, extra=()) -> list:
+    """tools.profile.main in this process on each expression (its
+    defaults: 2^17-lane blocks, 12 of them, 48 kHz): rc 0, its lines
+    parse, a steady block takes time, and on the card the wrappers'
+    census names the kernels the expression reaches."""
+    import io
+    from tuun_tpu_torch.tools import profile
+    rows = []
+    for expr, kernels in PROFILE_EXPRS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = profile.main(["--expr", expr, "--device", device, *extra])
+        check(rc == 0, f"profile {expr!r}: exit {rc}")
+        row = parse_profile(buf.getvalue())
+        check(row["steady_ms"] > 0, f"profile {expr!r}: {row}")
+        if device == "cuda":
+            check(all(row["launched"].get(k, 0) > 0 for k in kernels),
+                  f"profile {expr!r}: the census {row['launched']} lacks "
+                  f"{kernels}")
+        log(f"profile {expr!r} ({device}): {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def read_png(path: Path):
+    """(width, height, RGB pixels) of an 8-bit RGB PNG whose rows all use
+    filter 0, as scope writes them; every chunk's CRC checked."""
+    import struct
+    import zlib
+    data = path.read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: no PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (size,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + size]
+        (crc,) = struct.unpack(">I", data[pos + 8 + size:pos + 12 + size])
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc,
+              f"{path}: bad CRC in {kind!r}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + size
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    check((depth, color) == (8, 2), f"{path}: not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    check(raw.size == h * (3 * w + 1), f"{path}: {raw.size} bytes of pixels")
+    rows = raw.reshape(h, 3 * w + 1)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return w, h, rows[:, 1:].reshape(h, w, 3)
+
+
+def tool_render(expr, seconds, opens=("std",), sr=TOOLS_SR,
+                precision="fast", device="cuda"):
+    """The engine's render of a Tuun expression (port front end, tempo
+    120), as tests/test_instruments.py renders its programs."""
+    from tuun_tpu_torch import cli, optimizer
+    from tuun_tpu_torch.engine import render
+    from tuun_tpu_torch.evaluator import Evaluator
+    from tuun_tpu_torch.expr import ESeq
+    value = Evaluator(sr, 120, cli.DEFAULT_LIBRARY).evaluate_source(
+        expr, opens=opens)
+    w = value.waveform.waveform if isinstance(value, ESeq) \
+        else value.waveform
+    return render(optimizer.optimize(w), int(seconds * sr), sr,
+                  precision=precision, block=2048, device=device)
+
+
+def tools_scope(device, tmp: Path, seconds=1.0) -> dict:
+    """scope's --expr on SCOPE_EXPR (clipping: peak ~1.6) writes a PNG that
+    decodes to the stated size with red where samples clip; its views'
+    clip count equals the count in the engine's own render."""
+    from tuun_tpu_torch.tools import scope
+    out = tmp / "scope.png"
+    rc = scope.main([str(out), "--expr", SCOPE_EXPR, "--seconds",
+                     str(seconds), "--device", device])
+    check(rc == 0, f"scope: exit {rc}")
+    w, h, px = read_png(out)
+    check((w, h) == (scope.WIDTH, 2 * scope.PANEL), f"scope: {w} x {h}")
+    views = scope.scope_views(scope.render_expr(
+        SCOPE_EXPR, TOOLS_SR, 120, seconds, device), TOOLS_SR)
+    samples = tool_render(SCOPE_EXPR, seconds, device=device)
+    clips = int((np.abs(samples) > 1.0).sum())
+    red = int((px == np.array(scope.CLIP, np.uint8)).all(-1).sum())
+    check(int(views["clipped"].sum()) == clips and clips > 0 and red > 0,
+          f"scope: {int(views['clipped'].sum())} clipped in the views, "
+          f"{clips} in the render, {red} red pixels")
+    row = dict(png_bytes=out.stat().st_size, size=[w, h], clipped=clips,
+               peak=views["peak"], red_pixels=red)
+    log(f"scope ({device}): {json.dumps(row)}")
+    return row
+
+
+def tools_spectra(device, sr=TOOLS_SR) -> dict:
+    """The flute and ukulele programs in fast mode on `device` held to
+    tests/test_instruments.py's f0 and envelope targets, and to their CPU
+    exact renders within the fast-mode envelope (phase 3's bounds)."""
+    from tuun_tpu_torch.tools.spectra import estimate_f0, summarize_envelope
+    rows = {}
+    for name, expr, seconds, opens in INSTRUMENTS:
+        y = tool_render(expr, seconds, opens, sr, "fast", device)
+        ref = tool_render(expr, seconds, opens, sr, "exact", "cpu")
+        f0 = estimate_f0(y, sr)
+        env = summarize_envelope(y, sr)
+        if name == "flute":
+            # 1.75 s to a sample: the envelope's segment ends round to
+            # whole samples (77176 at 44.1 kHz in both precisions and in
+            # tuun_tpu's fast mode; 14000 at test_instruments.py's 8 kHz).
+            check(abs(len(y) - 1.75 * sr) <= 1
+                  and abs(f0 - 546) / 546 < 0.01
+                  and 0.2 < env.attack_seconds < 0.45
+                  and 1.6 < env.duration_seconds <= 1.8,
+                  f"flute: {len(y)} samples, f0 {f0}, {env}")
+        else:
+            check(abs(f0 - 276) / 276 < 0.02 and env.attack_seconds < 0.1
+                  and env.decay_to_half_seconds is not None
+                  and env.decay_to_half_seconds < 1.0,
+                  f"ukulele: f0 {f0}, {env}")
+        check(len(y) == len(ref), f"{name}: {len(y)} samples, the CPU's "
+              f"exact render {len(ref)}")
+        stats = fast_mode_errors(y, ref.astype(np.float64))
+        check_fast_mode(f"{name} ({device} fast vs CPU exact)", stats,
+                        fm=False)
+        rows[name] = dict(f0=f0, attack_s=env.attack_seconds,
+                          decay_to_half_s=env.decay_to_half_seconds,
+                          duration_s=env.duration_seconds, **stats)
+    log(f"instruments ({sr} Hz, {device}): {json.dumps(rows)}")
+    return rows
+
+
+def phase_tools(torch, np, scan_ops, tmp: Path, reference=None) -> dict:
+    """Phase 12: the deep fast filters offline and as a group, the corpus,
+    profile, scope and spectra, whose launches, and only those, make each
+    kernel's `tools_launches`; then the recurrence's bits at J = 12 and
+    the deep times, which the counts leave out."""
+    scan_ops.reset_launches()
+    marks = [time.perf_counter()]
+    deep_offline("cuda")
+    deep_session(torch, scan_ops, "cuda")
+    marks.append(time.perf_counter())
+    tools_corpus("cuda", reference=reference)
+    marks.append(time.perf_counter())
+    tools_profile("cuda")
+    marks.append(time.perf_counter())
+    tools_scope("cuda", tmp)
+    tools_spectra("cuda")
+    marks.append(time.perf_counter())
+    counts = dict(scan_ops.launches)
+    log(f"launch counts of phase 12: {counts}")
+    for k in TOOLS_KERNELS:
+        check(counts[k] > 0, f"kernel {k} was never launched in phase 12")
+    deep_recurrence_bits(torch, scan_ops, "cuda")
+    deep_times(torch, scan_ops)
+    marks.append(time.perf_counter())
+    log("phase 12 seconds: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("deep filters", "corpus", "profile", "scope and spectra",
+             "bits and times"), marks, marks[1:])))
+    return counts
+
+
 def log_phase(started: float, name: str) -> None:
     log(f"phase {name} done at {time.perf_counter() - started:.1f} s")
 
@@ -4086,13 +4539,15 @@ def log_phase(started: float, name: str) -> None:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
     ap.add_argument("--phase", choices=("kernels", "times", "stream",
-                                        "session", "repl", "exact"),
+                                        "session", "repl", "exact",
+                                        "tools"),
                     help="kernels: stop after phase 2; times: only the "
                     "single-voice scans' times; stream: only phase 8's "
                     "capture check, G3 and G2's streaming sessions; "
                     "session: only phase 9's live sessions and server; "
                     "repl: only phase 10's REPL; exact: only phase 11's "
-                    "exact precisions (see the module docstring)")
+                    "exact precisions; tools: only phase 12's tools and "
+                    "deep fast filters (see the module docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
@@ -4105,6 +4560,10 @@ def main(argv) -> int:
     ap.add_argument("--live", action="store_true",
                     help="phase 10's R2 alone, in this process (phase 10 "
                     "runs it in a child), and print its JSON row")
+    ap.add_argument("--reference", type=Path,
+                    help="phase 12: also check every example of the "
+                    "reference system's docs/ and web/ pages in the "
+                    "checkout at this directory (none by default)")
     args = ap.parse_args(argv)
     if args.tree is not None and args.phase != "times":
         ap.error("--tree needs --phase times")
@@ -4181,6 +4640,11 @@ def main(argv) -> int:
                         {k: [] for k in scan_ops.launches}, Path(tmp))
         log_phase(started, "11")
         return 0
+    if args.phase == "tools":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tools(torch, np, scan_ops, Path(tmp), args.reference)
+        log_phase(started, "12")
+        return 0
 
     results = {k: [] for k in scan_ops.launches}
     phase_kernels(torch, np, scan_ops, results)
@@ -4241,6 +4705,9 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         exact = phase_exact(torch, np, scan_ops, results, Path(tmp))
     log_phase(started, "11")
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = phase_tools(torch, np, scan_ops, Path(tmp), args.reference)
+    log_phase(started, "12")
 
     kernels = []
     for k in SCAN_KERNELS:
@@ -4259,6 +4726,7 @@ def main(argv) -> int:
             "session_launches": session[k],
             "repl_launches": repl[k],
             "exact_launches": exact[k],
+            "tools_launches": tools[k],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "device_ms": main_row["device_ms"],
@@ -4271,7 +4739,7 @@ def main(argv) -> int:
             # calls (torch.cumsum, torch.cummax along the lanes); no
             # single call computes the affine scan.
             "library_ms": None if affine else main_row["plain_ms"]})
-    kernels += exact_kernel_rows(results, exact)
+    kernels += exact_kernel_rows(results, exact, tools)
     log(f"elapsed: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""chip_smoke.py's one-launch check, on the CPU with a stand-in profiler.
+"""chip_smoke.py's launch-count logic on the CPU: the one-launch check
+with a stand-in profiler, and phase 12's counts with stand-in checks.
 
 check_one_launch reads the device kernels that torch.profiler saw for
 phase 2's calls: more device work than one kernel a call fails at once,
@@ -7,6 +8,11 @@ lost kernel records reads the same as a call that launched nothing).
 check_launches_in_child runs the check in new child processes until one
 sees every kernel, up to LAUNCH_ATTEMPTS, and fails if none does or if a
 wrapper did not count its launch.
+
+phase_tools counts the launches of phase 12's path from zero and fails
+if one of TOOLS_KERNELS never launched; the launches of the recurrence's
+bit check and of the deep times, made after the counts, are not the
+path's.  The kernels line carries them as `tools_launches`.
 """
 
 import importlib.util
@@ -108,3 +114,83 @@ def test_launch_child_fails_when_a_wrapper_missed_its_count(smoke,
                                                            monkeypatch):
     with pytest.raises(smoke.SmokeFailure, match="wrappers counted 3"):
         _children(smoke, monkeypatch, [_row(False, counted=3), _row(True)])
+
+
+# -- phase 12's counts ------------------------------------------------------
+
+
+class _ScanOps:
+    """A stand-in scan_ops: launches counted by name, reset to zero."""
+
+    def __init__(self, smoke):
+        self.launches = {k: 7 for k in smoke.EXACT_KERNELS
+                         + smoke.SCAN_KERNELS}
+
+    def reset_launches(self):
+        for k in self.launches:
+            self.launches[k] = 0
+
+
+def _tools(smoke, monkeypatch, path_kernels):
+    """phase_tools with every check stood in: the path's checks launch
+    `path_kernels` once each, the bit check and the times launch the
+    recurrence 100 times.  Returns (counts, what ran in order)."""
+    ops = _ScanOps(smoke)
+    ran = []
+
+    def path(name, kernels=()):
+        def fn(*a, **k):
+            ran.append(name)
+            for kernel in kernels:
+                ops.launches[kernel] += 1
+        return fn
+    monkeypatch.setattr(smoke, "deep_offline", path(
+        "deep_offline", [k for k in path_kernels
+                         if k == "linear_recurrence_f32"]))
+    monkeypatch.setattr(smoke, "deep_session", path(
+        "deep_session", [k for k in path_kernels
+                         if k == "linear_recurrence_rows_f32"]))
+    monkeypatch.setattr(smoke, "tools_corpus", path("tools_corpus"))
+    monkeypatch.setattr(smoke, "tools_profile", path(
+        "tools_profile", [k for k in path_kernels
+                          if not k.startswith("linear")]))
+    monkeypatch.setattr(smoke, "tools_scope", path("tools_scope"))
+    monkeypatch.setattr(smoke, "tools_spectra", path("tools_spectra"))
+    after = path("after", ["linear_recurrence_f32"] * 100)
+    monkeypatch.setattr(smoke, "deep_recurrence_bits", after)
+    monkeypatch.setattr(smoke, "deep_times", after)
+    counts = smoke.phase_tools(None, None, ops, Path("."))
+    return counts, ran
+
+
+def test_phase_tools_counts_only_its_path(smoke, monkeypatch):
+    counts, ran = _tools(smoke, monkeypatch, smoke.TOOLS_KERNELS)
+    assert ran == ["deep_offline", "deep_session", "tools_corpus",
+                   "tools_profile", "tools_scope", "tools_spectra", "after",
+                   "after"]
+    assert {k for k, c in counts.items() if c} == set(smoke.TOOLS_KERNELS)
+    assert all(counts[k] == 1 for k in smoke.TOOLS_KERNELS)
+
+
+@pytest.mark.parametrize("missing", [
+    "prefix_sum_f32", "prefix_max_f32", "affine_scan_f32",
+    "linear_recurrence_f32", "linear_recurrence_rows_f32"])
+def test_phase_tools_fails_when_a_kernel_never_launched(smoke, monkeypatch,
+                                                        missing):
+    kernels = [k for k in smoke.TOOLS_KERNELS if k != missing]
+    with pytest.raises(smoke.SmokeFailure, match=missing):
+        _tools(smoke, monkeypatch, kernels)
+
+
+def test_exact_rows_carry_tools_launches(smoke):
+    main = dict(ms=1.0, plain_ms=2.0, device_ms=0.5, host_us=9.0, B=1,
+                n=8, bound_ms=0.1, bound_by="bytes", library_ms=None,
+                err=0.0)
+    results = {k: [main] for k in smoke.EXACT_KERNELS}
+    counts = {k: i for i, k in enumerate(smoke.EXACT_KERNELS)}
+    tools = {k: 10 + i for i, k in enumerate(smoke.EXACT_KERNELS)}
+    rows = smoke.exact_kernel_rows(results, counts, tools)
+    assert [r["tools_launches"] for r in rows] == \
+        [tools[k] for k in smoke.EXACT_KERNELS]
+    assert [r["exact_launches"] for r in rows] == \
+        [counts[k] for k in smoke.EXACT_KERNELS]

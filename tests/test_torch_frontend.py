@@ -2,8 +2,8 @@
 pure-Python modules) held equal to tuun_tpu's, and the port's
 independence from the JAX package.
 
-  * No module of the port, and not chip_smoke.py, imports jax or
-    tuun_tpu (an AST walk).
+  * No module of the port, and not chip_smoke.py, imports jax,
+    tuun_tpu or matplotlib (an AST walk).
   * Over a corpus -- every binding of the stdlib, the programs of
     examples/*.tuun, and the expressions of test_torch_engine.py and
     test_torch_cli.py -- the two packages' parser, evaluator and optimizer
@@ -47,8 +47,10 @@ LENGTH_CAP = 10 * SR
 
 
 def _forbidden(name: str) -> bool:
+    # matplotlib too: the card's machine has none (tools/scope.py writes
+    # its PNG with numpy and the standard library).
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "tuun_tpu")
+    return top in ("jax", "jaxlib", "tuun_tpu", "matplotlib")
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + [
@@ -85,6 +87,12 @@ def test_import_walk_covers_the_live_session():
     "launchkey", "midi", "tui", "tools/midi_probe"])
 def test_import_walk_covers_the_repl(name):
     assert f"tuun_tpu_torch/{name}.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("name", [
+    "web_checker", "profile", "scope", "spectra", "sweep"])
+def test_import_walk_covers_the_tools(name):
+    assert f"tuun_tpu_torch/tools/{name}.py" in PORT_FILES
 
 
 def test_repl_modules_load_neither_jax_nor_tuun_tpu():
@@ -384,6 +392,10 @@ COPIED = {
     "tools/midi_probe": (("python -m tuun_tpu.tools.midi_probe",
                           "python -m tuun_tpu_torch.tools.midi_probe"),),
     "fuzzgen": (),
+    "tools/spectra": (("python -m tuun_tpu.tools.spectra",
+                       "python -m tuun_tpu_torch.tools.spectra"),),
+    "tools/sweep": (("python -m tuun_tpu.tools.sweep",
+                     "python -m tuun_tpu_torch.tools.sweep"),),
 }
 
 

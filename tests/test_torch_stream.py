@@ -20,8 +20,17 @@ the fused session step, lookahead windows and window prefetch.
     graph replay (the captured body rerun on the step's static inputs,
     into the same output buffers): states bound to the step's buffers,
     copies in and out, a same-key set swapped in, regroups and windows.
-  * Exact-mode filters deeper than the affine scan's 8 coefficients.
+  * Filters deeper than the affine scan's 8 coefficients, in exact mode
+    and in fast mode (the linear recurrence), alone, as a voice group
+    against tuun_tpu's tracker, and through a modify that carries the
+    history.
 """
+
+import functools
+import importlib.util
+import warnings
+from importlib import import_module
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,7 +43,7 @@ from tuun_tpu import ir as jir
 from tuun_tpu.tracker import Tracker as JaxTracker
 from tuun_tpu_torch import ir
 from tuun_tpu_torch import tracker as T
-from tuun_tpu_torch.engine import EngineConfig, render
+from tuun_tpu_torch.engine import render
 from tuun_tpu_torch.engine import timeline as tl
 from tuun_tpu_torch.engine.capture import (GraphStep, flatten, tree_clone,
                                            unflatten)
@@ -631,18 +640,29 @@ def test_flatten_round_trip_and_clone():
     assert all(torch.equal(a, b) and a is not b for a, b in zip(leaves, cl))
 
 
-# -- exact-mode filters deeper than the affine scan -------------------------
+# -- filters deeper than the affine scan ------------------------------------
 
 
-def _deep(irmod, J):
-    poles = [0.9, -0.8, 0.7, -0.6, 0.5, 0.4, -0.3, 0.2, -0.1, 0.35, -0.45,
-             0.15][:J]
-    a = np.real(np.poly(poles))[1:]
-    return irmod.Filter(
-        irmod.Fin(irmod.BinaryPointOp(irmod.Operator.SUBTRACT, irmod.Time(),
-                                      irmod.Const(40.0)), irmod.Time()),
-        (irmod.Const(0.5), irmod.Const(0.25)),
-        tuple(irmod.Const(float(x)) for x in a))
+@functools.lru_cache(maxsize=None)
+def _stable_feedback(J):
+    """chip_smoke.py's stable J-deep all-pole section, the one its phases
+    11 and 12 drive on the card."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_stream_tests",
+        Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return tuple(mod.stable_feedback(J))
+
+
+def _deep(irmod, J, b=(0.5, 0.25), inner=None):
+    a = _stable_feedback(J)
+    if inner is None:
+        inner = irmod.Fin(irmod.BinaryPointOp(
+            irmod.Operator.SUBTRACT, irmod.Time(), irmod.Const(40.0)),
+            irmod.Time())
+    return irmod.Filter(inner, tuple(irmod.Const(x) for x in b),
+                        tuple(irmod.Const(float(x)) for x in a))
 
 
 @pytest.mark.parametrize("J", [9, 12])
@@ -661,10 +681,157 @@ def test_exact_mode_renders_deep_feedback(J):
     np.testing.assert_allclose(got, want[:len(got)], atol=1e-5, rtol=1e-5)
 
 
-def test_fast_mode_still_refuses_deep_feedback():
-    from tuun_tpu_torch.engine import CompiledVoice
-    with pytest.raises(NotImplementedError, match="fast mode"):
-        CompiledVoice(_deep(ir, 9), EngineConfig(1, "fast", CPU))
+@pytest.mark.parametrize("J", [9, 12, 16])
+def test_fast_mode_renders_deep_feedback(J, monkeypatch):
+    """Fast mode runs a filter deeper than the affine scan's MAX_J on the
+    linear recurrence (tuun_tpu's fast mode on an associative scan of
+    companion maps): against the numpy oracle and tuun_tpu's fast render
+    within 1e-5 of scale, the bound of the exact test above taken
+    relative to the peak (769 to 1248 here).  J <= MAX_J keeps the
+    affine scan."""
+    from tuun_tpu.engine import render as jax_render
+    from tuun_tpu_torch.engine import scan_ops
+    calls = {"rec": 0, "affine": 0}
+    rec, affine = scan_ops.linear_recurrence, scan_ops.affine_scan_f32
+
+    def counted(key, fn):
+        def wrapped(*a):
+            calls[key] += 1
+            return fn(*a)
+        return wrapped
+    monkeypatch.setattr(scan_ops, "linear_recurrence", counted("rec", rec))
+    monkeypatch.setattr(scan_ops, "affine_scan_f32",
+                        counted("affine", affine))
+    n, sr = 60, 1
+    got = render(_deep(ir, J), n, sr, precision="fast", block=16,
+                 device=CPU)
+    ref = tuun_tpu.oracle.render(_deep(jir, J), n, sr)
+    want = np.asarray(jax_render(_deep(jir, J), n, sr, precision="fast"))
+    assert len(got) == len(ref) == 40
+    assert calls == {"rec": 3, "affine": 0}
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(got / scale, ref / scale, atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(got / scale, want[:len(got)] / scale,
+                               atol=1e-5, rtol=1e-5)
+    render(_deep(ir, 8), n, sr, precision="fast", block=16, device=CPU)
+    assert calls == {"rec": 3, "affine": 3}
+
+
+DEEP_SR, DEEP_BLOCK = 100, 16
+
+
+def _mod(pkg, name):
+    return import_module(f"{pkg.__name__}.{name}")
+
+
+def _deep_notes(pkg, J=12):
+    """Four J-deep filtered sines that differ only in constants (the
+    feed-forward pair and the frequency), so the group key puts them in
+    one group; the first feedback coefficient marked for a modify."""
+    I = _mod(pkg, "ir")
+    top = _mod(pkg, "player").build_top_level_waveform
+    notes = []
+    for i in range(4):
+        sine = I.Sine(I.Const(2 * np.pi * (5 + 2 * i)), I.Const(0.0))
+        inner = I.Fin(I.BinaryPointOp(I.Operator.SUBTRACT, I.Time(),
+                                      I.Const(2.5)), sine)
+        f = _deep(I, J, b=(0.5 + 0.1 * i, 0.25 - 0.05 * i), inner=inner)
+        fb = (I.Marked("a0", f.feedback[0]),) + tuple(f.feedback[1:])
+        notes.append((f"d{i}", top(I.Filter(f.waveform, f.feed_forward, fb),
+                                   0.0), 3 * i))
+    return notes
+
+
+def _deep_run(t, pkg, modify_at=None, factor=0.97, blocks=20):
+    for wid, w, start in _deep_notes(pkg):
+        t.play(wid, w, start=start)
+    out, status = [], []
+    for k in range(blocks):
+        if k == modify_at:
+            a0 = float(_stable_feedback(12)[0])
+            t.modify("d2", "a0", _mod(pkg, "ir").Const(factor * a0))
+        y, s = t.render_block()
+        out.append(np.asarray(y, np.float64))
+        status.append(s)
+        pf = getattr(t, "_prefetch", None)
+        if pf is not None:
+            assert pf["done"].wait(60)
+    return np.concatenate(out), status
+
+
+@pytest.mark.parametrize("sync_interval", [1, 4])
+def test_fast_deep_group_matches_jax_tracker(sync_interval, monkeypatch):
+    """Four J = 12 voices in one group through the port's fast tracker,
+    against tuun_tpu's at sync_interval 1 (per-call path: the group is
+    one dispatch) and 4 (the fused step and windows, fuse_blocking on
+    both), every warning an error (a vmap op without a batching rule
+    would loop).  The group's feedback reaches the recurrence's rows
+    form.  Per sample within 1e-5 of the mix's peak for each voice."""
+    from tuun_tpu_torch.engine import scan_ops
+    rows = []
+    rec_rows = scan_ops.linear_recurrence_rows
+
+    def counted(*a):
+        rows.append(a[0].shape[0])
+        return rec_rows(*a)
+    monkeypatch.setattr(scan_ops, "linear_recurrence_rows", counted)
+    fused = sync_interval > 1
+    jt = JaxTracker(DEEP_SR, DEEP_BLOCK, precision="fast", jit=True,
+                    sync_interval=sync_interval)
+    jt.fuse, jt.fuse_blocking = fused, True
+    want, jst = _deep_run(jt, tuun_tpu)
+    jt.close()
+    pt = Tracker(DEEP_SR, DEEP_BLOCK, precision="fast", device=CPU,
+                 sync_interval=sync_interval)
+    pt.fuse, pt.fuse_blocking = fused, True
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got, pst = _deep_run(pt, tuun_tpu_torch)
+    pt.close()
+    assert len(got) == len(want)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=4 * 1e-5 * scale)
+    assert [s.dispatches for s in pst] == [s.dispatches for s in jst]
+    assert 4 in rows
+    if not fused:
+        assert any(s.voices == 4 and s.dispatches == 1 for s in pst)
+
+
+@pytest.mark.parametrize("sync_interval", [1, 4])
+def test_fast_deep_modify_carries_history(sync_interval):
+    """A modify of a grouped J = 12 voice's marked feedback coefficient:
+    the voice leaves its group and keeps its filter history (carry_state),
+    as tuun_tpu's does; the mix against tuun_tpu's tracker."""
+    jt = JaxTracker(DEEP_SR, DEEP_BLOCK, precision="fast", jit=True,
+                    sync_interval=sync_interval)
+    jt.fuse_blocking = True
+    want, jst = _deep_run(jt, tuun_tpu, modify_at=6)
+    jt.close()
+    pt = Tracker(DEEP_SR, DEEP_BLOCK, precision="fast", device=CPU,
+                 sync_interval=sync_interval)
+    pt.fuse_blocking = True
+    got, pst = _deep_run(pt, tuun_tpu_torch, modify_at=6)
+    ops = [op for op in pt.op_log if op[0] == "modify"]
+    pt.close()
+    assert len(ops) == 1 and "carry" in ops[0][3]
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=4 * 1e-5 * scale)
+    assert [s.dispatches for s in pst] == [s.dispatches for s in jst]
+    # The same modify to the coefficient's own value leaves the mix as it
+    # was: a history dropped at the splice would restart the filter.
+    same = Tracker(DEEP_SR, DEEP_BLOCK, precision="fast", device=CPU,
+                   sync_interval=sync_interval)
+    same.fuse_blocking = True
+    kept, _ = _deep_run(same, tuun_tpu_torch, modify_at=6, factor=1.0)
+    same.close()
+    plain = Tracker(DEEP_SR, DEEP_BLOCK, precision="fast", device=CPU,
+                    sync_interval=sync_interval)
+    plain.fuse_blocking = True
+    unmodified, _ = _deep_run(plain, tuun_tpu_torch)
+    plain.close()
+    np.testing.assert_allclose(kept, unmodified, rtol=0, atol=1e-6 * scale)
+    assert np.abs(got - unmodified).max() > 1e-3 * scale
 
 
 # -- the captured path, on a model of a replay ------------------------------

@@ -24,7 +24,8 @@
 // row, far above the bytes (4J + 9 a lane in f32, read once and written
 // once; 8J + 17 in f64) at the main path's shapes.  The design:
 //   * one block a row; thread 0 runs the row's chain alone, from shared
-//     memory, with the history in registers (J <= 8, a template per J) or
+//     memory, with the history in registers (J <= 16, a template per J:
+//     fast mode's filters deeper than the affine scan's 8 run here too) or
 //     in a ring in shared memory (any larger J); with the history in
 //     registers, it reads a group of lanes' inputs into registers before
 //     the group's chain, so no shared-memory load sits on the chain;
@@ -92,8 +93,8 @@ constexpr int64_t kMaxN = 2147483647;  // 2^31 - 1
 
 constexpr int kRecThreads = 128;  // warp 0: the chain; warps 1-3: staging
 constexpr int kRecStagers = kRecThreads - 32;
-constexpr int kRecTile = 512;     // lanes a staged tile (J <= 8)
-// Shared memory a block may take: the generic (J > 8) form sizes its
+constexpr int kRecTile = 512;     // lanes a staged tile (J <= 16)
+// Shared memory a block may take: the generic (J > 16) form sizes its
 // tiles to this.
 constexpr int kRecSmemBudget = 200 * 1024;
 constexpr int kRecMaxJ = 4096;
@@ -361,6 +362,8 @@ int run_recurrence(const T* a, const T* ff, const uint8_t* live, const T* h0,
                                            n, J, stream);
     TUUN_REC_CASE(1) TUUN_REC_CASE(2) TUUN_REC_CASE(3) TUUN_REC_CASE(4)
     TUUN_REC_CASE(5) TUUN_REC_CASE(6) TUUN_REC_CASE(7) TUUN_REC_CASE(8)
+    TUUN_REC_CASE(9) TUUN_REC_CASE(10) TUUN_REC_CASE(11) TUUN_REC_CASE(12)
+    TUUN_REC_CASE(13) TUUN_REC_CASE(14) TUUN_REC_CASE(15) TUUN_REC_CASE(16)
 #undef TUUN_REC_CASE
     default:
       return launch_recurrence<T, 0>(a, ff, live, h0, y, hist, rows, n, J,

@@ -781,14 +781,6 @@ class CFilter(Node):
                  ff_consts: List[Optional[Callable]],
                  fb_consts: List[Optional[Callable]]):
         super().__init__(cfg)
-        # The exact precisions run the recurrence lane by lane and take
-        # any depth; fast mode's affine scan takes at most MAX_J, on
-        # either device.
-        if not cfg.sequential_iir and len(fbs) > scan_ops.MAX_J:
-            raise NotImplementedError(
-                f"filter with {len(fbs)} feedback coefficients in fast mode: "
-                f"the affine scan takes at most {scan_ops.MAX_J} (deeper "
-                f"filters: ROADMAP.md queue 2; exact mode takes any depth)")
         self.inner = inner
         self.ffs, self.fbs = ffs, fbs
         self.ff_consts, self.fb_consts = ff_consts, fb_consts
@@ -880,10 +872,15 @@ class CFilter(Node):
         The exact precisions: the linear recurrence kernel, in the
         reference's op order (tuun_tpu graph.py:852-864), in float32 as
         the JAX engine's scan and the oracle run it.  Fast mode: the
-        affine-scan kernel over composed companion maps."""
+        affine-scan kernel over composed companion maps, up to
+        scan_ops.MAX_J coefficients; it keeps each thread's J x J maps in
+        registers, so a deeper filter runs the recurrence kernel instead
+        (tuun_tpu's fast mode falls back to an associative scan there,
+        graph.py:876-897).  The recurrence rounds in the reference's op
+        order, so it is at least as accurate as composed maps."""
         J = self.J
         a_rows = torch.stack(fb_vals, dim=1)  # [N, J]
-        if self.cfg.sequential_iir:
+        if self.cfg.sequential_iir or J > scan_ops.MAX_J:
             y, hist_out = scan_ops.linear_recurrence(
                 a_rows, ff, live, hist[:J].contiguous())
             return y, _pad_hist(hist_out, J)

@@ -49,7 +49,8 @@ instead of counting it: the graph's replays count it (`count_launches`).
 
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit) and the affine scan any J from 1 to
-MAX_J = 8, so the engine never needs a plain path on the card.
+MAX_J = 8 (a deeper fast-mode filter runs the linear recurrence), so the
+engine never needs a plain path on the card.
 
 Each scan also has a voices x lanes form (`*_rows_f32`) for a voice
 group: [B, N] rows (the affine scan: a [B, N, J], ff and live [B, N], h0
@@ -88,16 +89,22 @@ MAX_N = 2 ** 31 - 1
 # The linear recurrence takes any feedback depth up to this.
 MAX_RECURRENCE_J = 4096
 
-launches: Dict[str, int] = {"prefix_sum_f32": 0, "prefix_max_f32": 0,
-                            "affine_scan_f32": 0, "prefix_sum_rows_f32": 0,
-                            "prefix_max_rows_f32": 0,
-                            "affine_scan_rows_f32": 0,
-                            "linear_recurrence_f32": 0,
-                            "linear_recurrence_f64": 0,
-                            "linear_recurrence_rows_f32": 0,
-                            "linear_recurrence_rows_f64": 0,
-                            "df_prefix_sum_f32": 0,
-                            "df_prefix_sum_rows_f32": 0}
+# Each wrapper's count key and the device kernel it launches (the
+# __global__ function of csrc/scan.cu or exact.cu, as a profiler names it).
+KERNEL_SYMBOLS: Dict[str, str] = {
+    "prefix_sum_f32": "scan_single_pass",
+    "prefix_max_f32": "scan_single_pass",
+    "affine_scan_f32": "affine_single_pass",
+    "prefix_sum_rows_f32": "scan_single_pass",
+    "prefix_max_rows_f32": "scan_single_pass",
+    "affine_scan_rows_f32": "affine_single_pass",
+    "linear_recurrence_f32": "linear_recurrence",
+    "linear_recurrence_f64": "linear_recurrence",
+    "linear_recurrence_rows_f32": "linear_recurrence",
+    "linear_recurrence_rows_f64": "linear_recurrence",
+    "df_prefix_sum_f32": "df_prefix_sum",
+    "df_prefix_sum_rows_f32": "df_prefix_sum"}
+launches: Dict[str, int] = {k: 0 for k in KERNEL_SYMBOLS}
 # The df prefix sum's first scratch covers this many lanes; a longer scan
 # grows it, as the affine scan's does.
 DF_SCRATCH_MIN_LANES = 1 << 22
@@ -481,7 +488,7 @@ def _check_affine(a_rows, ff, live, h0) -> None:
     if not 1 <= J <= MAX_J:
         raise NotImplementedError(
             f"affine_scan_f32: feedback depth J={J} outside 1..{MAX_J} "
-            f"(deeper filters: ROADMAP.md queue 2)")
+            f"(deeper feedback: linear_recurrence)")
     _check_vector(ff, "affine_scan_f32 ff")
     if ff.shape[0] != n:
         raise ValueError("affine_scan_f32: ff length != N")
@@ -501,7 +508,7 @@ def _check_affine_rows(a_rows, ff, live, h0) -> None:
     if not 1 <= J <= MAX_J:
         raise NotImplementedError(
             f"{name}: feedback depth J={J} outside 1..{MAX_J} "
-            f"(deeper filters: ROADMAP.md queue 2)")
+            f"(deeper feedback: linear_recurrence)")
     _check_vector(ff, f"{name} ff", dims=2)
     if ff.shape != (B, n):
         raise ValueError(f"{name}: ff must be [B, N]")
