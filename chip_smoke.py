@@ -210,12 +210,36 @@ Phases, each of which exits non-zero on failure:
      times of the recurrence at J = 9, 12, 16 beside the affine scan at
      J = 8, at 2^17 lanes.
 
+ 13. the mesh paths (mesh): tuun_tpu_torch.parallel and Tracker(mesh=)
+     on meshes whose positions are all cuda:0 (and, with more than one
+     card visible, a mesh across the cards); every failure fails the run.
+     M1: G1's 256 voices through render_voices_meshed on a (4, 1) mesh
+     (the stateful path) and a (2, 2) mesh (the lane-sharded path: G1 is
+     relocatable), 10 blocks of 2^17 lanes, each mix against the meshless
+     group's within phase 8's G1 bound; then a block's time on each mesh
+     beside the meshless batched_render_fn's, in turns.  M3: G2's first
+     third at 1024-sample blocks, its FM notes amp-marked, on a meshed
+     Tracker (default_mesh(4)) and a meshless one, fuse off, levels on, at
+     sync_interval 1 and 4, one FM note halved by a modify at block 12:
+     the same length and modified voice, the mix within two summation
+     orders of each block's voices (their peaks from the levels) plus
+     G2's FM tolerance, at sync_interval 1 the levels within that
+     tolerance, every rows kernel launched on the mesh; and an exact_df
+     group of 8 FM voices on a (4, 1) mesh against its meshless group.
+     M2: graft_entry.dryrun_multichip(8) on the card (tuun_tpu's three
+     checks: the meshed mix against a one-position mesh, lane sharding on
+     the (4, 2) mesh, the live meshed tracker with a timeline score, a
+     modify and levels against the meshless one).  The meshed renders'
+     launches, and only those, are each kernel's `mesh_launches`; the
+     three rows kernels must launch.
+
 The second-last line is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.  `--phase kernels` stops after phase 2;
 `--phase stream` runs only phase 8's capture check, G3 and G2's
 streaming sessions; `--phase session` only phase 9; `--phase repl` only
 phase 10; `--phase exact` only phase 11 (after phase 2's one-kernel-a-
-call check in a child); `--phase tools` only phase 12.
+call check in a child); `--phase tools` only phase 12; `--phase mesh`
+only phase 13.
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
@@ -1740,16 +1764,16 @@ ROWS_OF = {"prefix_sum_f32": "prefix_sum_rows_f32",
 SCAN_KERNELS = tuple(ROWS_OF) + tuple(ROWS_OF.values())
 
 
-def g1_voices(torch, np):
+def g1_voices(torch, np, device="cuda"):
     """(compiled voice, per-voice params, stacked params) of G1."""
     from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
     from tuun_tpu_torch.engine.graph import params_from_numpy, stack_params
     w, _ = workload_waveform(G1_EXPR)
-    voice = CompiledVoice(w, EngineConfig(SR, "fast", "cuda"))
+    voice = CompiledVoice(w, EngineConfig(SR, "fast", device))
     base = voice.params()
     params = [params_from_numpy(
         np.asarray(base.host.consts) * np.float32(1.0 + 0.001 * i),
-        base.host.fixeds, i, "cuda") for i in range(G1_VOICES)]
+        base.host.fixeds, i, device) for i in range(G1_VOICES)]
     return voice, params, stack_params(params)
 
 
@@ -4096,10 +4120,10 @@ def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
     return counts
 
 
-def exact_kernel_rows(results, counts, tools) -> list:
+def exact_kernel_rows(results, counts, tools, mesh) -> list:
     """The kernels line's rows of K1 and K2: the main shape's times (J = 2
-    at EXACT_MAIN_N lanes; (8, 1024) for the rows forms), and phase 11's
-    and phase 12's launches."""
+    at EXACT_MAIN_N lanes; (8, 1024) for the rows forms), and phase 11's,
+    phase 12's and phase 13's launches."""
     rows = []
     for k in EXACT_KERNELS:
         main = results[k][0]
@@ -4107,6 +4131,7 @@ def exact_kernel_rows(results, counts, tools) -> list:
             "name": k, "route": "cuda", "source": EXACT_SOURCE,
             "replaces": REPLACES[k], "launches": counts[k],
             "exact_launches": counts[k], "tools_launches": tools[k],
+            "mesh_launches": mesh[k],
             "on_path": k not in EXACT_OFF_PATH,
             "max_abs_err": max(r["err"] for r in results[k]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -4532,6 +4557,356 @@ def phase_tools(torch, np, scan_ops, tmp: Path, reference=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh paths
+# ---------------------------------------------------------------------------
+
+# M1's meshes on one card, as (voice, time): four voice shards, and two
+# voice shards of two time shards each (default_mesh(4)), where G1's
+# relocatable voices render lane-sharded.
+MESH_SHAPES = ((4, 1), (2, 2))
+# M2: tuun_tpu's dryrun at its own size.
+MESH_DRYRUN_POSITIONS = 8
+# M3: G2's first third at the live block (G2_PROFILE_SESSION: 8 notes an
+# instrument over 0.53 s, ~50 blocks of 1024), its FM notes with a marked
+# amplitude; before block MESH_MODIFY_BLOCK the first FM note still
+# sounding drops to half.
+MESH_SESSION = G2_PROFILE_SESSION
+MESH_MODIFY_BLOCK = 12
+# The exact_df group: G2's FM instrument at its 4 pitches, twice, on a
+# (4, 1) mesh, in MESH_EXACT_BLOCKS blocks of 1024.
+MESH_EXACT_VOICES = 8
+MESH_EXACT_BLOCKS = 8
+# The kernels that phase 13's meshed paths must launch: every voice shard
+# renders its rows through batched_render_fn.
+MESH_KERNELS = tuple(ROWS_OF.values())
+
+
+def mesh_of(shape, device="cuda"):
+    """A (voice, time) mesh of `shape` whose every position is one device
+    (cuda:0 on the card)."""
+    from tuun_tpu_torch.parallel import Mesh
+    dev = "cuda:0" if device == "cuda" else device
+    v, t = shape
+    return Mesh([[dev] * t for _ in range(v)])
+
+
+def synchronize(torch, device) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def jittered(ir, w, r: float):
+    """w with every const scaled by r in float32, as g1_voices scales G1's
+    consts: params_for then gives g1_voices' params exactly."""
+    if isinstance(w, ir.Const):
+        return ir.Const(float(np.float32(w.value) * np.float32(r)))
+    return w.replace_children([jittered(ir, c, r) for c in w.children()])
+
+
+def group_reference(torch, voice, bP, block: int, blocks: int, fast):
+    """A meshless group's mix over `blocks` blocks from a fresh state
+    (batched_render_fn's rows, summed as its mix sums them), sum |y| over
+    the voices, and the largest |y|, on the host."""
+    B = bP.consts.shape[0]
+    fn = voice.batched_render_fn(block, fast=fast, mix=False)
+    starts = torch.zeros(B, dtype=torch.int64, device=bP.device)
+    e = torch.full((), block, dtype=torch.int64, device=bP.device)
+    bst = voice.batched_init(bP)
+    mix, mag, scale = [], [], 0.0
+    for _ in range(blocks):
+        rows, _, bst, _ = fn(bP, bst, starts, e)
+        mix.append(rows.sum(0).cpu().numpy())
+        mag.append(rows.double().abs().sum(0).cpu().numpy())
+        scale = max(scale, float(rows.abs().max()))
+    return np.concatenate(mix), np.concatenate(mag), scale
+
+
+def counted(scan_ops, counts, fn, *args, **kw):
+    """fn(*args, **kw) with the launch counts set to 0 just before it and
+    added to `counts` just after: a meshed path's launches."""
+    scan_ops.reset_launches()
+    out = fn(*args, **kw)
+    for k in counts:
+        counts[k] += scan_ops.launches[k]
+    return out
+
+
+def m1_step(voice, params, mesh, device):
+    """One warm G1 block on `mesh` through the path render_voices_meshed
+    takes there (lane-sharded when the time axis is over 1), as a
+    function."""
+    from tuun_tpu_torch.parallel import VoiceShards
+    shards = VoiceShards(voice, params, mesh, device)
+    lane = voice.relocatable and mesh.shape["time"] > 1
+    fn = shards.lane_fn(G1_BLOCK, None) if lane else \
+        shards.render_fn(G1_BLOCK, G1_FAST, None)
+    args = shards.args([0] * len(params), G1_BLOCK)
+    state = [shards.init_states()]
+
+    def step():
+        _, _, state[0], _, _ = fn(state[0], args)
+    return step, lane
+
+
+def phase_m1(torch, np, scan_ops, counts, device="cuda") -> dict:
+    """M1: G1's voices through render_voices_meshed, twice, on each mesh
+    of MESH_SHAPES (and, with more than one card, on default_mesh() across
+    the cards), G1_BLOCKS blocks, each mix held to the meshless group's
+    within phase 8's G1 bound: 2 (B - 1) eps sum |y| (two summation
+    orders) plus B row tolerances.  Then a block's time on each mesh
+    beside the meshless group's, warm, in turns (meshless, the meshes,
+    the meshes again in reverse, meshless)."""
+    from tuun_tpu_torch import ir
+    from tuun_tpu_torch.parallel import default_mesh, render_voices_meshed
+    voice, params, bP = g1_voices(torch, np, device)
+    base, _ = workload_waveform(G1_EXPR)
+    waves = [jittered(ir, base, 1.0 + 0.001 * i) for i in range(G1_VOICES)]
+    total = G1_BLOCKS * G1_BLOCK
+    ref, mag, scale = group_reference(torch, voice, bP, G1_BLOCK, G1_BLOCKS,
+                                      G1_FAST)
+    eps = float(np.finfo(np.float32).eps)
+    row_tol = 4 * float(np.spacing(np.float32(scale)))
+    bound = 2 * (G1_VOICES - 1) * eps * mag + G1_VOICES * row_tol
+    meshes = {str(s): mesh_of(s, device) for s in MESH_SHAPES}
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if cards > 1:
+        meshes[f"cards{cards}"] = default_mesh()
+    rows = {}
+    for name, mesh in meshes.items():
+        walls = []
+        for _ in range(2):  # the first call takes the kernels' first use
+            t0 = time.perf_counter()
+            mix = counted(scan_ops, counts, render_voices_meshed, waves,
+                          total, SR, mesh=mesh, block=G1_BLOCK,
+                          device=device)
+            walls.append(time.perf_counter() - t0)
+        check(mix.shape == (total,) and bool(np.isfinite(mix).all()),
+              f"M1 {name}: {mix.shape} samples, finite "
+              f"{np.isfinite(mix).all()}")
+        diff = np.abs(mix.astype(np.float64) - ref)
+        check(bool((diff <= bound).all()),
+              f"M1 {name}: the meshed mix differs from the meshless group's "
+              f"by {diff.max():.3e} at sample {int(diff.argmax())}")
+        rows[name] = dict(shape=mesh.shape, max_err=float(diff.max()),
+                          bits_equal=bool(np.array_equal(mix, ref)),
+                          call_walls_s=walls,
+                          launches_per_block={
+                              k: v / G1_BLOCKS
+                              for k, v in scan_ops.launches.items() if v})
+    fn = voice.batched_render_fn(G1_BLOCK, fast=G1_FAST)
+    starts = torch.zeros(G1_VOICES, dtype=torch.int64, device=device)
+    e = torch.full((), G1_BLOCK, dtype=torch.int64, device=device)
+    gstate = [voice.batched_init(bP)]
+
+    def meshless():
+        _, _, gstate[0], _ = fn(bP, gstate[0], starts, e)
+    steps = {"meshless": meshless}
+    for name, mesh in meshes.items():
+        steps[name], rows[name]["lane_sharded"] = m1_step(voice, params,
+                                                          mesh, device)
+    walls = {k: [] for k in steps}
+    for name in list(steps) + list(steps)[::-1]:
+        steps[name]()  # warm
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        for _ in range(G1_BLOCKS):
+            steps[name]()
+        synchronize(torch, device)
+        walls[name].append(time.perf_counter() - t0)
+    audio = G1_BLOCKS * G1_BLOCK / SR
+    times = {k: dict(ms_per_block=[w * 1e3 / G1_BLOCKS for w in v],
+                     mix_x_realtime=audio / min(v))
+             for k, v in walls.items()}
+    out = dict(voices=G1_VOICES, block=G1_BLOCK, blocks=G1_BLOCKS,
+               cards=cards, meshes=rows, times=times)
+    log(f"mesh M1 {json.dumps(out)}")
+    return out
+
+
+def marked_fm(ir, w):
+    """An FM note with a marked amplitude (1.0), the target of M3's
+    modify: all such notes keep one structure, so they still group."""
+    return ir.BinaryPointOp(ir.Operator.MULTIPLY, w,
+                            ir.Marked("amp", ir.Const(1.0)))
+
+
+def mesh_session(torch, waves, mesh, sync_interval: int, device="cuda"):
+    """MESH_SESSION through a Tracker (meshed or not) at levels=True with
+    the fused step off, FM notes amp-marked; before block
+    MESH_MODIFY_BLOCK the first FM note still active drops to half.
+    Returns (the mix, per block its Status.voice_levels and largest group,
+    the modified id, the host seconds of each block)."""
+    from tuun_tpu_torch import ir
+    from tuun_tpu_torch.tracker import Tracker
+    t = Tracker(SR, MESH_SESSION[0], precision="fast", device=device,
+                sync_interval=sync_interval, levels=True, mesh=mesh)
+    t.fuse = False
+    for wid, name, expr, start in g2_notes(MESH_SESSION):
+        w = waves[expr]
+        t.play(wid, marked_fm(ir, w) if name == "fm" else w, start=start)
+    out, levels, walls, modified = [], [], [], None
+    while t.active or t.pending:
+        if len(out) == MESH_MODIFY_BLOCK:
+            # Still sounding: at sync_interval 4 a voice past its end may
+            # not have retired yet.
+            modified = next(v.id for v in t.active if v.id.startswith("fm")
+                            and v.start + v.total_len > t.now)
+            t.modify(modified, "amp", ir.Const(0.5))
+        t0 = time.perf_counter()
+        y, status = t.render_block()
+        walls.append(time.perf_counter() - t0)
+        out.append(y)
+        levels.append((dict(status.voice_levels),
+                       max((len(g.voices) for g in t._groups), default=0)))
+    mix = np.concatenate([y if isinstance(y, np.ndarray)
+                          else y.cpu().numpy() for y in out])
+    t.close()
+    return mix, levels, modified, walls
+
+
+def session_bound(np, levels, n: int, tol: float, total: int):
+    """Per sample of `total`, phase 8's bound on two summation orders of a
+    block's voices, 2 (V - 1) eps sum |y| + tol, with sum |y| bounded by
+    the per-voice peaks in the Status of the block and of the block
+    before (a voice that retires in a block is gone from that block's
+    Status); blocks past `levels` (silent: a deferred sync retires its
+    voices later) get tol."""
+    eps = float(np.finfo(np.float32).eps)
+    out = np.full(max(total, len(levels) * n), tol)
+    prev = {}
+    for b, (lv, _) in enumerate(levels):
+        voices = len({**prev, **lv})
+        mag = sum(p for _, p in prev.values()) + sum(p for _, p in lv.values())
+        out[b * n:(b + 1) * n] = 2 * max(voices - 1, 0) * eps * mag + tol
+        prev = lv
+    return out[:total]
+
+
+def phase_m3(torch, np, scan_ops, counts, device="cuda") -> dict:
+    """M3: the meshed tracker on default_mesh(4) (two voice shards of two
+    time shards) against the meshless one on MESH_SESSION at
+    sync_interval 1 and 4, each with a modify and levels: the same
+    length, the same voice modified, the mix within session_bound of the
+    meshless sync_interval=1 run's levels; at sync_interval 1 every
+    block's levels within G2's FM tolerance of the meshless ones, and
+    every rows kernel launched on the mesh at each sync_interval (on the
+    card)."""
+    from tuun_tpu_torch.parallel import default_mesh
+    waves = g2_waveforms(g2_notes(MESH_SESSION))
+    n, tol = MESH_SESSION[0], MESH_SESSION[4]
+    mesh = default_mesh(4, device)
+    bound_levels = None
+    rows = {}
+    for si in (1, 4):
+        ref, ref_lv, ref_mod, ref_walls = mesh_session(torch, waves, None,
+                                                       si, device)
+        if si == 1:
+            bound_levels = ref_lv
+        before = dict(counts)
+        got, got_lv, got_mod, walls = counted(
+            scan_ops, counts, mesh_session, torch, waves, mesh, si, device)
+        launched = {k: counts[k] - before[k] for k in MESH_KERNELS}
+        check(len(got) == len(ref) and got_mod == ref_mod,
+              f"M3 sync_interval={si}: {len(got)} samples, modified "
+              f"{got_mod}; meshless {len(ref)}, {ref_mod}")
+        diff = np.abs(got.astype(np.float64) - ref)
+        bound = session_bound(np, bound_levels, n, tol, len(ref))
+        check(bool(np.isfinite(got).all()) and bool((diff <= bound).all()),
+              f"M3 sync_interval={si}: the meshed mix differs from the "
+              f"meshless by {diff.max():.3e} at sample {int(diff.argmax())}")
+        lv_err = 0.0
+        if si == 1:
+            for (a, _), (b, _) in zip(got_lv, ref_lv):
+                check(set(a) == set(b), f"M3: levels of {sorted(a)} against "
+                      f"{sorted(b)}")
+                for vid in a:
+                    lv_err = max([lv_err] + [abs(x - y) for x, y in
+                                             zip(a[vid], b[vid])])
+            check(lv_err <= tol, f"M3: levels differ by {lv_err:.3e}")
+        if device == "cuda":
+            check(all(launched.values()), f"M3 sync_interval={si}: a rows "
+                  f"kernel never launched on the mesh: {launched}")
+        audio = len(got) / SR
+        rows[si] = dict(blocks=len(walls), voices=len(g2_notes(MESH_SESSION)),
+                        max_group=max(g for _, g in got_lv),
+                        modified=got_mod, max_err=float(diff.max()),
+                        bits_equal=bool(np.array_equal(got, ref)),
+                        levels_err=lv_err, launches=launched,
+                        x_realtime=audio / sum(walls),
+                        meshless_x_realtime=audio / sum(ref_walls),
+                        block_ms_p50=float(np.percentile(walls, 50) * 1e3),
+                        block_ms_p99=float(np.percentile(walls, 99) * 1e3))
+    log(f"mesh M3 {json.dumps(rows)}")
+    return rows
+
+
+def phase_mesh_exact(torch, np, scan_ops, counts, device="cuda") -> dict:
+    """One exact_df meshed group: G2's FM voices at its 4 pitches, twice,
+    on a (4, 1) mesh through render_voices_meshed, against the meshless
+    group within two summation orders (2 (B - 1) eps sum |y|) plus G2's
+    FM tolerance."""
+    from tuun_tpu_torch.engine import CompiledVoice, EngineConfig
+    from tuun_tpu_torch.engine.graph import stack_params
+    from tuun_tpu_torch.parallel import render_voices_meshed
+    _, template, pitches = G2_INSTRUMENTS[1]
+    n, tol = MESH_SESSION[0], MESH_SESSION[4]
+    waves = [workload_waveform(template.format(
+        f=pitches[i % len(pitches)], d=1.0))[0]
+        for i in range(MESH_EXACT_VOICES)]
+    before = dict(counts)
+    mix = counted(scan_ops, counts, render_voices_meshed, waves,
+                  MESH_EXACT_BLOCKS * n, SR, mesh=mesh_of((4, 1), device),
+                  precision="exact_df", block=n, device=device)
+    launched = {k: counts[k] - before[k] for k in counts
+                if counts[k] > before[k]}
+    voice = CompiledVoice(waves[0], EngineConfig(SR, "exact_df", device))
+    bP = stack_params([voice.params_for(w, seed=i)
+                       for i, w in enumerate(waves)])
+    ref, mag, _ = group_reference(torch, voice, bP, n, MESH_EXACT_BLOCKS,
+                                  False)
+    eps = float(np.finfo(np.float32).eps)
+    diff = np.abs(mix.astype(np.float64) - ref) if mix.shape == ref.shape \
+        else np.full(1, np.inf)
+    check(bool((diff <= 2 * (len(waves) - 1) * eps * mag + tol).all()),
+          f"M3 exact_df group: the meshed mix differs from the meshless by "
+          f"{diff.max():.3e}")
+    row = dict(voices=len(waves), blocks=MESH_EXACT_BLOCKS,
+               max_err=float(diff.max()),
+               bits_equal=bool(np.array_equal(mix, ref)), launches=launched)
+    log(f"mesh exact_df {json.dumps(row)}")
+    return row
+
+
+def phase_mesh(torch, np, scan_ops, device="cuda") -> dict:
+    """Phase 13: M1 (G1 through render_voices_meshed on two meshes), M3
+    (the meshed tracker, and an exact_df meshed group), then M2
+    (graft_entry.dryrun_multichip(8) on `device`).  Each meshed render's
+    launches are counted from zero and summed into each kernel's
+    `mesh_launches`; on the card every rows kernel of MESH_KERNELS must
+    have launched.  The meshless references, and M2 (whose dryrun renders
+    its own), are not counted."""
+    from tuun_tpu_torch import graft_entry
+    counts = {k: 0 for k in scan_ops.launches}
+    marks = [time.perf_counter()]
+    phase_m1(torch, np, scan_ops, counts, device)
+    marks.append(time.perf_counter())
+    phase_m3(torch, np, scan_ops, counts, device)
+    phase_mesh_exact(torch, np, scan_ops, counts, device)
+    marks.append(time.perf_counter())
+    log(f"launch counts of phase 13's meshed paths: {counts}")
+    if device == "cuda":
+        for k in MESH_KERNELS:
+            check(counts[k] > 0, f"kernel {k} was never launched in phase 13")
+    dry = graft_entry.dryrun_multichip(MESH_DRYRUN_POSITIONS, device=device)
+    log(f"mesh M2 {json.dumps(dry)}")
+    marks.append(time.perf_counter())
+    log("phase 13 seconds: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("M1", "M3", "M2"), marks, marks[1:])))
+    return counts
+
+
 def log_phase(started: float, name: str) -> None:
     log(f"phase {name} done at {time.perf_counter() - started:.1f} s")
 
@@ -4540,14 +4915,15 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
     ap.add_argument("--phase", choices=("kernels", "times", "stream",
                                         "session", "repl", "exact",
-                                        "tools"),
+                                        "tools", "mesh"),
                     help="kernels: stop after phase 2; times: only the "
                     "single-voice scans' times; stream: only phase 8's "
                     "capture check, G3 and G2's streaming sessions; "
                     "session: only phase 9's live sessions and server; "
                     "repl: only phase 10's REPL; exact: only phase 11's "
                     "exact precisions; tools: only phase 12's tools and "
-                    "deep fast filters (see the module docstring)")
+                    "deep fast filters; mesh: only phase 13's mesh paths "
+                    "(see the module docstring)")
     ap.add_argument("--tree", type=Path,
                     help="with --phase times: time the kernels of the "
                     "checkout at this directory")
@@ -4645,6 +5021,10 @@ def main(argv) -> int:
             phase_tools(torch, np, scan_ops, Path(tmp), args.reference)
         log_phase(started, "12")
         return 0
+    if args.phase == "mesh":
+        phase_mesh(torch, np, scan_ops)
+        log_phase(started, "13")
+        return 0
 
     results = {k: [] for k in scan_ops.launches}
     phase_kernels(torch, np, scan_ops, results)
@@ -4708,6 +5088,8 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tools = phase_tools(torch, np, scan_ops, Path(tmp), args.reference)
     log_phase(started, "12")
+    mesh = phase_mesh(torch, np, scan_ops)
+    log_phase(started, "13")
 
     kernels = []
     for k in SCAN_KERNELS:
@@ -4727,6 +5109,7 @@ def main(argv) -> int:
             "repl_launches": repl[k],
             "exact_launches": exact[k],
             "tools_launches": tools[k],
+            "mesh_launches": mesh[k],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "device_ms": main_row["device_ms"],
@@ -4739,7 +5122,7 @@ def main(argv) -> int:
             # calls (torch.cumsum, torch.cummax along the lanes); no
             # single call computes the affine scan.
             "library_ms": None if affine else main_row["plain_ms"]})
-    kernels += exact_kernel_rows(results, exact, tools)
+    kernels += exact_kernel_rows(results, exact, tools, mesh)
     log(f"elapsed: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

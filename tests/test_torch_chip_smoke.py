@@ -189,8 +189,61 @@ def test_exact_rows_carry_tools_launches(smoke):
     results = {k: [main] for k in smoke.EXACT_KERNELS}
     counts = {k: i for i, k in enumerate(smoke.EXACT_KERNELS)}
     tools = {k: 10 + i for i, k in enumerate(smoke.EXACT_KERNELS)}
-    rows = smoke.exact_kernel_rows(results, counts, tools)
+    mesh = {k: 20 + i for i, k in enumerate(smoke.EXACT_KERNELS)}
+    rows = smoke.exact_kernel_rows(results, counts, tools, mesh)
     assert [r["tools_launches"] for r in rows] == \
         [tools[k] for k in smoke.EXACT_KERNELS]
+    assert [r["mesh_launches"] for r in rows] == \
+        [mesh[k] for k in smoke.EXACT_KERNELS]
     assert [r["exact_launches"] for r in rows] == \
         [counts[k] for k in smoke.EXACT_KERNELS]
+
+
+# -- phase 13's counts ------------------------------------------------------
+
+
+def _mesh(smoke, monkeypatch, meshed_kernels):
+    """phase_mesh with its parts stood in: each meshed render (through
+    `counted`) launches `meshed_kernels` once each, each meshless
+    reference and M2's dryrun launch every rows kernel 100 times.
+    Returns (counts, what ran in order)."""
+    from tuun_tpu_torch import graft_entry
+    ops = _ScanOps(smoke)
+    ran = []
+
+    def launch(kernels, times=1):
+        for kernel in kernels:
+            ops.launches[kernel] += times
+
+    def part(name):
+        def fn(torch, np, scan_ops, counts, device="cuda"):
+            ran.append(name)
+            launch(smoke.MESH_KERNELS, 100)  # a meshless reference
+            smoke.counted(scan_ops, counts, launch, meshed_kernels)
+        return fn
+    for name in ("phase_m1", "phase_m3", "phase_mesh_exact"):
+        monkeypatch.setattr(smoke, name, part(name))
+
+    def dryrun(n, device="cuda"):
+        ran.append("dryrun")
+        launch(smoke.MESH_KERNELS, 100)
+        return {}
+    monkeypatch.setattr(graft_entry, "dryrun_multichip", dryrun)
+    counts = smoke.phase_mesh(None, None, ops)
+    return counts, ran
+
+
+def test_phase_mesh_counts_only_its_meshed_renders(smoke, monkeypatch):
+    counts, ran = _mesh(smoke, monkeypatch, smoke.MESH_KERNELS)
+    assert ran == ["phase_m1", "phase_m3", "phase_mesh_exact", "dryrun"]
+    assert {k for k, c in counts.items() if c} == set(smoke.MESH_KERNELS)
+    assert all(counts[k] == 3 for k in smoke.MESH_KERNELS)
+
+
+@pytest.mark.parametrize("missing", [
+    "prefix_sum_rows_f32", "prefix_max_rows_f32", "affine_scan_rows_f32"])
+def test_phase_mesh_fails_when_a_rows_kernel_never_launched(
+        smoke, monkeypatch, missing):
+    kernels = [k for k in smoke.MESH_KERNELS if k != missing]
+    with pytest.raises(smoke.SmokeFailure, match=missing):
+        _mesh(smoke, monkeypatch, kernels)

@@ -95,6 +95,11 @@ def test_import_walk_covers_the_tools(name):
     assert f"tuun_tpu_torch/tools/{name}.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("name", ["parallel", "graft_entry"])
+def test_import_walk_covers_the_mesh(name):
+    assert f"tuun_tpu_torch/{name}.py" in PORT_FILES
+
+
 def test_repl_modules_load_neither_jax_nor_tuun_tpu():
     """The REPL's modules import in a fresh process, as `python -m
     tuun_tpu_torch.repl` starts, with neither jax nor tuun_tpu loaded."""

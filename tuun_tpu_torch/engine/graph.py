@@ -216,6 +216,13 @@ class Params:
     def device(self) -> torch.device:
         return self.consts.device
 
+    def to(self, device) -> "Params":
+        """These params on `device`, with the same host mirror: a mesh
+        shard's copy (a leaf already there is not copied)."""
+        return Params(self.consts.to(device),
+                      tuple(x.to(device) for x in self.fixeds),
+                      self.seed.to(device), host=self.host)
+
 
 def params_from_numpy(consts, fixeds, seed, device) -> Params:
     """Params on `device` from host values: a JAX engine Params after
@@ -366,10 +373,10 @@ def _tree_where(cond, a, b):
     return torch.where(cond, a, b)
 
 
-def _tree_to(tree, device):
+def tree_to(tree, device):
     """A state tree with every leaf moved to `device`."""
     if isinstance(tree, tuple):
-        return tuple(_tree_to(x, device) for x in tree)
+        return tuple(tree_to(x, device) for x in tree)
     return tree.to(device)
 
 
@@ -2001,7 +2008,7 @@ class CompiledVoice:
             try:
                 st = reconstruct_state(self.root, _host_params(P),
                                        self.lits_for(P), pos)
-                return _tree_to(st, P.device)
+                return tree_to(st, P.device)
             except FastStateUnsupported:
                 pass
         # Full renders, output discarded: advance() leaves phase and

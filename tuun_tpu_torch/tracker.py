@@ -53,7 +53,13 @@ frequency stops being constant (its u32 NCO phase becomes a float
 phase) JAX carries the u32 word into the float slot and the port keeps
 the fresh phase.
 
-Not yet ported (ROADMAP.md queue 1): the mesh paths of VoiceGroup.
+The mesh (tuun_tpu/tracker.py:302-519, parallel.py): Tracker(mesh=) lays
+each group over a parallel.Mesh's voice axis (parallel.VoiceShards):
+padded with voice 0 at weight 0, each voice shard's params and state on
+its device, the partial mixes added on the tracker's device in shard
+order.  A fast relocatable group on a time axis over 1 renders
+lane-sharded.  Meshed groups never fuse, so a meshed tracker opens no
+lookahead window while a group is live.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import queue as _queue
 import threading as _threading
 import time as _time
 from dataclasses import dataclass, field
+from functools import partial
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -76,6 +83,7 @@ from .engine.capture import flatten, make_step, tree_clone
 from .engine.graph import (MAX_BLOCK, check_device, stack_params, stack_tree,
                            tree_index)
 from .metric import Metric
+from .parallel import Mesh, VoiceShards
 from .wav import write_wav_f32
 
 # The helpers below are copied from tuun_tpu/tracker.py:40-166, which
@@ -420,22 +428,35 @@ def _set_state(m, state) -> None:
 
 class VoiceGroup:
     """Same-structure voices rendered as one call (tuun_tpu/tracker.py:302-
-    420, without the mesh).
+    519).
 
     Params and states stay stacked between blocks; membership changes
     (activation, retirement) rebuild the group.  The mix sums on the
     device, so a block costs one render call whatever the polyphony, and
-    the group's valid ends come back in one host copy."""
+    the group's valid ends come back in one host copy.  With a mesh the
+    voices lay out over its voice axis (parallel.VoiceShards): `shards`
+    holds each voice shard's params and weights on its devices, bstate is
+    a tuple of the shards' states, and a block costs one render call per
+    shard (per time shard on the lane-sharded path)."""
 
-    def __init__(self, compiled: CompiledVoice, voices: List[Voice]):
+    def __init__(self, compiled: CompiledVoice, voices: List[Voice],
+                 mesh: Optional[Mesh] = None):
         self.compiled = compiled
         self.voices = voices
         self.fast = all(v.fast for v in voices)
         # Voices group by (compiled, fast, lits), so lits is uniform; it
         # also drives the stateful timeline-schedule path (non-fast).
         self.lits = voices[0].lits
-        self.bparams = stack_params([v.params for v in voices])
-        self.bstate = stack_tree([v.state for v in voices])
+        self.mesh = mesh
+        if mesh is None:
+            self.shards = None
+            self.bparams = stack_params([v.params for v in voices])
+            self.bstate = stack_tree([v.state for v in voices])
+        else:
+            self.shards = VoiceShards(compiled, [v.params for v in voices],
+                                      mesh, compiled.cfg.device)
+            self.bparams = None  # the shards hold them
+            self.bstate = self.shards.stack_states([v.state for v in voices])
         self.gen = 0
         # (valid_end[B], caps, levels, starts, e) per deferred render (e:
         # the render's extent, block_size or K*n for a window).
@@ -445,6 +466,8 @@ class VoiceGroup:
 
     def render(self, n: int, starts, e: int, levels: bool = False):
         """(mix[n], v[B], captures, (rms[B], peak[B]) or None)."""
+        if self.mesh is not None:
+            return self._render_meshed(n, starts, e, levels)
         fn = self._fns.get((n, levels))
         if fn is None:
             fn = self._fns[(n, levels)] = self._levels_render_fn(n) \
@@ -481,6 +504,39 @@ class VoiceGroup:
             return y.sum(0), v, st, caps, rms, peak
         return batched
 
+    def _render_meshed(self, n: int, starts, e: int, levels: bool):
+        """The mesh branch of render: lane-sharded exactly when
+        tuun_tpu's condition holds (tuun_tpu/tracker.py:354-360), v and
+        the levels trimmed to the real voices."""
+        fn = self._fns.get((n, levels))
+        if fn is None:
+            T = self.mesh.shape.get("time", 1)
+            lane = (self.fast and self.compiled.relocatable
+                    and isinstance(self.lits, tuple) and T > 1
+                    and n % T == 0)
+            fn = self._fns[(n, levels)] = self._meshed_fast_fn(n, levels) \
+                if lane else self._meshed_render_fn(n, levels)
+        key = (tuple(starts), e)
+        if self._args is None or self._args[0] != key:
+            self._args = (key, self.shards.args(starts, e))
+        y_sum, v, bstate, caps, lv = fn(self.bstate, self._args[1])
+        _set_state(self, bstate)
+        return y_sum, v, caps, lv
+
+    def _meshed_fast_fn(self, n: int, levels: bool):
+        """The lane-sharded render of a fast relocatable group: each time
+        shard evaluates the group's reloc at its own lane window; levels
+        add the time shards' sums of squares and take their max."""
+        return self.shards.lane_fn(n, self.lits, levels)
+
+    def _meshed_render_fn(self, n: int, levels: bool = False):
+        """The group's render with the voice axis sharded: each voice
+        shard renders its rows on its device and the partial mixes add in
+        shard order; levels reduce each row within its shard."""
+        return self.shards.render_fn(
+            n, self.fast, self.lits,
+            partial(_levels, dim=1) if levels else None)
+
     def resolve(self, v, caps, starts, e: int, lv=None) -> None:
         """Finish detection, levels and captures for every member from
         one host copy of the group's valid ends (and levels)."""
@@ -496,8 +552,11 @@ class VoiceGroup:
                 _append_capture(voice, stem, cy[i], cs[i], cv[i])
 
     def materialize_states(self) -> None:
+        """Each voice's row of the group's state, onto the voice: on a
+        mesh, copied from its shard to the tracker's device."""
         for i, voice in enumerate(self.voices):
-            _set_state(voice, tree_index(self.bstate, i))
+            _set_state(voice, tree_index(self.bstate, i) if self.mesh is None
+                       else self.shards.voice_state(self.bstate, i))
 
 
 class Tracker:
@@ -508,13 +567,20 @@ class Tracker:
                  captured_date_format: str = "_%Y-%m-%d_%H-%M-%S",
                  precision: str = "fast", device="cuda",
                  levels: bool = False, sync_interval: int = 1,
-                 jit: bool = True, seed: int = 0):
+                 jit: bool = True, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.sample_rate = sample_rate
         self.block_size = block_size
         self.captured_output_dir = Path(captured_output_dir)
         self.captured_date_format = captured_date_format
         self.cfg = EngineConfig(sample_rate, precision, device)
+        if mesh is not None and mesh.device_type != self.cfg.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a tracker on "
+                             f"{self.cfg.device}")
         check_device(self.cfg.device)
+        # Optional parallel.Mesh: voice groups lay their voices over its
+        # voice axis; the mix stays on cfg.device.
+        self.mesh = mesh
         self.cache = _CompileCache()
         self.active: List[Voice] = []
         self.pending: List[Pending] = []
@@ -847,7 +913,8 @@ class Tracker:
         self._singles = []
         for voices in by_key.values():
             if len(voices) >= 2:
-                self._groups.append(VoiceGroup(voices[0].compiled, voices))
+                self._groups.append(VoiceGroup(voices[0].compiled, voices,
+                                               mesh=self.mesh))
             else:
                 self._singles.extend(voices)
         self._groups_dirty = False
@@ -876,8 +943,11 @@ class Tracker:
 
     def _fused_set_key(self, n: int):
         """The identity of the current voice set's structure for the
-        fused step, or None when fusing does not apply (a lone member
-        saves no dispatch, unless lookahead windows can engage)."""
+        fused step, or None when fusing does not apply (meshed groups
+        keep their own renders; a lone member saves no dispatch, unless
+        lookahead windows can engage)."""
+        if any(g.mesh is not None for g in self._groups):
+            return None
         members = len(self._singles) + len(self._groups)
         if members == 0:
             return None
