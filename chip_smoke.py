@@ -32,7 +32,15 @@ Phases, each of which exits non-zero on failure:
      at PREFIX_ROWS / AFFINE_ROWS: against their plain versions, each row
      bit for bit against a single call, one kernel per call, the same
      bits on repeat, a captured graph replayed, timed the same three
-     ways beside B single calls.  sin's sign at all 2^24 NCO
+     ways beside B single calls.  The deep affine scan (fast mode's
+     feedback at 8 < J <= 16) at J = 9, 12, 16 from 1000 to 2^20 + 5
+     lanes and on misaligned inputs, against its float64 plain version
+     within DEEP_AFFINE_TOL with a float16 control that must fail each
+     bound, the same bits on 50 calls, one call the bits of the same lanes
+     in calls of whole tiles chained by hist (a tracker's window against
+     its blocks), graphs at two lengths replayed in turns, J = 17 refused,
+     and its rows form at DEEP_ROWS as the other rows forms are held; one
+     kernel a call.  sin's sign at all 2^24 NCO
      grid angles must equal the phase's top bit on the card (the analytic
      Reset tiers rest on it).
   3. main path: the batch CLI (python -m tuun_tpu_torch, which streams at
@@ -90,12 +98,11 @@ Phases, each of which exits non-zero on failure:
      tracker captures, a same-key set swapped in, a window interrupted by a
      play).  The pools of each tracker's live graphs are logged as it
      closes (CLI runs, G2 and G3 sessions), and the allocator's after the
-     CLI runs and after G2 and G3.  Then profiles of G1 and one G1 voice
-     alone in one child (`--profile G1,G1one`), and of the first third of
-     G2's live-block session in another, and phase 2's one-launch calls
-     counted under
-     an in-process profiler session (logged, not held: the child of phase 2
-     holds them).
+     CLI runs and after G2 and G3.  Then profiles of G1, one G1 voice
+     alone and the first third of G2's live-block session in one child's
+     profiler session (`--profile G1,G1one,G2`), and phase 2's one-launch
+     calls counted under an in-process profiler session (logged, not
+     held: the child of phase 2 holds them).
   9. live edits (session): the port's TuunSession, Player.stop and web
      server at the server's defaults (44.1 kHz, 1024-sample blocks, fast,
      unpaced), on the card at sync_interval 1 and 32.  S1: the slider
@@ -179,19 +186,23 @@ Phases, each of which exits non-zero on failure:
      and W3 through the CLI in exact_df and exact against the oracle over 2
      s.  Every kernel on this path must launch: all but the float64
      recurrence (the reference's IIR is float32 in both exact precisions,
-     so no engine path runs it) and the fast mode's voices x lanes forms of
-     the prefix sum and affine scan (fast groups only: phase 8).
+     so no engine path runs it), the fast mode's voices x lanes forms of
+     the prefix sum and affine scan (fast groups only: phase 8) and the
+     deep affine scan (fast filters deeper than 8 coefficients: phase 12).
 
  12. the tools and fast-mode filters deeper than the affine scan
      (tools), on the card at full size; every failure fails the run.
      Deep filters: the ramp of tests/test_torch_stream.py's _deep through
      J = 9, 12 and 16 feedback coefficients (past the affine scan's
-     MAX_J = 8: fast mode runs the linear recurrence), 2^17 samples at 48
-     kHz in 65536- and 1024-lane blocks, each within DEEP_TOL of scale of
-     the native oracle, the time a block logged; four J = 12 voices in
-     one group through the fast Tracker at 1024-sample blocks, the fused
-     step at sync_interval 4 (captured inline, replayed), the mix against
-     the voices' own renders within phase 8's bound.  The corpus:
+     MAX_J = 8: fast mode runs the deep affine scan) and 17 (past its
+     MAX_DEEP_J = 16: the linear recurrence), 2^17 samples at 48 kHz in
+     65536- and 1024-lane blocks, each within DEEP_TOL of scale of the
+     native oracle, reaching its kernel and not the other, the time a
+     block logged; four J = 12 voices in one group through the fast
+     Tracker at 1024-sample blocks, the fused step at sync_interval 4
+     (captured inline, replayed), the mix against the voices' own renders
+     within phase 8's bound, the group on the deep scan's rows form.
+     The corpus:
      tools/web_checker over web/index.html and docs/*.md rendering every
      example (22050 samples at 44.1 kHz, bench.py's corpus lane) against
      the native oracle on the card: none fails, at least 6 pass, the same
@@ -207,8 +218,10 @@ Phases, each of which exits non-zero on failure:
      are each kernel's `tools_launches`; every kernel of TOOLS_KERNELS
      must launch.  Then (not counted) the recurrence at J = 12 on 2^17 +
      5 lanes, each lane the plain version's step, and the single-voice
-     times of the recurrence at J = 9, 12, 16 beside the affine scan at
-     J = 8, at 2^17 lanes.
+     times of the deep affine scan at J = 9, 12, 16 (2^17, 65536 and 1024
+     lanes)
+     beside the recurrence at the same J and the affine scan at J = 8,
+     at 2^17 lanes.
 
  13. the mesh paths (mesh): tuun_tpu_torch.parallel and Tracker(mesh=)
      on meshes whose positions are all cuda:0 (and, with more than one
@@ -239,11 +252,13 @@ The second-last line is the JSON list of kernels; the last line is
 streaming sessions; `--phase session` only phase 9; `--phase repl` only
 phase 10; `--phase exact` only phase 11 (after phase 2's one-kernel-a-
 call check in a child); `--phase tools` only phase 12; `--phase mesh`
-only phase 13.
+only phase 13; `--phase deep` only phase 2's deep affine scan checks and
+phase 12's deep times.
 
 `--phase times [--tree DIR]` runs only the single-voice scans at the
 shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
-affine scan at AFFINE_SPLIT): each held to its bound, kernels per call
+affine scan at AFFINE_SPLIT, the deep affine scan at DEEP_SPLIT where
+the tree has one): each held to its bound, kernels per call
 (torch.profiler) and the three times of phase 2, one JSON line a shape.
 With --tree, the kernels are those of the checkout at DIR (its
 tuun_tpu_torch/engine/scan_ops.py, loaded on its own), so that two
@@ -351,6 +366,38 @@ REPLACES = {
 # live block.  The first of each is the kernels line's shape.
 PREFIX_ROWS = ((32, MAIN_N), (256, 1024), (256, 1 << 17))
 AFFINE_ROWS = ((32, MAIN_N, 2), (4, MAIN_N, 2), (8, 1024, 2), (64, 1024, 3))
+
+# The deep affine scan (csrc/scan.cu's affine_deep_pass): fast mode's
+# feedback at MAX_J < J <= MAX_DEEP_J = 16, which tuun_tpu runs as an
+# associative scan of companion maps (its Pallas kernel takes J <= 4).
+DEEP_KERNELS = ("affine_scan_deep_f32", "affine_scan_deep_rows_f32")
+REPLACES.update({k: "tuun_tpu/engine/graph.py:893" for k in DEEP_KERNELS})
+# Its depths and lengths in phase 2: one tile, the render's block (render()
+# and the CLI scan 65536-lane blocks, as phase 12's deep_offline does),
+# 2^17 (the length PERF.md compares with the recurrence), 1024 tiles (a
+# chain of 32 anchors) and a ragged last tile.
+DEEP_KERNEL_JS = (9, 12, 16)
+DEEP_SIZES = (1000, 1 << 16, 1 << 17, 1 << 20, (1 << 20) + 5)
+# Error bound per J, as a fraction of the output's scale max(1, max|y|),
+# f32 kernel against the float64 plain version on affine_input's stable
+# sections: about 10x the largest error the kernel showed over
+# DEEP_SIZES, a[1:] and the rows shapes on an H100 (700 W).  The float16
+# control errs 5.6e-3 to 1.6e-2 of scale there and must fail each bound.
+DEEP_AFFINE_TOL = {9: 3e-5, 12: 2e-5, 16: 2e-5}
+# (J, N, block): a call over N lanes must give the bits of calls over its
+# blocks of whole tiles, each from the last one's hist, as a tracker's
+# lookahead window of blocks does (phase 12's deep session at 1024-lane
+# blocks, sync_interval 4; T1's 65536-lane blocks).
+DEEP_BLOCK_CALLS = ((12, 4096, 1024), (16, 1 << 17, 1 << 16),
+                    (9, 40 * 1024, 1024))
+# The rows form: T1's group (4 J = 12 voices at the live block) and 8
+# J = 16 voices at T1's block.  The first is the kernels line's shape.
+DEEP_ROWS = ((4, 1024, 12), (8, 1 << 17, 16))
+# (J, N) of the single form whose time is split three ways: the render's
+# block and 2^17 at each J (the first is the kernels line's shape) and the
+# live block.
+DEEP_SPLIT = ((16, 1 << 16), (9, 1 << 16), (12, 1 << 16), (16, 1 << 17),
+              (9, 1 << 17), (12, 1 << 17), (9, 1024), (12, 1024), (16, 1024))
 
 
 class SmokeFailure(Exception):
@@ -541,6 +588,10 @@ def phase_kernels(torch, np, scan_ops, results):
     check_affine_graph(torch, np, scan_ops, rng, (MAIN_N, (1 << 20) + 5))
     check_affine_streams(torch, np, scan_ops, rng, (1 << 20) + 5)
     phase_rows(torch, np, scan_ops, rng, results)
+    t0 = time.perf_counter()
+    phase_deep(torch, np, scan_ops, results)
+    log(f"phase 2, the deep affine scan's checks: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def rows_input(torch, np, rng, op, B, n):
@@ -579,10 +630,12 @@ def check_prefix_rows(torch, np, scan_ops, op, x, got, what) -> float:
     return float(err.max())
 
 
-def rows_times(torch, fn, ref, single, args, iters, B):
+def rows_times(torch, fn, ref, single, args, iters, B, plain_calls=(5, 2, 20)):
     """As prefix_times with the split, for a rows form, plus B single
     calls on the rows one after another (singles_ms by events,
-    singles_device_ms from a graph of them, singles_host_us)."""
+    singles_device_ms from a graph of them, singles_host_us).  The plain
+    version's device time is a graph of plain_calls[0] calls replayed
+    plain_calls[1] times, its host time the mean of plain_calls[2]."""
     rows = [tuple(a[r] for a in args) for r in range(B)]
 
     def singles():
@@ -591,10 +644,12 @@ def rows_times(torch, fn, ref, single, args, iters, B):
     return {"ms": cuda_ms(torch, lambda: fn(*args), iters),
             "plain_ms": cuda_ms(torch, lambda: ref(*args), max(iters // 5, 2)),
             "device_ms": graph_ms(torch, lambda: fn(*args)),
-            "plain_device_ms": graph_ms(torch, lambda: ref(*args), calls=5,
-                                        replays=2),
+            "plain_device_ms": graph_ms(torch, lambda: ref(*args),
+                                        calls=plain_calls[0],
+                                        replays=plain_calls[1]),
             "host_us": host_us(torch, lambda: fn(*args)),
-            "plain_host_us": host_us(torch, lambda: ref(*args), calls=20),
+            "plain_host_us": host_us(torch, lambda: ref(*args),
+                                     calls=plain_calls[2]),
             "singles_ms": cuda_ms(torch, singles, 3),
             "singles_device_ms": graph_ms(torch, singles, calls=2, replays=2),
             "singles_host_us": host_us(torch, singles, calls=3)}
@@ -768,7 +823,8 @@ def affine_times(torch, scan_ops, args, split):
 def phase_times(torch, np, scan_ops, label: str) -> None:
     """The single-voice scans alone, for comparing two trees: the prefix
     sum and max at SPLIT_SIZES, the affine scan at AFFINE_SPLIT's shapes,
-    each held to its bound, kernels per call counted over all of them in
+    the deep affine scan at DEEP_SPLIT's (where the tree has it), each
+    held to its bound, kernels per call counted over all of them in
     this process's one profiler session, then timed three ways (device
     time alone among them).  Logs one JSON line per shape."""
     from torch.autograd import DeviceType
@@ -782,6 +838,12 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
     for args in inputs:
         check_affine(torch, scan_ops, args, *scan_ops.affine_scan_f32(*args),
                      "(--phase times)")
+    # The deep scan, where the tree timed has one.
+    deep = [(J, n, deep_input(torch, np, rng, J, n)) for J, n in DEEP_SPLIT] \
+        if hasattr(scan_ops, "affine_scan_deep_f32") else []
+    for J, n, args in deep:
+        check_deep(torch, scan_ops, args,
+                   *scan_ops.affine_scan_deep_f32(*args), "(--phase times)")
     calls = 10
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -790,9 +852,11 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
                 fn(x)
             for args in inputs:
                 scan_ops.affine_scan_f32(*args)
+            for _, _, args in deep:
+                scan_ops.affine_scan_deep_f32(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    per_call = len(names) / (calls * (len(inputs) + len(prefix)))
+    per_call = len(names) / (calls * (len(inputs) + len(prefix) + len(deep)))
     for op, fn, n, x in prefix:
         ref = scan_ops.prefix_sum_ref if op == "sum" \
             else scan_ops.prefix_max_ref
@@ -809,6 +873,13 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
             row, tree=label, op="affine_scan_f32", J=J, n=n,
             kernels_per_call=per_call, kernels=sorted(set(names)),
             bound_us=bound_us,
+            share_of_bound=bound_us / (row["device_ms"] * 1e3))))
+    for J, n, args in deep:
+        row = deep_kernel_times(torch, scan_ops, args, split=True)
+        bound_us = deep_bound(1, n, J)["bound_ms"] * 1e3
+        log(json.dumps(dict(
+            row, tree=label, op="affine_scan_deep_f32", J=J, n=n,
+            kernels_per_call=per_call, bound_us=bound_us,
             share_of_bound=bound_us / (row["device_ms"] * 1e3))))
 
 
@@ -895,6 +966,240 @@ def check_affine_streams(torch, np, scan_ops, rng, n) -> None:
         f"two on the first, n={n}: all within AFFINE_TOL")
 
 
+def deep_input(torch, np, rng, J, n, misalign=False, B=None):
+    """(a, ff, live, h0) on the card as affine_input makes them (a stable
+    J-deep section on every lane, unit normal ff, 10% dead lanes, a random
+    entering history), with B, B rows.  With misalign (one row only), a is
+    a view 4 bytes into a buffer of n J + 1 floats and ff and live are
+    views [1:], so none is 16-byte aligned."""
+    lead = () if B is None else (B,)
+    a = np.broadcast_to(stable_feedback(J).astype(np.float32), (*lead, n, J))
+    ff = rng.standard_normal((*lead, n + misalign)).astype(np.float32)
+    live = rng.random((*lead, n + misalign)) > 0.1
+    h0 = rng.standard_normal((*lead, J)).astype(np.float32)
+    if misalign:
+        flat = np.concatenate([np.zeros(1, np.float32), a.reshape(-1)])
+        return (torch.from_numpy(flat).cuda()[1:].view(n, J),
+                torch.from_numpy(ff).cuda()[1:],
+                torch.from_numpy(live).cuda()[1:], torch.from_numpy(h0).cuda())
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                 for x in (a, ff, live, h0))
+
+
+def check_deep(torch, scan_ops, args, y, hist, what):
+    """Holds (y, hist), single or rows, to the float64 plain version on the
+    same inputs within DEEP_AFFINE_TOL[J] of the output's scale, and the
+    same scan in float16 must fail that bound.  Returns (max error,
+    scale, float16 error)."""
+    a, ff, live, h0 = args
+    J = a.shape[-1]
+    ref, ref_hist = scan_ops.affine_scan_deep_ref(a.double(), ff.double(),
+                                                  live, h0.double())
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    err = max(float((y.double() - ref).abs().max()),
+              float((hist.double() - ref_hist).abs().max()))
+    bound = DEEP_AFFINE_TOL[J] * scale
+    check(err <= bound, f"affine_scan_deep J={J} {what}: error {err:.3e} "
+          f"above {DEEP_AFFINE_TOL[J]:g} * {scale:.3g}")
+    ctl, _ = scan_ops.affine_scan_deep_ref(a.half(), ff.half(), live,
+                                           h0.half())
+    ctl_err = float((ctl.double() - ref).abs().max())
+    check(not ctl_err <= bound, f"affine_scan_deep J={J} {what}: the "
+          f"float16 control ({ctl_err:.3e}) passes the bound {bound:.3e}")
+    return err, scale, ctl_err
+
+
+def deep_bound(B: int, n: int, J: int) -> dict:
+    """The least time for the deep scan's work on the card: the bytes it
+    must move (a 4J, ff 4, live 1 read, y 4 written a lane) over the
+    memory rate, or its operations (J multiply-adds a lane) over the
+    float32 peak, whichever is larger."""
+    bytes_ms = B * n * (4 * J + 9) / HBM_BYTES_PER_S * 1e3
+    ops_ms = B * n * 2 * J / PEAK_FLOPS["f32"] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def deep_kernel_times(torch, scan_ops, args, split, rows=False):
+    """As affine_times, for the deep scan (single or rows form)."""
+    B = args[1].shape[0] if rows else 1
+    big = B * args[1].shape[-1] >= 1 << 20
+    kernel = scan_ops.affine_scan_deep_rows_f32 if rows \
+        else scan_ops.affine_scan_deep_f32
+    fn = lambda: kernel(*args)  # noqa: E731
+    ref = lambda: scan_ops.affine_scan_deep_ref(*args)  # noqa: E731
+    row = {"ms": cuda_ms(torch, fn, 10 if big else 50),
+           "plain_ms": cuda_ms(torch, ref, 2 if big else 10)}
+    if split:
+        row.update(device_ms=graph_ms(torch, fn),
+                   plain_device_ms=graph_ms(torch, ref, calls=2, replays=2),
+                   host_us=host_us(torch, fn),
+                   plain_host_us=host_us(torch, ref, calls=5 if big else 20))
+    return row
+
+
+def deep_same_bits(torch, fn, args, calls: int) -> int:
+    """How many of `calls` repeats of fn(*args) differ from the first."""
+    first = torch.cat([x.reshape(-1) for x in fn(*args)]).view(torch.int32)
+    return sum(not torch.equal(torch.cat(
+        [x.reshape(-1) for x in fn(*args)]).view(torch.int32), first)
+        for _ in range(calls))
+
+
+def phase_deep(torch, np, scan_ops, results) -> None:
+    """The deep affine scan on the card (part of phase 2): the single form
+    at DEEP_KERNEL_JS x DEEP_SIZES and on misaligned inputs against the
+    float64 plain version within DEEP_AFFINE_TOL (a float16 control
+    failing each bound), timed (three ways at DEEP_SPLIT); the same bits
+    on repeated calls; CUDA graphs captured on one stream at two lengths,
+    replayed in turns over new data; a depth past MAX_DEEP_J refused;
+    the rows form at DEEP_ROWS against the plain version, each row the
+    bits of a single call, the same bits on repeat, a graph replayed,
+    timed beside B single calls.  (One kernel per call: check_one_
+    launch.)"""
+    rng = np.random.default_rng(9)
+    name = "affine_scan_deep_f32"
+    shapes = [(J, n) for J in DEEP_KERNEL_JS for n in DEEP_SIZES]
+    shapes += [s for s in DEEP_SPLIT if s not in shapes]
+    for J, n in shapes:
+        args = deep_input(torch, np, rng, J, n)
+        err, scale, ctl = check_deep(torch, scan_ops, args,
+                                     *scan_ops.affine_scan_deep_f32(*args),
+                                     f"n={n}")
+        row = deep_kernel_times(torch, scan_ops, args,
+                                split=(J, n) in DEEP_SPLIT)
+        log(f"{name} J={J} n={n}: max_abs_err={err:.3e} = {err / scale:.2e} "
+            f"of scale {scale:.3g} (bound {DEEP_AFFINE_TOL[J]:g}; float16 "
+            f"control {ctl / scale:.2e} of scale) {format_times(row)}")
+        results[name].append(dict(row, B=1, n=n, J=J, err=err,
+                                  **deep_bound(1, n, J)))
+        del args
+    for J in DEEP_KERNEL_JS:
+        for n in (1000, (1 << 16) + 3):
+            args = deep_input(torch, np, rng, J, n, misalign=True)
+            check(all(x.data_ptr() % 16 != 0 for x in args[:3]),
+                  "the deep scan's misaligned inputs are 16-byte aligned")
+            err, scale, _ = check_deep(torch, scan_ops, args,
+                                       *scan_ops.affine_scan_deep_f32(*args),
+                                       f"misaligned, n={n}")
+            log(f"{name} J={J} on a, ff, live 4 bytes past a 16-byte "
+                f"boundary, n={n}: max_abs_err={err:.3e} = "
+                f"{err / scale:.2e} of scale")
+    for J, n in ((12, 1 << 17), (16, (1 << 20) + 5)):
+        args = deep_input(torch, np, rng, J, n)
+        differ = deep_same_bits(torch, scan_ops.affine_scan_deep_f32, args,
+                                49)
+        check(differ == 0, f"{name} J={J} n={n}: {differ} of 49 repeats "
+              f"differ from the first call")
+    log(f"{name}: 50 calls at J=12 n=2^17 and J=16 n=2^20+5 on one input "
+        f"each, all the same bits (y and hist)")
+    for J, n, block in DEEP_BLOCK_CALLS:
+        args = deep_input(torch, np, rng, J, n)
+        y, hist = scan_ops.affine_scan_deep_f32(*args)
+        h, parts = args[3], []
+        for s0 in range(0, n, block):
+            yb, h = scan_ops.affine_scan_deep_f32(
+                *(x[s0:s0 + block] for x in args[:3]), h)
+            parts.append(yb)
+        check(torch.equal(torch.cat(parts).view(torch.int32),
+                          y.view(torch.int32))
+              and torch.equal(h.view(torch.int32), hist.view(torch.int32)),
+              f"{name} J={J}: {n} lanes in {block}-lane calls, each from "
+              f"the last one's hist, differ from one call")
+    log(f"{name}: one call equals the same lanes in calls of whole tiles "
+        f"chained by hist, bit for bit, at {DEEP_BLOCK_CALLS}")
+    check_deep_graph(torch, np, scan_ops, rng)
+    J = scan_ops.MAX_DEEP_J + 1
+    try:
+        scan_ops.affine_scan_deep_f32(*deep_input(torch, np, rng, J, 64))
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, f"{name} took J={J}, past MAX_DEEP_J")
+    s = torch.cuda.Stream()
+    rows_name = "affine_scan_deep_rows_f32"
+    for B, n, J in DEEP_ROWS:
+        args = deep_input(torch, np, rng, J, n, B=B)
+        y, hist = scan_ops.affine_scan_deep_rows_f32(*args)
+        err, scale, _ = check_deep(torch, scan_ops, args, y, hist,
+                                   f"rows B={B} n={n}")
+        diff = 0
+        for r in range(B):
+            y1, h1 = scan_ops.affine_scan_deep_f32(*(x[r] for x in args))
+            diff += not (torch.equal(y[r], y1) and torch.equal(hist[r], h1))
+        check(diff == 0, f"{rows_name} B={B} n={n} J={J}: {diff} rows differ "
+              f"from a single call on the row")
+        rep = deep_same_bits(torch, scan_ops.affine_scan_deep_rows_f32, args,
+                             19)
+        check(rep == 0, f"{rows_name} B={B} n={n}: {rep} of 19 repeats "
+              f"differ")
+        static = tuple(x.clone() for x in args)
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            scan_ops.affine_scan_deep_rows_f32(*static)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            out = scan_ops.affine_scan_deep_rows_f32(*static)
+        for k in range(3):
+            for dst, src in zip(static[1:], deep_input(torch, np, rng, J, n,
+                                                       B=B)[1:]):
+                dst.copy_(src)
+            g.replay()
+            torch.cuda.synchronize()
+            check_deep(torch, scan_ops, static, *out,
+                       f"rows B={B} n={n} graph replay {k}")
+        del g
+        # From 2^20 lanes in all a plain scan of maps takes ~0.1 s a
+        # call: its device and host times take fewer calls there.
+        row = rows_times(torch, scan_ops.affine_scan_deep_rows_f32,
+                         scan_ops.affine_scan_deep_ref,
+                         scan_ops.affine_scan_deep_f32, args, 20, B,
+                         (2, 1, 5) if B * n >= 1 << 20 else (5, 2, 20))
+        log(f"{rows_name} B={B} n={n} J={J}: max_abs_err={err:.3e} = "
+            f"{err / scale:.2e} of scale (bound {DEEP_AFFINE_TOL[J]:g}), rows "
+            f"bit-identical to single calls, 20 calls the same bits, graph "
+            f"replays right; {format_times(row)}; {B} single calls "
+            f"{row['singles_ms']:.4f} ms (device {row['singles_device_ms']:.4f}"
+            f" ms, host {row['singles_host_us']:.1f} us)")
+        results[rows_name].append(dict(row, B=B, n=n, J=J, err=err,
+                                       **deep_bound(B, n, J)))
+        del args, y, hist, static, out
+
+
+def check_deep_graph(torch, np, scan_ops, rng) -> None:
+    """The deep scan at J = 9, 2^20 + 5 lanes (past the first scratch's
+    tiles) and J = 16, 2^17 lanes, each captured in a CUDA graph on one
+    stream after a plain call there (the longest first, so that the
+    stream's scratch holds it), replayed in turns three times over new
+    ff, live and h0, each replay held to DEEP_AFFINE_TOL."""
+    s = torch.cuda.Stream()
+    graphs = []
+    for J, n in ((9, (1 << 20) + 5), (16, 1 << 17)):
+        static = deep_input(torch, np, rng, J, n)
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            scan_ops.affine_scan_deep_f32(*static)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            out = scan_ops.affine_scan_deep_f32(*static)
+        graphs.append((J, n, g, static, out))
+    for k in range(3):
+        for J, n, g, static, _ in graphs:
+            for dst, src in zip(static[1:],
+                                deep_input(torch, np, rng, J, n)[1:]):
+                dst.copy_(src)
+            g.replay()
+        torch.cuda.synchronize()
+        for J, n, _, static, out in graphs:
+            check_deep(torch, scan_ops, static, *out,
+                       f"graph replay {k}, n={n}")
+    del graphs
+    log("affine_scan_deep_f32 J=9 n=2^20+5 and J=16 n=2^17 captured in "
+        "CUDA graphs on one stream: 3 replays each, in turns, over new data "
+        "within DEEP_AFFINE_TOL")
+
+
 def check_prefix(torch, np, scan_ops, op, x, got, what) -> float:
     """Holds `got`, the "sum" or "max" scan of x, to its reference: the
     sum within 16 eps * running sum|x| of the float64 prefix, the max
@@ -949,7 +1254,8 @@ def one_launch_calls(torch, np, scan_ops, rng) -> list:
     prefix scans from 128 to 2^26 lanes and on x[1:]; the affine scan at
     J = 2 and 8 at every length of phase 2, on one tile (1000 lanes), and
     on a[1:], ff[1:], live[1:]; the voices x lanes forms at every shape of
-    phase_rows; phase 11's kernels (exact_one_launch_calls)."""
+    phase_rows; the deep affine scan at J = 9 and 16 and its rows form;
+    phase 11's kernels (exact_one_launch_calls)."""
     xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
           for n in PREFIX_SIZES]
     xs.append(torch.from_numpy(
@@ -973,6 +1279,19 @@ def one_launch_calls(torch, np, scan_ops, rng) -> list:
         calls.append((scan_ops.affine_scan_rows_f32,
                       affine_rows_input(torch, np, rng, J, B, n),
                       sym["affine_scan_rows_f32"], f"<{J},"))
+    # The deep affine scan at J = 9 and 16: one tile, the render's block,
+    # 2^17, a ragged 2^20 + 5, misaligned; its rows form at DEEP_ROWS (one
+    # kernel per J, affine_deep_pass<J>, for both forms).
+    for J in (9, 16):
+        for n, mis in ((1000, False), (1 << 16, False), (1 << 17, False),
+                       ((1 << 20) + 5, False), (1000, True)):
+            calls.append((scan_ops.affine_scan_deep_f32,
+                          deep_input(torch, np, rng, J, n, mis),
+                          sym["affine_scan_deep_f32"], f"<{J}>"))
+    for B, n, J in DEEP_ROWS:
+        calls.append((scan_ops.affine_scan_deep_rows_f32,
+                      deep_input(torch, np, rng, J, n, B=B),
+                      sym["affine_scan_deep_rows_f32"], f"<{J}>"))
     return calls + exact_one_launch_calls(torch, np, scan_ops, rng)
 
 
@@ -1042,7 +1361,9 @@ def check_one_launch(torch, np, scan_ops, rng) -> dict:
             f"{len(PREFIX_SIZES) + 1} lengths from 128 to 2^26 and x[1:]; "
             f"affine scan at J = 2, 8 from 1000 to 2^20 + 5 lanes and on "
             f"a[1:]; the voices x lanes forms at {PREFIX_ROWS} and "
-            f"{AFFINE_ROWS}; the linear recurrence in f32 and f64 at J = 2, "
+            f"{AFFINE_ROWS}; the deep affine scan at J = 9, 16 from 1000 to "
+            f"2^20 + 5 lanes and misaligned, its rows form at {DEEP_ROWS}; "
+            f"the linear recurrence in f32 and f64 at J = 2, "
             f"9 and its rows form; the df prefix sum from 1000 to 2^20 "
             f"lanes and its rows form) ran exactly one kernel each, no "
             f"memset")
@@ -4114,8 +4435,10 @@ def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
     log(f"phase 11 seconds: fuzz {t1 - t0:.1f}, shapes {t2 - t1:.1f}, long "
         f"render {t3 - t2:.1f}, session {t4 - t3:.1f}, cli {t5 - t4:.1f}")
     log(f"launch counts of phase 11: {counts}")
+    # The deep affine scan serves only fast filters deeper than MAX_J, which
+    # phase 11's path does not render (phase 12 does).
     for k, c in counts.items():
-        if k not in EXACT_OFF_PATH:
+        if k not in EXACT_OFF_PATH + DEEP_KERNELS:
             check(c > 0, f"kernel {k} was never launched in phase 11")
     return counts
 
@@ -4143,17 +4466,46 @@ def exact_kernel_rows(results, counts, tools, mesh) -> list:
     return rows
 
 
+def deep_kernel_rows(results, phases) -> list:
+    """The kernels line's rows of the deep affine scan: phase 2's times at
+    the main shape (J = 16 at 65536 lanes, the render's block; rows (4,
+    1024, 12), T1's group), and phase 12's launches, the path that reaches it
+    (`launches`), beside each phase's of `phases` ({"main": phases 3 and
+    8, "session", "repl", "exact", "tools", "mesh"}: name -> counts)."""
+    rows = []
+    for k, (B, n, J) in zip(DEEP_KERNELS, ((1,) + DEEP_SPLIT[0][::-1],
+                                           DEEP_ROWS[0])):
+        main = next(r for r in results[k]
+                    if (r["B"], r["n"], r["J"]) == (B, n, J))
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "tuun_tpu_torch/csrc/scan.cu",
+            "replaces": REPLACES[k], "launches": phases["tools"][k],
+            **{f"{phase}_launches": c[k] for phase, c in phases.items()},
+            "max_abs_err": max(r["err"] for r in results[k]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["device_ms"],
+            "plain_device_ms": main["plain_device_ms"],
+            "host_us": main["host_us"], "shape": [B, n, J],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            # PyTorch has no IIR: no single call computes the scan.
+            "library_ms": None})
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 12: fast-mode filters deeper than the affine scan, and the tools
 # ---------------------------------------------------------------------------
 
-DEEP_JS = (9, 12, 16)
+# Fast mode runs J = 9, 12, 16 on the deep affine scan and 17 (past
+# MAX_DEEP_J) on the linear recurrence.
+DEEP_JS = (9, 12, 16, 17)
 DEEP_N = 1 << 17
 DEEP_BLOCKS = (65536, 1024)
 # Against the native oracle, as a fraction of the render's peak: the
 # bound tests/test_torch_stream.py holds the port and tuun_tpu's fast
-# mode to (the recurrence rounds as the oracle does; tuun_tpu's composed
-# maps err 8.7e-7 to 3.3e-6 of scale there).
+# mode to (tuun_tpu's composed maps err 8.7e-7 to 3.3e-6 of scale there;
+# the recurrence rounds as the oracle does).
 DEEP_TOL = 1e-5
 DEEP_REC_N = (1 << 17) + 5
 # The deep voice group's session: (sample rate, block, note seconds,
@@ -4179,9 +4531,11 @@ INSTRUMENTS = (
     ("flute", "$546 | ADSR(0.32, 0.0, 1.0, 1.25, 0.18)", 2.2, ("std",)),
     ("ukulele", "pm_ukulele(10, 0.41, 0.2)(2.0, 276)", 3.0,
      ("std", "pm_synth")))
-# The kernels phase 12's path must launch.
+# The kernels phase 12's path must launch: the deep filters' (the deep
+# scan alone and in the group, the recurrence at J = 17) and the tools'.
 TOOLS_KERNELS = ("prefix_sum_f32", "prefix_max_f32", "affine_scan_f32",
-                 "linear_recurrence_f32", "linear_recurrence_rows_f32")
+                 "affine_scan_deep_f32", "affine_scan_deep_rows_f32",
+                 "linear_recurrence_f32")
 
 
 def deep_filter(ir, J, inner, b=(0.5, 0.25)):
@@ -4193,15 +4547,20 @@ def deep_filter(ir, J, inner, b=(0.5, 0.25)):
 
 
 def deep_offline(device, n=DEEP_N, blocks=DEEP_BLOCKS) -> dict:
-    """The ramp of tests/test_torch_stream.py's _deep through J = 9, 12 and
-    16 feedback coefficients in fast mode, n samples in each block size,
-    each within DEEP_TOL of scale of the native oracle.  Logs the error and
+    """The ramp of tests/test_torch_stream.py's _deep through each of
+    DEEP_JS feedback coefficients in fast mode, n samples in each block
+    size, each within DEEP_TOL of scale of the native oracle; on the card
+    each render must reach the deep affine scan (J <= MAX_DEEP_J) or the
+    linear recurrence (past it), and not the other.  Logs the error and
     the engine's wall time a block."""
     from tuun_tpu_torch import ir, native
-    from tuun_tpu_torch.engine import render
+    from tuun_tpu_torch.engine import render, scan_ops
     sr = SR
     rows = {}
     for J in DEEP_JS:
+        deep = J <= scan_ops.MAX_DEEP_J
+        route = ("affine_scan_deep_f32", "linear_recurrence_f32")[not deep]
+        other = ("affine_scan_deep_f32", "linear_recurrence_f32")[deep]
         w = deep_filter(ir, J, ir.Fin(ir.BinaryPointOp(
             ir.Operator.SUBTRACT, ir.Time(), ir.Const(40.0)), ir.Time()))
         ref = native.render(w, n, sr).astype(np.float64)
@@ -4213,10 +4572,16 @@ def deep_offline(device, n=DEEP_N, blocks=DEEP_BLOCKS) -> dict:
             # first call's set-up.
             render(w, block, sr, precision="fast", block=block,
                    device=device)
+            before = dict(scan_ops.launches)
             t0 = time.perf_counter()
             got = render(w, n, sr, precision="fast", block=block,
                          device=device)
             wall = time.perf_counter() - t0
+            if device == "cuda":
+                went = {k: scan_ops.launches[k] - before[k]
+                        for k in (route, other)}
+                check(went[route] > 0 and went[other] == 0,
+                      f"deep J={J} in {block}-lane blocks launched {went}")
             check(len(got) == n and bool(np.isfinite(got).all()),
                   f"deep J={J} in {block}-lane blocks: {len(got)} samples")
             err = float(np.abs(got - ref).max()) / scale
@@ -4247,7 +4612,8 @@ def deep_session(torch, scan_ops, device, session=DEEP_SESSION) -> dict:
     """Four J = 12 voices that differ only in constants (one group)
     through the fast Tracker with the fused step at the session's
     sync_interval (captured inline): the mix against the sum of each
-    voice's own render within phase 8's bound (no FM term)."""
+    voice's own render within phase 8's bound (no FM term); on the card
+    the group's renders reach the deep scan's rows form."""
     from tuun_tpu_torch import ir
     from tuun_tpu_torch.player import build_top_level_waveform
     from tuun_tpu_torch.tracker import Tracker
@@ -4281,6 +4647,13 @@ def deep_session(torch, scan_ops, device, session=DEEP_SESSION) -> dict:
     check(len(calls.voices) == 4 and max(groups, default=0) == 4,
           f"deep session: group sizes {sorted(set(groups))} of "
           f"{len(calls.voices)} voices, not one group of 4")
+    if device == "cuda":
+        # The blocks rendered call by call, before the fused step engages.
+        went = {k: sum(g[2][k] for g in calls.groups) for k in
+                ("affine_scan_deep_rows_f32", "linear_recurrence_rows_f32")}
+        check(went["affine_scan_deep_rows_f32"] > 0
+              and went["linear_recurrence_rows_f32"] == 0,
+              f"deep session: the group's renders launched {went}")
     err = check_mix(np, f"deep session sync_interval={si}", mix, ref,
                     g2_bound(np, ref, mag, calls.voices, 0.0))
     row = dict(counters, max_err=err, peak=float(np.abs(ref).max()))
@@ -4290,12 +4663,15 @@ def deep_session(torch, scan_ops, device, session=DEEP_SESSION) -> dict:
 
 
 def deep_times(torch, scan_ops) -> dict:
-    """Single-voice times at DEEP_N lanes: the recurrence at each deep J
-    beside the affine scan at J = 8 (events, device time alone, host µs),
-    with the bytes bound and, for the recurrence, its chain model."""
+    """Single-voice times at DEEP_N lanes, at each J of DEEP_JS that the
+    deep affine scan takes: the recurrence, which fast mode ran there
+    before the deep scan, and the deep scan (also at T1's blocks, 65536
+    and 1024 lanes); and the affine scan at J = 8 (events, device time
+    alone, host us), each with its bytes bound and, for the recurrence,
+    its chain model."""
     rng = np.random.default_rng(16)
     rows = {}
-    for J in DEEP_JS:
+    for J in (J for J in DEEP_JS if J <= scan_ops.MAX_DEEP_J):
         args = recurrence_input(torch, np, rng, J, DEEP_N, torch.float32)
         fn = lambda a=args: scan_ops.linear_recurrence(*a)  # noqa: E731
         rows[f"recurrence J={J}"] = dict(
@@ -4305,6 +4681,14 @@ def deep_times(torch, scan_ops) -> dict:
             bound_ms=DEEP_N * (4 * (J + 2) + 1) / HBM_BYTES_PER_S * 1e3,
             chain_bound_ms=DEEP_N * (J + 1) * CHAIN_CYCLES["f32"]
             / SM_CLOCK_HZ * 1e3)
+        for n in (DEEP_N,) + DEEP_BLOCKS:
+            args = deep_input(torch, np, rng, J, n)
+            fn = lambda a=args: scan_ops.affine_scan_deep_f32(*a)  # noqa
+            row = dict(ms=cuda_ms(torch, fn, 50),
+                       device_ms=graph_ms(torch, fn),
+                       host_us=host_us(torch, fn), **deep_bound(1, n, J))
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            rows[f"deep J={J} n={n}"] = row
     args = affine_input(torch, np, rng, 8, DEEP_N)
     fn = lambda: scan_ops.affine_scan_f32(*args)  # noqa: E731
     rows["affine J=8"] = dict(
@@ -4530,7 +4914,8 @@ def phase_tools(torch, np, scan_ops, tmp: Path, reference=None) -> dict:
     """Phase 12: the deep fast filters offline and as a group, the corpus,
     profile, scope and spectra, whose launches, and only those, make each
     kernel's `tools_launches`; then the recurrence's bits at J = 12 and
-    the deep times, which the counts leave out."""
+    the deep times (the deep scan beside the recurrence and the affine
+    scan), which the counts leave out."""
     scan_ops.reset_launches()
     marks = [time.perf_counter()]
     deep_offline("cuda")
@@ -4913,11 +5298,13 @@ def log_phase(started: float, name: str) -> None:
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drives the port on one card.")
-    ap.add_argument("--phase", choices=("kernels", "times", "stream",
+    ap.add_argument("--phase", choices=("kernels", "times", "deep", "stream",
                                         "session", "repl", "exact",
                                         "tools", "mesh"),
                     help="kernels: stop after phase 2; times: only the "
-                    "single-voice scans' times; stream: only phase 8's "
+                    "single-voice scans' times; deep: only phase 2's deep "
+                    "affine scan checks and phase 12's deep times; "
+                    "stream: only phase 8's "
                     "capture check, G3 and G2's streaming sessions; "
                     "session: only phase 9's live sessions and server; "
                     "repl: only phase 10's REPL; exact: only phase 11's "
@@ -4998,6 +5385,11 @@ def main(argv) -> int:
     if args.phase == "times":
         phase_times(torch, np, scan_ops, str(args.tree or "."))
         return 0
+    if args.phase == "deep":
+        phase_deep(torch, np, scan_ops, {k: [] for k in scan_ops.launches})
+        deep_times(torch, scan_ops)
+        log_phase(started, "2 (deep) and 12's deep times")
+        return 0
     if args.phase == "stream":
         phase_capture_check(torch, np)
         phase_g3(torch, np)
@@ -5039,7 +5431,12 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         summary = phase_main_path(torch, np, scan_ops, Path(tmp))
         counts = {k: scan_ops.launches[k] for k in ROWS_OF}
-        log(f"launch counts of the main path (phase 3): {counts}")
+        # The deep scan's path is phase 12; the main path reaches it only
+        # through a filter deeper than MAX_J (none of its workloads).
+        deep_main = {"affine_scan_deep_f32":
+                     scan_ops.launches["affine_scan_deep_f32"]}
+        log(f"launch counts of the main path (phase 3): {counts}, "
+            f"{deep_main}")
         log(f"memory after the CLI runs {json.dumps(graph_memory(torch))}")
         log_phase(started, "3")
         for k, c in counts.items():
@@ -5070,12 +5467,13 @@ def main(argv) -> int:
     phase_capture_check(torch, np)
     log_phase(started, "8, capture check")
     counts.update({k: scan_ops.launches[k] for k in ROWS_OF.values()})
+    deep_main["affine_scan_deep_rows_f32"] = scan_ops.launches[
+        "affine_scan_deep_rows_f32"]
     log(f"launch counts of the voices x lanes forms (phase 8): "
-        f"{ {k: counts[k] for k in ROWS_OF.values()} }")
+        f"{ {k: counts[k] for k in ROWS_OF.values()} }, {deep_main}")
     for k in ROWS_OF.values():
         check(counts[k] > 0, f"kernel {k} was never launched by the groups")
-    profile_in_child(["G1", "G1one"])
-    profile_in_child(["G2"])
+    profile_in_child(list(GROUP_PROFILES))
     launches_in_process(torch, np, scan_ops)
     log_phase(started, "8, profiles")
     session = phase_session(torch, scan_ops)
@@ -5123,6 +5521,9 @@ def main(argv) -> int:
             # single call computes the affine scan.
             "library_ms": None if affine else main_row["plain_ms"]})
     kernels += exact_kernel_rows(results, exact, tools, mesh)
+    kernels += deep_kernel_rows(results, dict(
+        main=deep_main, session=session, repl=repl, exact=exact,
+        tools=tools, mesh=mesh))
     log(f"elapsed: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

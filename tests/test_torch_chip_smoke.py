@@ -12,7 +12,8 @@ wrapper did not count its launch.
 phase_tools counts the launches of phase 12's path from zero and fails
 if one of TOOLS_KERNELS never launched; the launches of the recurrence's
 bit check and of the deep times, made after the counts, are not the
-path's.  The kernels line carries them as `tools_launches`.
+path's.  The kernels line carries them as `tools_launches` (for the deep
+affine scan, whose path phase 12 is, as `launches` too).
 """
 
 import importlib.util
@@ -124,7 +125,7 @@ class _ScanOps:
 
     def __init__(self, smoke):
         self.launches = {k: 7 for k in smoke.EXACT_KERNELS
-                         + smoke.SCAN_KERNELS}
+                         + smoke.SCAN_KERNELS + smoke.DEEP_KERNELS}
 
     def reset_launches(self):
         for k in self.launches:
@@ -146,14 +147,16 @@ def _tools(smoke, monkeypatch, path_kernels):
         return fn
     monkeypatch.setattr(smoke, "deep_offline", path(
         "deep_offline", [k for k in path_kernels
-                         if k == "linear_recurrence_f32"]))
+                         if k in ("affine_scan_deep_f32",
+                                  "linear_recurrence_f32")]))
     monkeypatch.setattr(smoke, "deep_session", path(
         "deep_session", [k for k in path_kernels
-                         if k == "linear_recurrence_rows_f32"]))
+                         if k == "affine_scan_deep_rows_f32"]))
     monkeypatch.setattr(smoke, "tools_corpus", path("tools_corpus"))
     monkeypatch.setattr(smoke, "tools_profile", path(
         "tools_profile", [k for k in path_kernels
-                          if not k.startswith("linear")]))
+                          if k in ("prefix_sum_f32", "prefix_max_f32",
+                                   "affine_scan_f32")]))
     monkeypatch.setattr(smoke, "tools_scope", path("tools_scope"))
     monkeypatch.setattr(smoke, "tools_spectra", path("tools_spectra"))
     after = path("after", ["linear_recurrence_f32"] * 100)
@@ -174,12 +177,41 @@ def test_phase_tools_counts_only_its_path(smoke, monkeypatch):
 
 @pytest.mark.parametrize("missing", [
     "prefix_sum_f32", "prefix_max_f32", "affine_scan_f32",
-    "linear_recurrence_f32", "linear_recurrence_rows_f32"])
+    "affine_scan_deep_f32", "affine_scan_deep_rows_f32",
+    "linear_recurrence_f32"])
 def test_phase_tools_fails_when_a_kernel_never_launched(smoke, monkeypatch,
                                                         missing):
     kernels = [k for k in smoke.TOOLS_KERNELS if k != missing]
     with pytest.raises(smoke.SmokeFailure, match=missing):
         _tools(smoke, monkeypatch, kernels)
+
+
+def test_deep_rows_carry_phase_12_launches(smoke):
+    rows_of = {"affine_scan_deep_f32": (1, 1 << 16, 16),
+               "affine_scan_deep_rows_f32": (4, 1024, 12)}
+    results = {}
+    for i, (k, (B, n, J)) in enumerate(rows_of.items()):
+        main = dict(ms=1.0 + i, plain_ms=2.0, device_ms=0.5,
+                    plain_device_ms=9.0, host_us=9.0, B=B, n=n, J=J,
+                    err=1e-6, **smoke.deep_bound(B, n, J))
+        other = dict(main, n=1000, ms=50.0, err=3e-6)
+        results[k] = [other, main]
+    tools = {k: 10 + i for i, k in enumerate(smoke.DEEP_KERNELS)}
+    phases = {p: dict.fromkeys(smoke.DEEP_KERNELS, 0)
+              for p in ("main", "session", "repl", "exact", "mesh")}
+    rows = smoke.deep_kernel_rows(results, dict(phases, tools=tools))
+    assert [r["name"] for r in rows] == list(smoke.DEEP_KERNELS)
+    for r, (k, shape) in zip(rows, rows_of.items()):
+        assert r["launches"] == r["tools_launches"] == tools[k]
+        assert all(r[f"{p}_launches"] == 0 for p in phases)
+        assert r["shape"] == list(shape) and r["max_abs_err"] == 3e-6
+        assert r["ms"] < 50 and r["library_ms"] is None
+        assert r["bound_by"] == "bytes"
+        B, n, J = shape
+        assert r["bound_ms"] == pytest.approx(
+            B * n * (4 * J + 9) / smoke.HBM_BYTES_PER_S * 1e3)
+        assert {"replaces", "source", "route", "plain_ms", "device_ms",
+                "host_us"} <= set(r)
 
 
 def test_exact_rows_carry_tools_launches(smoke):

@@ -781,12 +781,16 @@ class _FakeFn:
 class _FakeLib:
     def __init__(self):
         self.tuun_affine_max_j = _FakeFn(scan_ops.MAX_J)
+        self.tuun_affine_deep_max_j = _FakeFn(scan_ops.MAX_DEEP_J)
         self.tuun_scan_tile = _FakeFn(4096)
         self.tuun_affine_tile = _FakeFn(2048)
+        self.tuun_affine_deep_tile = _FakeFn(1024)
         self.tuun_scan_scratch_words = _FakeFn(64)
         self.tuun_affine_scratch_words = _FakeFn(16)
+        self.tuun_affine_deep_scratch_words = _FakeFn(16)
         for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32",
-                     "tuun_affine_scan_rows_f32"):
+                     "tuun_affine_scan_rows_f32",
+                     "tuun_affine_scan_deep_rows_f32"):
             setattr(self, name, _FakeFn(0))
 
 
@@ -837,6 +841,7 @@ def test_load_library_builds_and_loads_once_under_a_race(monkeypatch):
     assert len(builds) == 1 and len(loads) == 1
     assert all(lib is libs[0] for lib in libs)
     assert scan_ops._scan_tile == 4096 and scan_ops._affine_tile == 2048
+    assert scan_ops._deep_tile == 1024
 
 
 def test_scratch_made_once_under_a_race(monkeypatch):

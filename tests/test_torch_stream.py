@@ -683,16 +683,16 @@ def test_exact_mode_renders_deep_feedback(J):
 
 @pytest.mark.parametrize("J", [9, 12, 16])
 def test_fast_mode_renders_deep_feedback(J, monkeypatch):
-    """Fast mode runs a filter deeper than the affine scan's MAX_J on the
-    linear recurrence (tuun_tpu's fast mode on an associative scan of
-    companion maps): against the numpy oracle and tuun_tpu's fast render
-    within 1e-5 of scale, the bound of the exact test above taken
-    relative to the peak (769 to 1248 here).  J <= MAX_J keeps the
-    affine scan."""
+    """Fast mode runs a filter deeper than the affine scan's MAX_J on its
+    deep form (tuun_tpu's fast mode on an associative scan of companion
+    maps): against the numpy oracle and tuun_tpu's fast render within
+    1e-5 of scale, the bound of the exact test above taken relative to
+    the peak (769 to 1248 here).  J <= MAX_J keeps the affine scan."""
     from tuun_tpu.engine import render as jax_render
     from tuun_tpu_torch.engine import scan_ops
-    calls = {"rec": 0, "affine": 0}
+    calls = {"rec": 0, "deep": 0, "affine": 0}
     rec, affine = scan_ops.linear_recurrence, scan_ops.affine_scan_f32
+    deep = scan_ops.affine_scan_deep_f32
 
     def counted(key, fn):
         def wrapped(*a):
@@ -700,6 +700,8 @@ def test_fast_mode_renders_deep_feedback(J, monkeypatch):
             return fn(*a)
         return wrapped
     monkeypatch.setattr(scan_ops, "linear_recurrence", counted("rec", rec))
+    monkeypatch.setattr(scan_ops, "affine_scan_deep_f32",
+                        counted("deep", deep))
     monkeypatch.setattr(scan_ops, "affine_scan_f32",
                         counted("affine", affine))
     n, sr = 60, 1
@@ -708,14 +710,14 @@ def test_fast_mode_renders_deep_feedback(J, monkeypatch):
     ref = tuun_tpu.oracle.render(_deep(jir, J), n, sr)
     want = np.asarray(jax_render(_deep(jir, J), n, sr, precision="fast"))
     assert len(got) == len(ref) == 40
-    assert calls == {"rec": 3, "affine": 0}
+    assert calls == {"rec": 0, "deep": 3, "affine": 0}
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got / scale, ref / scale, atol=1e-5,
                                rtol=1e-5)
     np.testing.assert_allclose(got / scale, want[:len(got)] / scale,
                                atol=1e-5, rtol=1e-5)
     render(_deep(ir, 8), n, sr, precision="fast", block=16, device=CPU)
-    assert calls == {"rec": 3, "affine": 3}
+    assert calls == {"rec": 0, "deep": 3, "affine": 3}
 
 
 DEEP_SR, DEEP_BLOCK = 100, 16
@@ -766,16 +768,17 @@ def test_fast_deep_group_matches_jax_tracker(sync_interval, monkeypatch):
     against tuun_tpu's at sync_interval 1 (per-call path: the group is
     one dispatch) and 4 (the fused step and windows, fuse_blocking on
     both), every warning an error (a vmap op without a batching rule
-    would loop).  The group's feedback reaches the recurrence's rows
-    form.  Per sample within 1e-5 of the mix's peak for each voice."""
+    would loop).  The group's feedback reaches the deep affine scan's
+    rows form.  Per sample within 1e-5 of the mix's peak for each
+    voice."""
     from tuun_tpu_torch.engine import scan_ops
     rows = []
-    rec_rows = scan_ops.linear_recurrence_rows
+    deep_rows = scan_ops.affine_scan_deep_rows_f32
 
     def counted(*a):
         rows.append(a[0].shape[0])
-        return rec_rows(*a)
-    monkeypatch.setattr(scan_ops, "linear_recurrence_rows", counted)
+        return deep_rows(*a)
+    monkeypatch.setattr(scan_ops, "affine_scan_deep_rows_f32", counted)
     fused = sync_interval > 1
     jt = JaxTracker(DEEP_SR, DEEP_BLOCK, precision="fast", jit=True,
                     sync_interval=sync_interval)

@@ -1,11 +1,14 @@
 // Cross-lane scans of the render engine, written by hand for Hopper (sm_90a).
 //
-// Three entry points, each the counterpart of one Pallas TPU kernel in
-// tuun_tpu/engine/pallas_ops.py and each one kernel launch per call:
+// Four entry points, each one kernel launch per call, the first three the
+// counterparts of one Pallas TPU kernel in tuun_tpu/engine/pallas_ops.py:
 //
-//   tuun_prefix_sum_rows_f32   <- prefix_sum_f32 / _prefix_sum_kernel
-//   tuun_prefix_max_rows_f32   <- prefix_max_f32 / _prefix_max_kernel
-//   tuun_affine_scan_rows_f32  <- affine_scan_f32 / _affine_scan_kernel
+//   tuun_prefix_sum_rows_f32        <- prefix_sum_f32 / _prefix_sum_kernel
+//   tuun_prefix_max_rows_f32        <- prefix_max_f32 / _prefix_max_kernel
+//   tuun_affine_scan_rows_f32       <- affine_scan_f32 / _affine_scan_kernel
+//   tuun_affine_scan_deep_rows_f32  <- the same IIR deeper than the Pallas
+//       kernel takes: fast mode's jax.lax.associative_scan of companion
+//       maps (tuun_tpu/engine/graph.py:876-897), here for 8 < J <= 16
 //
 // The TPU kernels walk a sequential grid and carry the running total (or
 // the running affine map) from one grid step to the next in SMEM scratch.
@@ -127,6 +130,70 @@
 // smaller tiles (128 x 4, 64 x 8, 32 x 16) lost to the longer chain of
 // anchors.  Reading 2-4 records per thread (no anchor chain up to 2^20
 // lanes) was slower at 65536 lanes and mixed at 2^20 (PERF.md).
+//
+// Deep affine scan (the same IIR at 8 < J <= kDeepMaxJ = 16), fast mode's
+// feedback past the affine scan's kMaxJ.  It returns y and the final
+// history, not the J planes of h: the engine reads only y and hist.  What
+// bounds it on this card: HBM bytes, 4J + 9 a lane (a 4J, ff 4, live 1
+// read once, y 4 written once; 2.86 us at J = 16 and 2^17 lanes), then the
+// chains of dependent operations in a tile.  What held the affine scan to
+// J <= 8: each thread keeps its J x J map and its shuffle partner's in
+// registers, 2 (J^2 + J) floats, which spill from J = 7.  Here no thread
+// holds a map:
+//   * a block's tile (kDeepTile lanes) is kDeepSegs segments of kDeepSeg
+//     lanes, kDeepSegsPerWarp a warp.  Each warp stages its segments' a,
+//     ff and live into shared memory with cp.async, one commit group a
+//     segment, so the load of the next segment overlaps the work on the
+//     current one;
+//   * a segment's map (A J x J, b J) is built column by column: lane c < J
+//     pushes the basis history e_c through the segment's lanes with ff =
+//     0 and lane J pushes ff from a zero history, each lane holding one
+//     J-float history in registers and reading a[i][.] from shared memory
+//     as a broadcast.  Column c of A is lane c's history after the
+//     segment, b lane J's.  Maps live in shared memory, column by column,
+//     each column padded to a multiple of 4 floats (Jp);
+//   * the tile's maps are scanned in place by a Blelloch up-sweep: at
+//     each level a thread composes one output column (J^2 FMAs, the
+//     columns of the right map's A read as float4s), and the root holds
+//     the tile's map;
+//   * look-back as in the affine scan, in a fixed grouping: every
+//     kDeepAnchor-th tile is an anchor and publishes its exit history,
+//     every other tile its map (J^2 + J floats of a kDeepRecord record) at
+//     once.  Tile t's warp 0 waits for the maps of tiles a + 1 .. t - 1
+//     (a the anchor at or before t - 1; acquire) and copies them from L2
+//     into shared memory while anchor a's exit history may still be on
+//     its way, then applies them in turn to that history (lane i row i);
+//   * a tile's exit history is its map applied to its entering history,
+//     the same product an anchor publishes and a look-back applies, and
+//     the last tile's is the row's hist.  So rendering whole tiles in
+//     several calls (a tracker's blocks) gives the bits of one call over
+//     them (its lookahead window): phase 8's bound holds a deep group's
+//     windowed mix to its blocks rendered one by one.  Folding the maps
+//     between anchors into one, which took 2-6 us off at 2^17 lanes on
+//     an H100, rounds otherwise and broke that by 1e-5;
+//   * a down-sweep of vectors gives each segment its entering history:
+//     the right child enters with the left child's map applied to the
+//     parent's history (J^2 FMAs a node, one thread a row);
+//   * accuracy as in the affine scan: composed maps only carry the
+//     history across segments and tiles; each segment then runs the
+//     recurrence itself from its entering history, in the reference's op
+//     order (y = ff - sum_j a_j y_{-1-j}), one thread a segment, writing
+//     y over ff in shared memory; y goes out coalesced;
+//   * the scratch is the caller's persistent buffer for its (device,
+//     stream), tuun_affine_deep_scratch_words(cap) words for up to cap
+//     tiles, its records sized for kDeepMaxJ, zeroed once; the last block
+//     to count itself done clears the flags and counters;
+//   * N <= one tile skips the counter and the look-back.
+// Tensor cores do not serve: TF32 products would lose the digits the
+// engine's bounds hold, so the compositions are FP32 FMAs.
+// Tile: 8 warps x 4 segments of 32 lanes (1024 lanes), an anchor every 32
+// tiles.  Chosen on an H100 at 2^17 lanes (T1's and fast mode's offline
+// block), where no shape tried was faster by more than 1% (2 segments a
+// warp in 16 warps, 16- and 64-lane segments, anchors every 16 tiles);
+// 512-lane tiles were 12-16% faster at 1024 lanes and 33-43% slower at
+// 2^17 (PERF.md).  Measured there: 27.7-41.5 us at 2^17 lanes for J = 9
+// to 16, against 7.4-12.7 ms for the linear recurrence that fast mode ran
+// before.
 
 // C interface, bound with ctypes (tuun_tpu_torch/engine/scan_ops.py).
 // Every entry launches one grid on the given stream, allocates nothing
@@ -965,6 +1032,517 @@ int run_affine(const float* a, const float* ff, const uint8_t* live,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Deep affine scan: the same IIR for kMaxJ < J <= kDeepMaxJ, maps in shared
+// memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kDeepMaxJ = 16;
+constexpr int kDeepSeg = 32;  // lanes a segment
+constexpr int kDeepSegsPerWarp = 4;
+constexpr int kDeepWarps = 8;
+constexpr int kDeepThreads = 32 * kDeepWarps;
+constexpr int kDeepSegs = kDeepWarps * kDeepSegsPerWarp;  // 32
+constexpr int kDeepTile = kDeepSegs * kDeepSeg;           // 1024 lanes
+// Every kDeepAnchor-th tile is an anchor: a look-back reads at most that
+// many records, one flag a lane of warp 0.
+constexpr int kDeepAnchor = 32;
+static_assert((kDeepSegs & (kDeepSegs - 1)) == 0, "the sweeps pair segments");
+static_assert(kDeepSeg % 4 == 0, "segments start on 16-byte boundaries");
+static_assert(kDeepSegsPerWarp <= 4, "cp_async_wait covers 3 pending groups");
+static_assert(kDeepAnchor <= 32, "warp 0 waits for the look-back's flags");
+
+// Floats of one map column in shared memory and in a record: J rounded up
+// to a float4, and to an odd number of float4s (as aff_row), so that a
+// warp's float4 reads of consecutive columns are free of bank conflicts.
+__host__ __device__ constexpr int deep_col(int J) { return aff_row((J + 3) / 4 * 4); }
+// A record: a map of kDeepMaxJ + 1 such columns, or an anchor's history in
+// its first J floats.  The scratch is laid out as the affine scan's
+// (aff_payload_offset), with records of this size.
+constexpr int kDeepRecord = (kDeepMaxJ + 1) * deep_col(kDeepMaxJ);
+
+template <int J>
+struct Deep {
+  static constexpr int kJp = deep_col(J);
+  static constexpr int kMap = (J + 1) * kJp;  // columns 0..J-1: A; J: b
+  static constexpr int kSegA = kDeepSeg * J + 4;  // a segment's a, padded
+  static constexpr int kSegF = kDeepSeg + 4;      // a segment's ff, then y
+  // Shared-memory offsets, in floats; every region 16-byte aligned.
+  static constexpr int kA = 0;
+  static constexpr int kF = kA + kDeepSegs * kSegA;
+  static constexpr int kMaps = kF + kDeepSegs * kSegF;
+  static constexpr int kHv = kMaps + kDeepSegs * kMap;  // entering histories
+  static constexpr int kLb = kHv + kDeepSegs * kJp;     // look-back records
+  static constexpr int kLive = kLb + kDeepAnchor * kMap;
+  static constexpr size_t kSmemBytes = sizeof(float) * (size_t)kLive + kDeepTile;
+  static_assert(kMap <= kDeepRecord, "a record holds the tile's map");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most `pending` (0..3) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// The calling warp copies one segment's a, ff and live (lanes seg0 ..
+// seg0 + kDeepSeg - 1 of the row; zero past n, so those lanes are dead)
+// into shared memory, as one commit group: 16-byte copies where the row's
+// pointer is 16-byte aligned and the segment whole, else 4-byte ones.
+template <int J>
+__device__ __forceinline__ void deep_stage(float* a_s, float* f_s, uint8_t* l_s,
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ ff,
+                                           const uint8_t* __restrict__ live,
+                                           int64_t seg0, int64_t n, bool a16,
+                                           bool f16, int lane) {
+  const int64_t left = n - seg0;
+  const int m = left >= kDeepSeg ? kDeepSeg : left > 0 ? (int)left : 0;
+  const float* src = a + seg0 * J;
+  if (m == kDeepSeg && a16) {
+    for (int v = lane; v < kDeepSeg * J / 4; v += 32) {
+      cp_async16(a_s + 4 * v, src + 4 * v);
+    }
+  } else {
+    for (int e = lane; e < kDeepSeg * J; e += 32) {
+      if (e < m * J) {
+        cp_async4(a_s + e, src + e);
+      } else {
+        a_s[e] = 0.0f;
+      }
+    }
+  }
+  if (m == kDeepSeg && f16) {
+    if (lane < kDeepSeg / 4) cp_async16(f_s + 4 * lane, ff + seg0 + 4 * lane);
+  } else {
+    for (int e = lane; e < kDeepSeg; e += 32) {
+      if (e < m) {
+        cp_async4(f_s + e, ff + seg0 + e);
+      } else {
+        f_s[e] = 0.0f;
+      }
+    }
+  }
+  for (int e = lane; e < kDeepSeg; e += 32) l_s[e] = e < m ? live[seg0 + e] : 0;
+  cp_async_commit();
+}
+
+// A segment's map, column by column, by the calling warp: lane c < J
+// pushes the basis history e_c through the segment with ff = 0, lane J
+// pushes ff from a zero history (lanes past J push zeros and write
+// nothing).  Lane c's history after the segment is column c of the map.
+// Four partial sums shorten each lane's chain: a map only carries the
+// history, so its order of rounding is free (and fixed: the same bits
+// every call).  A dead lane is the identity, the same for the whole warp.
+template <int J>
+__device__ __forceinline__ void deep_build_map(const float* a_s,
+                                               const float* f_s,
+                                               const uint8_t* l_s, float* map,
+                                               int lane) {
+  float h[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) h[j] = j == lane ? 1.0f : 0.0f;
+  const bool bcol = lane == J;
+#pragma unroll 2
+  for (int i = 0; i < kDeepSeg; ++i) {
+    const float* ar = a_s + i * J;
+    float p[4] = {bcol ? f_s[i] : 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < J; ++j) p[j & 3] -= ar[j] * h[j];
+    const float y = (p[0] + p[1]) + (p[2] + p[3]);
+    if (l_s[i]) {
+#pragma unroll
+      for (int j = J - 1; j >= 1; --j) h[j] = h[j - 1];
+      h[0] = y;
+    }
+  }
+  if (lane <= J) {
+    float* col = map + lane * Deep<J>::kJp;
+#pragma unroll
+    for (int j = 0; j < J; ++j) col[j] = h[j];
+  }
+}
+
+// Column c of the map "mr after ml" into out: A_r times column c of A_l
+// (c < J), or A_r b_l + b_r (c == J).  The left column is read as
+// float4s (consecutive columns, so a warp's reads fall in distinct
+// banks), the right map's columns as float4s that a product's threads
+// share.
+template <int J>
+__device__ __forceinline__ void deep_compose_column(const float* mr,
+                                                    const float* ml, int c,
+                                                    float* out) {
+  constexpr int Jp = Deep<J>::kJp;
+  constexpr int kV = (J + 3) / 4;
+  float lc[4 * kV];
+#pragma unroll
+  for (int q = 0; q < kV; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(ml + c * Jp)[q];
+    lc[4 * q] = v.x, lc[4 * q + 1] = v.y, lc[4 * q + 2] = v.z,
+    lc[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < J; ++i) out[i] = c == J ? mr[J * Jp + i] : 0.0f;
+#pragma unroll
+  for (int x = 0; x < J; ++x) {
+    const float s = lc[x];
+    const float4* rc = reinterpret_cast<const float4*>(mr + x * Jp);
+#pragma unroll
+    for (int q = 0; q < kV; ++q) {
+      const float4 v = rc[q];
+      const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (4 * q + k < J) out[4 * q + k] += w[k] * s;
+      }
+    }
+  }
+}
+
+// Blelloch up-sweep of the tile's segment maps, in place: at the level of
+// width d, map R = (2p + 2) d - 1 becomes "R after R - d"; the root then
+// holds the tile's map.  One thread an output column; every column is
+// read before any is written.
+template <int J>
+__device__ void deep_up_sweep(float* maps) {
+  constexpr int kMap = Deep<J>::kMap;
+  constexpr int kRounds =
+      (kDeepSegs / 2 * (J + 1) + kDeepThreads - 1) / kDeepThreads;
+  for (int d = 1; d < kDeepSegs; d <<= 1) {
+    const int tasks = kDeepSegs / (2 * d) * (J + 1);
+    float out[kRounds][J];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = threadIdx.x + u * kDeepThreads;
+      if (e < tasks) {
+        const int p = e / (J + 1), c = e - p * (J + 1);
+        const int R = (2 * p + 2) * d - 1;
+        deep_compose_column<J>(maps + R * kMap, maps + (R - d) * kMap, c,
+                               out[u]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = threadIdx.x + u * kDeepThreads;
+      if (e < tasks) {
+        const int p = e / (J + 1), c = e - p * (J + 1);
+        const int R = (2 * p + 2) * d - 1;
+        float* col = maps + R * kMap + c * Deep<J>::kJp;
+#pragma unroll
+        for (int i = 0; i < J; ++i) col[i] = out[u][i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The down-sweep of entering histories (hv, kJp floats a segment, the
+// root's slot holding the tile's): from the widest level down, the left
+// child takes the parent's history and the right child the left child's
+// map applied to it.  One thread a row of one product.
+template <int J>
+__device__ void deep_down_sweep(const float* maps, float* hv) {
+  constexpr int Jp = Deep<J>::kJp, kMap = Deep<J>::kMap;
+  constexpr int kRounds = (kDeepSegs / 2 * J + kDeepThreads - 1) / kDeepThreads;
+  for (int d = kDeepSegs / 2; d >= 1; d >>= 1) {
+    const int tasks = kDeepSegs / (2 * d) * J;
+    float vr[kRounds], vl[kRounds];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = threadIdx.x + u * kDeepThreads;
+      if (e < tasks) {
+        const int p = e / J, i = e - p * J;
+        const int R = (2 * p + 2) * d - 1;
+        const float* ml = maps + (R - d) * kMap;
+        const float* hr = hv + R * Jp;
+        float acc = ml[J * Jp + i];
+#pragma unroll
+        for (int x = 0; x < J; ++x) acc += ml[x * Jp + i] * hr[x];
+        vr[u] = acc;
+        vl[u] = hr[i];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = threadIdx.x + u * kDeepThreads;
+      if (e < tasks) {
+        const int p = e / J, i = e - p * J;
+        const int R = (2 * p + 2) * d - 1;
+        hv[R * Jp + i] = vr[u];
+        hv[(R - d) * Jp + i] = vl[u];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Row i of m(h), by a whole warp: h_c is held by lane c.  Every tile's
+// exit history (an anchor's record, a row's hist) and every step of a
+// look-back is this product, each op written out (__fmaf_rn, __fadd_rn),
+// so that the same map and history give the same bits at every call
+// site.
+template <int J>
+__device__ __forceinline__ float deep_apply_lane(const float* m, float h,
+                                                 int i) {
+  constexpr int Jp = Deep<J>::kJp;
+  float p[4] = {m[J * Jp + i], 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < J; ++c) {
+    p[c & 3] = __fmaf_rn(m[c * Jp + i], __shfl_sync(kFull, h, c), p[c & 3]);
+  }
+  return __fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3]));
+}
+
+// Run by warp 0 of tile t > 0: lane k waits for the flag of tile a + 1 +
+// k (acquire) for k < m, m = t - 1 - a the non-anchor tiles between the
+// anchor a (the last multiple of kDeepAnchor below t) and t; then the warp
+// copies their maps from L2 into lb, map k at lb + k * kMap.
+template <int J>
+__device__ void deep_wait_maps(const unsigned* flags, const float* records,
+                               int64_t a, int m, float* lb, int lane) {
+  constexpr int kMap = Deep<J>::kMap, kMap4 = kMap / 4;
+  bool ready = lane >= m;
+  // The warp spins as one, as the affine scan's look-back does.
+  while (__any_sync(kFull, !ready)) {
+    if (!ready) ready = load_acquire(&flags[a + 1 + lane]) != kAffNotReady;
+  }
+  __syncwarp();
+  for (int v = lane; v < m * kMap4; v += 32) {
+    const int k = v / kMap4, off = 4 * (v - k * kMap4);
+    cp_async16(lb + k * kMap + off, records + (a + 1 + k) * kDeepRecord + off);
+  }
+  cp_async_commit();
+  cp_async_wait(0);
+  __syncwarp();
+}
+
+// Run by warp 0: row i of anchor a's exit history, each lane waiting for
+// the anchor's flag (acquire) before it reads the record from L2.
+template <int J>
+__device__ __forceinline__ float deep_wait_history(const unsigned* flags,
+                                                   const float* records,
+                                                   int64_t a, int i) {
+  while (!__all_sync(kFull, load_acquire(&flags[a]) == kAffHistory)) {
+  }
+  return __ldcg(records + a * kDeepRecord + i);
+}
+
+// One launch: for each of `rows` rows, y f32[n] and hist f32[J] from a
+// f32[n, J], ff f32[n], live u8[n] and h0 f32[J] (row r of each at r times
+// its row's size).  As in the affine scan, a tile never crosses a row and
+// its look-back reads only its own row's flags and records, in a single
+// row's grouping, so row r gives the bits of a one-row call on it.  One
+// form serves both: the row arithmetic is one 32-bit division a block.
+template <int J>
+__global__ void __launch_bounds__(kDeepThreads)
+affine_deep_pass(const float* __restrict__ a_all,
+                 const float* __restrict__ ff_all,
+                 const uint8_t* __restrict__ live_all,
+                 const float* __restrict__ h0_all, float* __restrict__ y_all,
+                 float* __restrict__ hist_all, unsigned* scratch, int64_t cap,
+                 int64_t rows, int64_t n) {
+  using D = Deep<J>;
+  constexpr int Jp = D::kJp, kMap = D::kMap;
+  extern __shared__ __align__(16) float deep_smem[];
+  float* a_s = deep_smem + D::kA;
+  float* f_s = deep_smem + D::kF;
+  float* maps = deep_smem + D::kMaps;
+  float* hv = deep_smem + D::kHv;
+  float* lb = deep_smem + D::kLb;
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(deep_smem + D::kLive);
+  __shared__ unsigned tile_index;
+  __shared__ bool last_block;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t nbr = (n + kDeepTile - 1) / kDeepTile;  // tiles per row
+  const int64_t nb = rows * nbr;
+  int64_t gt = blockIdx.x;
+  if (nbr > 1) {
+    if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1u);
+    __syncthreads();
+    gt = (int64_t)tile_index;
+  }
+  // A 32-bit division (nb < 2^31), cheaper than a 64-bit one.
+  const int64_t r = (int64_t)((unsigned)gt / (unsigned)nbr);
+  const int64_t t = gt - r * nbr;
+  const float* __restrict__ a = a_all + r * n * J;
+  const float* __restrict__ ff = ff_all + r * n;
+  const uint8_t* __restrict__ live = live_all + r * n;
+  const float* __restrict__ h0 = h0_all + r * J;
+  float* __restrict__ y = y_all + r * n;
+  float* __restrict__ hist = hist_all + r * J;
+  unsigned* flags = scratch + kAffHead + r * nbr;
+  float* records = reinterpret_cast<float*>(scratch + aff_payload_offset(cap)) +
+                   r * nbr * kDeepRecord;
+  const int64_t base = t * kDeepTile;
+  const bool a16 = ((uintptr_t)a & 15) == 0;
+  const bool f16 = ((uintptr_t)ff & 15) == 0;
+
+  // Each warp stages its own segments, then builds each one's map as its
+  // copy lands.
+#pragma unroll
+  for (int q = 0; q < kDeepSegsPerWarp; ++q) {
+    const int k = warp * kDeepSegsPerWarp + q;
+    deep_stage<J>(a_s + k * D::kSegA, f_s + k * D::kSegF,
+                  live_s + k * kDeepSeg, a, ff, live, base + k * kDeepSeg, n,
+                  a16, f16, lane);
+  }
+#pragma unroll
+  for (int q = 0; q < kDeepSegsPerWarp; ++q) {
+    cp_async_wait(kDeepSegsPerWarp - 1 - q);
+    __syncwarp();
+    const int k = warp * kDeepSegsPerWarp + q;
+    deep_build_map<J>(a_s + k * D::kSegA, f_s + k * D::kSegF,
+                      live_s + k * kDeepSeg, maps + k * kMap, lane);
+  }
+  __syncthreads();
+  deep_up_sweep<J>(maps);
+  const float* total = maps + (kDeepSegs - 1) * kMap;
+
+  // The history entering the tile, into the root's slot of hv, and the
+  // one leaving it: the tile's map applied to it.  The last tile's is the
+  // row's hist, so a render in blocks of whole tiles carries the same
+  // history from block to block as one call over those blocks carries
+  // from tile to tile: the same bits either way.
+  const bool anchor = t % kDeepAnchor == 0;
+  float* rec = records + t * kDeepRecord;
+  if (nbr > 1 && !anchor) {
+    for (int v = threadIdx.x; v < kMap / 4; v += kDeepThreads) {
+      reinterpret_cast<float4*>(rec)[v] =
+          reinterpret_cast<const float4*>(total)[v];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      store_release(&flags[t], kAffAggregate);
+    }
+  }
+  if (warp == 0) {
+    const int i = lane < J ? lane : 0;
+    float h = h0[i];
+    if (t > 0) {
+      // Look-back, in a fixed grouping: the maps of the tiles between
+      // anchor a and t, which publish at once, are copied in while anchor
+      // a's exit history may still be on its way; then each map in turn.
+      const int64_t a = (t - 1) / kDeepAnchor * kDeepAnchor;
+      const int m = (int)(t - 1 - a);
+      if (m > 0) deep_wait_maps<J>(flags, records, a, m, lb, lane);
+      h = deep_wait_history<J>(flags, records, a, i);
+      for (int w = 0; w < m; ++w) h = deep_apply_lane<J>(lb + w * kMap, h, i);
+    }
+    if (lane < J) hv[(kDeepSegs - 1) * Jp + lane] = h;
+    const bool last = t == nbr - 1;
+    if ((nbr > 1 && anchor) || last) {
+      const float h_exit = deep_apply_lane<J>(total, h, i);
+      if (last && lane < J) hist[lane] = h_exit;
+      if (nbr > 1 && anchor) {
+        if (lane < J) rec[lane] = h_exit;
+        __syncwarp();
+        if (lane == 0) {
+          __threadfence();
+          store_release(&flags[t], kAffHistory);
+        }
+      }
+    }
+    // Every read of a flag or record by this block is done, and this
+    // tile's flag is final.
+    if (nbr > 1 && lane == 0) {
+      last_block = count_acq_rel(&scratch[1]) == (unsigned)(nb - 1);
+    }
+  }
+  __syncthreads();
+  deep_down_sweep<J>(maps, hv);
+
+  // The recurrence over each segment from its entering history, in the
+  // reference's op order, one thread a segment (segment k of the warp's
+  // in lane k: their rows of a lie 4 banks apart); y overwrites ff.
+  if (lane < kDeepSegsPerWarp) {
+    const int k = warp * kDeepSegsPerWarp + lane;
+    const float* as = a_s + k * D::kSegA;
+    float* fs = f_s + k * D::kSegF;
+    const uint8_t* ls = live_s + k * kDeepSeg;
+    float hr[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) hr[j] = hv[k * Jp + j];
+#pragma unroll 2
+    for (int i = 0; i < kDeepSeg; ++i) {
+      const bool lv = ls[i] != 0;
+      float yv = fs[i];
+#pragma unroll
+      for (int j = 0; j < J; ++j) yv -= as[i * J + j] * hr[j];
+#pragma unroll
+      for (int j = J - 1; j >= 1; --j) hr[j] = lv ? hr[j - 1] : hr[j];
+      hr[0] = lv ? yv : hr[0];
+      fs[i] = lv ? yv : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // Store: coalesced, from the padded segments.
+  if (base + kDeepTile <= n && ((uintptr_t)y & 15) == 0) {
+    for (int v = threadIdx.x; v < kDeepTile / 4; v += kDeepThreads) {
+      const int e = 4 * v;
+      reinterpret_cast<float4*>(y + base)[v] = *reinterpret_cast<const float4*>(
+          &f_s[e / kDeepSeg * D::kSegF + e % kDeepSeg]);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kDeepTile; e += kDeepThreads) {
+      if (base + e < n) y[base + e] = f_s[e / kDeepSeg * D::kSegF + e % kDeepSeg];
+    }
+  }
+
+  // The last block to finish its look-back leaves the scratch clean.
+  if (nbr > 1 && last_block) {
+    unsigned* all = scratch + kAffHead;
+    for (int64_t i = threadIdx.x; i < nb; i += kDeepThreads) all[i] = 0;
+    if (threadIdx.x == 0) {
+      scratch[0] = 0;
+      scratch[1] = 0;
+    }
+  }
+}
+
+template <int J>
+int run_affine_deep(const float* a, const float* ff, const uint8_t* live,
+                    const float* h0, float* y, float* hist, unsigned* scratch,
+                    int64_t cap, int64_t rows, int64_t n,
+                    cudaStream_t stream) {
+  const int64_t nbr = (n + kDeepTile - 1) / kDeepTile;
+  const int64_t nb = rows * nbr;
+  if (nb > kMaxN || (nbr > 1 && (scratch == nullptr || nb > cap))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = Deep<J>::kSmemBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      affine_deep_pass<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  affine_deep_pass<J><<<(unsigned)nb, kDeepThreads, smem, stream>>>(
+      a, ff, live, h0, y, hist, scratch, cap, rows, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1032,6 +1610,52 @@ int tuun_affine_scan_rows_f32(const float* a, const float* ff,
                                  rows, n, s);
     case 8: return run_affine<8>(a, ff, live, h0, h, hist, scratch, cap,
                                  rows, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tuun_affine_deep_tile() { return kDeepTile; }
+int tuun_affine_deep_max_j() { return kDeepMaxJ; }
+
+// Words (32-bit) of a deep affine-scan scratch buffer for up to `tiles`
+// tiles.
+long long tuun_affine_deep_scratch_words(long long tiles) {
+  return aff_payload_offset(tiles) + tiles * kDeepRecord;
+}
+
+// a f32[rows, n, J], ff f32[rows, n], live u8[rows, n], h0 f32[rows, J]
+// (each row-major), kMaxJ < J <= kDeepMaxJ -> y f32[rows, n] (y[r, i] = 0
+// on a dead lane), hist f32[rows, J] (the history after lane n - 1), each
+// row scanned on its own, in one launch, with the bits a one-row call
+// gives.  scratch: the caller's persistent buffer of
+// tuun_affine_deep_scratch_words(cap) words for this stream, with counters
+// and flags zero, cap >= rows * ceil(n / tuun_affine_deep_tile()) (null
+// when n <= one tile); the kernel leaves it so.  Calls that share a
+// scratch buffer must not overlap.
+int tuun_affine_scan_deep_rows_f32(const float* a, const float* ff,
+                                   const uint8_t* live, const float* h0,
+                                   float* y, float* hist, unsigned* scratch,
+                                   long long cap, long long rows, long long n,
+                                   int J, void* stream) {
+  if (n <= 0 || n > kMaxN || rows <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (J) {
+    case 9: return run_affine_deep<9>(a, ff, live, h0, y, hist, scratch, cap,
+                                      rows, n, s);
+    case 10: return run_affine_deep<10>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
+    case 11: return run_affine_deep<11>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
+    case 12: return run_affine_deep<12>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
+    case 13: return run_affine_deep<13>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
+    case 14: return run_affine_deep<14>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
+    case 15: return run_affine_deep<15>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
+    case 16: return run_affine_deep<16>(a, ff, live, h0, y, hist, scratch,
+                                        cap, rows, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -73,7 +73,9 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     recurrence kernel (a lax.scan in JAX), in float32 as the JAX engine
     and the oracle run it; exact_df's phase prefix sum runs the df prefix
     sum kernel (an associative_scan of df_add in JAX).  Fast mode runs the
-    affine-scan kernel (scan_ops.py).
+    affine-scan kernel up to 8 feedback coefficients and its deep form up
+    to 16 (an associative_scan of companion maps in JAX past the Pallas
+    kernel's 4), and the recurrence beyond (scan_ops.py).
 """
 
 from __future__ import annotations
@@ -878,17 +880,23 @@ class CFilter(Node):
 
         The exact precisions: the linear recurrence kernel, in the
         reference's op order (tuun_tpu graph.py:852-864), in float32 as
-        the JAX engine's scan and the oracle run it.  Fast mode: the
-        affine-scan kernel over composed companion maps, up to
-        scan_ops.MAX_J coefficients; it keeps each thread's J x J maps in
-        registers, so a deeper filter runs the recurrence kernel instead
-        (tuun_tpu's fast mode falls back to an associative scan there,
-        graph.py:876-897).  The recurrence rounds in the reference's op
-        order, so it is at least as accurate as composed maps."""
+        the JAX engine's scan and the oracle run it.  Fast mode, over
+        composed companion maps as tuun_tpu's parallel scan
+        (graph.py:865-897): up to scan_ops.MAX_J coefficients the
+        affine-scan kernel, whose threads keep their J x J maps in
+        registers; up to scan_ops.MAX_DEEP_J its deep form, which keeps
+        the maps in shared memory and returns y and the history (tuun_tpu
+        runs an associative scan past its Pallas kernel's 4).  A deeper
+        fast filter runs the recurrence kernel, which rounds in the
+        reference's op order, so it is at least as accurate."""
         J = self.J
         a_rows = torch.stack(fb_vals, dim=1)  # [N, J]
-        if self.cfg.sequential_iir or J > scan_ops.MAX_J:
+        if self.cfg.sequential_iir or J > scan_ops.MAX_DEEP_J:
             y, hist_out = scan_ops.linear_recurrence(
+                a_rows, ff, live, hist[:J].contiguous())
+            return y, _pad_hist(hist_out, J)
+        if J > scan_ops.MAX_J:
+            y, hist_out = scan_ops.affine_scan_deep_f32(
                 a_rows, ff, live, hist[:J].contiguous())
             return y, _pad_hist(hist_out, J)
         hs, hist_out = scan_ops.affine_scan_f32(a_rows, ff, live,

@@ -1,7 +1,8 @@
 """The engine's cross-lane scans: inclusive prefix sum, running max, and
-the affine scan that runs IIR filter feedback; and the exact precisions'
-two: the sequential linear recurrence (exact-mode IIR feedback) and the
-compensated (double-single) prefix sum of exact_df's phase.
+the affine scan that runs IIR filter feedback, with its deep form for
+feedback deeper than MAX_J; and the exact precisions' two: the sequential
+linear recurrence (exact-mode IIR feedback) and the compensated
+(double-single) prefix sum of exact_df's phase.
 
 Counterpart of tuun_tpu/engine/pallas_ops.py.  Each public entry point
 dispatches on the device of its input:
@@ -32,6 +33,9 @@ no set-up:
     it starts at the tiles of 2^22 lanes (0.6 MB) and grows by a new
     buffer when a longer scan comes; an outgrown buffer is kept, never
     freed, because a captured graph may hold its pointer;
+  * the deep affine scan's (two counters, a flag and a record of up to
+    340 floats per 1024-lane tile) follows the same rule, from 2^20 lanes
+    (1.4 MB);
   * the df prefix sum's (two counters, a flag and a (hi, lo) record per
     2048-lane tile) follows the affine scan's rule, from 2^22 lanes.
 
@@ -48,9 +52,11 @@ and a scan that a CUDA graph captures records its launch in the scope
 instead of counting it: the graph's replays count it (`count_launches`).
 
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
-multiple-of-128 or 2^21 limit) and the affine scan any J from 1 to
-MAX_J = 8 (a deeper fast-mode filter runs the linear recurrence), so the
-engine never needs a plain path on the card.
+multiple-of-128 or 2^21 limit), the affine scan any J from 1 to MAX_J = 8
+and its deep form (affine_scan_deep_f32: y and the final history, its
+maps held in shared memory) any J from 9 to MAX_DEEP_J = 16; a deeper
+fast-mode filter runs the linear recurrence.  So the engine never needs
+a plain path on the card.
 
 Each scan also has a voices x lanes form (`*_rows_f32`) for a voice
 group: [B, N] rows (the affine scan: a [B, N, J], ff and live [B, N], h0
@@ -85,6 +91,8 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_J = 8
+# The deep affine scan takes MAX_J < J <= MAX_DEEP_J.
+MAX_DEEP_J = 16
 MAX_N = 2 ** 31 - 1
 # The linear recurrence takes any feedback depth up to this.
 MAX_RECURRENCE_J = 4096
@@ -98,6 +106,8 @@ KERNEL_SYMBOLS: Dict[str, str] = {
     "prefix_sum_rows_f32": "scan_single_pass",
     "prefix_max_rows_f32": "scan_single_pass",
     "affine_scan_rows_f32": "affine_single_pass",
+    "affine_scan_deep_f32": "affine_deep_pass",
+    "affine_scan_deep_rows_f32": "affine_deep_pass",
     "linear_recurrence_f32": "linear_recurrence",
     "linear_recurrence_f64": "linear_recurrence",
     "linear_recurrence_rows_f32": "linear_recurrence",
@@ -112,6 +122,8 @@ DF_SCRATCH_MIN_LANES = 1 << 22
 # The affine scan's first scratch covers this many lanes (0.6 MB at
 # 2048-lane tiles); a longer scan grows it.
 AFFINE_SCRATCH_MIN_LANES = 1 << 22
+# The deep affine scan's, likewise (1.4 MB at 1024-lane tiles).
+DEEP_SCRATCH_MIN_LANES = 1 << 20
 
 _lib = None
 _exact_lib = None
@@ -121,15 +133,17 @@ _df_tile = 0
 _scan_tile = 0
 _scratch_words = 0
 _affine_tile = 0
+_deep_tile = 0
 # Persistent prefix-scan scratch, keyed by (device index, raw stream), and
 # inside a graph_scope by (device index, raw stream, owner).
 _scratch: Dict[Tuple, torch.Tensor] = {}
 # Persistent affine-scan scratch, keyed likewise: (buffer, tiles it holds).
 _affine_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
-# The df prefix sum's, likewise.
+# The deep affine scan's and the df prefix sum's, likewise.
+_deep_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
 _df_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
-# Outgrown affine and df scratch: never freed (a captured graph may use
-# it), and an owner's until the owner releases it.
+# Outgrown affine, deep and df scratch: never freed (a captured graph may
+# use it), and an owner's until the owner releases it.
 _affine_retired: List[torch.Tensor] = []
 _owner_retired: Dict[Any, List[torch.Tensor]] = {}
 # Per thread: the graph_scope's owner and, while a graph captures, the
@@ -189,7 +203,8 @@ def release_scratch(owner) -> None:
     tables hold `owner` in their keys until then: an owner that may be
     dropped passes a token of its own and releases with a finalizer."""
     with _first_use:
-        for table in (_scratch, _affine_scratch, _df_scratch):
+        for table in (_scratch, _affine_scratch, _deep_scratch,
+                      _df_scratch):
             for key in [k for k in table if len(k) == 3 and k[2] is owner]:
                 del table[key]
         _owner_retired.pop(owner, None)
@@ -242,25 +257,34 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_library()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for name in ("tuun_scan_tile", "tuun_affine_tile",
-                     "tuun_affine_max_j"):
+                     "tuun_affine_max_j", "tuun_affine_deep_tile",
+                     "tuun_affine_deep_max_j"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
         lib.tuun_scan_scratch_words.argtypes = []
         lib.tuun_scan_scratch_words.restype = i64
-        lib.tuun_affine_scratch_words.argtypes = [i64]
-        lib.tuun_affine_scratch_words.restype = i64
+        for name in ("tuun_affine_scratch_words",
+                     "tuun_affine_deep_scratch_words"):
+            getattr(lib, name).argtypes = [i64]
+            getattr(lib, name).restype = i64
         for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
             getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
             getattr(lib, name).restype = i32
         lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [i64, i64, i64,
                                                               i32, p]
         lib.tuun_affine_scan_rows_f32.restype = i32
+        lib.tuun_affine_scan_deep_rows_f32.argtypes = [p] * 7 + [
+            i64, i64, i64, i32, p]
+        lib.tuun_affine_scan_deep_rows_f32.restype = i32
         if lib.tuun_affine_max_j() != MAX_J:
             raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
-        global _scan_tile, _scratch_words, _affine_tile
+        if lib.tuun_affine_deep_max_j() != MAX_DEEP_J:
+            raise RuntimeError("scan.cu and scan_ops.MAX_DEEP_J disagree")
+        global _scan_tile, _scratch_words, _affine_tile, _deep_tile
         _scan_tile = lib.tuun_scan_tile()
         _scratch_words = lib.tuun_scan_scratch_words()
         _affine_tile = lib.tuun_affine_tile()
+        _deep_tile = lib.tuun_affine_deep_tile()
         _lib = lib
         return lib
 
@@ -478,37 +502,48 @@ def affine_scan_ref(a_rows: torch.Tensor, ff: torch.Tensor,
     return hs, hs[..., -1, :].clone()
 
 
-def _check_affine(a_rows, ff, live, h0) -> None:
+# The feedback depths each affine form takes.
+_AFFINE_DEPTHS = (1, MAX_J)
+_DEEP_DEPTHS = (MAX_J + 1, MAX_DEEP_J)
+
+
+def _check_depth(J: int, name: str, depths: Tuple[int, int]) -> None:
+    lo, hi = depths
+    if not lo <= J <= hi:
+        other = "affine_scan_f32" if J <= MAX_J else \
+            "affine_scan_deep_f32" if J <= MAX_DEEP_J else "linear_recurrence"
+        raise NotImplementedError(
+            f"{name}: feedback depth J={J} outside {lo}..{hi} (depth {J} "
+            f"runs on {other})")
+
+
+def _check_affine(a_rows, ff, live, h0, name: str = "affine_scan_f32",
+                  depths: Tuple[int, int] = _AFFINE_DEPTHS) -> None:
     # Runs on every call, so each message is formatted only when its
     # check fails.
     if a_rows.dtype != torch.float32 or a_rows.dim() != 2:
-        raise ValueError(f"affine_scan_f32: a_rows must be float32 [N, J], "
+        raise ValueError(f"{name}: a_rows must be float32 [N, J], "
                          f"got {a_rows.dtype} {tuple(a_rows.shape)}")
     n, J = a_rows.shape
-    if not 1 <= J <= MAX_J:
-        raise NotImplementedError(
-            f"affine_scan_f32: feedback depth J={J} outside 1..{MAX_J} "
-            f"(deeper feedback: linear_recurrence)")
-    _check_vector(ff, "affine_scan_f32 ff")
+    _check_depth(J, name, depths)
+    _check_vector(ff, f"{name} ff")
     if ff.shape[0] != n:
-        raise ValueError("affine_scan_f32: ff length != N")
+        raise ValueError(f"{name}: ff length != N")
     if live.dtype != torch.bool or live.shape != (n,):
-        raise ValueError("affine_scan_f32: live must be bool [N]")
+        raise ValueError(f"{name}: live must be bool [N]")
     if h0.dtype != torch.float32 or h0.shape != (J,):
-        raise ValueError("affine_scan_f32: h0 must be float32 [J]")
-    _check_layout(a_rows, ff, live, h0, "affine_scan_f32")
+        raise ValueError(f"{name}: h0 must be float32 [J]")
+    _check_layout(a_rows, ff, live, h0, name)
 
 
-def _check_affine_rows(a_rows, ff, live, h0) -> None:
-    name = "affine_scan_rows_f32"
+def _check_affine_rows(a_rows, ff, live, h0,
+                       name: str = "affine_scan_rows_f32",
+                       depths: Tuple[int, int] = _AFFINE_DEPTHS) -> None:
     if a_rows.dtype != torch.float32 or a_rows.dim() != 3:
         raise ValueError(f"{name}: a_rows must be float32 [B, N, J], got "
                          f"{a_rows.dtype} {tuple(a_rows.shape)}")
     B, n, J = a_rows.shape
-    if not 1 <= J <= MAX_J:
-        raise NotImplementedError(
-            f"{name}: feedback depth J={J} outside 1..{MAX_J} "
-            f"(deeper feedback: linear_recurrence)")
+    _check_depth(J, name, depths)
     _check_vector(ff, f"{name} ff", dims=2)
     if ff.shape != (B, n):
         raise ValueError(f"{name}: ff must be [B, N]")
@@ -608,25 +643,120 @@ def affine_scan_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
                           "affine_scan_rows_f32")
 
 
+def _zeroed_deep_scratch(device: int, tiles: int) -> torch.Tensor:
+    words = load_library().tuun_affine_deep_scratch_words(tiles)
+    return _zeroed(words, torch.int32, device, "deep affine scan")
+
+
+def deep_scratch(device: int, stream: int, tiles: int,
+                 alloc=_zeroed_deep_scratch) -> Tuple[torch.Tensor, int]:
+    """The deep affine scan's persistent scratch of (device, stream), as
+    affine_scratch's: (buffer, capacity in tiles), at least the tiles of
+    DEEP_SCRATCH_MIN_LANES lanes, grown by a new buffer for a longer scan,
+    an outgrown one kept."""
+    return _grown_scratch(_deep_scratch, device, stream, tiles,
+                          -(-DEEP_SCRATCH_MIN_LANES // _deep_tile), alloc)
+
+
+def affine_scan_deep_ref(a_rows: torch.Tensor, ff: torch.Tensor,
+                         live: torch.Tensor, h0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of both deep forms: affine_scan_ref's composed
+    companion maps scanned by doubling (the math of tuun_tpu's fast-mode
+    associative_scan), then y = h[..., 0] on live lanes and 0 on dead
+    ones, and the history after the last lane.  In the inputs' dtype:
+    float64 inputs give the reference the kernel is checked against."""
+    hs, hist = affine_scan_ref(a_rows, ff, live, h0)
+    return torch.where(live, hs[..., 0], 0.0), hist
+
+
+def _deep_cpu(a_rows, ff, live, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both deep forms on the CPU: the plain version in float64, rounded
+    to float32.  A float32 doubling scan rounds by how a render groups
+    its lanes, so a tracker window of several blocks would differ from
+    the same blocks rendered one by one by more than summation order
+    (phase 8's bound); in float64 the CPU stays as close to the
+    recurrence's result as the linear recurrence it replaces."""
+    y, hist = affine_scan_deep_ref(a_rows.double(), ff.double(), live,
+                                   h0.double())
+    return y.float(), hist.float()
+
+
+def affine_scan_deep_f32(a_rows: torch.Tensor, ff: torch.Tensor,
+                         live: torch.Tensor, h0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y[i] = ff[i] - sum_j a_rows[i, j] * y[i-1-j] for MAX_J < J <=
+    MAX_DEEP_J, as affine_scan_f32 computes it, returning (y f32[N], 0 on
+    dead lanes; hist f32[J], the history after lane N - 1): the
+    recurrence's contract, not the J planes of h.  On the CPU, the plain
+    version in float64 (_deep_cpu).
+
+    The CUDA kernel (tuun_affine_scan_deep_rows_f32) builds each
+    32-lane segment's map column by column, composes them in shared
+    memory, carries the history across tiles by a look-back in a fixed
+    grouping, and runs the recurrence itself over each segment: every
+    call gives the same bits."""
+    if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
+            or _is_batched(h0):
+        return _vmap_op("affine_scan_deep")(a_rows, ff, live, h0)
+    _check_affine(a_rows, ff, live, h0, "affine_scan_deep_f32", _DEEP_DEPTHS)
+    if ff.is_cpu:
+        return _deep_cpu(a_rows, ff, live, h0)
+    return _deep_launch(a_rows, ff, live, h0, 1, "affine_scan_deep_f32")
+
+
+def affine_scan_deep_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
+                              live: torch.Tensor, h0: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """affine_scan_deep_f32 of each of B rows in one launch: a_rows
+    f32[B, N, J], ff f32[B, N], live bool[B, N], h0 f32[B, J] -> (y
+    f32[B, N], hist f32[B, J]); row r has the bits of a single call on
+    row r."""
+    _check_affine_rows(a_rows, ff, live, h0, "affine_scan_deep_rows_f32",
+                       _DEEP_DEPTHS)
+    if ff.is_cpu:
+        return _deep_cpu(a_rows, ff, live, h0)
+    return _deep_launch(a_rows, ff, live, h0, ff.shape[0],
+                        "affine_scan_deep_rows_f32")
+
+
 def _affine_launch(a_rows, ff, live, h0, rows: int, entry: str):
-    """Launches the rows kernel on `rows` rows (1: a single voice's
-    unbatched operands) and counts the launch under `entry`."""
+    """Launches the affine scan's rows kernel on `rows` rows (1: a single
+    voice's unbatched operands), counted under `entry`: (h, hist)."""
     lib = load_library()
+    h = torch.empty(a_rows.shape, dtype=torch.float32, device=ff.device)
+    return _launch_affine(lib.tuun_affine_scan_rows_f32, _affine_tile,
+                          affine_scratch, h, a_rows, ff, live, h0, rows, entry)
+
+
+def _deep_launch(a_rows, ff, live, h0, rows: int, entry: str):
+    """As _affine_launch, for the deep form's kernel: (y, hist)."""
+    lib = load_library()
+    return _launch_affine(lib.tuun_affine_scan_deep_rows_f32, _deep_tile,
+                          deep_scratch, torch.empty_like(ff), a_rows, ff,
+                          live, h0, rows, entry)
+
+
+def _launch_affine(kernel, tile: int, scratch_of, out, a_rows, ff, live, h0,
+                   rows: int, entry: str):
+    """Launches `kernel`, a rows entry of the library whose tiles hold
+    `tile` lanes, writing `out` and the final history, with the scratch
+    that `scratch_of` keeps for (device, stream); counts the launch under
+    `entry`.  Returns (out, hist)."""
     n, J = a_rows.shape[-2:]
     dev = ff.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    per_row = -(-n // _affine_tile)
-    scratch, cap = affine_scratch(dev, stream, rows * per_row) \
+    per_row = -(-n // tile)
+    scratch, cap = scratch_of(dev, stream, rows * per_row) \
         if per_row > 1 else (None, 0)
-    h = torch.empty(a_rows.shape, dtype=torch.float32, device=ff.device)
     hist = torch.empty(h0.shape, dtype=torch.float32, device=ff.device)
     sp = scratch.data_ptr() if scratch is not None else 0
-    status = lib.tuun_affine_scan_rows_f32(
-        a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(), h0.data_ptr(),
-        h.data_ptr(), hist.data_ptr(), sp, cap, rows, n, J, stream)
+    status = kernel(a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(),
+                    h0.data_ptr(), out.data_ptr(), hist.data_ptr(), sp, cap,
+                    rows, n, J, stream)
     _check(status, entry)
     _launched(entry)
-    return h, hist
+    return out, hist
 
 
 # ---------------------------------------------------------------------------
@@ -915,6 +1045,18 @@ def _make_vmap_op(kind: str):
             return df_prefix_sum_rows_f32(
                 _rows(xh, dims[0], info.batch_size),
                 _rows(xl, dims[1], info.batch_size)), (0, 0)
+    elif kind == "affine_scan_deep":
+        @lib.custom_op("tuun_tpu_torch::affine_scan_deep_f32",
+                       mutates_args=())
+        def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
+               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            y, hist = affine_scan_deep_f32(a_rows, ff, live, h0)
+            return y, hist
+
+        def rule(info, dims, a_rows, ff, live, h0):
+            args = [_rows(x, d, info.batch_size)
+                    for x, d in zip((a_rows, ff, live, h0), dims)]
+            return affine_scan_deep_rows_f32(*args), (0, 0)
     elif kind == "affine_scan":
         @lib.custom_op("tuun_tpu_torch::affine_scan_f32", mutates_args=())
         def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
