@@ -14,7 +14,9 @@ Phases, each of which exits non-zero on failure:
      with timings; noise_torch against the numpy oracle's noise; sin at
      every NCO grid angle on the card against the CPU.
      The prefix sum and max from 128 up to 2^26 lanes, the affine scan
-     at J = 1, 2, 3, 4, 8 and up to 2^20 + 5 lanes, each also: on
+     (y and hist out) at J = 1..8 and up to 2^20 + 5 lanes within
+     affine_tol(J) of its float64 plain version, a float16 control
+     failing each bound, each also: on
      misaligned inputs (x[1:]; a[1:], ff[1:], live[1:]); exactly one CUDA
      kernel per call, no memset (torch.profiler, in a child process:
      `--profile launches`; a child whose profiler saw fewer kernels than
@@ -25,8 +27,10 @@ Phases, each of which exits non-zero on failure:
      lanes); captured CUDA graphs on one stream, one per op (per J of the
      affine scan) at each of two lengths, each replayed three times in
      turns over new data; back-to-back calls on a second stream
-     interleaved with the first.  At the main path's shapes each is timed
-     three ways: events around back-to-back calls (cuda_ms, which reads
+     interleaved with the first (the affine scan's at the lengths where
+     its geometry changes and at 2^20 + 5, AFFINE_STREAM_SIZES).  At the
+     main path's shapes each is timed three ways: events around
+     back-to-back calls (cuda_ms, which reads
      the slower of host and device), device time alone (replays of a
      captured graph) and host time per call.  The voices x lanes forms
      at PREFIX_ROWS / AFFINE_ROWS: against their plain versions, each row
@@ -255,11 +259,13 @@ call check in a child); `--phase tools` only phase 12; `--phase mesh`
 only phase 13; `--phase deep` only phase 2's deep affine scan checks and
 phase 12's deep times.
 
-`--phase times [--tree DIR]` runs only the single-voice scans at the
-shapes whose time is split (the prefix sum and max at SPLIT_SIZES, the
-affine scan at AFFINE_SPLIT, the deep affine scan at DEEP_SPLIT where
-the tree has one): each held to its bound, kernels per call
-(torch.profiler) and the three times of phase 2, one JSON line a shape.
+`--phase times [--tree DIR]` runs only the scans at the shapes whose time
+is split (the prefix sum and max at SPLIT_SIZES, the affine scan at
+AFFINE_SPLIT and its rows form at AFFINE_ROWS_SPLIT, the deep affine scan
+at DEEP_SPLIT where the tree has one): each held to its bound (a tree
+whose affine scan returns the J planes of h to those), kernels per call
+(torch.profiler) and the three times of phase 2, one JSON line a shape,
+the affine scan's beside the bound of y out (4J + 9 bytes a lane).
 With --tree, the kernels are those of the checkout at DIR (its
 tuun_tpu_torch/engine/scan_ops.py, loaded on its own), so that two
 commits are compared with one set of inputs and clocks, each in its own
@@ -320,7 +326,9 @@ REPEATABLE = ("W5", "W6")
 PREFIX_SECONDS = 2.0
 
 # Affine-scan error bound per feedback depth J, as a fraction of the
-# output's scale max(1, max|y|), f32 kernel against the f64 recurrence.
+# output's scale max(1, max|y|), f32 kernel against the f64 recurrence
+# (y and hist; or, for a checkout whose affine scan returns the J planes
+# of h, as --phase times --tree may time, those planes).
 # Each is about 10x the largest error the first (three-launch) kernel
 # showed over N = 65536, 2^20 and 2^20+5 on an H100 (700 W): J=1 6.4e-8,
 # J=2 7.9e-7, J=3 2.0e-4, J=4 1.1e-4, J=8 1.9e-5 (J=3 is held at 5x).  The
@@ -331,20 +339,38 @@ PREFIX_SECONDS = 2.0
 # the spread.  The float16 control errs 1e-3 (J=1) to 0.25 (J=3) of scale.
 AFFINE_TOL = {1: 1e-6, 2: 1e-5, 3: 1e-3, 4: 1e-3, 8: 2e-4}
 
+
+def affine_tol(J: int) -> float:
+    """AFFINE_TOL's bound at depth J: its own, or at J = 5-7 that of the
+    nearest deeper J it holds (J = 8's)."""
+    return AFFINE_TOL[min(k for k in AFFINE_TOL if k >= J)]
+
 # Prefix-scan lengths of phase 2: up to 2^26 lanes, where the look-back
 # runs over many waves of blocks (16,384 tiles of 4096 lanes on 132 SMs).
 PREFIX_SIZES = (128, MAIN_N, 1 << 20, 3 * (1 << 20) + 37, 1 << 26)
 # Lengths whose time is also split into device time and host time.
 SPLIT_SIZES = (MAIN_N, 1 << 20)
 # Affine-scan depths and lengths of phase 2 (2^20: filter_4_3's blocks;
-# + 5: a ragged last tile), and the (J, N) whose time is split.
-AFFINE_JS = (1, 2, 3, 4, 8)
+# + 5: a ragged last tile), and the (J, N) whose time is split: the CLI's
+# block at J = 1, 2, 3, 8, filter_4_3's 2^20, and J = 5-8 at 2^17 (beside
+# the deep form's J = 9-16 there).
+AFFINE_JS = (1, 2, 3, 4, 5, 6, 7, 8)
 AFFINE_SIZES = (MAIN_N, 1 << 20, (1 << 20) + 5)
-AFFINE_SPLIT = ((2, MAIN_N), (2, 1 << 20), (3, 1 << 20))
+AFFINE_SPLIT = ((2, MAIN_N), (1, MAIN_N), (3, MAIN_N), (8, MAIN_N),
+                (2, 1 << 20), (3, 1 << 20), (5, 1 << 17), (6, 1 << 17),
+                (7, 1 << 17), (8, 1 << 17))
+# The rows form's (B, N, J) whose time is split: the live block's groups
+# (8 lpf voices; a J = 3 section over 64) and 32 voices at the CLI's block.
+AFFINE_ROWS_SPLIT = ((8, 1024, 2), (64, 1024, 3), (32, MAIN_N, 2))
+# Lengths where the affine scan's geometry changes (one tile, 1024 lanes;
+# the look-back's fan, past 65536): its second-stream check runs at each,
+# and at 2^20 + 5 (two levels of look-back records, a ragged tile).
+AFFINE_CROSSOVERS = (1025, MAIN_N + 1)
+AFFINE_STREAM_SIZES = AFFINE_CROSSOVERS + ((1 << 20) + 5,)
 GRAPH_CALLS = 50
 # H100 SXM memory rate (NVIDIA data sheet): each kernel's bound is the
-# bytes it must move over it (8 a lane for the prefix scans, 8J + 5 for
-# the affine scan).
+# bytes it must move over it (8 a lane for the prefix scans, 4J + 9 for
+# the affine scan: a, ff and live read once, y written once).
 HBM_BYTES_PER_S = 3.35e12
 
 REPLACES = {
@@ -542,20 +568,20 @@ def phase_kernels(torch, np, scan_ops, results):
     for J in AFFINE_JS:
         for n in AFFINE_SIZES:
             args = affine_input(torch, np, rng, J, n)
-            h, hist = scan_ops.affine_scan_f32(*args)
-            err, scale, ref = check_affine(torch, scan_ops, args, h, hist,
+            y, hist = scan_ops.affine_scan_f32(*args)
+            err, scale, ref = check_affine(torch, scan_ops, args, y, hist,
                                            f"n={n}")
-            plain_h, _ = scan_ops.affine_scan_ref(*args)
-            plain_err = float((plain_h.double() - ref).abs().max())
-            del plain_h
+            plain_y, _ = scan_ops.affine_y_ref(*args)
+            plain_err = float((plain_y.double() - ref).abs().max())
+            del plain_y
             # Control: the same scan with maps and history in float16
             # must fail the bound, or the bound could not tell a
             # half-precision kernel from a right one.
             a, ff, live, h0 = args
-            ctl, _ = scan_ops.affine_scan_ref(a.half(), ff.half(), live,
-                                              h0.half())
+            ctl, _ = scan_ops.affine_y_ref(a.half(), ff.half(), live,
+                                           h0.half())
             ctl_err = float((ctl.double() - ref).abs().max())
-            bound = AFFINE_TOL[J] * scale
+            bound = affine_tol(J) * scale
             check(not ctl_err <= bound,
                   f"affine_scan J={J} n={n}: the float16 control "
                   f"({ctl_err:.3e}) passes the bound {bound:.3e}")
@@ -564,7 +590,7 @@ def phase_kernels(torch, np, scan_ops, results):
                                split=(J, n) in AFFINE_SPLIT)
             log(f"affine_scan_f32 J={J} n={n}: max_abs_err={err:.3e} "
                 f"= {err / scale:.2e} of scale {scale:.3g} (bound "
-                f"{AFFINE_TOL[J]:g}; plain {plain_err:.3e}, float16 "
+                f"{affine_tol(J):g}; plain {plain_err:.3e}, float16 "
                 f"control {ctl_err / scale:.2e} of scale) "
                 f"{format_times(row)}")
             results["affine_scan_f32"].append(dict(row, n=n, err=err, J=J))
@@ -586,7 +612,8 @@ def phase_kernels(torch, np, scan_ops, results):
     check_launches_in_child()
     check_affine_repeatable(torch, np, scan_ops, rng)
     check_affine_graph(torch, np, scan_ops, rng, (MAIN_N, (1 << 20) + 5))
-    check_affine_streams(torch, np, scan_ops, rng, (1 << 20) + 5)
+    for n in AFFINE_STREAM_SIZES:
+        check_affine_streams(torch, np, scan_ops, rng, n)
     phase_rows(torch, np, scan_ops, rng, results)
     t0 = time.perf_counter()
     phase_deep(torch, np, scan_ops, results)
@@ -658,7 +685,7 @@ def rows_times(torch, fn, ref, single, args, iters, B, plain_calls=(5, 2, 20)):
 def phase_rows(torch, np, scan_ops, rng, results) -> None:
     """The voices x lanes forms at PREFIX_ROWS and AFFINE_ROWS: against
     their plain versions (torch.cumsum / cummax along the rows, the
-    batched affine_scan_ref in float64 within AFFINE_TOL), every row
+    batched affine_y_ref in float64 within affine_tol), every row
     bit for bit against a single call on it, the same bits on 20 calls,
     one captured graph replayed three times over new data, and timed
     three ways beside B single calls.  (One kernel per call: check_one_
@@ -706,16 +733,16 @@ def phase_rows(torch, np, scan_ops, rng, results) -> None:
             del x, got, static, out
     for B, n, J in AFFINE_ROWS:
         args = affine_rows_input(torch, np, rng, J, B, n)
-        h, hist = scan_ops.affine_scan_rows_f32(*args)
-        err, scale = check_affine_rows(torch, scan_ops, args, h, hist,
+        y, hist = scan_ops.affine_scan_rows_f32(*args)
+        err, scale = check_affine_rows(torch, scan_ops, args, y, hist,
                                        f"B={B} n={n}")
         diff = 0
         for r in range(B):
-            h1, hist1 = scan_ops.affine_scan_f32(*(a[r] for a in args))
-            diff += not (torch.equal(h[r], h1) and torch.equal(hist[r], hist1))
+            y1, hist1 = scan_ops.affine_scan_f32(*(a[r] for a in args))
+            diff += not (torch.equal(y[r], y1) and torch.equal(hist[r], hist1))
         check(diff == 0, f"affine rows B={B} n={n} J={J}: {diff} rows "
               f"differ from a single call on the row")
-        first = torch.cat([h.view(-1), hist.view(-1)]).view(torch.int32)
+        first = torch.cat([y.view(-1), hist.view(-1)]).view(torch.int32)
         rep = sum(not torch.equal(torch.cat(
             [x.view(-1) for x in scan_ops.affine_scan_rows_f32(*args)]).view(
             torch.int32), first) for _ in range(19))
@@ -737,34 +764,23 @@ def phase_rows(torch, np, scan_ops, rng, results) -> None:
                               f"B={B} n={n} graph replay {r}")
         del g
         row = rows_times(torch, scan_ops.affine_scan_rows_f32,
-                         scan_ops.affine_scan_ref, scan_ops.affine_scan_f32,
+                         scan_ops.affine_y_ref, scan_ops.affine_scan_f32,
                          args, 20, B)
         log(f"affine_scan_rows_f32 B={B} n={n} J={J}: max_abs_err={err:.3e} "
-            f"= {err / scale:.2e} of scale (bound {AFFINE_TOL[J]:g}), rows "
+            f"= {err / scale:.2e} of scale (bound {affine_tol(J):g}), rows "
             f"bit-identical to single calls, 20 calls the same bits, graph "
             f"replays right; {format_times(row)}; {B} single calls "
             f"{row['singles_ms']:.4f} ms (device {row['singles_device_ms']:.4f}"
             f" ms, host {row['singles_host_us']:.1f} us)")
         results["affine_scan_rows_f32"].append(dict(row, n=n, B=B, J=J,
                                                     err=err))
-        del args, h, hist, static, out
+        del args, y, hist, static, out
 
 
-def check_affine_rows(torch, scan_ops, args, h, hist, what):
-    """check_affine over B rows: (h, hist) against the batched float64
-    affine_scan_ref, within AFFINE_TOL[J] of the output's scale."""
-    a, ff, live, h0 = args
-    J = a.shape[-1]
-    ref, ref_hist = scan_ops.affine_scan_ref(a.double(), ff.double(), live,
-                                             h0.double())
-    torch.cuda.synchronize()
-    scale = max(1.0, float(ref.abs().max()))
-    err = float((h.double() - ref).abs().max())
-    herr = float((hist.double() - ref_hist).abs().max())
-    bound = AFFINE_TOL[J] * scale
-    check(err <= bound and herr <= bound,
-          f"affine_scan rows J={J} {what}: error {err:.3e} (hist "
-          f"{herr:.3e}) above {AFFINE_TOL[J]:g} * {scale:.3g}")
+def check_affine_rows(torch, scan_ops, args, y, hist, what):
+    """check_affine over B rows (the batched float64 plain version)."""
+    err, scale, _ = check_affine(torch, scan_ops, args, y, hist,
+                                 f"rows {what}")
     return err, scale
 
 
@@ -783,22 +799,26 @@ def affine_input(torch, np, rng, J, n, offset=0):
     return a, ff, live, torch.from_numpy(h0).cuda()
 
 
-def check_affine(torch, scan_ops, args, h, hist, what):
-    """Holds (h, hist) to the float64 recurrence on the same inputs, within
-    AFFINE_TOL[J] of the output's scale.  Returns (max error, scale, the
-    float64 h)."""
+def check_affine(torch, scan_ops, args, y, hist, what):
+    """Holds (y, hist), single or rows, to the float64 plain version on the
+    same inputs, within affine_tol(J) of the output's scale: y against
+    h[..., 0] on live lanes (0 on dead ones), or, where a checkout's scan
+    returns the J planes of h (y has a's shape), h against them.  Returns
+    (max error, scale, the float64 output it was held to)."""
     a, ff, live, h0 = args
-    J = a.shape[1]
+    J = a.shape[-1]
     ref, ref_hist = scan_ops.affine_scan_ref(a.double(), ff.double(), live,
                                              h0.double())
+    if y.shape != a.shape:
+        ref = torch.where(live, ref[..., 0], 0.0)
     torch.cuda.synchronize()
     scale = max(1.0, float(ref.abs().max()))
-    err = float((h.double() - ref).abs().max())
+    err = float((y.double() - ref).abs().max())
     herr = float((hist.double() - ref_hist).abs().max())
-    bound = AFFINE_TOL[J] * scale
+    bound = affine_tol(J) * scale
     check(err <= bound and herr <= bound,
           f"affine_scan J={J} {what}: error {err:.3e} (hist {herr:.3e}) "
-          f"above {AFFINE_TOL[J]:g} * {scale:.3g}")
+          f"above {affine_tol(J):g} * {scale:.3g}")
     return err, scale, ref
 
 
@@ -808,7 +828,7 @@ def affine_times(torch, scan_ops, args, split):
     n = args[0].shape[0]
     big = n > MAIN_N
     fn = lambda: scan_ops.affine_scan_f32(*args)  # noqa: E731
-    ref = lambda: scan_ops.affine_scan_ref(*args)  # noqa: E731
+    ref = lambda: scan_ops.affine_y_ref(*args)  # noqa: E731
     row = {"ms": cuda_ms(torch, fn, 10 if big else 50),
            "plain_ms": cuda_ms(torch, ref, 2 if big else 10)}
     if split:
@@ -820,13 +840,21 @@ def affine_times(torch, scan_ops, args, split):
     return row
 
 
+def affine_bound_us(B: int, n: int, J: int) -> float:
+    """The affine scan's bytes bound: 4J + 9 bytes a lane (a, ff and live
+    read once, y written once) over the HBM rate."""
+    return (4 * J + 9) * B * n / HBM_BYTES_PER_S * 1e6
+
+
 def phase_times(torch, np, scan_ops, label: str) -> None:
-    """The single-voice scans alone, for comparing two trees: the prefix
-    sum and max at SPLIT_SIZES, the affine scan at AFFINE_SPLIT's shapes,
-    the deep affine scan at DEEP_SPLIT's (where the tree has it), each
-    held to its bound, kernels per call counted over all of them in
-    this process's one profiler session, then timed three ways (device
-    time alone among them).  Logs one JSON line per shape."""
+    """The scans alone, for comparing two trees: the prefix sum and max at
+    SPLIT_SIZES, the affine scan at AFFINE_SPLIT's shapes and its rows form
+    at AFFINE_ROWS_SPLIT's, the deep affine scan at DEEP_SPLIT's (where the
+    tree has it), each held to its bound (each tree to its own contract),
+    kernels per call counted over all of them in this process's one
+    profiler session, then timed three ways (device time alone among
+    them).  Logs one JSON line per shape, the affine scan's beside the
+    bound of y out (4J + 9 bytes a lane) whatever the tree returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(0)
@@ -838,6 +866,11 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
     for args in inputs:
         check_affine(torch, scan_ops, args, *scan_ops.affine_scan_f32(*args),
                      "(--phase times)")
+    rows = [affine_rows_input(torch, np, rng, J, B, n)
+            for B, n, J in AFFINE_ROWS_SPLIT]
+    for args in rows:
+        check_affine(torch, scan_ops, args,
+                     *scan_ops.affine_scan_rows_f32(*args), "(--phase times)")
     # The deep scan, where the tree timed has one.
     deep = [(J, n, deep_input(torch, np, rng, J, n)) for J, n in DEEP_SPLIT] \
         if hasattr(scan_ops, "affine_scan_deep_f32") else []
@@ -852,11 +885,14 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
                 fn(x)
             for args in inputs:
                 scan_ops.affine_scan_f32(*args)
+            for args in rows:
+                scan_ops.affine_scan_rows_f32(*args)
             for _, _, args in deep:
                 scan_ops.affine_scan_deep_f32(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    per_call = len(names) / (calls * (len(inputs) + len(prefix) + len(deep)))
+    per_call = len(names) / (calls * (len(inputs) + len(rows) + len(prefix)
+                                      + len(deep)))
     for op, fn, n, x in prefix:
         ref = scan_ops.prefix_sum_ref if op == "sum" \
             else scan_ops.prefix_max_ref
@@ -868,11 +904,20 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
             share_of_bound=bound_us / (row["device_ms"] * 1e3))))
     for (J, n), args in zip(AFFINE_SPLIT, inputs):
         row = affine_times(torch, scan_ops, args, split=True)
-        bound_us = (8 * J + 5) * n / HBM_BYTES_PER_S * 1e6
+        bound_us = affine_bound_us(1, n, J)
         log(json.dumps(dict(
             row, tree=label, op="affine_scan_f32", J=J, n=n,
             kernels_per_call=per_call, kernels=sorted(set(names)),
             bound_us=bound_us,
+            share_of_bound=bound_us / (row["device_ms"] * 1e3))))
+    for (B, n, J), args in zip(AFFINE_ROWS_SPLIT, rows):
+        fn = lambda: scan_ops.affine_scan_rows_f32(*args)  # noqa: E731
+        row = {"ms": cuda_ms(torch, fn, 50), "device_ms": graph_ms(torch, fn),
+               "host_us": host_us(torch, fn)}
+        bound_us = affine_bound_us(B, n, J)
+        log(json.dumps(dict(
+            row, tree=label, op="affine_scan_rows_f32", B=B, J=J, n=n,
+            kernels_per_call=per_call, bound_us=bound_us,
             share_of_bound=bound_us / (row["device_ms"] * 1e3))))
     for J, n, args in deep:
         row = deep_kernel_times(torch, scan_ops, args, split=True)
@@ -885,12 +930,16 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
 
 def tree_scan_ops(tree: Path):
     """engine/scan_ops.py of the checkout at `tree`, loaded on its own
-    (it imports only torch); it builds that checkout's csrc/scan.cu."""
+    (it imports only torch); it builds that checkout's csrc/scan.cu.  A
+    checkout whose plain (y, hist) version has its older name gets it
+    under affine_y_ref too."""
     import importlib.util
     path = tree / "tuun_tpu_torch" / "engine" / "scan_ops.py"
     spec = importlib.util.spec_from_file_location("tree_scan_ops", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    if not hasattr(mod, "affine_y_ref"):
+        mod.affine_y_ref = mod.affine_scan_deep_ref
     return mod
 
 
@@ -899,15 +948,15 @@ def check_affine_repeatable(torch, np, scan_ops, rng) -> None:
     look-back's grouping is fixed, not set by which tiles finish first."""
     for J, n in ((2, MAIN_N), (3, (1 << 20) + 5)):
         args = affine_input(torch, np, rng, J, n)
-        h1, hist1 = scan_ops.affine_scan_f32(*args)
-        first = torch.cat([h1.view(-1), hist1]).view(torch.int32)
+        y1, hist1 = scan_ops.affine_scan_f32(*args)
+        first = torch.cat([y1.view(-1), hist1]).view(torch.int32)
         differ = sum(not torch.equal(torch.cat(
             [x.view(-1) for x in scan_ops.affine_scan_f32(*args)]).view(
             torch.int32), first) for _ in range(199))
         check(differ == 0, f"affine_scan J={J} n={n}: {differ} of 199 "
               f"repeats differ from the first call")
         log(f"affine_scan J={J} n={n}: 200 calls on one input, all the same "
-            f"bits (h and hist)")
+            f"bits (y and hist)")
 
 
 def check_affine_graph(torch, np, scan_ops, rng, sizes) -> None:
@@ -993,7 +1042,7 @@ def check_deep(torch, scan_ops, args, y, hist, what):
     scale, float16 error)."""
     a, ff, live, h0 = args
     J = a.shape[-1]
-    ref, ref_hist = scan_ops.affine_scan_deep_ref(a.double(), ff.double(),
+    ref, ref_hist = scan_ops.affine_y_ref(a.double(), ff.double(),
                                                   live, h0.double())
     torch.cuda.synchronize()
     scale = max(1.0, float(ref.abs().max()))
@@ -1002,7 +1051,7 @@ def check_deep(torch, scan_ops, args, y, hist, what):
     bound = DEEP_AFFINE_TOL[J] * scale
     check(err <= bound, f"affine_scan_deep J={J} {what}: error {err:.3e} "
           f"above {DEEP_AFFINE_TOL[J]:g} * {scale:.3g}")
-    ctl, _ = scan_ops.affine_scan_deep_ref(a.half(), ff.half(), live,
+    ctl, _ = scan_ops.affine_y_ref(a.half(), ff.half(), live,
                                            h0.half())
     ctl_err = float((ctl.double() - ref).abs().max())
     check(not ctl_err <= bound, f"affine_scan_deep J={J} {what}: the "
@@ -1028,7 +1077,7 @@ def deep_kernel_times(torch, scan_ops, args, split, rows=False):
     kernel = scan_ops.affine_scan_deep_rows_f32 if rows \
         else scan_ops.affine_scan_deep_f32
     fn = lambda: kernel(*args)  # noqa: E731
-    ref = lambda: scan_ops.affine_scan_deep_ref(*args)  # noqa: E731
+    ref = lambda: scan_ops.affine_y_ref(*args)  # noqa: E731
     row = {"ms": cuda_ms(torch, fn, 10 if big else 50),
            "plain_ms": cuda_ms(torch, ref, 2 if big else 10)}
     if split:
@@ -1153,7 +1202,7 @@ def phase_deep(torch, np, scan_ops, results) -> None:
         # From 2^20 lanes in all a plain scan of maps takes ~0.1 s a
         # call: its device and host times take fewer calls there.
         row = rows_times(torch, scan_ops.affine_scan_deep_rows_f32,
-                         scan_ops.affine_scan_deep_ref,
+                         scan_ops.affine_y_ref,
                          scan_ops.affine_scan_deep_f32, args, 20, B,
                          (2, 1, 5) if B * n >= 1 << 20 else (5, 2, 20))
         log(f"{rows_name} B={B} n={n} J={J}: max_abs_err={err:.3e} = "
@@ -3317,6 +3366,9 @@ def stiff_filter(scan_ops) -> dict:
         n = min(len(mix), len(ref))
         check(np.isfinite(mix).all(), f"stiff filter {name}: not finite")
         out[name] = float(np.abs(mix[:n] - ref[:n]).max()) / peak
+    log(f"stiff filter (S1's filter program down to 100 Hz at Q 2): max "
+        f"|diff| / peak against a float64 scan {out} (the per-thread "
+        f"register-map affine scan erred 7.5e-3 on the card)")
     return dict(peak=peak, rel_err_vs_f64=out)
 
 
@@ -5495,10 +5547,11 @@ def main(argv) -> int:
         affine = k.startswith("affine")
         # The main path's shape: MAIN_N lanes (J = 2, lpf, for the affine
         # scan), B = 32 voices for the voices x lanes forms.  Bytes each
-        # input read once, each output written once.
+        # input read once, each output written once (the affine scan: a,
+        # ff and live in, y out, 4J + 9 a lane).
         main_row = next(r for r in rows if r["n"] == MAIN_N
                         and r.get("J", 2) == 2)
-        lane_bytes = 8 * 2 + 5 if affine else 8
+        lane_bytes = 4 * 2 + 9 if affine else 8
         kernels.append({
             "name": k, "route": "cuda",
             "source": "tuun_tpu_torch/csrc/scan.cu",

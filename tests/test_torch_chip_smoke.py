@@ -26,11 +26,11 @@ REPO = Path(__file__).resolve().parent.parent
 # Two calls of each kernel, as one_launch_calls lists them: (fn, args,
 # kernel, tag); and the device names the profiler gives their kernels.
 CALLS = [(None, (), "scan_single_pass", "SumOp"),
-         (None, (), "affine_single_pass", "<2,"),
+         (None, (), "affine_scan_pass", "<2,"),
          (None, (), "scan_single_pass", "SumOp"),
-         (None, (), "affine_single_pass", "<2,")]
+         (None, (), "affine_scan_pass", "<2,")]
 SUM = "void (anonymous namespace)::scan_single_pass<SumOp, false>(float*)"
-AFFINE = "void (anonymous namespace)::affine_single_pass<2, false>(float*)"
+AFFINE = "void (anonymous namespace)::affine_scan_pass<2, false>(float*)"
 ALL = [SUM, AFFINE, SUM, AFFINE]
 
 

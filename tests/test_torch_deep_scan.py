@@ -104,13 +104,13 @@ def test_deep_ref_matches_recurrence(J):
     a, ff, live, h0 = _stable_inputs(1500, J, J)
     args64 = (t(a).double(), t(ff).double(), t(live), t(h0).double())
     ry, rh = scan_ops.linear_recurrence_ref(*args64)
-    y64, h64 = scan_ops.affine_scan_deep_ref(*args64)
+    y64, h64 = scan_ops.affine_y_ref(*args64)
     scale = _scale(ry.numpy())
     np.testing.assert_allclose(y64.numpy(), ry.numpy(), rtol=0,
                                atol=1e-12 * scale)
     np.testing.assert_allclose(h64.numpy(), rh.numpy(), rtol=0,
                                atol=1e-12 * scale)
-    y32, h32 = scan_ops.affine_scan_deep_ref(t(a), t(ff), t(live), t(h0))
+    y32, h32 = scan_ops.affine_y_ref(t(a), t(ff), t(live), t(h0))
     np.testing.assert_allclose(y32.numpy(), ry.numpy(), rtol=0,
                                atol=2e-5 * scale)
     np.testing.assert_allclose(h32.numpy(), rh.numpy(), rtol=0,
@@ -363,7 +363,7 @@ def test_deep_kernel_model_matches_reference(J, geom, n):
     # rounding (1e-9 of the output's scale).
     a, ff, live, h0 = _stable_inputs(n, J, 7 * J + n)
     y, hist = _deep_model(a, ff, live, h0, geom)
-    ry, rh = scan_ops.affine_scan_deep_ref(t(a).double(), t(ff).double(),
+    ry, rh = scan_ops.affine_y_ref(t(a).double(), t(ff).double(),
                                            t(live), t(h0).double())
     scale = _scale(ry.numpy())
     np.testing.assert_allclose(y, ry.numpy(), rtol=0, atol=1e-9 * scale)
@@ -407,7 +407,7 @@ def test_deep_kernel_model_in_float32_within_bound(J):
     scale = _scale(ry.numpy())
     err = max(np.abs(y - ry.numpy()).max(), np.abs(hist - rh.numpy()).max())
     assert err <= 2e-5 * scale
-    cy, _ = scan_ops.affine_scan_deep_ref(t(a).half(), t(ff).half(), t(live),
+    cy, _ = scan_ops.affine_y_ref(t(a).half(), t(ff).half(), t(live),
                                           t(h0).half())
     assert np.abs(cy.double().numpy() - ry.numpy()).max() > 1e-3 * scale
 

@@ -105,13 +105,15 @@ def test_affine_rows_match_vmapped_pallas(B, n, J):
     a, ff, live, h0 = (np.stack(x) for x in zip(*ins))
     ph, phist = jax.vmap(partial(po.affine_scan_f32, interpret=True))(
         jnp.asarray(a), jnp.asarray(ff), jnp.asarray(live), jnp.asarray(h0))
-    h, hist = scan_ops.affine_scan_rows_f32(t(a), t(ff), t(live), t(h0))
-    np.testing.assert_allclose(h.numpy(), np.asarray(ph), rtol=1e-4, atol=1e-4)
+    y, hist = scan_ops.affine_scan_rows_f32(t(a), t(ff), t(live), t(h0))
+    np.testing.assert_allclose(y.numpy(), tso._masked_y(ph, live), rtol=1e-4,
+                               atol=1e-4)
     np.testing.assert_allclose(hist.numpy(), np.asarray(phist), rtol=1e-4,
                                atol=1e-4)
     for r in range(B):
         ref, h_end = tso._affine_reference(a[r], ff[r], live[r], h0[r])
-        np.testing.assert_allclose(h[r].numpy(), ref, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(y[r].numpy(), tso._masked_y(ref, live[r]),
+                                   rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(hist[r].numpy(), h_end, rtol=1e-4,
                                    atol=1e-4)
     # vmap of the single entry point, an operand shared by every voice
@@ -197,12 +199,13 @@ def _rows_inputs(B, n, J, seed):
 
 @pytest.mark.parametrize("J", [2, 3])
 def test_affine_rows_model_row_bits_equal_single_calls(J):
-    # Three rows of a length with anchors and a ragged tail, in the small
-    # geometry, finishing in order, in reverse and in two random orders,
-    # in float32: every row has the bits of a one-row call, and one
-    # scratch serves all rows and is left clean.
+    # Three rows of a length with three levels of records and a ragged
+    # tail, in the small geometry, finishing in order, in reverse and in
+    # two random orders, in float32: every row has the bits of a one-row
+    # call, and one scratch serves all rows and is left ready.
     geom = tso.SMALL_GEOMETRY
-    n = 2 * geom[0] * 256 + 3 * 256 + 37
+    S, G, W, F = geom
+    n = F * F * S * G * W + 3 * S * G * W + 37
     a, ff, live, h0 = _rows_inputs(3, n, J, 40)
     rng = np.random.default_rng(2)
     orders = [None, max, lambda ts: ts[rng.integers(len(ts))],
@@ -210,35 +213,34 @@ def test_affine_rows_model_row_bits_equal_single_calls(J):
     singles = [tso._affine_model(a[r], ff[r], live[r], h0[r], geom,
                                  dtype=np.float32)[:2] for r in range(3)]
     for order in orders:
-        h, hist, (counters, flags) = tso._affine_model(
-            a, ff, live, h0, geom, order, np.float32)
-        assert counters == [0, 0] and not flags.any()
+        y, hist, scratch = tso._affine_model(a, ff, live, h0, geom, order,
+                                             np.float32)
+        assert scratch["counter"] == 0 and scratch["epoch"] == 1
         for r in range(3):
-            assert h[r].tobytes() == singles[r][0].tobytes()
+            assert y[r].tobytes() == singles[r][0].tobytes()
             assert hist[r].tobytes() == singles[r][1].tobytes()
 
 
-@pytest.mark.parametrize("J,n", [(1, 1), (2, 2048), (3, 2049), (8, 3 * 2048
-                                                                 + 37)])
+@pytest.mark.parametrize("J,n", [(1, 1), (2, 1024), (3, 1025), (5, 4100),
+                                 (8, 3 * 1024 + 37)])
 def test_affine_rows_model_matches_reference(J, n):
     # The kernel's geometry over 3 rows, float64, against the batched
     # plain version (rounding only: 1e-9 of the scale).
     a, ff, live, h0 = _rows_inputs(3, n, J, 7 * J + n)
-    h, hist, (counters, flags) = tso._affine_model(a, ff, live, h0,
-                                                   tso.KERNEL_GEOMETRY)
-    ref, ref_hist = scan_ops.affine_scan_ref(t(a).double(), t(ff).double(),
-                                             t(live), t(h0).double())
-    scale = max(1.0, float(ref.abs().max()))
-    np.testing.assert_allclose(h, ref.numpy(), rtol=0, atol=1e-9 * scale)
-    np.testing.assert_allclose(hist, ref_hist.numpy(), rtol=0,
-                               atol=1e-9 * scale)
-    assert counters == [0, 0] and not flags.any()
+    y, hist, scratch = tso._affine_model(a, ff, live, h0,
+                                         tso._kernel_geometry(n))
+    ry, rh = scan_ops.affine_y_ref(t(a).double(), t(ff).double(), t(live),
+                                   t(h0).double())
+    scale = max(1.0, float(ry.abs().max()))
+    np.testing.assert_allclose(y, ry.numpy(), rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(hist, rh.numpy(), rtol=0, atol=1e-9 * scale)
+    assert scratch["counter"] == 0
 
 
 def test_rows_scratch_holds_every_row_tile(monkeypatch):
     # The prefix scratch is sized once; a rows call whose tiles would not
     # fit in it raises before any launch.  The affine scratch grows to
-    # rows * tiles per row.
+    # rows * look-back records per row.
     monkeypatch.setattr(scan_ops, "_scan_tile", 4096)
     monkeypatch.setattr(scan_ops, "_scratch_words", 2 + 64)
 
@@ -258,15 +260,16 @@ def test_rows_scratch_holds_every_row_tile(monkeypatch):
                                 "prefix_sum_rows_f32", x)
     monkeypatch.setattr(scan_ops, "_affine_scratch", {})
     monkeypatch.setattr(scan_ops, "_affine_retired", [])
-    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
     made = []
 
-    def alloc(device, tiles):
-        made.append(tiles)
+    def alloc(device, records):
+        made.append(records)
         return torch.zeros(1, dtype=torch.int32)
-    first = (1 << 22) // 2048
-    scan_ops.affine_scratch(0, 5, 256 * 32, alloc)  # 256 voices x 2^16
-    assert made == [max(first, 256 * 32)]
+    first = scan_ops.affine_capacity(1, 1 << 20)
+    need = scan_ops.affine_capacity(256, 1 << 16)  # 256 voices x 2^16
+    assert need == 256 * scan_ops.affine_slots(1 << 16, 64)
+    scan_ops.affine_scratch(0, 5, need, alloc)
+    assert made == [max(first, need)]
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@ def t(x):
 
 
 def _affine_reference(a, ff, live, h0):
-    """float64 sequential recurrence (test_pallas.py's reference)."""
+    """float64 sequential recurrence (test_pallas.py's reference): (h [n,
+    J], the history after each lane; the final history)."""
     n, J = a.shape
     h = h0.astype(np.float64).copy()
     ref = np.zeros((n, J))
@@ -34,6 +35,12 @@ def _affine_reference(a, ff, live, h0):
             h = np.concatenate([[y], h[:-1]])
         ref[i] = h
     return ref, h
+
+
+def _masked_y(h, live):
+    """The affine scan's y from the Pallas contract's h: h[:, 0] on live
+    lanes, 0 on dead ones."""
+    return np.where(live, np.asarray(h)[..., 0], 0.0)
 
 
 # Tolerances: the plain prefix sum (torch.cumsum, sequential) and the
@@ -113,14 +120,15 @@ def _affine_inputs(n, J, seed, live_frac=0.2):
 @pytest.mark.parametrize("n,J", [(LANE, 1), (2 * LANE, 2), (4 * LANE, 3)])
 def test_affine_scan_matches_pallas_and_sequential(n, J):
     a, ff, live, h0 = _affine_inputs(n, J, n + J)
-    hs, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
+    y, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
     ref, h_end = _affine_reference(a, ff, live, h0)
-    np.testing.assert_allclose(hs.numpy(), ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y.numpy(), _masked_y(ref, live), rtol=1e-4,
+                               atol=1e-4)
     np.testing.assert_allclose(hist.numpy(), h_end, rtol=1e-4, atol=1e-4)
     ph, phist = po.affine_scan_f32(jnp.asarray(a), jnp.asarray(ff),
                                    jnp.asarray(live), jnp.asarray(h0),
                                    interpret=True)
-    np.testing.assert_allclose(hs.numpy(), np.asarray(ph), rtol=1e-4,
+    np.testing.assert_allclose(y.numpy(), _masked_y(ph, live), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_allclose(hist.numpy(), np.asarray(phist), rtol=1e-4,
                                atol=1e-4)
@@ -132,11 +140,11 @@ def test_affine_scan_multi_tile_matches_pallas(monkeypatch):
     a, ff, _, _ = _affine_inputs(n, J, 9)
     live = np.ones(n, bool)
     h0 = np.array([0.5, -0.25], np.float32)
-    hs, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
+    y, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
     ph, phist = po.affine_scan_f32(jnp.asarray(a), jnp.asarray(ff),
                                    jnp.asarray(live), jnp.asarray(h0),
                                    interpret=True)
-    np.testing.assert_allclose(hs.numpy(), np.asarray(ph), rtol=1e-4,
+    np.testing.assert_allclose(y.numpy(), _masked_y(ph, live), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_allclose(hist.numpy(), np.asarray(phist), rtol=1e-4,
                                atol=1e-4)
@@ -148,8 +156,8 @@ def test_affine_scan_all_dead_lanes_pass_history_through():
     ff = np.ones(n, np.float32)
     live = np.zeros(n, bool)
     h0 = np.array([3.0, -2.0], np.float32)
-    hs, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
-    np.testing.assert_array_equal(hs.numpy(), np.broadcast_to(h0, (n, J)))
+    y, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
+    np.testing.assert_array_equal(y.numpy(), np.zeros(n, np.float32))
     np.testing.assert_array_equal(hist.numpy(), h0)
 
 
@@ -157,9 +165,10 @@ def test_affine_scan_all_dead_lanes_pass_history_through():
 def test_affine_scan_ragged_and_deep_against_f64(n, J):
     # Beyond the JAX kernel's domain (n % 128 == 0, J <= 4).
     a, ff, live, h0 = _affine_inputs(n, J, 100 + n + J)
-    hs, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
+    y, hist = scan_ops.affine_scan_f32(t(a), t(ff), t(live), t(h0))
     ref, h_end = _affine_reference(a, ff, live, h0)
-    np.testing.assert_allclose(hs.numpy(), ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y.numpy(), _masked_y(ref, live), rtol=1e-4,
+                               atol=1e-4)
     np.testing.assert_allclose(hist.numpy(), h_end, rtol=1e-4, atol=1e-4)
 
 
@@ -411,32 +420,54 @@ def test_prefix_scratch_sized_once_from_the_library(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The CUDA affine scan's tiles, anchors and look-back, modelled on the CPU.
+# The CUDA affine scan's tiles, record tree and look-back, modelled on the
+# CPU.
 # ---------------------------------------------------------------------------
 #
-# csrc/scan.cu runs the affine scan in tiles of T threads x K lanes.  Each
-# thread composes its lanes' companion maps; a shuffle Kogge-Stone gives
-# each thread its exclusive map within the tile and the tile's map.  Every
-# T-th tile is an anchor that publishes its exit history once it knows
-# its entering one; every other tile publishes its map at once.  Tile t's
-# entering history: anchor a's exit history (a constant map), then the
-# maps of tiles a + 1 .. t - 1, thread k reading record a + k, each warp
-# folding its threads by a shuffle tree (lane l + d into lane l), thread
-# 0 folding the warp totals in order.  Each thread then runs the recurrence over its lanes from its
-# entering history.  The model runs the tiles as coroutines over a model
-# of the scratch (counters, flags, records), in any order of finishing.
+# csrc/scan.cu's affine_scan_pass runs a tile of W warps x G segments of S
+# lanes a block.  Each segment's four threads build its map column by
+# column (column c < J pushes the basis history e_c with ff = 0, column J
+# pushes ff from a zero history, four partial sums a step), keeping the
+# columns after each quarter of the segment as the quarters' maps.  Each
+# warp scans its G segment maps (Kogge-Stone, inclusive), warp 0 scans the
+# warp totals; the last is the tile's map.  The look-back reads a tree of
+# records with fan F: record (l, k) is the map of tiles [k F^l, (k + 1)
+# F^l), published by tile (k + 1) F^l - 1 (its map after the folds of its
+# lower levels) unless no later tile reads it; tile t reads level l's
+# records t_l - d_l .. t_l - 1 (d_l its base-F digit), folds them by a
+# Blelloch up-sweep padded with identities in front, and applies the
+# folds to h0, the highest level first.  A record's words carry the stamp
+# of the call that wrote them; the block that draws the last tile resets
+# the counter and advances the epoch.  Each thread's quarter enters with
+# the tile's history with the warps' scanned total before it, the warp's
+# scanned segment map before it and its quarter map applied in turn, and
+# runs the recurrence over its S / 4 lanes.  The model runs the tiles as
+# coroutines over a model of the scratch, in any order of finishing.
 
 
-def _aff_geometry():
+def _aff_constants():
     src = scan_ops.SOURCE.read_text()
-    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-                 for name in ("kAffThreads", "kAffItems"))
+
+    def get(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    seg, quad, heads = get("kAffSeg"), get("kAffQuad"), get("kAffHeadWords")
+    warps = get("kAffWarps")
+    assert seg * 32 // quad * warps == scan_ops.AFFINE_TILE
+    return seg, quad, 32 // quad, get("kMaxJ") * (get("kMaxJ") + 1), heads, \
+        warps
 
 
-def _aff_scratch_words(tiles):
-    """tuun_affine_scratch_words: 2 counters, a flag per tile, then from a
-    4-word boundary a record of 8 * 8 + 8 floats per tile."""
-    return (2 + tiles + 3) // 4 * 4 + tiles * 72
+def _kernel_geometry(n):
+    """(S, G, W, F) of the kernel for rows of n lanes."""
+    seg, _, per_warp, _, _, warps = _aff_constants()
+    return seg, per_warp, warps, scan_ops.affine_fan(n)
+
+
+def _aff_scratch_words(records):
+    """tuun_affine_scratch_words: the head, then a record of kAffRecord
+    64-bit words a slot."""
+    _, _, _, record, head, _ = _aff_constants()
+    return head + 2 * record * records
 
 
 def _compose(cur, prev):
@@ -453,12 +484,22 @@ def _take(m, idx):
     return m[0][idx], m[1][idx]
 
 
-def _kogge_stone_maps(m, axis_len):
-    """Inclusive scan along the second-last map axis: lane l takes
-    compose(lane l, lane l - d) for d = 1, 2, 4, ... (__shfl_up_sync)."""
+def _apply(m, h):
+    """m(h), each row's products added in order (aff_apply)."""
     A, b = m
+    out = b.copy()
+    for c in range(h.shape[-1]):
+        out = out + A[..., :, c] * h[..., None, c]
+    return out
+
+
+def _kogge_stone_maps(m):
+    """Inclusive scan along the second-last map axis: map s takes
+    compose(s, s - d) for d = 1, 2, 4, ... (aff_scan)."""
+    A, b = m
+    n = A.shape[-3]
     d = 1
-    while d < axis_len:
+    while d < n:
         nA, nb_ = A.copy(), b.copy()
         nA[..., d:, :, :], nb_[..., d:, :] = _compose(
             (A[..., d:, :, :], b[..., d:, :]),
@@ -468,157 +509,178 @@ def _kogge_stone_maps(m, axis_len):
     return A, b
 
 
-def _tree_fold(m):
-    """The look-back's per-warp shuffle tree over [..., 32] maps: lane l
-    takes compose(lane l + d, lane l) for d = 1, 2, 4, ...; lane 0's."""
-    A, b = m
-    for d in (1, 2, 4, 8, 16):
-        nA, nb_ = A.copy(), b.copy()
-        nA[..., :-d, :, :], nb_[..., :-d, :] = _compose(
-            (A[..., d:, :, :], b[..., d:, :]),
-            (A[..., :-d, :, :], b[..., :-d, :]))
-        A, b = nA, nb_
-    return A[..., 0, :, :], b[..., 0, :]
+def _up_sweep_fold(maps):
+    """The fold of a list of maps (a power of two of them) by aff_fold's
+    Blelloch up-sweep: map R = (2p + 2) d - 1 becomes R after R - d."""
+    A = np.stack([m[0] for m in maps])
+    b = np.stack([m[1] for m in maps])
+    d = 1
+    while d < len(maps):
+        R = np.arange(2 * d - 1, len(maps), 2 * d)
+        A[R], b[R] = _compose((A[R], b[R]), (A[R - d], b[R - d]))
+        d *= 2
+    return A[-1], b[-1]
 
 
-def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64):
-    """(h, hist, scratch) as the CUDA kernel computes them, with tile
-    geometry geom = (T, K), finishing its steps in the order given by
-    `order` (a function that picks the next runnable tile), in `dtype`.
-    Inputs with a leading row axis (a [B, n, J], ff and live [B, n], h0
-    [B, J]) model the voices x lanes form: global tile g is tile g % nbr
-    of row g // nbr, with one scratch (counters, flags, records) for all
-    rows, as in the kernel."""
+def _affine_model(a, ff, live, h0, geom, order=None, dtype=np.float64,
+                  scratch=None):
+    """(y, hist, scratch) as affine_scan_pass computes them with geometry
+    geom = (S lanes a segment, G segments a warp, W warps, F fan),
+    finishing its steps in the order `order` picks (a function of the
+    runnable tiles), in `dtype`.  Inputs with a leading row axis (a [B, n,
+    J], ff and live [B, n], h0 [B, J]) model the voices x lanes form:
+    global tile g is tile g % nbr of row g // nbr, one scratch for all
+    rows.  `scratch` (counter, epoch, records) carries over from an
+    earlier call, as the stream's buffer does."""
     rows = a.ndim == 3
     if not rows:
         a, ff, live, h0 = a[None], ff[None], live[None], h0[None]
-    T, K = geom
-    tile, nw = T * K, T // 32
+    S, G, W, F = geom
+    quarters = _aff_constants()[1]
+    quarter = S // quarters
+    segs = G * W
+    tile = S * segs
     B, n, J = a.shape
-    nbr = -(-n // tile)  # tiles per row
+    nbr = -(-n // tile)
     nb = B * nbr
     pad = nbr * tile - n
     a = np.concatenate([a, np.zeros((B, pad, J))], 1).astype(dtype)
     ff = np.concatenate([ff, np.zeros((B, pad))], 1).astype(dtype)
     live = np.concatenate([live, np.zeros((B, pad), bool)], 1)
-    a, ff, live = a.reshape(-1, J), ff.reshape(-1), live.reshape(-1)
     h0 = h0.astype(dtype)
-    # Lane maps: the companion form (row 0 = -a, rows 1.. shift the
-    # history down, b = (ff, 0, ...)), or the identity on a dead lane.
-    comp = np.zeros((nb * tile, J, J), dtype)
-    comp[:, 0, :] = -a
-    comp[:, np.arange(1, J), np.arange(J - 1)] = 1
-    eye = _identity((nb * tile,), J, dtype)
-    lane = (np.where(live[:, None, None], comp, eye[0]),
-            np.where(live[:, None], np.pad(ff[:, None], ((0, 0), (0, J - 1))),
-                     0).astype(dtype))
-    lane = (lane[0].reshape(nb, T, K, J, J), lane[1].reshape(nb, T, K, J))
-    # Each thread composes its lanes in order (skipping dead ones).
-    P = _identity((nb, T), J, dtype)
-    lv = live.reshape(nb, T, K)
-    for k in range(K):
-        C = _compose(_take(lane, (slice(None), slice(None), k)), P)
-        P = (np.where(lv[:, :, k, None, None], C[0], P[0]),
-             np.where(lv[:, :, k, None], C[1], P[1]))
-    # Block exclusive scan of the thread maps.
-    P = (P[0].reshape(nb, nw, 32, J, J), P[1].reshape(nb, nw, 32, J))
-    incl = _kogge_stone_maps(P, 32)
-    wt = _kogge_stone_maps(_take(incl, (slice(None), slice(None), 31)), nw)
-    excl = _identity((nb, nw, 32), J, dtype)
-    excl[0][:, :, 1:] = incl[0][:, :, :-1]
-    excl[1][:, :, 1:] = incl[1][:, :, :-1]
-    if nw > 1:
-        before = (wt[0][:, :-1, None], wt[1][:, :-1, None])
-        e = _compose(
-            _take(excl, (slice(None), slice(1, None), slice(1, None))), before)
-        excl[0][:, 1:, 1:], excl[1][:, 1:, 1:] = e
-        excl[0][:, 1:, 0], excl[1][:, 1:, 0] = wt[0][:, :-1], wt[1][:, :-1]
-    excl = (excl[0].reshape(nb, T, J, J), excl[1].reshape(nb, T, J))
-    total = _take(wt, (slice(None), nw - 1))
+    a4 = a.reshape(nb, segs, S, J)
+    f3 = ff.reshape(nb, segs, S)
+    l3 = live.reshape(nb, segs, S)
+
+    # Column build: H[..., c, :] is column c's history; four partial sums.
+    H = np.zeros((nb, segs, J + 1, J), dtype)
+    H[..., :J, :] = np.eye(J, dtype=dtype)
+    ck = []
+    for i in range(S):
+        p = np.zeros((nb, segs, J + 1, 4), dtype)
+        p[..., J, 0] = f3[..., i]
+        for j in range(J):
+            p[..., j & 3] = p[..., j & 3] - a4[..., i, j][..., None] * H[..., j]
+        y = (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+        shifted = np.concatenate([y[..., None], H[..., :-1]], axis=-1)
+        H = np.where(l3[..., i, None, None], shifted, H)
+        if (i + 1) % quarter == 0 and i + 1 < S:
+            ck.append(H.copy())
+
+    def as_map(h):  # columns -> (A, b): A[:, c] is column c
+        return np.swapaxes(h[..., :J, :], -1, -2).copy(), h[..., J, :].copy()
+
+    seg_maps = as_map(H)
+    quarter_maps = [as_map(c) for c in ck]
+    # Each warp's inclusive scan, then the warp totals'.
+    wm = _kogge_stone_maps((seg_maps[0].reshape(nb, W, G, J, J),
+                            seg_maps[1].reshape(nb, W, G, J)))
+    totals = _kogge_stone_maps(_take(wm, (slice(None), slice(None), G - 1)))
+    tile_maps = _take(totals, (slice(None), W - 1))
 
     # The look-back, each tile a coroutine over the model scratch.
-    flags = np.zeros(nb, np.int64)
-    records = np.zeros((nb, 72), dtype)
-    counters = [0, 0]
+    if scratch is None:
+        scratch = {"counter": 0, "epoch": 0, "records": {}}
+    per_row, c = 0, nbr  # the row's slots: nbr / F^l at each level l
+    while c:
+        per_row, c = per_row + c, c // F
     h_tile = np.zeros((nb, J), dtype)
-
-    def look_back(g):
-        r, t = divmod(g, nbr)
-        a0 = (t - 1) // T * T
-        words = t - a0
-        recs = _identity((T,), J, dtype)
-        for i in range(words):
-            rec = records[r * nbr + a0 + i]
-            if i == 0:  # the anchor's exit history, a constant map
-                recs[0][i] = 0
-                recs[1][i] = rec[:J]
-            else:
-                recs[0][i] = rec[:J * J].reshape(J, J)
-                recs[1][i] = rec[J * J:J * J + J]
-        warps = _tree_fold((recs[0].reshape(nw, 32, J, J),
-                            recs[1].reshape(nw, 32, J)))
-        out = _take(warps, 0)
-        for w in range(1, -(-words // 32)):
-            out = _compose(_take(warps, w), out)
-        return out[1]
+    eye = _identity((), J, dtype)
 
     def run(g):
         # Yields True after a step that may unblock another tile, False
-        # while it waits.  g is the global tile, t its tile in row r.
+        # while it waits.
         r, t = divmod(g, nbr)
-        anchor = t % T == 0
-        if nbr > 1 and not anchor:
-            records[g, :J * J] = total[0][g].reshape(-1)
-            records[g, J * J:J * J + J] = total[1][g]
-            flags[g] = 1
-        yield True
-        if t == 0 or nbr == 1:
+        if nbr == 1:
             h_tile[g] = h0[r]
+            return
+        if scratch["counter"] == nb - 1:  # the last draw readies the next call
+            stamp = 2 * scratch["epoch"] + 1
+            scratch["counter"], scratch["epoch"] = 0, scratch["epoch"] + 1
         else:
-            a0 = r * nbr + (t - 1) // T * T
-            while not flags[a0:g].all():
-                yield False
-            h_tile[g] = look_back(g)
-        if nbr > 1:
-            if anchor:
-                records[g, :J] = total[0][g] @ h_tile[g] + total[1][g]
-                flags[g] = 2
-            counters[1] += 1
-            if counters[1] == nb:  # the last block leaves the scratch clean
-                flags[:] = 0
-                counters[:] = [0, 0]
+            stamp = 2 * scratch["epoch"] + 1
+            scratch["counter"] += 1
+        R = _take(tile_maps, g)
+        chain, tl, off, count, level = True, t, 0, nbr, 0
+        folds = {}
+        while tl > 0 or chain:
+            d = tl % F
+            if chain and d != F - 1:
+                chain = False
+                if t + 1 < nbr:
+                    scratch["records"][r * per_row + off + tl] = (R, stamp)
+                    yield True
+            if d > 0:
+                slots = [r * per_row + off + tl - d + e for e in range(d)]
+                while not all(scratch["records"].get(s_, (None, 0))[1]
+                              == stamp for s_ in slots):
+                    yield False
+                P = 1
+                while P < d:
+                    P *= 2
+                folds[level] = _up_sweep_fold(
+                    [eye] * (P - d) + [scratch["records"][s_][0]
+                                       for s_ in slots])
+            if chain:
+                R = _compose(R, folds[level])
+            off += count
+            count //= F
+            tl //= F
+            level += 1
+        h = h0[r]
+        for lv in reversed(range(level)):
+            if (t // F ** lv) % F:
+                h = _apply(folds[lv], h)
+        h_tile[g] = h
 
-    runnable = {t: run(t) for t in range(nb)}
+    runnable = {g: run(g) for g in range(nb)}
     waiting = set()
     while runnable:
         ready = sorted(set(runnable) - waiting)
-        t = order(ready) if order else ready[0]
+        g = order(ready) if order else ready[0]
         try:
-            progressed = next(runnable[t])
+            progressed = next(runnable[g])
         except StopIteration:
-            del runnable[t]
+            del runnable[g]
             progressed = True
         if progressed:
             waiting.clear()
         else:
-            waiting.add(t)
+            waiting.add(g)
 
-    # The recurrence over each thread's lanes from its entering history.
-    hv = (excl[0] @ h_tile[:, None, :, None])[..., 0] + excl[1]
-    a3, f3 = a.reshape(nb, T, K, J), ff.reshape(nb, T, K)
-    h = np.zeros((nb, T, K, J), dtype)
-    for k in range(K):
-        y = f3[:, :, k].copy()
-        for j in range(J):
-            y = y - a3[:, :, k, j] * hv[:, :, j]
-        shifted = np.concatenate([y[..., None], hv[..., :-1]], axis=-1)
-        hv = np.where(lv[:, :, k, None], shifted, hv)
-        h[:, :, k] = hv
-    h = h.reshape(B, nbr * tile, J)[:, :n]
-    hist = h[:, -1].copy()
+    # Each quarter's entering history, then its recurrence.
+    h = np.broadcast_to(h_tile[:, None, None, None, :],
+                        (nb, W, G, quarters, J)).copy()
+    tA = totals[0][:, :-1, None, None]
+    tb = totals[1][:, :-1, None, None]
+    h[:, 1:] = _apply((tA, tb), h[:, 1:])
+    sA = wm[0][:, :, :-1, None]
+    sb = wm[1][:, :, :-1, None]
+    h[:, :, 1:] = _apply((sA, sb), h[:, :, 1:])
+    h = h.reshape(nb, segs, quarters, J)
+    for q in range(1, quarters):
+        h[:, :, q] = _apply(quarter_maps[q - 1], h[:, :, q])
+    y = np.zeros((nb, segs, S), dtype)
+    hist = np.zeros((B, J), dtype)
+    for q in range(quarters):
+        hv = h[:, :, q]
+        for x in range(quarter):
+            i = q * quarter + x
+            yv = f3[..., i].copy()
+            for j in range(J):
+                yv = yv - a4[..., i, j] * hv[..., j]
+            lv = l3[..., i]
+            shifted = np.concatenate([yv[..., None], hv[..., :-1]], axis=-1)
+            hv = np.where(lv[..., None], shifted, hv)
+            y[..., i] = np.where(lv, yv, 0)
+        # The quarter that holds lane n - 1 writes hist.
+        last = n - 1 - (nbr - 1) * tile
+        if last // quarter % quarters == q:
+            hist = hv.reshape(B, nbr, segs, J)[:, -1, last // S].copy()
+    y = y.reshape(B, nbr * tile)[:, :n]
     if not rows:
-        h, hist = h[0], hist[0]
-    return h, hist, (counters, flags)
+        y, hist = y[0], hist[0]
+    return y, hist, scratch
 
 
 def _stable_inputs(n, J, seed):
@@ -633,27 +695,37 @@ def _stable_inputs(n, J, seed):
     return a, ff, live, h0
 
 
-# The kernel's own geometry, and a small one whose anchors (every 64
-# tiles of 256 lanes) and two-warp look-backs (over 33-63 records) a test
-# can reach.
-KERNEL_GEOMETRY = _aff_geometry()
-SMALL_GEOMETRY = (64, 4)
+# The kernel's geometry at each length, and a small one (segments of 8
+# lanes, two of them a warp, two warps: 32-lane tiles, fan 4) whose record
+# tree reaches three levels in a few thousand lanes.
+KERNEL_GEOMETRY = "kernel"
+SMALL_GEOMETRY = (8, 2, 2, 4)
+
+
+def _geometry(geom, n):
+    return _kernel_geometry(n) if geom == KERNEL_GEOMETRY else geom
 
 
 def _aff_lengths(geom):
-    T, K = geom
-    tile = T * K
-    # One lane, one tile, one tile + 1, and for the small geometry five
-    # anchor groups with a ragged tail.
+    S, G, W, F = _geometry(geom, 1)
+    tile = S * G * W
+    # One lane, one tile, one tile + 1, a ragged tail; for the small
+    # geometry a full fan group + 1 and three levels with a ragged tail.
     out = [1, tile, tile + 1, 3 * tile + 37]
     if geom == SMALL_GEOMETRY:
-        out.append(4 * T * tile + 3 * tile + 37)
+        out += [F * tile + 1, 2 * F * F * tile + 3 * tile + 5]
     return out
 
 
-AFFINE_MODEL_CASES = [(J, geom, n) for J in (1, 2, 3, 8)
+AFFINE_MODEL_CASES = [(J, geom, n) for J in (1, 2, 3, 5, 8)
                       for geom in (KERNEL_GEOMETRY, SMALL_GEOMETRY)
                       for n in _aff_lengths(geom)]
+
+
+def _y_ref(a, ff, live, h0, dtype=torch.float64):
+    y, hist = scan_ops.affine_y_ref(t(a).to(dtype), t(ff).to(dtype), t(live),
+                                    t(h0).to(dtype))
+    return y.numpy(), hist.numpy()
 
 
 @pytest.mark.parametrize("J,geom,n", AFFINE_MODEL_CASES)
@@ -661,24 +733,23 @@ def test_affine_kernel_model_matches_reference(J, geom, n):
     # Tolerances: in float64 the model and the doubling reference differ
     # only by rounding (1e-9 of the output's scale).  The Pallas kernel
     # (interpret mode; n % 128 == 0 and J <= 3 only) composes in float32,
-    # which these near-repeated poles amplify: it is held to chip_smoke.py's
-    # per-J bounds for a float32 kernel, as fractions of the scale (it errs
-    # 1.5e-7, 2.4e-6 and 1.0e-4 at J = 1, 2, 3 here).
+    # which these near-repeated poles amplify: y against its h[:, 0] on live
+    # lanes and hist against its hist, within chip_smoke.py's per-J bounds
+    # for a float32 kernel, as fractions of the scale.
     a, ff, live, h0 = _stable_inputs(n, J, 7 * J + n)
-    h, hist, (counters, flags) = _affine_model(a, ff, live, h0, geom)
-    ref, ref_hist = scan_ops.affine_scan_ref(
-        t(a).double(), t(ff).double(), t(live), t(h0).double())
-    scale = max(1.0, float(ref.abs().max()))
-    np.testing.assert_allclose(h, ref.numpy(), rtol=0, atol=1e-9 * scale)
-    np.testing.assert_allclose(hist, ref_hist.numpy(), rtol=0,
-                               atol=1e-9 * scale)
-    assert counters == [0, 0] and not flags.any()
+    y, hist, scratch = _affine_model(a, ff, live, h0, _geometry(geom, n))
+    ry, rh = _y_ref(a, ff, live, h0)
+    scale = max(1.0, float(np.abs(ry).max()))
+    np.testing.assert_allclose(y, ry, rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(hist, rh, rtol=0, atol=1e-9 * scale)
+    assert scratch["counter"] == 0
     if J <= 3 and n % LANE == 0 and n <= 4096:
         ph, phist = po.affine_scan_f32(jnp.asarray(a), jnp.asarray(ff),
                                        jnp.asarray(live), jnp.asarray(h0),
                                        interpret=True)
+        py = np.where(live, np.asarray(ph)[:, 0], 0)
         bound = {1: 1e-6, 2: 1e-5, 3: 1e-3}[J] * scale
-        np.testing.assert_allclose(h, np.asarray(ph), rtol=0, atol=bound)
+        np.testing.assert_allclose(y, py, rtol=0, atol=bound)
         np.testing.assert_allclose(hist, np.asarray(phist), rtol=0,
                                    atol=bound)
 
@@ -686,44 +757,92 @@ def test_affine_kernel_model_matches_reference(J, geom, n):
 @pytest.mark.parametrize("J", [2, 3])
 def test_affine_kernel_grouping_independent_of_finish_order(J):
     # float32, so that any change of grouping would change bits: tiles
-    # stepping in order, in reverse, and in two random orders.
-    n = 4 * SMALL_GEOMETRY[0] * 256 + 3 * 256 + 37
+    # stepping in order, in reverse, and in two random orders, over three
+    # levels of records and a ragged tail.
+    S, G, W, F = SMALL_GEOMETRY
+    n = 2 * F * F * S * G * W + 3 * S * G * W + 5
     a, ff, live, h0 = _stable_inputs(n, J, 5)
     rng = np.random.default_rng(1)
     orders = [None, max, lambda ts: ts[rng.integers(len(ts))],
               lambda ts: ts[-1 - rng.integers(min(len(ts), 3))]]
     outs = [_affine_model(a, ff, live, h0, SMALL_GEOMETRY, order,
                           np.float32)[:2] for order in orders]
-    for h, hist in outs[1:]:
-        assert h.tobytes() == outs[0][0].tobytes()
+    for y, hist in outs[1:]:
+        assert y.tobytes() == outs[0][0].tobytes()
         assert hist.tobytes() == outs[0][1].tobytes()
 
 
+@pytest.mark.parametrize("J", [1, 2, 8])
+def test_affine_kernel_second_call_ignores_stale_records(J):
+    # A second call on the same scratch (the next call on a stream, or a
+    # graph's next replay) sees the counter the first one reset and a new
+    # epoch: its tiles wait for this call's records, never the first's,
+    # whatever order they finish in, and give the same bits.
+    S, G, W, F = SMALL_GEOMETRY
+    n = F * F * S * G * W + 7
+    a, ff, live, h0 = _stable_inputs(n, J, 11)
+    y1, hist1, scratch = _affine_model(a, ff, live, h0, SMALL_GEOMETRY,
+                                       dtype=np.float32)
+    assert scratch["counter"] == 0 and scratch["epoch"] == 1
+    y2, hist2, scratch = _affine_model(a, ff, live, h0, SMALL_GEOMETRY, max,
+                                       np.float32, scratch)
+    assert scratch["counter"] == 0 and scratch["epoch"] == 2
+    assert y1.tobytes() == y2.tobytes() and hist1.tobytes() == hist2.tobytes()
+
+
+def test_affine_geometry_crossovers_match_reference():
+    # The kernel's look-back fan changes past 65536 lanes and it needs a
+    # look-back past one tile: the model at each side of both, J = 2.
+    tile = scan_ops.AFFINE_TILE
+    cross = [n for n in range(2, 1 << 18)
+             if scan_ops.affine_fan(n) != scan_ops.affine_fan(n - 1)]
+    assert cross == [(1 << 16) + 1]
+    for n in [tile, tile + 1] + [c + k for c in cross for k in (-1, 0)]:
+        a, ff, live, h0 = _stable_inputs(n, 2, n)
+        y, hist, _ = _affine_model(a, ff, live, h0, _kernel_geometry(n))
+        ry, rh = _y_ref(a, ff, live, h0)
+        scale = max(1.0, float(np.abs(ry).max()))
+        np.testing.assert_allclose(y, ry, rtol=0, atol=1e-9 * scale)
+        np.testing.assert_allclose(hist, rh, rtol=0, atol=1e-9 * scale)
+
+
+def test_affine_capacity_never_falls_as_n_grows():
+    # Capture needs scratch for the most records a length takes: a warm-up
+    # at the longest length must cover every shorter one.
+    prev = 0
+    for n in list(range(1, 5000, 7)) + list(range(60000, 140000, 97)):
+        cap = scan_ops.affine_capacity(3, n)
+        assert cap >= prev and cap >= 3 * scan_ops.affine_slots(
+            n, scan_ops.affine_fan(n))
+        prev = cap
+
+
 def test_affine_scratch_words_hold_every_tile():
-    # The scratch for `tiles` tiles: counters, flags and 72-float records
-    # (J up to 8), the records on a 16-byte boundary.
-    for tiles in (1, 2, 3, 4, 5, 1000):
-        words = _aff_scratch_words(tiles)
-        off = (2 + tiles + 3) // 4 * 4
-        assert off % 4 == 0 and off >= 2 + tiles
-        assert words == off + tiles * 72
-    T, K = KERNEL_GEOMETRY
-    for n, J in ((65536, 2), (1 << 20, 3), ((1 << 20) + 5, 8)):
-        tiles = -(-n // (T * K))
-        assert _aff_scratch_words(tiles) * 4 >= tiles * (4 + 4 * (J * J + J))
+    # The scratch for `records` records: the head, then a record of
+    # kMaxJ (kMaxJ + 1) 64-bit words each (A and b at any J up to 8), on
+    # 8-byte boundaries; the slots a row takes, level by level.
+    _, _, _, record, head, _ = _aff_constants()
+    assert record == 72 and head % 2 == 0
+    for records in (1, 2, 3, 1000):
+        assert _aff_scratch_words(records) == head + 144 * records
+    for J in range(1, scan_ops.MAX_J + 1):
+        assert J * (J + 1) <= record
+    assert scan_ops.affine_slots(1 << 16, 64) == 64 + 1
+    assert scan_ops.affine_slots(1 << 20, 32) == 1024 + 32 + 1
+    assert scan_ops.affine_slots(1024, 32) == 1
 
 
 def test_affine_scratch_grows_by_a_new_buffer_and_keeps_the_old(monkeypatch):
     monkeypatch.setattr(scan_ops, "_affine_scratch", {})
     monkeypatch.setattr(scan_ops, "_affine_retired", [])
-    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
     made = []
 
-    def alloc(device, tiles):
-        made.append((device, tiles))
+    def alloc(device, records):
+        made.append((device, records))
         return torch.zeros(4, dtype=torch.int32)
 
-    first = (1 << 22) // 2048  # the first buffer covers 2^22 lanes
+    # The first buffer holds the records of 2^20 lanes.
+    first = scan_ops.affine_capacity(1, 1 << 20)
     buf, cap = scan_ops.affine_scratch(0, 7, 32, alloc)
     assert cap == first and made == [(0, first)]
     assert scan_ops.affine_scratch(0, 7, first, alloc) == (buf, cap)
@@ -743,12 +862,11 @@ def test_affine_scratch_grows_by_a_new_buffer_and_keeps_the_old(monkeypatch):
 
 def test_affine_scratch_made_during_capture_raises(monkeypatch):
     monkeypatch.setattr(scan_ops, "_affine_scratch", {})
-    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
 
     class Lib:
         @staticmethod
-        def tuun_affine_scratch_words(tiles):
-            return _aff_scratch_words(tiles)
+        def tuun_affine_scratch_words(records):
+            return _aff_scratch_words(records)
 
     monkeypatch.setattr(scan_ops, "load_library", lambda: Lib)
     made = []
@@ -756,7 +874,8 @@ def test_affine_scratch_made_during_capture_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
     scan_ops.affine_scratch(3, 9, 10)
-    assert made == [((_aff_scratch_words(2048),),
+    first = scan_ops.affine_capacity(1, 1 << 20)
+    assert made == [((_aff_scratch_words(first),),
                      {"dtype": torch.int32, "device": 3})]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: True)
@@ -783,7 +902,8 @@ class _FakeLib:
         self.tuun_affine_max_j = _FakeFn(scan_ops.MAX_J)
         self.tuun_affine_deep_max_j = _FakeFn(scan_ops.MAX_DEEP_J)
         self.tuun_scan_tile = _FakeFn(4096)
-        self.tuun_affine_tile = _FakeFn(2048)
+        self.tuun_affine_tile = _FakeFn(scan_ops.AFFINE_TILE)
+        self.tuun_affine_slots = lambda n, fan: scan_ops.affine_slots(n, fan)
         self.tuun_affine_deep_tile = _FakeFn(1024)
         self.tuun_scan_scratch_words = _FakeFn(64)
         self.tuun_affine_scratch_words = _FakeFn(16)
@@ -840,7 +960,7 @@ def test_load_library_builds_and_loads_once_under_a_race(monkeypatch):
     libs = _race(scan_ops.load_library)
     assert len(builds) == 1 and len(loads) == 1
     assert all(lib is libs[0] for lib in libs)
-    assert scan_ops._scan_tile == 4096 and scan_ops._affine_tile == 2048
+    assert scan_ops._scan_tile == 4096
     assert scan_ops._deep_tile == 1024
 
 
@@ -852,10 +972,9 @@ def test_scratch_made_once_under_a_race(monkeypatch):
     monkeypatch.setattr(scan_ops, "_scratch", {})
     monkeypatch.setattr(scan_ops, "_affine_scratch", {})
     monkeypatch.setattr(scan_ops, "_affine_retired", [])
-    monkeypatch.setattr(scan_ops, "_affine_tile", 2048)
     made = []
 
-    def alloc(device, *tiles):
+    def alloc(device, *records):
         time.sleep(0.01)
         made.append(object())
         return made[-1]

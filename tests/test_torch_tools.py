@@ -482,8 +482,8 @@ def test_profile_x_realtime_at_its_sample_rate():
 @pytest.mark.parametrize("name, short", [
     ("void (anonymous namespace)::scan_single_pass<SumOp, false>(float*)",
      "scan_single_pass<SumOp, false>"),
-    ("void (anonymous namespace)::affine_single_pass<2, false>(float*)",
-     "affine_single_pass<2, false>"),
+    ("void (anonymous namespace)::affine_scan_pass<2, false>(float*)",
+     "affine_scan_pass<2, false>"),
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::FillFunctor<float>, std::array<char*, 1ul> >(int, "
      "at::native::FillFunctor<float>, std::array<char*, 1ul>)",

@@ -21,8 +21,8 @@
 // row's tiles: global tile gt is tile gt % nbr of row gt / nbr (nbr tiles
 // a row), a tile never crosses a row, and its look-back reads only its own
 // row's status in the grouping a one-row call has, so row r gives the bits
-// of a single call on row r.  One scratch serves all rows (one status
-// slot per global tile); the done counter counts every row's tiles.  With
+// of a single call on row r.  One scratch serves all rows (its status
+// slots per row side by side); the tile counter counts every row's tiles.  With
 // one tile a row (the live block of 1024 lanes) no tile looks back and no
 // scratch is touched.  A one-row call runs a kernel compiled without the
 // row arithmetic (kRows = false): at a given B, the
@@ -79,67 +79,76 @@
 // not 16-byte aligned, and the ragged last tile, take coalesced scalar
 // loads.
 //
-// Affine scan (IIR feedback, h_i = A_i h_{i-1} + b_i over the J-deep
-// history, companion form): one launch per call, the same single-pass
-// scheme with a look-back over maps (Maleki, Yang & Burtscher,
-// "Higher-Order and Tuple-Based Massively-Parallel Prefix Sums", PLDI
-// 2016, on top of Merrill & Garland).  Replaces affine_scan_f32 /
-// _affine_scan_kernel (tuun_tpu/engine/pallas_ops.py:301).  What bounds
-// it on this card: HBM bytes, 8J + 5 per lane (a 4J and ff 4 and live 1
-// read once, h 4J written once; 1.4 MB at J = 2 and 65536 lanes, 0.41 us
-// at 3.35 TB/s), and below ~2^20 lanes launch latency and the chain of
-// dependent memory trips in a block.  Arithmetic (O(J^2) a lane) does
-// not bound it.  The design:
-//   * one kernel, no set-up launch or memset;
-//   * a block takes its tile index from an atomic counter, loads the
-//     tile's a, ff and live coalesced (float4 / 16-byte loads; scalar for
-//     a misaligned pointer or the ragged tail) into shared rows padded so
-//     that each thread reads its own lanes as float4s without bank
-//     conflicts;
-//   * each thread composes its lanes' companion maps (push_lane, O(J^2) a
-//     lane), and a warp-shuffle scan gives each thread its exclusive map
-//     within the tile and the tile's map;
-//   * status: one flag word per tile and one record of J^2 + J floats.
-//     Unlike the prefix scan's 64-bit {flag, value} word, the record does
-//     not fit in one word, so a tile writes its record first and then the
-//     flag with st.release; a reader loads the flag with ld.acquire and
-//     only then the record, from L2 (ld.cg).  Every kAffThreads-th tile
-//     (one per thread of a block) is an anchor and publishes its exit
-//     history (J floats) once it knows its entering one; every other
-//     tile publishes its map at once, before its own look-back;
-//   * fixed grouping, so a call gives the same bits every time: tile t's
-//     entering history is anchor a's exit history (a = the last multiple
-//     of kAffThreads below t) with the maps of tiles a + 1 .. t - 1 applied
-//     in sequence order, folded by a fixed shuffle tree (the anchor's
-//     history enters it as a constant map);
-//   * accuracy as in the three-launch kernel this replaced: composed maps
-//     only carry the history across tiles and threads; each thread then
-//     runs the recurrence itself over its lanes from its entering
-//     history, in the reference's op order (y = ff - sum_j a_j y_{-1-j}),
-//     and h goes back out through the same shared rows, coalesced;
+// Affine scan (IIR feedback, y_i = ff_i - sum_j a_ij y_{i-1-j} over the
+// J-deep history, 1 <= J <= kMaxJ = 8, as composed companion maps): one
+// launch per call.  Replaces affine_scan_f32 / _affine_scan_kernel
+// (tuun_tpu/engine/pallas_ops.py:301), whose contract returns the J
+// planes of h f32[N, J]; the engine reads only h[:, 0] on live lanes and
+// the final history, so this kernel returns y f32[N] (0 on a dead lane)
+// and hist f32[J], the deep form's contract.  What bounds it on this
+// card: HBM bytes, 4J + 9 a lane (a 4J, ff 4 and live 1 read once, y 4
+// written once; 1.11 MB at J = 2 and 65536 lanes, 0.333 us at 3.35
+// TB/s), and below ~2^20 lanes the latency of the chain in a block: the
+// loads, the map arithmetic, one look-back, the store.  The per-thread
+// register-map kernel it replaced spent 29% of a 65536-lane block in its
+// loads and 45% in its look-back (affine_probe.py split), held J^2 + J
+// floats a thread (spilling at J = 8) and left 100 of 132 SMs idle at the
+// CLI's block.  The design:
+//   * a block of 4 warps scans a tile of 8 segments of kAffSeg = 32 lanes
+//     a warp, 1024 lanes: 64 blocks at the CLI's 65536-lane block, and a
+//     live 1024-lane row fills one.  8 warps were 1-10% faster at 2^20
+//     lanes and at 4 rows of 65536, slower elsewhere, 2 warps slower at
+//     every shape (affine_probe.py sweep); a fixed tile keeps the tile
+//     count monotone in n;
+//   * each segment's quad of threads loads its a and ff (16-byte loads,
+//     evict-first) into padded rows; a ragged or misaligned tile takes
+//     scalar loads.  Bulk asynchronous copies (TMA) were 0.5-4.3 us slower
+//     at every shape measured (affine_probe.py sweep);
+//   * no thread holds a map.  A segment's map (A J x J, b J) is built
+//     column by column by its quad: column c < J pushes the basis history
+//     e_c through the segment with ff = 0, column J pushes ff from a zero
+//     history, each thread holding at most three J-float histories, a
+//     quarter's inputs read into registers first.  Maps live in shared
+//     memory, column by column (deep_col), and the columns after each
+//     quarter of the segment are kept as the quarters' maps;
+//   * each warp scans its eight segment maps (Kogge-Stone, inclusive),
+//     warp 0 scans the warp totals; the last is the tile's map;
+//   * look-back over a tree of records, with no chain of anchors: record
+//     (l, k) is the map of tiles [k fan^l, (k + 1) fan^l), published once
+//     by the tile (k + 1) fan^l - 1, which composes its own map with the
+//     folds of the levels below.  Tile t reads level l's records t_l - d_l
+//     .. t_l - 1 (t_l = t / fan^l, d_l its base-fan digit), at most fan -
+//     1 a level over ~log_fan(tiles) levels, folds them by an up-sweep
+//     (16 maps a warp, then warp 0) and applies the folds to h0, the
+//     earliest first.  A record's words carry the stamp of the call that
+//     wrote them beside each value, so a reader polls the words themselves:
+//     no flag, no fence, one trip to L2.  The grouping is fixed, so a call
+//     gives the same bits every time, and no tile waits on more than
+//     levels hops;
+//   * each thread's quarter segment enters with the tile's history with
+//     the scanned maps of the warps before, of the warp's segments before
+//     and of the segment's quarters before applied in turn; it runs the
+//     recurrence itself over its 8 lanes in the reference's op order and
+//     writes y over ff in shared memory; y goes out coalesced.  Composed
+//     maps only carry the history across quarters, segments and tiles.
+//     The thread whose quarter holds lane n - 1 writes hist;
 //   * the scratch is the caller's persistent buffer for its (device,
-//     stream), tuun_affine_scratch_words(cap) words for up to cap tiles,
-//     zeroed once; the last block to count itself done (acquire-release)
-//     clears the flags and counters, so the next call or graph replay
-//     finds it clean.  The records need no clearing;
-//   * N <= one tile skips the counter and the look-back; the block that
-//     holds lane N - 1 writes hist.
-// Tile: 128 threads x 16 lanes, one look-back record per thread, so an
-// anchor every 128 tiles.  It was chosen on an H100 for the main path's
-// 65536 lanes (32 tiles), where no tile tried was faster.  At 2^20 lanes
-// smaller tiles (128 x 4, 64 x 8, 32 x 16) lost to the longer chain of
-// anchors.  Reading 2-4 records per thread (no anchor chain up to 2^20
-// lanes) was slower at 65536 lanes and mixed at 2^20 (PERF.md).
+//     stream), tuun_affine_scratch_words(cap) words for up to cap records
+//     (tuun_affine_slots a row), each sized for kMaxJ, zeroed once.  The
+//     block that draws the last tile from the counter resets it and
+//     advances the epoch that stamps the next call's records: no memset,
+//     and stale records never match;
+//   * N <= one tile skips the counter and the look-back.
+// Tensor cores do not serve: the maps are composed in float32, and TF32
+// products would lose the digits AFFINE_TOL holds.
 //
 // Deep affine scan (the same IIR at 8 < J <= kDeepMaxJ = 16), fast mode's
-// feedback past the affine scan's kMaxJ.  It returns y and the final
-// history, not the J planes of h: the engine reads only y and hist.  What
-// bounds it on this card: HBM bytes, 4J + 9 a lane (a 4J, ff 4, live 1
+// feedback past the affine scan's kMaxJ, with its contract (y and the
+// final history).  What bounds it on this card: HBM bytes, 4J + 9 a lane (a 4J, ff 4, live 1
 // read once, y 4 written once; 2.86 us at J = 16 and 2^17 lanes), then the
-// chains of dependent operations in a tile.  What held the affine scan to
-// J <= 8: each thread keeps its J x J map and its shuffle partner's in
-// registers, 2 (J^2 + J) floats, which spill from J = 7.  Here no thread
-// holds a map:
+// chains of dependent operations in a tile.  No thread holds a map (the
+// first J <= 8 kernel kept 2 (J^2 + J) floats a thread in registers, which
+// spilled from J = 7):
 //   * a block's tile (kDeepTile lanes) is kDeepSegs segments of kDeepSeg
 //     lanes, kDeepSegsPerWarp a warp.  Each warp stages its segments' a,
 //     ff and live into shared memory with cp.async, one commit group a
@@ -156,7 +165,7 @@
 //     each level a thread composes one output column (J^2 FMAs, the
 //     columns of the right map's A read as float4s), and the root holds
 //     the tile's map;
-//   * look-back as in the affine scan, in a fixed grouping: every
+//   * look-back in a fixed grouping: every
 //     kDeepAnchor-th tile is an anchor and publishes its exit history,
 //     every other tile its map (J^2 + J floats of a kDeepRecord record) at
 //     once.  Tile t's warp 0 waits for the maps of tiles a + 1 .. t - 1
@@ -506,195 +515,36 @@ int run_prefix(const float* x, float* out, unsigned long long* scratch,
 }
 
 // ---------------------------------------------------------------------------
-// Affine scan: h_i = A_i h_{i-1} + b_i over the J-deep filter history.
+// Shared by the affine scans: the scratch's head and flags, padded rows, and
+// the acquire / release operations of their look-backs.
 // ---------------------------------------------------------------------------
 //
 // Lane i is the companion-form map of y[i] = ff[i] - sum_j a[i,j] y[i-1-j]
 // (row 0 = -a[i,:], rows 1.. shift the history down; b = (ff[i], 0, ...)),
-// or the identity on a dead lane.  h[i, :] = (y[i], y[i-1], ..., y[i-J+1]).
+// or the identity on a dead lane; the history after lane i is (y[i],
+// y[i-1], ..., y[i-J+1]).
 
-// Tile: kAffThreads threads x kAffItems lanes.  Every kAffThreads-th tile
-// is an anchor, so a look-back reads at most one status record per thread.
-constexpr int kAffThreads = 128;
-constexpr int kAffItems = 16;
-constexpr int kAffTile = kAffThreads * kAffItems;  // 2048 lanes per block
 constexpr int kMaxJ = 8;
 
-// Scratch, in 32-bit words, for a capacity of `cap` tiles: [0] tile
-// counter, [1] done counter, [2, 2 + cap) one flag per tile, then from
-// aff_payload_offset(cap) one record of kAffRecord floats per tile.  Only
-// the counters and flags must be zero when a call starts.
+// Scratch, in 32-bit words, for a capacity of `cap` records: [0] tile
+// counter, [1] done counter, [2, 2 + cap) one flag per record, then from
+// aff_payload_offset(cap) the records.  Only the counters and flags must
+// be zero when a call starts.
 constexpr int kAffHead = 2;
-constexpr int kAffRecord = kMaxJ * kMaxJ + kMaxJ;
 constexpr unsigned kAffNotReady = 0;
-constexpr unsigned kAffAggregate = 1;  // the record holds the tile's map
-constexpr unsigned kAffHistory = 2;    // the record holds its exit history
+constexpr unsigned kAffAggregate = 1;  // the record holds a map
+constexpr unsigned kAffHistory = 2;    // the record holds an exit history
 
 __host__ __device__ constexpr int64_t aff_payload_offset(int64_t cap) {
   return (kAffHead + cap + 3) / 4 * 4;
 }
 
-// Shared-memory row of a thread's lanes, in floats: padded so that the
-// row stride is an odd number of float4s.  A warp's float4 reads of one
-// offset in each thread's row are then free of bank conflicts, and every
-// row stays 16-byte aligned.
+// Shared-memory row of `floats` floats, padded so that the row stride is
+// an odd number of float4s: a warp's float4 reads of one offset in
+// consecutive rows are then free of bank conflicts, and every row stays
+// 16-byte aligned.
 __host__ __device__ constexpr int aff_row(int floats) {
   return (floats / 4) % 2 ? floats : floats + 4;
-}
-
-template <int J>
-__host__ __device__ constexpr size_t aff_smem_bytes() {
-  return (size_t)kAffThreads *
-         (aff_row(kAffItems * J) + aff_row(kAffItems)) * sizeof(float) +
-         kAffTile;
-}
-
-template <int J>
-struct Map {
-  float A[J][J];
-  float b[J];
-};
-
-template <int J>
-__device__ __forceinline__ void set_identity(Map<J>& m) {
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-#pragma unroll
-    for (int k = 0; k < J; ++k) m.A[i][k] = i == k ? 1.0f : 0.0f;
-    m.b[i] = 0.0f;
-  }
-}
-
-// cur after prev: (cur.A prev.A, cur.A prev.b + cur.b).
-template <int J>
-__device__ __forceinline__ Map<J> compose(const Map<J>& cur,
-                                          const Map<J>& prev) {
-  Map<J> r;
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-    float bb = cur.b[i];
-#pragma unroll
-    for (int m = 0; m < J; ++m) bb += cur.A[i][m] * prev.b[m];
-    r.b[i] = bb;
-#pragma unroll
-    for (int k = 0; k < J; ++k) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = 0; m < J; ++m) acc += cur.A[i][m] * prev.A[m][k];
-      r.A[i][k] = acc;
-    }
-  }
-  return r;
-}
-
-template <int J>
-__device__ __forceinline__ Map<J> shfl_up_map(const Map<J>& m, int d) {
-  Map<J> r;
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-#pragma unroll
-    for (int k = 0; k < J; ++k) r.A[i][k] = __shfl_up_sync(kFull, m.A[i][k], d);
-    r.b[i] = __shfl_up_sync(kFull, m.b[i], d);
-  }
-  return r;
-}
-
-template <int J>
-__device__ __forceinline__ Map<J> shfl_down_map(const Map<J>& m, int d) {
-  Map<J> r;
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-#pragma unroll
-    for (int k = 0; k < J; ++k) {
-      r.A[i][k] = __shfl_down_sync(kFull, m.A[i][k], d);
-    }
-    r.b[i] = __shfl_down_sync(kFull, m.b[i], d);
-  }
-  return r;
-}
-
-// out = m(h) = m.A h + m.b
-template <int J>
-__device__ __forceinline__ void apply_map(const Map<J>& m, const float* h,
-                                          float* out) {
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-    float acc = m.b[i];
-#pragma unroll
-    for (int k = 0; k < J; ++k) acc += m.A[i][k] * h[k];
-    out[i] = acc;
-  }
-}
-
-// P <- (companion map of lane a, f) after P.
-template <int J>
-__device__ __forceinline__ void push_lane(Map<J>& P, const float* a, float f) {
-  float row[J];
-  float b0 = f;
-#pragma unroll
-  for (int k = 0; k < J; ++k) row[k] = 0.0f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const float aj = a[j];
-#pragma unroll
-    for (int k = 0; k < J; ++k) row[k] -= aj * P.A[j][k];
-    b0 -= aj * P.b[j];
-  }
-#pragma unroll
-  for (int i = J - 1; i >= 1; --i) {
-#pragma unroll
-    for (int k = 0; k < J; ++k) P.A[i][k] = P.A[i - 1][k];
-    P.b[i] = P.b[i - 1];
-  }
-#pragma unroll
-  for (int k = 0; k < J; ++k) P.A[0][k] = row[k];
-  P.b[0] = b0;
-}
-
-// Exclusive scan of one map per thread across the block; same shape as
-// block_exclusive_scan.  *total receives the block's map.
-template <int J>
-__device__ Map<J> block_exclusive_scan_maps(const Map<J>& v, Map<J>* warp_maps,
-                                            Map<J>* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  Map<J> incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const Map<J> o = shfl_up_map<J>(incl, d);
-    if (lane >= d) incl = compose<J>(incl, o);
-  }
-  Map<J> excl = shfl_up_map<J>(incl, 1);
-  if (lane == 31) warp_maps[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    Map<J> t;
-    if (lane < nwarps) {
-      t = warp_maps[lane];
-    } else {
-      set_identity<J>(t);
-    }
-    for (int d = 1; d < nwarps; d <<= 1) {
-      const Map<J> o = shfl_up_map<J>(t, d);
-      if (lane >= d) t = compose<J>(t, o);
-    }
-    if (lane < nwarps) warp_maps[lane] = t;
-  }
-  __syncthreads();
-  if (warp > 0) {
-    const Map<J> before = warp_maps[warp - 1];
-    if (lane == 0) {
-      excl = before;
-    } else {
-      excl = compose<J>(excl, before);
-    }
-  } else if (lane == 0) {
-    set_identity<J>(excl);
-  }
-  *total = warp_maps[nwarps - 1];
-  __syncthreads();
-  return excl;
 }
 
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
@@ -714,322 +564,6 @@ __device__ __forceinline__ unsigned count_acq_rel(unsigned* p) {
   asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
                : "=r"(old) : "l"(p) : "memory");
   return old;
-}
-
-// A status record as a map: an anchor's exit history is the constant map
-// (A = 0, b = history).
-template <int J>
-__device__ __forceinline__ Map<J> load_record(const float* rec, bool history) {
-  Map<J> m;
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-#pragma unroll
-    for (int k = 0; k < J; ++k) {
-      m.A[i][k] = history ? 0.0f : __ldcg(rec + i * J + k);
-    }
-    m.b[i] = __ldcg(rec + (history ? i : J * J + i));
-  }
-  return m;
-}
-
-// Run by the whole block of tile t > 0; thread 0 writes the history
-// entering the tile to h_in.  Fixed grouping: the exit history of anchor
-// a = the last multiple of kAffThreads below t, as a constant map, then
-// the maps of tiles a + 1 .. t - 1, composed in sequence order.  Thread k
-// waits for tile a + k's flag (acquire) and reads its record from L2;
-// each warp's shuffle tree then folds lane l + d into lane l (the later
-// map after the earlier), and thread 0 folds the warp totals in order.
-// The fold's b is the entering history.  With at most 32 records, only
-// warp 0 takes part and no barrier is needed.
-template <int J>
-__device__ void affine_look_back(const unsigned* flags, const float* records,
-                                 int64_t t, Map<J>* warp_maps, float* h_in) {
-  const int64_t a = (t - 1) / kAffThreads * kAffThreads;
-  const int words = (int)(t - a);
-  const int lane = threadIdx.x & 31;
-  if (words <= 32 && threadIdx.x >= 32) return;
-  const bool mine = (int)threadIdx.x < words;
-  bool ready = !mine;
-  // The warp spins as one, as the prefix scan's look-back does.
-  while (__any_sync(kFull, !ready)) {
-    if (!ready) ready = load_acquire(&flags[a + threadIdx.x]) != kAffNotReady;
-  }
-  Map<J> v;
-  if (mine) {
-    v = load_record<J>(records + (a + threadIdx.x) * kAffRecord,
-                       threadIdx.x == 0);
-  } else {
-    set_identity<J>(v);
-  }
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const Map<J> o = shfl_down_map<J>(v, d);
-    if (lane + d < 32) v = compose<J>(o, v);
-  }
-  if (words > 32) {
-    if (lane == 0) warp_maps[threadIdx.x >> 5] = v;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < (words + 31) / 32; ++w) {
-        v = compose<J>(warp_maps[w], v);
-      }
-    }
-  }
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < J; ++i) h_in[i] = v.b[i];
-  }
-}
-
-// Copies `count` floats of a tile from global memory into the padded
-// shared rows (lane group e / per_row of row_floats per thread).  float4
-// when the source is 16-byte aligned and whole, else masked scalars.
-template <int kPerRow>
-__device__ __forceinline__ void load_rows(const float* __restrict__ src,
-                                          int64_t avail, bool vec,
-                                          float* dst) {
-  constexpr int kRow = aff_row(kPerRow);
-  constexpr int kCount = kAffThreads * kPerRow;
-  if (vec) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-    for (int k = 0; k < kCount / 4 / kAffThreads; ++k) {
-      const int e = 4 * (k * kAffThreads + threadIdx.x);
-      *reinterpret_cast<float4*>(&dst[e / kPerRow * kRow + e % kPerRow]) =
-          __ldcs(&s4[k * kAffThreads + threadIdx.x]);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kCount; e += kAffThreads) {
-      dst[e / kPerRow * kRow + e % kPerRow] = e < avail ? src[e] : 0.0f;
-    }
-  }
-}
-
-// One launch: for each of `rows` rows, h f32[n, J] and hist f32[J] from
-// a f32[n, J], ff f32[n], live u8[n] and h0 f32[J] (row r of each at r
-// times its row's size).  As in the prefix scan, a tile never crosses a
-// row and its look-back reads only its own row's flags and records, in a
-// single row's grouping, so row r gives the bits of a one-row call on it.
-// kRows = false is the one-row form, compiled without the row arithmetic.
-template <int J, bool kRows>
-__global__ void __launch_bounds__(kAffThreads)
-affine_single_pass(const float* __restrict__ a_all,
-                   const float* __restrict__ ff_all,
-                   const uint8_t* __restrict__ live_all,
-                   const float* __restrict__ h0_all, float* __restrict__ h_all,
-                   float* __restrict__ hist_all, unsigned* scratch, int64_t cap,
-                   int64_t rows, int64_t n) {
-  constexpr int kRowA = aff_row(kAffItems * J);
-  constexpr int kRowF = aff_row(kAffItems);
-  extern __shared__ __align__(16) unsigned char aff_smem[];
-  float* a_s = reinterpret_cast<float*>(aff_smem);  // then h, in place
-  float* ff_s = a_s + kAffThreads * kRowA;
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(ff_s + kAffThreads * kRowF);
-  __shared__ Map<J> warp_maps[kAffThreads / 32];
-  __shared__ float h_tile[J];
-  __shared__ unsigned tile_index;
-  __shared__ bool last_block;
-
-  const int64_t nbr = (n + kAffTile - 1) / kAffTile;  // tiles per row
-  const int64_t nb = kRows ? rows * nbr : nbr;
-  int64_t gt = blockIdx.x;
-  if (nbr > 1) {
-    if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1u);
-    __syncthreads();
-    gt = (int64_t)tile_index;
-  }
-  // A 32-bit division (nb < 2^31), cheaper than a 64-bit one.
-  const int64_t r = kRows ? (int64_t)((unsigned)gt / (unsigned)nbr) : 0;
-  const int64_t t = gt - r * nbr;
-  const float* __restrict__ a = a_all + r * n * J;
-  const float* __restrict__ ff = ff_all + r * n;
-  const uint8_t* __restrict__ live = live_all + r * n;
-  const float* __restrict__ h0 = h0_all + r * J;
-  float* __restrict__ h = h_all + r * n * J;
-  float* __restrict__ hist = hist_all + r * J;
-  unsigned* flags = scratch + kAffHead + r * nbr;
-  float* records = reinterpret_cast<float*>(scratch + aff_payload_offset(cap)) +
-                   r * nbr * kAffRecord;
-  const int64_t base = t * kAffTile;
-  const bool whole = base + kAffTile <= n;
-  const int64_t avail = whole ? kAffTile : n - base;
-
-  // Load: coalesced, into the padded rows.
-  load_rows<kAffItems * J>(a + base * J, avail * J,
-                           whole && ((uintptr_t)a & 15) == 0, a_s);
-  load_rows<kAffItems>(ff + base, avail, whole && ((uintptr_t)ff & 15) == 0,
-                       ff_s);
-  if (whole && ((uintptr_t)live & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(live + base);
-    for (int v = threadIdx.x; v < kAffTile / 16; v += kAffThreads) {
-      reinterpret_cast<uint4*>(live_s)[v] = __ldcs(&s4[v]);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kAffTile; e += kAffThreads) {
-      live_s[e] = e < avail ? live[base + e] : 0;
-    }
-  }
-  __syncthreads();
-
-  // Each thread composes its lanes' maps, O(J^2) a lane.
-  const float* row_a = a_s + threadIdx.x * kRowA;
-  const float* row_f = ff_s + threadIdx.x * kRowF;
-  const uint8_t* row_l = live_s + threadIdx.x * kAffItems;
-  Map<J> P;
-  set_identity<J>(P);
-#pragma unroll
-  for (int g = 0; g < kAffItems / 4; ++g) {
-    float av[4 * J];
-#pragma unroll
-    for (int c = 0; c < J; ++c) {
-      const float4 q = reinterpret_cast<const float4*>(row_a + 4 * J * g)[c];
-      av[4 * c] = q.x, av[4 * c + 1] = q.y, av[4 * c + 2] = q.z,
-      av[4 * c + 3] = q.w;
-    }
-    const float4 fq = reinterpret_cast<const float4*>(row_f)[g];
-    const float fv[4] = {fq.x, fq.y, fq.z, fq.w};
-    const unsigned lw = reinterpret_cast<const unsigned*>(row_l)[g];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if ((lw >> (8 * q)) & 0xff) push_lane<J>(P, av + q * J, fv[q]);
-    }
-  }
-  Map<J> total;
-  const Map<J> excl = block_exclusive_scan_maps<J>(P, warp_maps, &total);
-
-  // The history entering the tile.
-  if (nbr > 1) {
-    const bool anchor = t % kAffThreads == 0;
-    float* rec = records + t * kAffRecord;
-    if (threadIdx.x == 0 && !anchor) {
-#pragma unroll
-      for (int i = 0; i < J; ++i) {
-#pragma unroll
-        for (int k = 0; k < J; ++k) rec[i * J + k] = total.A[i][k];
-        rec[J * J + i] = total.b[i];
-      }
-      store_release(&flags[t], kAffAggregate);
-    }
-    if (t == 0) {
-      if (threadIdx.x < J) h_tile[threadIdx.x] = h0[threadIdx.x];
-      __syncthreads();
-    } else {
-      affine_look_back<J>(flags, records, t, warp_maps, h_tile);
-    }
-    if (threadIdx.x == 0) {
-      if (anchor) {
-        apply_map<J>(total, h_tile, rec);
-        store_release(&flags[t], kAffHistory);
-      }
-      // Every read of a flag or record by this block is done, and this
-      // tile's flag is final.
-      last_block = count_acq_rel(&scratch[1]) == (unsigned)(nb - 1);
-    }
-  } else if (threadIdx.x < J) {
-    h_tile[threadIdx.x] = h0[threadIdx.x];
-  }
-  __syncthreads();
-
-  // The recurrence over the thread's lanes from its entering history, in
-  // the reference's op order; h overwrites a in the thread's row.
-  float hv[J];
-  {
-    float hb[J];
-#pragma unroll
-    for (int i = 0; i < J; ++i) hb[i] = h_tile[i];
-    apply_map<J>(excl, hb, hv);
-  }
-  const int64_t first = base + (int64_t)threadIdx.x * kAffItems;
-#pragma unroll
-  for (int g = 0; g < kAffItems / 4; ++g) {
-    float4* row4 =
-        reinterpret_cast<float4*>(a_s + threadIdx.x * kRowA + 4 * J * g);
-    float av[4 * J];
-#pragma unroll
-    for (int c = 0; c < J; ++c) {
-      const float4 q = row4[c];
-      av[4 * c] = q.x, av[4 * c + 1] = q.y, av[4 * c + 2] = q.z,
-      av[4 * c + 3] = q.w;
-    }
-    const float4 fq = reinterpret_cast<const float4*>(row_f)[g];
-    const float fv[4] = {fq.x, fq.y, fq.z, fq.w};
-    const unsigned lw = reinterpret_cast<const unsigned*>(row_l)[g];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if ((lw >> (8 * q)) & 0xff) {
-        float y = fv[q];
-#pragma unroll
-        for (int j = 0; j < J; ++j) y -= av[q * J + j] * hv[j];
-#pragma unroll
-        for (int j = J - 1; j >= 1; --j) hv[j] = hv[j - 1];
-        hv[0] = y;
-      }
-#pragma unroll
-      for (int j = 0; j < J; ++j) av[q * J + j] = hv[j];
-      if (first + 4 * g + q == n - 1) {
-#pragma unroll
-        for (int j = 0; j < J; ++j) hist[j] = hv[j];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < J; ++c) {
-      row4[c] = make_float4(av[4 * c], av[4 * c + 1], av[4 * c + 2],
-                            av[4 * c + 3]);
-    }
-  }
-  __syncthreads();
-
-  // Store: coalesced, from the padded rows.
-  {
-    constexpr int kPerRow = kAffItems * J;
-    float* dst = h + base * J;
-    if (whole && ((uintptr_t)h & 15) == 0) {
-      float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-      for (int k = 0; k < kPerRow / 4; ++k) {
-        const int v = k * kAffThreads + threadIdx.x;
-        const int e = 4 * v;
-        d4[v] = *reinterpret_cast<const float4*>(
-            &a_s[e / kPerRow * kRowA + e % kPerRow]);
-      }
-    } else {
-      for (int e = threadIdx.x; e < kAffThreads * kPerRow; e += kAffThreads) {
-        if (e < avail * J) dst[e] = a_s[e / kPerRow * kRowA + e % kPerRow];
-      }
-    }
-  }
-
-  // The last block to finish its look-back leaves the scratch clean.
-  if (nbr > 1 && last_block) {
-    unsigned* all = scratch + kAffHead;
-    for (int64_t i = threadIdx.x; i < nb; i += kAffThreads) all[i] = 0;
-    if (threadIdx.x == 0) {
-      scratch[0] = 0;
-      scratch[1] = 0;
-    }
-  }
-}
-
-template <int J>
-int run_affine(const float* a, const float* ff, const uint8_t* live,
-               const float* h0, float* h, float* hist, unsigned* scratch,
-               int64_t cap, int64_t rows, int64_t n, cudaStream_t stream) {
-  const int64_t nbr = (n + kAffTile - 1) / kAffTile;
-  const int64_t nb = rows * nbr;
-  if (nb > kMaxN || (nbr > 1 && (scratch == nullptr || nb > cap))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  constexpr size_t smem = aff_smem_bytes<J>();
-  auto kernel = rows == 1 ? affine_single_pass<J, false>
-                          : affine_single_pass<J, true>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<(unsigned)nb, kAffThreads, smem, stream>>>(
-      a, ff, live, h0, h, hist, scratch, cap, rows, n);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1543,14 +1077,616 @@ int run_affine_deep(const float* a, const float* ff, const uint8_t* live,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Affine scan: the IIR at J <= kMaxJ, segment maps built column by column.
+// ---------------------------------------------------------------------------
+
+constexpr int kAffSeg = 32;                    // lanes a segment
+constexpr int kAffQuad = 4;                    // threads a segment
+constexpr int kAffQuarter = kAffSeg / kAffQuad;  // lanes a thread's recurrence
+constexpr int kAffSegsPerWarp = 32 / kAffQuad;   // 8
+constexpr int kAffWarps = 4;
+constexpr int kAffThreads = 32 * kAffWarps;
+constexpr int kAffSegs = kAffSegsPerWarp * kAffWarps;  // 32
+constexpr int kAffTile = kAffSeg * kAffSegs;           // 1024 lanes
+// The look-back's fan: a power of two in this range (a level folds at most
+// fan - 1 records, one flag a thread).
+constexpr int kAffMinFan = 16;
+constexpr int kAffMaxFan = 64;
+// Levels of the record tree: base-16 digits of a tile index (< 2^31).
+constexpr int kAffMaxLevels = 8;
+// Scratch, in 32-bit words: [0, 2) the tile counter (low half) and the
+// call's epoch (high half) as one 64-bit word, then from word kAffHeadWords
+// one record a slot of kAffRecord 64-bit words.  A record word is a map's
+// value (low half) with the stamp of the call that wrote it (high half),
+// so a reader that sees the stamp of its own call sees the value: no flag,
+// no fence, one trip to L2 a word.
+constexpr int kAffHeadWords = 4;
+constexpr int kAffRecord = kMaxJ * (kMaxJ + 1);  // A and b at kMaxJ
+// 64-bit words a thread polls at once in a look-back.
+constexpr int kAffPollBatch = 8;
+// Maps a warp folds on its own in a look-back.
+constexpr int kAffFoldGroup = 16;
+// Grids past this many tiles prefetch a block's likely tile into L2 while
+// its tile counter answers: 0.7-1.2 us saved at 1024 tiles and more, 0.1-
+// 0.4 us lost at 64-256 (affine_probe.py sweep).
+constexpr int64_t kAffPrefetchTiles = 256;
+static_assert(kAffSeg % (4 * kAffQuad) == 0, "quarters of whole float4s");
+static_assert(kAffMaxFan <= kAffThreads, "a thread a look-back's record");
+
+// Records of one row at `tiles` tiles: level l holds tiles / fan^l (fan =
+// 2^fan_bits).
+__host__ __device__ inline int64_t aff_slots(int64_t tiles, int fan_bits) {
+  int64_t total = 0;
+  for (int64_t c = tiles; c > 0; c >>= fan_bits) total += c;
+  return total;
+}
+
+__host__ __device__ inline int aff_log2(int fan) {
+  int bits = 0;
+  while ((1 << bits) < fan) ++bits;
+  return bits;
+}
+
+// Shared-memory layout of a block at J and fan, in floats; every region
+// starts on a 16-byte boundary.
+template <int J>
+struct AffLayout {
+  static constexpr int kJp = deep_col(J);
+  static constexpr int kMap = (J + 1) * kJp;  // columns 0..J-1: A; J: b
+  static constexpr int kSegA = aff_row(kAffSeg * J);  // a segment's a
+  static constexpr int kSegF = aff_row(kAffSeg);      // its ff, then y
+  static constexpr int kA = 0;
+  static constexpr int kF = kA + kAffSegs * kSegA;
+  static constexpr int kMaps = kF + kAffSegs * kSegF;    // segment maps
+  static constexpr int kCk = kMaps + kAffSegs * kMap;    // quarter maps
+  static constexpr int kWt = kCk + kAffSegs * (kAffQuad - 1) * kMap;
+  static constexpr int kLb = kWt + kAffWarps * kMap;     // a look-back level
+  // Then fan maps of lb, the level folds and R, R' (xl), the live bytes.
+  __host__ __device__ static int xl(int fan) { return kLb + fan * kMap; }
+  __host__ __device__ static int live(int fan) {
+    return xl(fan) + (kAffMaxLevels + 2) * kMap;
+  }
+  __host__ __device__ static size_t bytes(int fan) {
+    return sizeof(float) * (size_t)live(fan) + kAffTile;
+  }
+};
+
+// Kogge-Stone inclusive scan of maps[0 .. count) in place by the calling
+// warp: at width d, map s >= d becomes "s after s - d"; map s then holds
+// the fold of maps 0..s, the first applied first.  One lane an output
+// column; every column is read before any is written.
+template <int J, int kMaxCount>
+__device__ void aff_scan(float* maps, int count, int lane) {
+  constexpr int kMap = AffLayout<J>::kMap;
+  constexpr int kRounds = ((kMaxCount - 1) * (J + 1) + 31) / 32;
+  for (int d = 1; d < count; d <<= 1) {
+    const int tasks = (count - d) * (J + 1);
+    float out[kRounds][J];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = lane + 32 * u;
+      if (e < tasks) {
+        const int m = d + e / (J + 1), c = e % (J + 1);
+        deep_compose_column<J>(maps + m * kMap, maps + (m - d) * kMap, c,
+                               out[u]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = lane + 32 * u;
+      if (e < tasks) {
+        const int m = d + e / (J + 1), c = e % (J + 1);
+        float* col = maps + m * kMap + c * AffLayout<J>::kJp;
+#pragma unroll
+        for (int i = 0; i < J; ++i) col[i] = out[u][i];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Levels d in [d0, d1) of a Blelloch up-sweep of maps[0 .. count) (count a
+// power of two) in place by the calling warp: map R = (2p + 2) d - 1
+// becomes "R after R - d"; after every level below count, map count - 1
+// holds the fold of all, the first applied first.  One lane an output
+// column, at most kMaxTasks columns a level; every column is read before
+// any is written.
+template <int J, int kMaxTasks>
+__device__ void aff_up_sweep(float* maps, int count, int d0, int d1,
+                             int lane) {
+  constexpr int kMap = AffLayout<J>::kMap;
+  constexpr int kRounds = (kMaxTasks + 31) / 32;
+  for (int d = d0; d < d1; d <<= 1) {
+    const int tasks = count / (2 * d) * (J + 1);
+    float out[kRounds][J];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = lane + 32 * u;
+      if (e < tasks) {
+        const int p = e / (J + 1), c = e - p * (J + 1);
+        const int R = (2 * p + 2) * d - 1;
+        deep_compose_column<J>(maps + R * kMap, maps + (R - d) * kMap, c,
+                               out[u]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int e = lane + 32 * u;
+      if (e < tasks) {
+        const int p = e / (J + 1), c = e - p * (J + 1);
+        const int R = (2 * p + 2) * d - 1;
+        float* col = maps + R * kMap + c * AffLayout<J>::kJp;
+#pragma unroll
+        for (int i = 0; i < J; ++i) col[i] = out[u][i];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The fold of `count` maps (a power of two <= kAffMaxFan) by the block: its
+// levels below kAffFoldGroup in groups of that many maps, a warp a group,
+// then the rest by warp 0; map count - 1 holds the fold, the first map
+// applied first (the up-sweep's grouping).
+template <int J>
+__device__ void aff_fold(float* maps, int count) {
+  constexpr int kMap = AffLayout<J>::kMap;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = count < kAffFoldGroup ? count : kAffFoldGroup;
+  for (int g = warp; g < count / group; g += kAffWarps) {
+    aff_up_sweep<J, kAffFoldGroup / 2 * (J + 1)>(maps + g * group * kMap,
+                                                 group, 1, group, lane);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    aff_up_sweep<J, kAffMaxFan / (2 * kAffFoldGroup) * (J + 1)>(
+        maps, count, group, count, lane);
+  }
+  __syncthreads();
+}
+
+// h <- m(h) in place, every row in this thread, each row's products in
+// order (the same bits wherever a map meets a history).
+template <int J>
+__device__ __forceinline__ void aff_apply(const float* m, float* h) {
+  constexpr int Jp = AffLayout<J>::kJp;
+  float out[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    float acc = m[J * Jp + j];
+#pragma unroll
+    for (int c = 0; c < J; ++c) acc = __fmaf_rn(m[c * Jp + j], h[c], acc);
+    out[j] = acc;
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) h[j] = out[j];
+}
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
+// One launch: for each of `rows` rows, y f32[n] (0 on a dead lane) and hist
+// f32[J] (the history after lane n - 1) from a f32[n, J], ff f32[n], live
+// u8[n] and h0 f32[J] (row r of each at r times its row's size).  A block
+// scans a tile of kAffSegs segments of kAffSeg lanes.
+// Tiles never cross a row; the look-back reads only its own row's records,
+// in a single row's grouping, so row r gives the bits of a one-row call on
+// it.  kRows = false is the one-row form, compiled without the row
+// arithmetic.
+template <int J, bool kRows>
+__global__ void __launch_bounds__(kAffThreads)
+affine_scan_pass(const float* __restrict__ a_all,
+                 const float* __restrict__ ff_all,
+                 const uint8_t* __restrict__ live_all,
+                 const float* __restrict__ h0_all, float* __restrict__ y_all,
+                 float* __restrict__ hist_all, unsigned* scratch, int64_t cap,
+                 int64_t rows, int64_t n, int fan) {
+  using L = AffLayout<J>;
+  constexpr int Jp = L::kJp, kMap = L::kMap;
+  extern __shared__ __align__(16) float aff_smem[];
+  __shared__ unsigned tile_index, call_stamp;
+  __shared__ float h_tile[J];
+  float* a_s = aff_smem + L::kA;
+  float* f_s = aff_smem + L::kF;
+  float* maps = aff_smem + L::kMaps;
+  float* ck = aff_smem + L::kCk;
+  float* wt = aff_smem + L::kWt;
+  float* lb = aff_smem + L::kLb;
+  float* xl = aff_smem + L::xl(fan);
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(aff_smem + L::live(fan));
+
+  constexpr int tile = kAffTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t nbr = (n + tile - 1) / tile;  // tiles per row
+  const int64_t nb = kRows ? rows * nbr : nbr;
+  int64_t gt = blockIdx.x;
+  if (nbr > 1) {
+    // The tile comes from the counter; the block that draws the last one
+    // knows every block has drawn, and readies the scratch for the next
+    // call: the counter back to zero, the epoch advanced.
+    unsigned long long* head = reinterpret_cast<unsigned long long*>(scratch);
+    if (threadIdx.x == 0) {
+      const unsigned long long old = atomicAdd(head, 1ull);
+      tile_index = (unsigned)old;
+      call_stamp = 2u * (unsigned)(old >> 32) + 1u;  // never 0
+      if ((unsigned)old == (unsigned)(nb - 1)) {
+        *head = ((old >> 32) + 1ull) << 32;
+      }
+    }
+    // While the counter answers, bring tile blockIdx.x (the tile a block
+    // most often draws) towards L2, when the grid is more than
+    // kAffPrefetchTiles tiles.
+    if (nb > kAffPrefetchTiles) {
+      const int64_t r0 = kRows ? (int64_t)((unsigned)gt / (unsigned)nbr) : 0;
+      const int64_t b0 = r0 * n + (gt - r0 * nbr) * tile;
+      const int64_t left = n * (r0 + 1) - b0;
+      const int lanes = left < tile ? (int)left : tile;
+      for (int v = threadIdx.x; v < lanes * J / 32; v += kAffThreads) {
+        prefetch_l2(a_all + b0 * J + 32 * v);
+      }
+      for (int v = threadIdx.x; v < lanes / 32; v += kAffThreads) {
+        prefetch_l2(ff_all + b0 + 32 * v);
+      }
+    }
+    __syncthreads();
+    gt = (int64_t)tile_index;
+  }
+  // A 32-bit division (nb < 2^31), cheaper than a 64-bit one.
+  const int64_t r = kRows ? (int64_t)((unsigned)gt / (unsigned)nbr) : 0;
+  const int64_t t = gt - r * nbr;
+  const int64_t base = t * tile;
+  const float* __restrict__ a = a_all + (r * n + base) * J;
+  const float* __restrict__ ff = ff_all + r * n + base;
+  const uint8_t* __restrict__ live = live_all + r * n + base;
+  const float* __restrict__ h0 = h0_all + r * J;
+  float* __restrict__ y = y_all + r * n + base;
+  float* __restrict__ hist = hist_all + r * J;
+  const int fan_bits = aff_log2(fan);
+  const int64_t per_row = aff_slots(nbr, fan_bits);
+  unsigned long long* records =
+      reinterpret_cast<unsigned long long*>(scratch + kAffHeadWords) +
+      r * per_row * kAffRecord;
+  const int64_t avail = n - base < tile ? n - base : tile;
+  const bool whole = avail == tile;
+
+  // Load the tile into padded segment rows: segment s by its quad's four
+  // threads (16-byte loads, evict-first), the live bytes by the block;
+  // scalars past n or off a 16-byte boundary.
+  const int s = threadIdx.x / kAffQuad, q = threadIdx.x % kAffQuad;
+  float* __restrict__ as = a_s + s * L::kSegA;
+  float* __restrict__ fs = f_s + s * L::kSegF;
+  const uint8_t* __restrict__ ls = live_s + s * kAffSeg;
+  if (whole && (((uintptr_t)a | (uintptr_t)ff | (uintptr_t)live) & 15) == 0) {
+    const float4* a4 = reinterpret_cast<const float4*>(a + s * kAffSeg * J);
+#pragma unroll
+    for (int v = q; v < kAffSeg * J / 4; v += kAffQuad) {
+      reinterpret_cast<float4*>(as)[v] = __ldcs(a4 + v);
+    }
+    const float4* f4 = reinterpret_cast<const float4*>(ff + s * kAffSeg);
+#pragma unroll
+    for (int v = q; v < kAffSeg / 4; v += kAffQuad) {
+      reinterpret_cast<float4*>(fs)[v] = __ldcs(f4 + v);
+    }
+    const uint4* l4 = reinterpret_cast<const uint4*>(live);
+    for (int v = threadIdx.x; v < tile / 16; v += kAffThreads) {
+      reinterpret_cast<uint4*>(live_s)[v] = __ldcs(l4 + v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < tile * J; e += kAffThreads) {
+      a_s[e / (kAffSeg * J) * L::kSegA + e % (kAffSeg * J)] =
+          e < avail * J ? a[e] : 0.0f;
+    }
+    for (int e = threadIdx.x; e < tile; e += kAffThreads) {
+      f_s[e / kAffSeg * L::kSegF + e % kAffSeg] = e < avail ? ff[e] : 0.0f;
+      live_s[e] = e < avail ? live[e] : 0;
+    }
+  }
+  __syncthreads();
+
+  // Segment s's map, column by column: quad thread q pushes columns q, q +
+  // 4 and q + 8 (those <= J) through the segment's lanes.  Column c < J
+  // starts from the basis history e_c with ff = 0, column J from a zero
+  // history with ff; a column's history after the segment is that column
+  // of the map.  After each quarter the columns are kept too: the maps
+  // that carry a quarter's entering history.  Four partial sums shorten
+  // each chain: a map only carries the history, so its order of rounding
+  // is free (and fixed: the same bits every call).  A quarter's inputs are
+  // read into registers first.
+  {
+    constexpr int kCols = (J + kAffQuad) / kAffQuad;
+    float hc[kCols][J];
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) hc[u][j] = q + kAffQuad * u == j ? 1.0f : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kAffQuad; ++k) {
+      float av[kAffQuarter][J], fv[kAffQuarter];
+      bool lv[kAffQuarter];
+#pragma unroll
+      for (int x = 0; x < kAffQuarter; ++x) {
+        const int i = k * kAffQuarter + x;
+#pragma unroll
+        for (int j = 0; j < J; ++j) av[x][j] = as[i * J + j];
+        fv[x] = fs[i];
+        lv[x] = ls[i] != 0;
+      }
+#pragma unroll
+      for (int x = 0; x < kAffQuarter; ++x) {
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          float p[4] = {q + kAffQuad * u == J ? fv[x] : 0.0f, 0.0f, 0.0f,
+                        0.0f};
+#pragma unroll
+          for (int j = 0; j < J; ++j) p[j & 3] -= av[x][j] * hc[u][j];
+          const float yv = (p[0] + p[1]) + (p[2] + p[3]);
+#pragma unroll
+          for (int j = J - 1; j >= 1; --j) hc[u][j] = lv[x] ? hc[u][j - 1] : hc[u][j];
+          hc[u][0] = lv[x] ? yv : hc[u][0];
+        }
+      }
+      float* m = k + 1 < kAffQuad ? ck + (s * (kAffQuad - 1) + k) * kMap
+                                  : maps + s * kMap;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int c = q + kAffQuad * u;
+        if (c <= J) {
+#pragma unroll
+          for (int j = 0; j < J; ++j) m[c * Jp + j] = hc[u][j];
+        }
+      }
+    }
+  }
+  // Each warp scans its eight segment maps (inclusive, from the warp's
+  // first), then warp 0 scans the warp totals: the last is the tile's map.
+  // Segment s's entering history is then its warp's entering one with the
+  // prefix of the warp's segments before s applied.
+  __syncwarp();
+  aff_scan<J, kAffSegsPerWarp>(maps + warp * kAffSegsPerWarp * kMap,
+                               kAffSegsPerWarp, lane);
+  for (int v = lane; v < kMap; v += 32) {
+    wt[warp * kMap + v] = maps[(warp * kAffSegsPerWarp + 7) * kMap + v];
+  }
+  __syncthreads();
+  if (warp == 0) aff_scan<J, kAffWarps>(wt, kAffWarps, lane);
+  const float* total = wt + (kAffWarps - 1) * kMap;
+
+  // The history entering the tile.  Fixed grouping over a tree of records
+  // with `fan` children: record (l, k) is the map of tiles [k fan^l, (k +
+  // 1) fan^l), at slot off_l + k of the row (off_0 = 0, off_{l+1} = off_l
+  // + nbr / fan^l).  With t's base-fan digits d_l, the tiles before t are
+  // level l's records t_l - d_l .. t_l - 1 (t_l = t / fan^l) over every
+  // level, so a look-back folds at most fan - 1 records a level and waits
+  // on no chain: a record (l, k) is published by tile (k + 1) fan^l - 1,
+  // which composes its own map with the folds of the levels below.  A
+  // level's records are copied in from L2 by the threads that waited for
+  // them and folded by an up-sweep; the folds are then applied to h0, the
+  // highest level first.
+  if (nbr > 1) {
+    // R: the map the tile publishes, composed in turn into xl's last two
+    // slots.
+    const float* R = total;
+    float* next = xl + kAffMaxLevels * kMap;
+    bool chain = true;  // R is the map of the tiles of record (l, t_l)
+    int64_t tl = t, off = 0, count = nbr;
+    int levels = 0;
+    for (int l = 0; tl > 0 || chain; ++l) {
+      const int d = (int)(tl & (fan - 1));
+      if (chain && d != fan - 1) {
+        // R is record (l, t_l): published at once (the level's fold is not
+        // part of it) unless no tile reads it: every later tile does.  The
+        // release orders the thread's own writes of the record.
+        chain = false;
+        if (t + 1 < nbr && warp == 0) {
+          unsigned long long* rec = records + (off + tl) * kAffRecord;
+          const unsigned long long stamp = (unsigned long long)call_stamp << 32;
+          for (int e = lane; e < J * (J + 1); e += 32) {
+            store_word(rec + e, stamp | __float_as_uint(R[e / J * Jp + e % J]));
+          }
+        }
+      }
+      float* X = xl + l * kMap;
+      if (d > 0) {
+        int P = 1;
+        while (P < d) P <<= 1;
+        // The level's d records, word by word: each thread polls its
+        // share, kAffPollBatch words at a time, until every word carries
+        // this call's stamp (each warp spinning as one), and writes the
+        // values into slots P - d .. P - 1; identity maps fill the slots
+        // before.
+        constexpr int W = J * (J + 1);
+        const unsigned long long* src = records + (off + tl - d) * kAffRecord;
+        for (int first = 0; first < d * W;
+             first += kAffThreads * kAffPollBatch) {
+          unsigned long long w[kAffPollBatch];
+          bool ok = true;
+#pragma unroll
+          for (int b = 0; b < kAffPollBatch; ++b) {
+            const int x = first + b * kAffThreads + threadIdx.x;
+            w[b] = x < d * W ? load_word(src + x / W * kAffRecord + x % W)
+                             : 0ull;
+          }
+          do {
+            ok = true;
+#pragma unroll
+            for (int b = 0; b < kAffPollBatch; ++b) {
+              const int x = first + b * kAffThreads + threadIdx.x;
+              if (x < d * W && (unsigned)(w[b] >> 32) != call_stamp) {
+                w[b] = load_word(src + x / W * kAffRecord + x % W);
+                ok = false;
+              }
+            }
+          } while (__any_sync(kFull, !ok));
+#pragma unroll
+          for (int b = 0; b < kAffPollBatch; ++b) {
+            const int x = first + b * kAffThreads + threadIdx.x;
+            if (x < d * W) {
+              const int k = x / W, e = x % W;
+              lb[(P - d + k) * kMap + e / J * Jp + e % J] =
+                  __uint_as_float((unsigned)w[b]);
+            }
+          }
+        }
+        for (int e = threadIdx.x; e < P - d; e += kAffThreads) {
+          float* dst = lb + e * kMap;
+#pragma unroll
+          for (int c = 0; c <= J; ++c) {
+#pragma unroll
+            for (int i = 0; i < Jp; ++i) {
+              dst[c * Jp + i] = c < J && c == i ? 1.0f : 0.0f;
+            }
+          }
+        }
+        __syncthreads();
+        aff_fold<J>(lb, P);
+        for (int v = threadIdx.x; v < kMap; v += kAffThreads) {
+          X[v] = lb[(P - 1) * kMap + v];
+        }
+        __syncthreads();
+      }
+      if (chain) {  // d == fan - 1: R after the level's fold
+        if (threadIdx.x <= J) {
+          float col[J];
+          deep_compose_column<J>(R, X, threadIdx.x, col);
+#pragma unroll
+          for (int i = 0; i < J; ++i) next[threadIdx.x * Jp + i] = col[i];
+        }
+        __syncthreads();
+        R = next;
+        next = next == xl + kAffMaxLevels * kMap ? next + kMap : next - kMap;
+      }
+      off += count;
+      count >>= fan_bits;
+      tl >>= fan_bits;
+      levels = l + 1;
+    }
+    if (warp == 0) {
+      // The folds applied to h0, the earliest tiles' first: row i of the
+      // history in lane i.
+      const int i = lane < J ? lane : 0;
+      float h = h0[i];
+      for (int l = levels - 1; l >= 0; --l) {
+        if ((t >> (l * fan_bits)) & (fan - 1)) {
+          h = deep_apply_lane<J>(xl + l * kMap, h, i);
+        }
+      }
+      if (lane < J) h_tile[lane] = h;
+    }
+  } else if (threadIdx.x < J) {
+    h_tile[threadIdx.x] = h0[threadIdx.x];
+  }
+  __syncthreads();
+  // The recurrence over each quarter segment from its entering history:
+  // the tile's, then the warps before (their scanned total), the warp's
+  // segments before s (their scanned map) and the quarters before q in
+  // the segment (its quarter map) applied in turn.  It runs in the
+  // reference's op order (y = ff - sum_j a_j y_{-1-j}); y overwrites ff.
+  // The thread whose quarter holds lane n - 1 writes hist: past it, lanes
+  // are dead.
+  {
+    float h[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) h[j] = h_tile[j];
+    if (warp > 0) aff_apply<J>(wt + (warp - 1) * kMap, h);
+    if (s % kAffSegsPerWarp > 0) aff_apply<J>(maps + (s - 1) * kMap, h);
+    if (q > 0) aff_apply<J>(ck + (s * (kAffQuad - 1) + q - 1) * kMap, h);
+    const int i0 = q * kAffQuarter;
+    float yq[kAffQuarter];
+#pragma unroll
+    for (int x = 0; x < kAffQuarter; ++x) {
+      const int i = i0 + x;
+      const bool lv = ls[i] != 0;
+      float yv = fs[i];
+#pragma unroll
+      for (int j = 0; j < J; ++j) yv -= as[i * J + j] * h[j];
+#pragma unroll
+      for (int j = J - 1; j >= 1; --j) h[j] = lv ? h[j - 1] : h[j];
+      h[0] = lv ? yv : h[0];
+      yq[x] = lv ? yv : 0.0f;
+    }
+#pragma unroll
+    for (int x = 0; x < kAffQuarter; x += 4) {
+      reinterpret_cast<float4*>(fs + i0)[x / 4] =
+          make_float4(yq[x], yq[x + 1], yq[x + 2], yq[x + 3]);
+    }
+    const int64_t first = (int64_t)s * kAffSeg + i0;
+    if (first < avail && avail <= first + kAffQuarter && base + avail == n) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) hist[j] = h[j];
+    }
+  }
+  __syncthreads();
+
+  // Store from the padded segment rows: segment s by its quad.
+  if (whole && ((uintptr_t)y & 15) == 0) {
+    float4* y4 = reinterpret_cast<float4*>(y + s * kAffSeg);
+#pragma unroll
+    for (int v = q; v < kAffSeg / 4; v += kAffQuad) {
+      y4[v] = reinterpret_cast<const float4*>(fs)[v];
+    }
+  } else {
+    for (int e = threadIdx.x; e < avail; e += kAffThreads) {
+      y[e] = f_s[e / kAffSeg * L::kSegF + e % kAffSeg];
+    }
+  }
+}
+
+template <int J>
+int run_affine(const float* a, const float* ff, const uint8_t* live,
+               const float* h0, float* y, float* hist, unsigned* scratch,
+               int64_t cap, int64_t rows, int64_t n, int fan,
+               cudaStream_t stream) {
+  if (fan < kAffMinFan || fan > kAffMaxFan || (fan & (fan - 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t nbr = (n + kAffTile - 1) / kAffTile;
+  const int64_t nb = rows * nbr;
+  if (nb > kMaxN || (nbr > 1 && (scratch == nullptr ||
+                                 rows * aff_slots(nbr, aff_log2(fan)) >
+                                     cap))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = AffLayout<J>::bytes(fan);
+  auto kernel = rows == 1 ? affine_scan_pass<J, false>
+                          : affine_scan_pass<J, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)nb, kAffThreads, smem, stream>>>(
+      a, ff, live, h0, y, hist, scratch, cap, rows, n, fan);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int tuun_scan_tile() { return kScanTile; }
 long long tuun_scan_scratch_words() { return kScratchWords; }
-int tuun_affine_tile() { return kAffTile; }
 int tuun_affine_max_j() { return kMaxJ; }
+int tuun_affine_tile() { return kAffTile; }
 
 // x and out f32[rows, n] row-major, each row scanned on its own, in one
 // launch, with the bits a one-row call gives: out[r, i] = x[r, 0] + ... +
@@ -1573,43 +1709,43 @@ int tuun_prefix_max_rows_f32(const float* x, float* out,
   return run_prefix<MaxOp>(x, out, scratch, rows, n, (cudaStream_t)stream);
 }
 
-// Words (32-bit) of an affine-scan scratch buffer for up to `tiles` tiles.
-long long tuun_affine_scratch_words(long long tiles) {
-  return aff_payload_offset(tiles) + tiles * kAffRecord;
+// Records a row of n lanes takes at look-back fan `fan` (the kernel's
+// aff_slots; scan_ops mirrors it).
+long long tuun_affine_slots(long long n, int fan) {
+  return aff_slots((n + kAffTile - 1) / kAffTile, aff_log2(fan));
+}
+
+// Words (32-bit) of an affine-scan scratch buffer for up to `slots`
+// records.
+long long tuun_affine_scratch_words(long long slots) {
+  return kAffHeadWords + 2 * kAffRecord * slots;
 }
 
 // a f32[rows, n, J], ff f32[rows, n], live u8[rows, n], h0 f32[rows, J]
-// (each row-major) -> h f32[rows, n, J] (h[r, i, j] = y_r[i - j]), hist
-// f32[rows, J] (= h[r, n-1, :]), each row scanned on its own, in one
-// launch, with the bits a one-row call gives.  scratch: the caller's
+// (each row-major), 1 <= J <= kMaxJ -> y f32[rows, n] (y[r, i] = 0 on a
+// dead lane), hist f32[rows, J] (the history after lane n - 1), each row
+// scanned on its own, in one launch, with the bits a one-row call gives.
+// A block scans a tile of tuun_affine_tile() lanes; the look-back folds
+// records in groups of `fan` (16, 32 or 64).  scratch: the caller's
 // persistent buffer of tuun_affine_scratch_words(cap) words for this
-// stream, with counters and flags zero, cap >= rows * ceil(n /
-// tuun_affine_tile()) (null when n <= one tile); the kernel leaves it so.
-// Calls that share a scratch buffer must not overlap.
+// stream, zeroed when made, cap >= rows * tuun_affine_slots(n, fan) (null
+// when n <= one tile); the kernel leaves it ready for the next call.  Calls that share a scratch
+// buffer must not overlap.
 int tuun_affine_scan_rows_f32(const float* a, const float* ff,
-                              const uint8_t* live, const float* h0, float* h,
+                              const uint8_t* live, const float* h0, float* y,
                               float* hist, unsigned* scratch, long long cap,
-                              long long rows, long long n, int J,
+                              long long rows, long long n, int J, int fan,
                               void* stream) {
   if (n <= 0 || n > kMaxN || rows <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (J) {
-    case 1: return run_affine<1>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 2: return run_affine<2>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 3: return run_affine<3>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 4: return run_affine<4>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 5: return run_affine<5>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 6: return run_affine<6>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 7: return run_affine<7>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
-    case 8: return run_affine<8>(a, ff, live, h0, h, hist, scratch, cap,
-                                 rows, n, s);
+#define TUUN_AFFINE_CASE(j)                                                 \
+    case j: return run_affine<j>(a, ff, live, h0, y, hist, scratch, cap,   \
+                                 rows, n, fan, s);
+    TUUN_AFFINE_CASE(1) TUUN_AFFINE_CASE(2) TUUN_AFFINE_CASE(3)
+    TUUN_AFFINE_CASE(4) TUUN_AFFINE_CASE(5) TUUN_AFFINE_CASE(6)
+    TUUN_AFFINE_CASE(7) TUUN_AFFINE_CASE(8)
+#undef TUUN_AFFINE_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

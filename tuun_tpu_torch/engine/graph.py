@@ -883,25 +883,20 @@ class CFilter(Node):
         the JAX engine's scan and the oracle run it.  Fast mode, over
         composed companion maps as tuun_tpu's parallel scan
         (graph.py:865-897): up to scan_ops.MAX_J coefficients the
-        affine-scan kernel, whose threads keep their J x J maps in
-        registers; up to scan_ops.MAX_DEEP_J its deep form, which keeps
-        the maps in shared memory and returns y and the history (tuun_tpu
-        runs an associative scan past its Pallas kernel's 4).  A deeper
-        fast filter runs the recurrence kernel, which rounds in the
-        reference's op order, so it is at least as accurate."""
+        affine-scan kernel, up to scan_ops.MAX_DEEP_J its deep form
+        (tuun_tpu runs an associative scan past its Pallas kernel's 4),
+        each returning y (0 on dead lanes) and the history.  A deeper fast
+        filter runs the recurrence kernel, which rounds in the reference's
+        op order, so it is at least as accurate."""
         J = self.J
         a_rows = torch.stack(fb_vals, dim=1)  # [N, J]
+        h0 = hist[:J].contiguous()
         if self.cfg.sequential_iir or J > scan_ops.MAX_DEEP_J:
-            y, hist_out = scan_ops.linear_recurrence(
-                a_rows, ff, live, hist[:J].contiguous())
-            return y, _pad_hist(hist_out, J)
-        if J > scan_ops.MAX_J:
-            y, hist_out = scan_ops.affine_scan_deep_f32(
-                a_rows, ff, live, hist[:J].contiguous())
-            return y, _pad_hist(hist_out, J)
-        hs, hist_out = scan_ops.affine_scan_f32(a_rows, ff, live,
-                                                hist[:J].contiguous())
-        y = torch.where(live, hs[:, 0], 0.0)
+            y, hist_out = scan_ops.linear_recurrence(a_rows, ff, live, h0)
+        elif J > scan_ops.MAX_J:
+            y, hist_out = scan_ops.affine_scan_deep_f32(a_rows, ff, live, h0)
+        else:
+            y, hist_out = scan_ops.affine_scan_f32(a_rows, ff, live, h0)
         return y, _pad_hist(hist_out, J)
 
     def advance(self, P, st, s, e, ctx):

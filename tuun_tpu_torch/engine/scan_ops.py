@@ -28,11 +28,16 @@ no set-up:
 
   * the prefix scans' (two counters and one status word per 4096-lane
     tile) is sized once for the longest scan (4 MiB) and never grows;
-  * the affine scan's (two counters, a flag and a record of up to 72
-    floats per 2048-lane tile) would be ~300 MB for the longest scan, so
-    it starts at the tiles of 2^22 lanes (0.6 MB) and grows by a new
+  * the affine scan's (a counter, then per look-back record 72 64-bit
+    words, each a value with the stamp of the call that wrote it; ~1.03
+    records a 1024-lane tile) would be ~1.3 GB for the longest scan, so it
+    starts at the records of 2^20 lanes (0.61 MB) and grows by a new
     buffer when a longer scan comes; an outgrown buffer is kept, never
-    freed, because a captured graph may hold its pointer;
+    freed, because a captured graph may hold its pointer.  The records a
+    length takes never fall as the length grows, so a warm-up at the
+    longest length covers every shorter one.  The kernel leaves it ready
+    for the next call: no record needs clearing, since a stale stamp
+    never matches;
   * the deep affine scan's (two counters, a flag and a record of up to
     340 floats per 1024-lane tile) follows the same rule, from 2^20 lanes
     (1.4 MB);
@@ -53,10 +58,11 @@ instead of counting it: the graph's replays count it (`count_launches`).
 
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit), the affine scan any J from 1 to MAX_J = 8
-and its deep form (affine_scan_deep_f32: y and the final history, its
-maps held in shared memory) any J from 9 to MAX_DEEP_J = 16; a deeper
-fast-mode filter runs the linear recurrence.  So the engine never needs
-a plain path on the card.
+and its deep form (affine_scan_deep_f32) any J from 9 to MAX_DEEP_J = 16;
+a deeper fast-mode filter runs the linear recurrence.  Both affine forms
+return y and the final history (not the Pallas kernel's J planes of h:
+the engine reads only y) and hold their maps in shared memory.  So the
+engine never needs a plain path on the card.
 
 Each scan also has a voices x lanes form (`*_rows_f32`) for a voice
 group: [B, N] rows (the affine scan: a [B, N, J], ff and live [B, N], h0
@@ -73,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -102,10 +109,10 @@ MAX_RECURRENCE_J = 4096
 KERNEL_SYMBOLS: Dict[str, str] = {
     "prefix_sum_f32": "scan_single_pass",
     "prefix_max_f32": "scan_single_pass",
-    "affine_scan_f32": "affine_single_pass",
+    "affine_scan_f32": "affine_scan_pass",
     "prefix_sum_rows_f32": "scan_single_pass",
     "prefix_max_rows_f32": "scan_single_pass",
-    "affine_scan_rows_f32": "affine_single_pass",
+    "affine_scan_rows_f32": "affine_scan_pass",
     "affine_scan_deep_f32": "affine_deep_pass",
     "affine_scan_deep_rows_f32": "affine_deep_pass",
     "linear_recurrence_f32": "linear_recurrence",
@@ -119,9 +126,12 @@ launches: Dict[str, int] = {k: 0 for k in KERNEL_SYMBOLS}
 # grows it, as the affine scan's does.
 DF_SCRATCH_MIN_LANES = 1 << 22
 
-# The affine scan's first scratch covers this many lanes (0.6 MB at
-# 2048-lane tiles); a longer scan grows it.
-AFFINE_SCRATCH_MIN_LANES = 1 << 22
+# The affine scan's first scratch covers this many lanes (0.61 MB); a
+# longer scan grows it.
+AFFINE_SCRATCH_MIN_LANES = 1 << 20
+# Its kernel's tile (csrc/scan.cu) and the look-back fans it takes.
+AFFINE_TILE = 1024
+AFFINE_FANS = (16, 32, 64)
 # The deep affine scan's, likewise (1.4 MB at 1024-lane tiles).
 DEEP_SCRATCH_MIN_LANES = 1 << 20
 
@@ -129,10 +139,9 @@ _lib = None
 _exact_lib = None
 _df_tile = 0
 # Read from the library once: lanes per prefix-scan tile, the 64-bit
-# words of a stream's prefix-scan scratch, and lanes per affine tile.
+# words of a stream's prefix-scan scratch, and lanes per deep affine tile.
 _scan_tile = 0
 _scratch_words = 0
-_affine_tile = 0
 _deep_tile = 0
 # Persistent prefix-scan scratch, keyed by (device index, raw stream), and
 # inside a graph_scope by (device index, raw stream, owner).
@@ -270,8 +279,10 @@ def load_library() -> ctypes.CDLL:
         for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
             getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
             getattr(lib, name).restype = i32
-        lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [i64, i64, i64,
-                                                              i32, p]
+        lib.tuun_affine_slots.argtypes = [i64, i32]
+        lib.tuun_affine_slots.restype = i64
+        lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [
+            i64, i64, i64, i32, i32, p]
         lib.tuun_affine_scan_rows_f32.restype = i32
         lib.tuun_affine_scan_deep_rows_f32.argtypes = [p] * 7 + [
             i64, i64, i64, i32, p]
@@ -280,10 +291,13 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
         if lib.tuun_affine_deep_max_j() != MAX_DEEP_J:
             raise RuntimeError("scan.cu and scan_ops.MAX_DEEP_J disagree")
-        global _scan_tile, _scratch_words, _affine_tile, _deep_tile
+        if lib.tuun_affine_tile() != AFFINE_TILE or any(
+                lib.tuun_affine_slots(n, fan) != affine_slots(n, fan)
+                for n in (1, 4097, 1 << 21) for fan in AFFINE_FANS):
+            raise RuntimeError("scan.cu and scan_ops.affine_slots disagree")
+        global _scan_tile, _scratch_words, _deep_tile
         _scan_tile = lib.tuun_scan_tile()
         _scratch_words = lib.tuun_scan_scratch_words()
-        _affine_tile = lib.tuun_affine_tile()
         _deep_tile = lib.tuun_affine_deep_tile()
         _lib = lib
         return lib
@@ -502,6 +516,48 @@ def affine_scan_ref(a_rows: torch.Tensor, ff: torch.Tensor,
     return hs, hs[..., -1, :].clone()
 
 
+def affine_y_ref(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
+                 h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of both affine scans' contract, at any J:
+    affine_scan_ref's composed companion maps scanned by doubling (the
+    math of tuun_tpu's fast mode), then y = h[..., 0] on live lanes and 0
+    on dead ones, and the history after the last lane.  In the inputs'
+    dtype: float64 inputs give the reference the kernels are checked
+    against."""
+    hs, hist = affine_scan_ref(a_rows, ff, live, h0)
+    return torch.where(live, hs[..., 0], 0.0), hist
+
+
+def affine_fan(n: int) -> int:
+    """The affine scan's look-back fan for rows of n lanes: records fold
+    in groups of fan.  64 keeps up to 64 tiles (65536 lanes, the CLI's
+    block: 64 blocks) to one look-back hop; past that 32 was the fastest
+    fan or within 6% of it at every shape timed on an H100
+    (affine_probe.py sweep).  Chosen from n alone, so a row has the bits
+    of a single call on it."""
+    return 64 if n <= 1 << 16 else 32
+
+
+@functools.lru_cache(maxsize=None)
+def affine_slots(n: int, fan: int) -> int:
+    """Look-back records a row of n lanes takes (csrc/scan.cu's
+    aff_slots): tiles / fan^l at each level l of the record tree."""
+    count = -(-n // AFFINE_TILE)
+    total = 0
+    while count:
+        total += count
+        count //= fan
+    return total
+
+
+def affine_capacity(rows: int, n: int) -> int:
+    """The records the affine scratch holds for `rows` rows of n lanes:
+    never fewer at a longer n (the tile is fixed and a smaller fan only
+    adds records), so a warm-up at the longest length serves every
+    shorter one."""
+    return rows * affine_slots(n, affine_fan(n))
+
+
 # The feedback depths each affine form takes.
 _AFFINE_DEPTHS = (1, MAX_J)
 _DEEP_DEPTHS = (MAX_J + 1, MAX_DEEP_J)
@@ -563,25 +619,25 @@ def _check_layout(a_rows, ff, live, h0, name) -> None:
             raise ValueError(f"{name}: inputs on different devices")
 
 
-def _zeroed_affine_scratch(device: int, tiles: int) -> torch.Tensor:
-    words = load_library().tuun_affine_scratch_words(tiles)
+def _zeroed_affine_scratch(device: int, records: int) -> torch.Tensor:
+    words = load_library().tuun_affine_scratch_words(records)
     return _zeroed(words, torch.int32, device, "affine scan")
 
 
-def affine_scratch(device: int, stream: int, tiles: int,
+def affine_scratch(device: int, stream: int, records: int,
                    alloc=_zeroed_affine_scratch) -> Tuple[torch.Tensor, int]:
-    """(buffer, capacity in tiles) of (device, stream), holding at least
-    `tiles` tiles.
+    """(buffer, capacity in records) of (device, stream), holding at
+    least `records` look-back records (affine_capacity).
 
     Made on first use, zeroed by `alloc(device, capacity)`, for at least
-    the tiles of AFFINE_SCRATCH_MIN_LANES lanes.  A longer scan gets a
+    the records of AFFINE_SCRATCH_MIN_LANES lanes.  A longer scan gets a
     new buffer of at least twice the capacity; the old one is kept in
     _affine_retired for the life of the process, since a captured graph
     may hold its raw pointer.  The kernel leaves the counters and flags
     zero after each call.  Inside a graph_scope the buffers are the scope
     owner's own."""
-    return _grown_scratch(_affine_scratch, device, stream, tiles,
-                          -(-AFFINE_SCRATCH_MIN_LANES // _affine_tile), alloc)
+    return _grown_scratch(_affine_scratch, device, stream, records,
+                          affine_capacity(1, AFFINE_SCRATCH_MIN_LANES), alloc)
 
 
 def _grown_scratch(table, device: int, stream: int, tiles: int,
@@ -612,21 +668,26 @@ def _grown_scratch(table, device: int, stream: int, tiles: int,
 def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,
                     live: torch.Tensor, h0: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scans y[i] = ff[i] - sum_j a_rows[i, j] * y[i-1-j].
+    """Scans y[i] = ff[i] - sum_j a_rows[i, j] * y[i-1-j] for 1 <= J <=
+    MAX_J.
 
-    a_rows f32[N, J]; ff f32[N]; live bool[N] (dead lanes pass the history
-    through unchanged); h0 f32[J] = [y[-1] ... y[-J]].  Returns
-    (h f32[N, J] with h[i, j] = y[i-j], hist f32[J] = h[N-1]).
+    a_rows f32[N, J]; ff f32[N]; live bool[N] (a dead lane yields 0 and
+    passes the history through unchanged); h0 f32[J] = [y[-1] ... y[-J]].
+    Returns (y f32[N], hist f32[J], the history after lane N - 1): the
+    engine's use of the Pallas kernel's (h, hist), h[:, 0] on live lanes.
+    On the CPU, affine_y_ref in float32.
 
-    The CUDA kernel carries the history across tiles and threads by
-    composed maps and runs the recurrence itself over each thread's
-    lanes, in a fixed grouping: every call gives the same bits."""
+    The CUDA kernel (tuun_affine_scan_rows_f32) builds each segment's map
+    column by column, carries the history across segments and tiles by
+    composed maps in a fixed grouping (a tree of look-back records), and
+    runs the recurrence itself over each quarter segment: every call
+    gives the same bits."""
     if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
             or _is_batched(h0):
         return _vmap_op("affine_scan")(a_rows, ff, live, h0)
     _check_affine(a_rows, ff, live, h0)
     if ff.is_cpu:
-        return affine_scan_ref(a_rows, ff, live, h0)
+        return affine_y_ref(a_rows, ff, live, h0)
     return _affine_launch(a_rows, ff, live, h0, 1, "affine_scan_f32")
 
 
@@ -634,11 +695,11 @@ def affine_scan_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
                          live: torch.Tensor, h0: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """affine_scan_f32 of each of B rows in one launch: a_rows f32[B, N,
-    J], ff f32[B, N], live bool[B, N], h0 f32[B, J] -> (h f32[B, N, J],
+    J], ff f32[B, N], live bool[B, N], h0 f32[B, J] -> (y f32[B, N],
     hist f32[B, J]); row r has the bits of a single call on row r."""
     _check_affine_rows(a_rows, ff, live, h0)
     if ff.is_cpu:
-        return affine_scan_ref(a_rows, ff, live, h0)
+        return affine_y_ref(a_rows, ff, live, h0)
     return _affine_launch(a_rows, ff, live, h0, ff.shape[0],
                           "affine_scan_rows_f32")
 
@@ -658,18 +719,6 @@ def deep_scratch(device: int, stream: int, tiles: int,
                           -(-DEEP_SCRATCH_MIN_LANES // _deep_tile), alloc)
 
 
-def affine_scan_deep_ref(a_rows: torch.Tensor, ff: torch.Tensor,
-                         live: torch.Tensor, h0: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of both deep forms: affine_scan_ref's composed
-    companion maps scanned by doubling (the math of tuun_tpu's fast-mode
-    associative_scan), then y = h[..., 0] on live lanes and 0 on dead
-    ones, and the history after the last lane.  In the inputs' dtype:
-    float64 inputs give the reference the kernel is checked against."""
-    hs, hist = affine_scan_ref(a_rows, ff, live, h0)
-    return torch.where(live, hs[..., 0], 0.0), hist
-
-
 def _deep_cpu(a_rows, ff, live, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both deep forms on the CPU: the plain version in float64, rounded
     to float32.  A float32 doubling scan rounds by how a render groups
@@ -677,8 +726,7 @@ def _deep_cpu(a_rows, ff, live, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     the same blocks rendered one by one by more than summation order
     (phase 8's bound); in float64 the CPU stays as close to the
     recurrence's result as the linear recurrence it replaces."""
-    y, hist = affine_scan_deep_ref(a_rows.double(), ff.double(), live,
-                                   h0.double())
+    y, hist = affine_y_ref(a_rows.double(), ff.double(), live, h0.double())
     return y.float(), hist.float()
 
 
@@ -686,10 +734,9 @@ def affine_scan_deep_f32(a_rows: torch.Tensor, ff: torch.Tensor,
                          live: torch.Tensor, h0: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y[i] = ff[i] - sum_j a_rows[i, j] * y[i-1-j] for MAX_J < J <=
-    MAX_DEEP_J, as affine_scan_f32 computes it, returning (y f32[N], 0 on
-    dead lanes; hist f32[J], the history after lane N - 1): the
-    recurrence's contract, not the J planes of h.  On the CPU, the plain
-    version in float64 (_deep_cpu).
+    MAX_DEEP_J, with affine_scan_f32's contract: (y f32[N], 0 on dead
+    lanes; hist f32[J], the history after lane N - 1).  On the CPU, the
+    plain version in float64 (_deep_cpu).
 
     The CUDA kernel (tuun_affine_scan_deep_rows_f32) builds each
     32-lane segment's map column by column, composes them in shared
@@ -722,41 +769,46 @@ def affine_scan_deep_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
 
 def _affine_launch(a_rows, ff, live, h0, rows: int, entry: str):
     """Launches the affine scan's rows kernel on `rows` rows (1: a single
-    voice's unbatched operands), counted under `entry`: (h, hist)."""
+    voice's unbatched operands) at affine_fan(n), counted under `entry`:
+    (y, hist)."""
     lib = load_library()
-    h = torch.empty(a_rows.shape, dtype=torch.float32, device=ff.device)
-    return _launch_affine(lib.tuun_affine_scan_rows_f32, _affine_tile,
-                          affine_scratch, h, a_rows, ff, live, h0, rows, entry)
+    n = ff.shape[-1]
+    dev = ff.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    scratch, cap = affine_scratch(dev, stream, affine_capacity(rows, n)) \
+        if n > AFFINE_TILE else (None, 0)
+    return _launch_affine(lib.tuun_affine_scan_rows_f32, stream, scratch, cap,
+                          a_rows, ff, live, h0, rows, entry, affine_fan(n))
 
 
 def _deep_launch(a_rows, ff, live, h0, rows: int, entry: str):
     """As _affine_launch, for the deep form's kernel: (y, hist)."""
     lib = load_library()
-    return _launch_affine(lib.tuun_affine_scan_deep_rows_f32, _deep_tile,
-                          deep_scratch, torch.empty_like(ff), a_rows, ff,
-                          live, h0, rows, entry)
-
-
-def _launch_affine(kernel, tile: int, scratch_of, out, a_rows, ff, live, h0,
-                   rows: int, entry: str):
-    """Launches `kernel`, a rows entry of the library whose tiles hold
-    `tile` lanes, writing `out` and the final history, with the scratch
-    that `scratch_of` keeps for (device, stream); counts the launch under
-    `entry`.  Returns (out, hist)."""
-    n, J = a_rows.shape[-2:]
     dev = ff.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    per_row = -(-n // tile)
-    scratch, cap = scratch_of(dev, stream, rows * per_row) \
+    per_row = -(-ff.shape[-1] // _deep_tile)
+    scratch, cap = deep_scratch(dev, stream, rows * per_row) \
         if per_row > 1 else (None, 0)
+    return _launch_affine(lib.tuun_affine_scan_deep_rows_f32, stream,
+                          scratch, cap, a_rows, ff, live, h0, rows, entry)
+
+
+def _launch_affine(kernel, stream: int, scratch, cap: int, a_rows, ff,
+                   live, h0, rows: int, entry: str, *geometry: int):
+    """Launches `kernel`, a rows entry of the library, on `stream`,
+    writing y and the final history, with `scratch` (None when a row is
+    one tile) of `cap` records or tiles and the kernel's `geometry`
+    arguments; counts the launch under `entry`.  Returns (y, hist)."""
+    n, J = a_rows.shape[-2:]
+    y = torch.empty_like(ff)
     hist = torch.empty(h0.shape, dtype=torch.float32, device=ff.device)
     sp = scratch.data_ptr() if scratch is not None else 0
     status = kernel(a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(),
-                    h0.data_ptr(), out.data_ptr(), hist.data_ptr(), sp, cap,
-                    rows, n, J, stream)
+                    h0.data_ptr(), y.data_ptr(), hist.data_ptr(), sp, cap,
+                    rows, n, J, *geometry, stream)
     _check(status, entry)
     _launched(entry)
-    return out, hist
+    return y, hist
 
 
 # ---------------------------------------------------------------------------
@@ -1061,8 +1113,8 @@ def _make_vmap_op(kind: str):
         @lib.custom_op("tuun_tpu_torch::affine_scan_f32", mutates_args=())
         def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-            h, hist = affine_scan_f32(a_rows, ff, live, h0)
-            return h, hist
+            y, hist = affine_scan_f32(a_rows, ff, live, h0)
+            return y, hist
 
         def rule(info, dims, a_rows, ff, live, h0):
             args = [_rows(x, d, info.batch_size)

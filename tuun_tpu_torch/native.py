@@ -10,6 +10,7 @@ shared library builds on demand with g++ (cached next to the source).
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 from typing import List, Tuple
@@ -47,10 +48,17 @@ def build_library(force: bool = False) -> Path:
     if (LIB.exists() and not force and stamp.exists()
             and stamp.read_text().strip() == want):
         return LIB
+    # Built beside the library and moved into place whole (os.replace),
+    # stamp last: a process that loads the library meanwhile (a test
+    # worker, tuun_tpu's copy of this loader) never sees a partial file.
+    tmp = LIB.with_name(f"{LIB.name}.{os.getpid()}.tmp")
     cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-           str(SOURCE), "-o", str(LIB)]
+           str(SOURCE), "-o", str(tmp)]
     subprocess.run(cmd, check=True, capture_output=True)
-    stamp.write_text(want)
+    os.replace(tmp, LIB)
+    stamp_tmp = stamp.with_name(f"{stamp.name}.{os.getpid()}.tmp")
+    stamp_tmp.write_text(want)
+    os.replace(stamp_tmp, stamp)
     return LIB
 
 
