@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Probes the affine scan's kernels (tuun_tpu_torch/csrc/scan.cu) on one
-CUDA card: where a call's time goes, what ptxas makes of each instance,
-and how the tile geometry moves the time.  Run from the root of a
-checkout, on a machine with a card and nvcc:
+"""Probes the affine scan's kernels (tuun_tpu_torch/csrc/scan.cu) and the
+linear recurrence (csrc/exact.cu) on one CUDA card: where a call's time
+goes, what ptxas makes of each instance, and how the geometry moves the
+time.  Run from the root of a checkout, on a machine with a card and
+nvcc:
 
     python3 affine_probe.py split [--tree DIR]
     python3 affine_probe.py sweep [--tree DIR]
+    python3 affine_probe.py recurrence [--tree DIR] [--parent DIR]
 
 `split` is for a tree whose J <= 8 affine scan is the per-thread
 register-map kernel (affine_single_pass, h f32[N, J] out; every commit
@@ -33,6 +35,23 @@ beside the geometry scan_ops chooses; there, the same kernel loading by
 bulk asynchronous copies (TMA) instead of 16-byte loads; and the phase
 split of its blocks by clock64() stamps.
 
+`recurrence` builds copies of the tree's csrc/exact.cu into
+chip_work/affine_probe/, each with a watchdog (a stage wait traps after
+~2^26 tries instead of hanging; rec_watchdog_source): as the engine has
+it, with -Xptxas -v (registers and spills of every linear_recurrence<T,
+J>); with clock64 and global-timer stamps (rec_probe_source) that split
+each row's call into the chain's wait for stages, its lanes, the
+producer's y stores and fills, and the first stage's arrival after the
+block starts; and as REC_VARIANTS (other group widths and lookaheads,
+the producer's loads instead of bulk copies), each made by replacing
+text in the copy, as `sweep` does for scan.cu.  With --parent DIR, that
+checkout's exact.cu too, as it is.  At each of REC_SHAPES, on
+all-live lanes and on chip_smoke.py's mixed input, every build is first
+held to the engine build's bits (and to the one-step check and its own
+bits on a second call; exit 1 on any miss), then timed: the parent and
+the engine build in turns, each variant in turns with the engine build,
+and the split.
+
 Prints one JSON object a measurement (and appends it to --out FILE) and
 the card's name and power limit.
 """
@@ -45,6 +64,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -447,15 +467,413 @@ def split(tree: Path) -> None:
              max_abs_diff_y=agree)
 
 
+# The linear recurrence (csrc/exact.cu).  (rows or None, n, J, dtype) of
+# `recurrence`: the main path's shapes (2^17-lane blocks of the long
+# render and the shape gate, the CLI's 65536, the live block and a live
+# group of 8) at lpf's J = 2 and filter_4_3's J = 3 in both types, and the
+# deep filters' J = 9, 12, 16 at 2^17.
+REC_SHAPES = tuple((rows, n, J, dt) for dt in ("f32", "f64") for J in (2, 3)
+                   for rows, n in ((None, 1 << 17), (None, 1 << 16),
+                                   (None, 1024), (8, 1024))) + tuple(
+    (None, 1 << 17, J, "f32") for J in (9, 12, 16))
+# Copies of exact.cu timed beside the engine's: (name, {text: replacement}).
+REC_GROUP = "  return J <= 4 ? 64 : 32;"
+REC_AHEAD = "  return J <= 8 ? 4 : 2;"
+REC_BULK = "  const bool bulk =\n"
+REC_VARIANTS = (("groups of 32", {REC_GROUP: "  return 32;"}),
+                ("groups of 64", {REC_GROUP: "  return 64;"}),
+                ("ahead 2", {REC_AHEAD: "  return 2;"}),
+                ("ahead 8", {REC_AHEAD: "  return 8;"}),
+                ("no bulk copies", {REC_BULK: "  const bool bulk = false &&\n"}))
+# --quick: the shapes of REC_SHAPES that PERF.md's headline rows take.
+REC_QUICK = ((None, 1 << 17, 2, "f32"), (None, 1024, 2, "f32"),
+             (None, 1 << 17, 2, "f64"), (None, 1 << 17, 3, "f32"),
+             (None, 1 << 17, 9, "f32"), (None, 1 << 17, 16, "f32"))
+# Instances whose SASS `recurrence --sass DIR` keeps (mangled name parts).
+REC_SASS = ("linear_recurrenceIfLi2EE", "linear_recurrenceIdLi2EE",
+            "linear_recurrenceIfLi16EE")
+REC_WORDS = ("wait_cycles", "chain_cycles", "first_stage_ns", "store_cycles",
+             "fill_cycles", "stages", "chain_end_ns", "bulk")
+# Live patterns of the inputs: chip_smoke.recurrence_input's default (5%
+# dead lanes and a run of 64: ~19% of 32-lane groups all live) and every
+# lane live (the path's: lanes die only past a voice's fin).
+REC_LIVE = ("mixed", "live")
+
+
+def rec_watchdog_source(src: str) -> str:
+    """exact.cu whose mbarrier wait traps after ~2^26 tries instead of
+    waiting for ever on a stage that never comes."""
+    src = patch(src, "  unsigned done;\n  do {\n",
+                "  unsigned done, tries = 0;\n  do {\n")
+    return patch(src, '"memory");\n  } while (!done);',
+                 '"memory");\n    if (++tries == (1u << 26)) __trap();\n'
+                 "  } while (!done);")
+
+
+def rec_probe_source(src: str) -> str:
+    """exact.cu with the split's stamps in rec_chain_row, per row (the
+    first kRecProbeRows) in g_rec_probe, read by tuun_rec_probe_read:
+    REC_WORDS in order, cycles by clock64() and ns by %globaltimer."""
+    defs = """// The probe's split, per row: REC_WORDS of affine_probe.py.
+constexpr int kRecProbeRows = 64;
+constexpr int kRecProbeWords = 8;
+__device__ unsigned long long g_rec_probe[kRecProbeRows * kRecProbeWords];
+__device__ __forceinline__ unsigned long long rec_gtimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+"""
+    c0 = "const unsigned long long c0 = clock64();\n"
+    for old, new in (
+            ("// A 16-byte shared-memory load of V", defs + "// A 16-byte "
+             "shared-memory load of V"),
+            ("  const int lane = threadIdx.x & 31;\n  if (threadIdx.x == 0) "
+             "{\n    for (int s = 0; s < kRecStages; ++s) {",
+             "  const int lane = threadIdx.x & 31;\n  const unsigned long "
+             "long t_start = rec_gtimer();\n  if (threadIdx.x == 0) {\n    "
+             "for (int s = 0; s < kRecStages; ++s) {"),
+            ("  if (warp == 1) {\n",
+             "  if (warp == 1) {\n    unsigned long long c_store = 0, c_fill "
+             "= 0;\n"),
+            ("      mbar_wait(&empty[s], (unsigned)(d / kRecStages) & 1u);\n",
+             "      mbar_wait(&empty[s], (unsigned)(d / kRecStages) & 1u);\n"
+             "      " + c0),
+            ("y[drain.st + e] = ys[e];\n",
+             "y[drain.st + e] = ys[e];\n      c_store += clock64() - c0;\n"),
+            ("      if (k >= kRecStages) store();\n",
+             "      if (k >= kRecStages) store();\n      " + c0),
+            ("      mbar_arrive(&full[s]);\n    }\n    while (drain.st < n) "
+             "store();\n",
+             "      mbar_arrive(&full[s]);\n      c_fill += clock64() - c0;\n"
+             "    }\n    while (drain.st < n) store();\n"
+             "    if (lane == 0 && blockIdx.x < kRecProbeRows) {\n"
+             "      g_rec_probe[blockIdx.x * kRecProbeWords + 3] = c_store;\n"
+             "      g_rec_probe[blockIdx.x * kRecProbeWords + 4] = c_fill;\n"
+             "      g_rec_probe[blockIdx.x * kRecProbeWords + 7] = bulk;\n"
+             "    }\n"),
+            ("    T h[J];\n#pragma unroll\n    for (int j = 0; j < J; ++j) "
+             "h[j] = h0[j];\n    RecStage st(n, head);\n",
+             "    unsigned long long c_wait = 0, c_chain = 0, t_first = 0;\n"
+             "    T h[J];\n#pragma unroll\n    for (int j = 0; j < J; ++j) "
+             "h[j] = h0[j];\n    RecStage st(n, head);\n"),
+            ("      mbar_wait(&full[s], (unsigned)(st.k / kRecStages) & 1u);\n",
+             "      " + c0 +
+             "      mbar_wait(&full[s], (unsigned)(st.k / kRecStages) & 1u);\n"
+             "      const unsigned long long c1 = clock64();\n"
+             "      c_wait += c1 - c0;\n"
+             "      if (st.k == 0) t_first = rec_gtimer();\n"),
+            ("(int)st.len, h, lane);\n      mbar_arrive(&empty[s]);\n",
+             "(int)st.len, h, lane);\n      c_chain += clock64() - c1;\n"
+             "      mbar_arrive(&empty[s]);\n"),
+            ("      for (int j = 0; j < J; ++j) hist[j] = h[j];\n    }\n  }\n}\n",
+             "      for (int j = 0; j < J; ++j) hist[j] = h[j];\n    }\n"
+             "    if (lane == 0 && blockIdx.x < kRecProbeRows) {\n"
+             "      unsigned long long* p = g_rec_probe + blockIdx.x * "
+             "kRecProbeWords;\n"
+             "      p[0] = c_wait;\n      p[1] = c_chain;\n"
+             "      p[2] = t_first - t_start;\n      p[5] = st.k;\n"
+             "      p[6] = rec_gtimer() - t_start;\n    }\n  }\n}\n")):
+        src = patch(src, old, new)
+    return src + """
+// The split words of the first `rows` rows of the last call.
+extern "C" int tuun_rec_probe_read(unsigned long long* dst, long long rows) {
+  return (int)cudaMemcpyFromSymbol(
+      dst, g_rec_probe, (size_t)rows * kRecProbeWords * sizeof(unsigned long long));
+}
+"""
+
+
+def rec_build(name: str, src: str, verbose=False) -> tuple:
+    """Builds the source text `src` (build()); returns the library, bound
+    (the probe's read too, where `src` has it), and nvcc's stderr."""
+    t0 = time.perf_counter()
+    so, log = build(name, src, verbose)
+    emit(what="build", name=name, seconds=time.perf_counter() - t0)
+    lib = ctypes.CDLL(str(so))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for entry in ("tuun_linear_recurrence_rows_f32",
+                  "tuun_linear_recurrence_rows_f64"):
+        getattr(lib, entry).argtypes = [p] * 6 + [i64, i64, i32, p]
+        getattr(lib, entry).restype = i32
+    if "tuun_rec_probe_read" in src:
+        lib.tuun_rec_probe_read.argtypes = [p, i64]
+        lib.tuun_rec_probe_read.restype = i32
+    return lib, log
+
+
+def rec_ptxas(log: str) -> list:
+    """(type, J, registers, spill stores, spill loads) of each instance of
+    linear_recurrence<T, J> that ptxas reports (J = 0: the ring form)."""
+    out, cur, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"linear_recurrenceI([fd])Li(\d+)EE", m.group(1))
+            cur = ("f32" if k.group(1) == "f" else "f64", int(k.group(2))) \
+                if k else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.append(dict(dtype=cur[0], J=cur[1], registers=int(m.group(1)),
+                            spill_stores=spill[0], spill_loads=spill[1]))
+            cur = None
+    return out
+
+
+def rec_call(torch, lib, args):
+    """A closure launching lib's recurrence on args, and its outputs."""
+    a, ff, live, h0 = args
+    rows = ff.shape[0] if ff.dim() == 2 else 1
+    n, J = a.shape[-2:]
+    y, hist = torch.empty_like(ff), torch.empty_like(h0)
+    fn = lib.tuun_linear_recurrence_rows_f32 if ff.dtype == torch.float32 \
+        else lib.tuun_linear_recurrence_rows_f64
+
+    def call():
+        status = fn(a.data_ptr(), ff.data_ptr(), live.data_ptr(),
+                    h0.data_ptr(), y.data_ptr(), hist.data_ptr(), rows, n, J,
+                    torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise SystemExit(f"recurrence launch failed: CUDA error {status}")
+    return call, y, hist
+
+
+
+
+def rec_split(torch, lib, call, rows, n) -> dict:
+    """The probe build's words (REC_WORDS) of the second of two calls, as
+    means over its rows (at most 64), cycles also per lane."""
+    call()
+    call()
+    torch.cuda.synchronize()
+    k = min(rows, 64)
+    buf = torch.zeros(k * len(REC_WORDS), dtype=torch.int64)
+    status = lib.tuun_rec_probe_read(buf.data_ptr(), k)
+    if status != 0:
+        raise SystemExit(f"probe read: CUDA error {status}")
+    w = buf.view(k, len(REC_WORDS)).double().mean(0).tolist()
+    row = dict(zip(REC_WORDS, w))
+    row.update(chain_cycles_per_lane=row["chain_cycles"] / n,
+               wait_cycles_per_lane=row["wait_cycles"] / n,
+               sm_clock_mhz=sm_clock_mhz())
+    return row
+
+
+# The card's own chain: one thread runs the recurrence's dependent chain
+# (all lanes live, the history and coefficients in registers, no loads or
+# stores) for LATENCY_LANES lanes; clock64 around it gives the cycles a
+# lane that no kernel of the recurrence can beat on this card.
+LATENCY_SRC = r"""
+#include <stdint.h>
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+template <typename T, int J>
+__global__ void chain(const T* a, const T* f, T* h_io, long long* cyc,
+                      int n) {
+  T av[J], h[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    av[j] = a[j];
+    h[j] = h_io[j];
+  }
+  const T ff = f[0];
+  const long long t0 = clock64();
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    T acc = ff;
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc = sub_rn(acc, mul_rn(av[j], h[j]));
+#pragma unroll
+    for (int j = J - 1; j >= 1; --j) h[j] = h[j - 1];
+    h[0] = acc;
+  }
+  const long long t1 = clock64();
+#pragma unroll
+  for (int j = 0; j < J; ++j) h_io[j] = h[j];
+  cyc[0] = t1 - t0;
+}
+
+#define ENTRY(T, S, J) \
+  extern "C" int chain_##S##_##J(const T* a, const T* f, T* h, \
+                                 long long* c, int n) { \
+    chain<T, J><<<1, 1>>>(a, f, h, c, n); \
+    return (int)cudaDeviceSynchronize(); \
+  }
+ENTRY(float, f32, 1) ENTRY(float, f32, 2) ENTRY(float, f32, 3)
+ENTRY(float, f32, 9) ENTRY(float, f32, 12) ENTRY(float, f32, 16)
+ENTRY(double, f64, 2) ENTRY(double, f64, 3) ENTRY(double, f64, 16)
+"""
+LATENCY_CASES = (("f32", 1), ("f32", 2), ("f32", 3), ("f32", 9),
+                 ("f32", 12), ("f32", 16), ("f64", 2), ("f64", 3),
+                 ("f64", 16))
+LATENCY_LANES = 1 << 16
+
+
+def rec_latency(torch) -> None:
+    """The chain's cycles a lane on this card (LATENCY_SRC), beside the
+    model's (J + 1) ops at 4 (f32) or 8 (f64) cycles."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    cu, so = WORK / "latency.cu", WORK / "liblatency.so"
+    cu.write_text(LATENCY_SRC)
+    proc = subprocess.run([nvcc(), *FLAGS, "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on {cu}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    from chip_smoke import stable_feedback
+    for dt, J in LATENCY_CASES:
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        a = torch.tensor(stable_feedback(J), dtype=dtype, device="cuda")
+        f = torch.ones(1, dtype=dtype, device="cuda")
+        h = torch.full((J,), 0.5, dtype=dtype, device="cuda")
+        cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+        fn = getattr(lib, f"chain_{dt}_{J}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+        fn.restype = ctypes.c_int
+        best = None
+        for _ in range(3):
+            status = fn(a.data_ptr(), f.data_ptr(), h.data_ptr(),
+                        cyc.data_ptr(), LATENCY_LANES)
+            if status != 0:
+                raise SystemExit(f"latency chain: CUDA error {status}")
+            c = int(cyc.item()) / LATENCY_LANES
+            best = c if best is None else min(best, c)
+        emit(what="chain latency", dtype=dt, J=J, cycles_per_lane=best,
+             cycles_per_op=best / (J + 1),
+             model_cycles_per_lane=(J + 1) * (4 if dt == "f32" else 8),
+             finite=bool(torch.isfinite(h).all()))
+
+
+def rec_sass(so: Path, out: Path) -> None:
+    """The SASS of REC_SASS's instances in `so`, one file each in `out`."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    proc = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
+                           "-sass", str(so)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"cuobjdump failed:\n{proc.stderr}")
+    out.mkdir(parents=True, exist_ok=True)
+    for part in proc.stdout.split("Function : ")[1:]:
+        name = next((k for k in REC_SASS if k in part.split("\n", 1)[0]),
+                    None)
+        if name:
+            (out / f"{name}.sass").write_text(part)
+
+
+def recurrence(tree: Path, parent: Path = None, quick: bool = False,
+               sass: Path = None) -> None:
+    """The linear recurrence's probe: ptxas's registers and spills of every
+    instance; at each of REC_SHAPES and live pattern, the engine's build
+    held to its own bits on a second call, to the one-step check, to the
+    parent's bits (when given) and every variant to the engine's bits
+    (exits 1 if one is not); then device times (CUDA graphs of calls) of
+    the parent and the engine's build in turns (parent, build, build,
+    parent), of each variant in turns with the build, and the clock64
+    split of the probe build."""
+    import torch
+    from chip_smoke import recurrence_input, recurrence_one_step_rows
+    src = rec_watchdog_source(
+        (tree / "tuun_tpu_torch" / "csrc" / "exact.cu").read_text())
+    builds = [("engine", src, True), ("probe", rec_probe_source(src), False)]
+    builds += [(f"variant{i}", variant_source(src, subs), False)
+               for i, (_, subs) in enumerate(REC_VARIANTS)]
+    if parent is not None:
+        builds.append(("parent", (parent / "tuun_tpu_torch" / "csrc" /
+                                  "exact.cu").read_text(), False))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        jobs = {name: pool.submit(rec_build, name, s, v)
+                for name, s, v in builds}
+        libs = {name: j.result()[0] for name, j in jobs.items()}
+        ptxas = jobs["engine"].result()[1]
+    for row in rec_ptxas(ptxas):
+        emit(what="ptxas", **row)
+    rec_latency(torch)
+    if sass is not None:
+        rec_sass(WORK / "libengine.so", sass)
+    others = ["probe"] + [f"variant{i}" for i in range(len(REC_VARIANTS))]
+    rng = np.random.default_rng(0)
+    cases, bad = [], 0
+    for rows, n, J, dt in REC_QUICK if quick else REC_SHAPES:
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        for live in REC_LIVE:
+            args = recurrence_input(torch, np, rng, J, n, dtype, rows,
+                                    dead=live)
+            new, y, hist = rec_call(torch, libs["engine"], args)
+            new()
+            torch.cuda.synchronize()
+            first = (y.clone(), hist.clone())
+            new()
+            torch.cuda.synchronize()
+            row = dict(rows=rows, n=n, J=J, dtype=dt, live=live,
+                       same_bits=bool(torch.equal(first[0], y)
+                                      and torch.equal(first[1], hist)),
+                       one_step=recurrence_one_step_rows(torch, args, y,
+                                                         hist))
+            for name in others + (["parent"] if parent else []):
+                call, oy, oh = rec_call(torch, libs[name], args)
+                call()
+                torch.cuda.synchronize()
+                row[f"{name}_bits"] = bool(torch.equal(oy, y)
+                                           and torch.equal(oh, hist))
+            ok = all(v for k, v in row.items() if k == "same_bits"
+                     or k == "one_step" or k.endswith("_bits"))
+            bad += not ok
+            emit(what="recurrence check", ok=ok, **row)
+            cases.append((rows, n, J, dt, live, args, new))
+    if bad:
+        raise SystemExit(f"recurrence: {bad} cases wrong")
+    for rows, n, J, dt, live, args, new in cases:
+        big = n > 4096
+        calls, replays = (5, 2) if big else (50, 5)
+        times = {}
+        if parent is not None:
+            old, _, _ = rec_call(torch, libs["parent"], args)
+            for label, fn in (("parent", old), ("engine", new),
+                              ("engine", new), ("parent", old)):
+                times.setdefault(label, []).append(
+                    graph_ms(torch, fn, calls, replays) * 1e3)
+        else:
+            times["engine"] = [graph_ms(torch, new, calls, replays) * 1e3]
+        chain_us = n * (J + 1) * (4 if dt == "f32" else 8) / 1.98e3
+        emit(what="recurrence", rows=rows, n=n, J=J, dtype=dt, live=live,
+             device_us=times, chain_bound_us=chain_us)
+        for i, (name, _) in enumerate(REC_VARIANTS):
+            var, _, _ = rec_call(torch, libs[f"variant{i}"], args)
+            t = [graph_ms(torch, f, calls, replays) * 1e3
+                 for f in (new, var, var, new)]
+            emit(what="recurrence variant", variant=name, rows=rows, n=n,
+                 J=J, dtype=dt, live=live, engine_device_us=t[::3],
+                 variant_device_us=t[1:3])
+        call, _, _ = rec_call(torch, libs["probe"], args)
+        emit(what="recurrence split", rows=rows, n=n, J=J, dtype=dt,
+             live=live, **rec_split(torch, libs["probe"], call, rows or 1, n),
+             device_us_probe=graph_ms(torch, call, calls, replays) * 1e3)
+
+
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=("split", "sweep"))
+    p.add_argument("mode", choices=("split", "sweep", "recurrence"))
     p.add_argument("--tree", type=Path, default=ROOT)
     p.add_argument("--out", type=Path, default=None,
                    help="also append each JSON line to this file")
+    p.add_argument("--quick", action="store_true",
+                   help="recurrence: only the shapes of REC_QUICK")
+    p.add_argument("--sass", type=Path, default=None,
+                   help="recurrence: write the SASS of REC_SASS's instances "
+                   "into this directory")
     p.add_argument("--parent", type=Path, default=None,
                    help="sweep: also time this checkout's J <= 8 affine "
-                   "scan (the per-thread register-map kernel) in turns")
+                   "scan (the per-thread register-map kernel) in turns; "
+                   "recurrence: its linear recurrence")
     args = p.parse_args(argv)
     global OUT
     OUT = args.out
@@ -466,6 +884,10 @@ def main(argv) -> int:
     print(card(), flush=True)
     if args.mode == "split":
         split(args.tree.resolve())
+    elif args.mode == "recurrence":
+        recurrence(args.tree.resolve(),
+                   args.parent.resolve() if args.parent else None,
+                   args.quick, args.sass)
     else:
         sweep(args.tree.resolve(),
               args.parent.resolve() if args.parent else None)

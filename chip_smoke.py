@@ -164,11 +164,17 @@ Phases, each of which exits non-zero on failure:
      failure fails the run (no budget stop, no caught exception).  First
      the two kernels of csrc/exact.cu against their plain versions: the
      linear recurrence (K1, exact mode's IIR) in f32 and f64 at J = 1, 2,
-     3, 8, 9, 12, bit for bit the plain version at 1000 and 4101 lanes
+     3, 8, 9, 12, 16, 17, bit for bit the plain version at 1000 and 4101
+     lanes
      (aligned and on a[1:], ff[1:], live[1:]) and at 2^17 + 5 lanes for J =
      2, and at 2^17 + 5 lanes for every J each lane the step from its own
      history (which makes it the plain version's bits by induction), the
-     same bits on a repeat; its rows form row for row a single call; the df
+     same bits on a repeat; at J = 1, 2, 8, 16, 17 on REC_PATTERNS' dead
+     lanes (all live, all dead, one dead lane at each place of a 32-lane
+     group, dead runs across the chain form's stage ends, the mixed
+     default) at REC_PATTERN_N lanes, aligned and on [1:] views, bit for
+     bit the plain version and the one-step check, and the patterns as the
+     rows of one rows call; its rows form row for row a single call; the df
      prefix sum (K2, exact_df's phase) at 2^10 to 2^20 lanes within 2^-40
      of sum |x| of the float64 cumsum (as its plain doubling scan is), 10^3
      below the f32 cumsum's drift, the same bits on 20 repeats, its rows
@@ -260,12 +266,16 @@ only phase 13; `--phase deep` only phase 2's deep affine scan checks and
 phase 12's deep times.
 
 `--phase times [--tree DIR]` runs only the scans at the shapes whose time
-is split (the prefix sum and max at SPLIT_SIZES, the affine scan at
-AFFINE_SPLIT and its rows form at AFFINE_ROWS_SPLIT, the deep affine scan
-at DEEP_SPLIT where the tree has one): each held to its bound (a tree
-whose affine scan returns the J planes of h to those), kernels per call
-(torch.profiler) and the three times of phase 2, one JSON line a shape,
-the affine scan's beside the bound of y out (4J + 9 bytes a lane).
+is split (the prefix sum and max at SPLIT_SIZES and at the live block's
+1024 lanes, the affine scan at AFFINE_SPLIT and its rows form at
+AFFINE_ROWS_SPLIT, the deep affine scan at DEEP_SPLIT where the tree has
+one, the linear recurrence at REC_TIMES on all-live and phase 11's mixed
+lanes, the df prefix sum at 1024 lanes): each held to its bound (a tree
+whose affine scan returns the J planes of h to those; the recurrence to
+the one-step check), kernels per call (torch.profiler) and the three
+times of phase 2, one JSON line a shape, the affine scan's beside the
+bound of y out (4J + 9 bytes a lane), the recurrence's beside its chain
+model.
 With --tree, the kernels are those of the checkout at DIR (its
 tuun_tpu_torch/engine/scan_ops.py, loaded on its own), so that two
 commits are compared with one set of inputs and clocks, each in its own
@@ -848,18 +858,23 @@ def affine_bound_us(B: int, n: int, J: int) -> float:
 
 def phase_times(torch, np, scan_ops, label: str) -> None:
     """The scans alone, for comparing two trees: the prefix sum and max at
-    SPLIT_SIZES, the affine scan at AFFINE_SPLIT's shapes and its rows form
-    at AFFINE_ROWS_SPLIT's, the deep affine scan at DEEP_SPLIT's (where the
-    tree has it), each held to its bound (each tree to its own contract),
-    kernels per call counted over all of them in this process's one
-    profiler session, then timed three ways (device time alone among
-    them).  Logs one JSON line per shape, the affine scan's beside the
-    bound of y out (4J + 9 bytes a lane) whatever the tree returns."""
+    the live block and SPLIT_SIZES, the affine scan at AFFINE_SPLIT's
+    shapes and its rows form at AFFINE_ROWS_SPLIT's, the deep affine scan
+    at DEEP_SPLIT's (where the tree has it), the linear recurrence at
+    REC_TIMES on each of REC_TIMES_LIVE and the df prefix sum at the live
+    block, each held to its bound (each tree to its own contract; the
+    recurrence to the one-step check, the df sum to DF_REL_TOL), kernels
+    per call counted over all of them in this process's one profiler
+    session, then timed three ways (device time alone among them).  Logs
+    one JSON line per shape, the affine scan's beside the bound of y out
+    (4J + 9 bytes a lane) whatever the tree returns, the recurrence's
+    beside its chain model."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(0)
     prefix = [(op, fn, n, prefix_input(torch, np, rng, op, n))
-              for n in SPLIT_SIZES for op, fn in prefix_ops(scan_ops)]
+              for n in (LIVE_BLOCK_N,) + SPLIT_SIZES
+              for op, fn in prefix_ops(scan_ops)]
     for op, fn, n, x in prefix:
         check_prefix(torch, np, scan_ops, op, x, fn(x), "(--phase times)")
     inputs = [affine_input(torch, np, rng, J, n) for J, n in AFFINE_SPLIT]
@@ -877,6 +892,17 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
     for J, n, args in deep:
         check_deep(torch, scan_ops, args,
                    *scan_ops.affine_scan_deep_f32(*args), "(--phase times)")
+    rec = [(B, n, J, dt, pat, recurrence_input(
+        torch, np, rng, J, n, torch.float32 if dt == "f32" else torch.float64,
+        None if B == 1 else B, dead=pat))
+        for B, n, J, dt in REC_TIMES for pat in REC_TIMES_LIVE]
+    for B, n, J, dt, pat, args in rec:
+        check(recurrence_one_step_rows(torch, args,
+                                       *rec_call(scan_ops, args)()),
+              f"linear_recurrence ({B}, {n}) J={J} {dt} {pat} (--phase "
+              f"times): a lane is not the step from its own history")
+    df = df_input(torch, np, rng, LIVE_BLOCK_N)
+    check_df(torch, *df, *scan_ops.df_prefix_sum_f32(*df), "(--phase times)")
     calls = 10
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -889,10 +915,13 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
                 scan_ops.affine_scan_rows_f32(*args)
             for _, _, args in deep:
                 scan_ops.affine_scan_deep_f32(*args)
+            for *_, args in rec:
+                rec_call(scan_ops, args)()
+            scan_ops.df_prefix_sum_f32(*df)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     per_call = len(names) / (calls * (len(inputs) + len(rows) + len(prefix)
-                                      + len(deep)))
+                                      + len(deep) + len(rec) + 1))
     for op, fn, n, x in prefix:
         ref = scan_ops.prefix_sum_ref if op == "sum" \
             else scan_ops.prefix_max_ref
@@ -926,6 +955,22 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
             row, tree=label, op="affine_scan_deep_f32", J=J, n=n,
             kernels_per_call=per_call, bound_us=bound_us,
             share_of_bound=bound_us / (row["device_ms"] * 1e3))))
+    for B, n, J, dt, pat, args in rec:
+        row = dict(rec_kernel_times(torch, rec_call(scan_ops, args), n),
+                   **rec_bound(B, n, J, dt))
+        log(json.dumps(dict(
+            row, tree=label, op=f"linear_recurrence_{dt}", B=B, n=n, J=J,
+            live=pat, kernels_per_call=per_call,
+            share_of_chain=row["chain_bound_ms"] / row["device_ms"],
+            cycles_per_lane=row["device_ms"] * 1e-3 * SM_CLOCK_HZ / n)))
+    fn = lambda: scan_ops.df_prefix_sum_f32(*df)  # noqa: E731
+    row = dict(ms=cuda_ms(torch, fn, 200), device_ms=graph_ms(torch, fn),
+               host_us=host_us(torch, fn),
+               bound_us=LIVE_BLOCK_N * 16 / HBM_BYTES_PER_S * 1e6)
+    log(json.dumps(dict(row, tree=label, op="df_prefix_sum_f32",
+                        n=LIVE_BLOCK_N, kernels_per_call=per_call,
+                        share_of_bound=row["bound_us"]
+                        / (row["device_ms"] * 1e3))))
 
 
 def tree_scan_ops(tree: Path):
@@ -3805,6 +3850,24 @@ DF_REL_TOL = 2.0 ** -40
 # offline block, the live block, and a live group of 8 (rows forms).
 EXACT_MAIN_N = 1 << 17
 EXACT_TIMES = ((1, EXACT_MAIN_N), (1, 1024), (8, 1024))
+# The dead-lane patterns' length (REC_PATTERNS, phase 11): past four of the
+# chain form's stages at every J and type, one dead lane at each place of
+# a 32-lane group in "stride", ragged (a tail past the last 16-lane grain).
+REC_PATTERN_N = 2205
+REC_PATTERN_JS = (1, 2, 8, 16, 17)
+# --phase times: the recurrence at the main path's shapes, (B, N, J, type):
+# the long render's and the shape gate's 2^17-lane blocks, the CLI's 65536,
+# the live block and a live group of 8, at lpf's J = 2 and filter_4_3's J
+# = 3, and the deep filters' J = 9, 12, 16 at 2^17; on all-live lanes (the
+# path's: lanes die only past a voice's fin) and on phase 11's mixed input.
+REC_TIMES = tuple((B, n, J, dt) for dt in ("f32", "f64") for J in (2, 3)
+                  for B, n in ((1, EXACT_MAIN_N), (1, 65536), (1, 1024),
+                               (8, 1024))) + tuple(
+    (1, EXACT_MAIN_N, J, "f32") for J in (9, 12, 16))
+REC_TIMES_LIVE = ("live", "mixed")
+# The live block: the single-form prefix scans and the df sum are timed
+# there too.
+LIVE_BLOCK_N = 1024
 # H100 SXM peaks (NVIDIA data sheet, 700 W) for the operations bound, and
 # the dependent chain's model: one f32 (f64) multiply or subtract takes 4
 # (8) cycles of latency at the 1.98 GHz boost clock.
@@ -3836,19 +3899,99 @@ LONGRENDER_TOL = 2e-4
 EXACT_CLI = ("W2", "W3")
 
 
+# Dead-lane patterns of recurrence_input: "mixed" (5% dead lanes and a
+# dead run of 64: ~19% of 32-lane groups all live), every lane live (the
+# path's: lanes die only past a voice's fin), every lane dead, "stride"
+# (one dead lane in 65: its place in a 32-lane group steps by one each
+# time, the groups between all live) and "stage_ends" (dead runs of 128
+# lanes across the chain form's first stage's end and its fourth's, each
+# a whole group of the chain's (64 lanes at most) dead on either side).
+REC_PATTERNS = ("mixed", "live", "dead", "stride", "stage_ends")
+# The chain form's staging (csrc/exact.cu, J <= REC_REG_J; its constants
+# of these names, which tests/test_torch_recurrence.py holds these to): a
+# ring of REC_STAGES stage buffers of S lanes, S the largest power of two
+# up to REC_MAX_STAGE whose ring fits REC_BUDGET bytes; a row's stages
+# are its head where it has one (the lanes before the first whose live
+# byte starts a REC_GRAIN-byte grain), then REC_FIRST lanes, then twice as
+# many each time up to S.
+REC_REG_J = 16
+REC_STAGES = 4
+REC_FIRST = 64
+REC_MAX_STAGE = 1024
+REC_BUDGET = 48 * 1024
+REC_GRAIN = 16
+
+
+def recurrence_stage_lanes(J: int, itemsize: int) -> int:
+    """Lanes of a full stage at depth J, items of `itemsize` bytes: a
+    stage buffer holds (J + 2) items (a, ff, y) and a live byte a lane."""
+    lane_bytes = (J + 2) * itemsize + 1
+    s = REC_MAX_STAGE
+    while s > REC_FIRST and REC_STAGES * s * lane_bytes > REC_BUDGET:
+        s //= 2
+    return s
+
+
+def recurrence_head(live_addr: int) -> int:
+    """Lanes of the head of a row whose live bytes start at `live_addr`."""
+    return -live_addr % REC_GRAIN
+
+
+def recurrence_stages(n: int, head: int, S: int) -> list:
+    """(first lane, lanes) of a row's stages, in the order they run."""
+    out, st = [], 0
+    length, g = (min(n, head), -1) if head else (min(n, REC_FIRST), 0)
+    while st < n:
+        out.append((st, length))
+        st += length
+        g += 1
+        length = min(n - st, min(S, REC_FIRST << g) if g < 16 else S)
+    return out
+
+
+def rec_live(np, rng, pattern, n, J, itemsize, offset=0):
+    """One row's live lanes (n of them, after `offset` live lanes that a
+    [offset:] view drops) in `pattern`; "stage_ends" finds the stage ends
+    of the kernel's staging, recurrence_stages, for a row whose live bytes
+    start `offset` bytes past a 16-byte boundary."""
+    if pattern == "mixed":
+        live = rng.random(n) > 0.05
+        live[n // 3:n // 3 + 64] = False
+    elif pattern in ("live", "dead"):
+        live = np.full(n, pattern == "live")
+    elif pattern == "stride":
+        live = np.arange(n) % 65 != 64
+    elif pattern == "stage_ends":
+        live = np.ones(n, bool)
+        S = recurrence_stage_lanes(min(J, REC_REG_J), itemsize)
+        stages = recurrence_stages(n, recurrence_head(offset), S)
+        for st, length in stages[:4:3]:
+            live[max(0, st + length - 64):st + length + 64] = False
+    else:
+        raise ValueError(f"unknown live pattern {pattern!r}")
+    return np.concatenate([np.ones(offset, bool), live])
+
+
 def recurrence_input(torch, np, rng, J, n, dtype, B=None, offset=0,
-                     device="cuda"):
+                     device="cuda", dead="mixed"):
     """(a, ff, live, h0) on `device`: a stable all-pole section with a
-    per-lane jitter of 1e-3 (a time-varying filter), unit normal ff, 5%
-    dead lanes and a dead run of 64, a random entering history.  With B,
-    B rows; with offset=1 (single rows only), a, ff and live are views
-    [1:] of tensors one lane longer."""
+    per-lane jitter of 1e-3 (a time-varying filter), unit normal ff, dead
+    lanes in the pattern `dead` (REC_PATTERNS; with B, one a row or one
+    for all), a random entering history.  With B, B rows; with offset=1
+    (single rows only), a, ff and live are views [1:] of tensors one lane
+    longer."""
     lead = () if B is None else (B,)
     a = stable_feedback(J) + 1e-3 * rng.standard_normal((*lead, n + offset,
                                                          J))
     ff = rng.standard_normal((*lead, n + offset))
-    live = rng.random((*lead, n + offset)) > 0.05
-    live[..., n // 3:n // 3 + 64] = False
+    if dead == "mixed":
+        live = rng.random((*lead, n + offset)) > 0.05
+        live[..., n // 3:n // 3 + 64] = False
+    else:
+        pats = [dead] * (B or 1) if isinstance(dead, str) else list(dead)
+        item = 4 if dtype == torch.float32 else 8
+        live = np.stack([rec_live(np, rng, p, n, J, item, offset)
+                         for p in pats]).reshape(*lead, n + offset)
     h0 = rng.standard_normal((*lead, J))
 
     def card(x):
@@ -3901,35 +4044,98 @@ def check_recurrence_plain(torch, scan_ops, args, y, hist, what) -> None:
           f"plain version")
 
 
+def check_recurrence_patterns(torch, np, scan_ops, rng, dtype) -> None:
+    """At each of REC_PATTERN_JS, REC_PATTERNS' dead lanes at
+    REC_PATTERN_N lanes: each pattern in a single call, aligned and on
+    [1:] views, and all of them as the rows of one rows call, bit for bit
+    the plain version (one batched call on host copies of the rows) and
+    each lane the step from its own history."""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    n = REC_PATTERN_N
+    for J in REC_PATTERN_JS:
+        for offset in (0, 1):
+            single = [recurrence_input(torch, np, rng, J, n, dtype,
+                                       offset=offset, dead=p)
+                      for p in REC_PATTERNS]
+            batch = tuple(torch.stack([args[k] for args in single]).cpu()
+                          for k in range(4))
+            want_y, want_h = scan_ops.linear_recurrence_rows(*batch)
+            outs = [scan_ops.linear_recurrence(*args) for args in single]
+            if offset == 0:
+                rows_args = tuple(x.to("cuda") for x in batch)
+                outs.append(scan_ops.linear_recurrence_rows(*rows_args))
+            torch.cuda.synchronize()
+            for k, (y, hist) in enumerate(outs):
+                what = f"{sfx} J={J} off={offset} " + (
+                    REC_PATTERNS[k] if k < len(REC_PATTERNS) else "as rows")
+                wy, wh = (want_y, want_h) if y.dim() == 2 else \
+                    (want_y[k], want_h[k])
+                bad = int((bits(torch, y.cpu()) != bits(torch, wy)).sum())
+                check(bad == 0 and torch.equal(bits(torch, hist.cpu()),
+                                               bits(torch, wh)),
+                      f"linear_recurrence {what}: {bad} lanes differ from "
+                      f"the plain version")
+                args = single[k] if k < len(single) else rows_args
+                check(recurrence_one_step_rows(torch, args, y, hist),
+                      f"linear_recurrence {what}: one-step check failed")
+    log(f"linear_recurrence_{sfx}: at J = {REC_PATTERN_JS} on dead-lane "
+        f"patterns {REC_PATTERNS} at {n} lanes (each alone, aligned and on "
+        f"[1:] views, and as the rows of one call) bit for bit the plain "
+        f"version, every lane the step from its own history")
+
+
+def rec_bound(B: int, n: int, J: int, sfx: str) -> dict:
+    """The recurrence's bounds on (B, n) at depth J: bytes (a, ff and live
+    read once, h0 read and y and hist written once) or operations (J
+    products and J differences a lane), the larger; and the dependent
+    chain's model, (J + 1) roundings a lane at CHAIN_CYCLES and
+    SM_CLOCK_HZ, rows side by side."""
+    item = 4 if sfx == "f32" else 8
+    lane_bytes = item * (J + 2) + 1
+    bytes_ms = B * (n * lane_bytes + 2 * J * item) / HBM_BYTES_PER_S * 1e3
+    ops_ms = B * n * 2 * J / PEAK_FLOPS[sfx] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                chain_bound_ms=n * (J + 1) * CHAIN_CYCLES[sfx] / SM_CLOCK_HZ
+                * 1e3)
+
+
+def rec_kernel_times(torch, fn, n) -> dict:
+    """Events, device time alone and host µs of one recurrence call."""
+    big = n > 4096
+    return dict(ms=cuda_ms(torch, fn, 5 if big else 50),
+                device_ms=graph_ms(torch, fn, calls=5 if big else 50,
+                                   replays=2 if big else 5),
+                host_us=host_us(torch, fn, calls=20 if big else 200))
+
+
+def rec_call(scan_ops, args):
+    """The recurrence's single or rows entry on args, as a closure."""
+    if args[1].dim() == 1:
+        return lambda: scan_ops.linear_recurrence(*args)
+    return lambda: scan_ops.linear_recurrence_rows(*args)
+
+
 def rec_times(torch, np, scan_ops, dtype, B, n, rng):
     """The recurrence at J = 2 on (B, n): events, device and host time,
     the plain version once on the card, the bound (bytes or operations)
     and the dependent chain's time."""
     args = recurrence_input(torch, np, rng, 2, n, dtype,
                             None if B == 1 else B)
-    fn = (lambda: scan_ops.linear_recurrence(*args)) if B == 1 else \
-        (lambda: scan_ops.linear_recurrence_rows(*args))
     ref = lambda: scan_ops.linear_recurrence_ref(*args)  # noqa: E731
-    big = n > 4096
     sfx = "f32" if dtype == torch.float32 else "f64"
-    item = 4 if sfx == "f32" else 8
-    J = 2
-    lane_bytes = item * (J + 2) + 1
-    bytes_ = B * (n * lane_bytes + 2 * J * item)
-    ops = B * n * 2 * J
-    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_FLOPS[sfx] * 1e3
-    row = dict(B=B, n=n, J=J, dtype=sfx,
-               ms=cuda_ms(torch, fn, 5 if big else 50),
-               device_ms=graph_ms(torch, fn, calls=5 if big else 50,
-                                  replays=2 if big else 5),
-               host_us=host_us(torch, fn, calls=20 if big else 200),
-               plain_ms=cuda_ms(torch, ref, 1),
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               chain_bound_ms=n * (J + 1) * CHAIN_CYCLES[sfx] / SM_CLOCK_HZ
-               * 1e3, library_ms=None)
-    return row
+    return dict(B=B, n=n, J=2, dtype=sfx,
+                **rec_kernel_times(torch, rec_call(scan_ops, args), n),
+                plain_ms=cuda_ms(torch, ref, 1), **rec_bound(B, n, 2, sfx),
+                library_ms=None)
+
+
+def recurrence_one_step_rows(torch, args, y, hist) -> bool:
+    """recurrence_one_step on one row or on each of B rows."""
+    if args[1].dim() == 1:
+        return recurrence_one_step(torch, args, y, hist)
+    return all(recurrence_one_step(torch, tuple(x[r] for x in args), y[r],
+                                   hist[r]) for r in range(y.shape[0]))
 
 
 def df_input(torch, np, rng, n, B=None, offset=0):
@@ -4071,6 +4277,7 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
                 + f"; every lane the step from its own history at "
                 f"{REC_LONG_N} lanes on a[1:], the same bits on a repeat "
                 f"(max |y| {scale:.3g})")
+        check_recurrence_patterns(torch, np, scan_ops, rng, dtype)
         # Rows: each row the bits of a single call on it.
         for B, n in ((8, 1024), (4, 65536 + 3)):
             args = recurrence_input(torch, np, rng, 3, n, dtype, B)
@@ -4463,30 +4670,92 @@ def exact_cli(np, tmp: Path) -> None:
                 f"{float(np.median(d)):.2e}")
 
 
+class LaunchLengths:
+    """While active, counts the recurrence's and the df sum's launches by
+    (entry, rows, lanes): an eager call as it launches, a call that a CUDA
+    graph captures as it is recorded; a graph's replays relaunch what its
+    capture recorded and are counted by entry alone (the graph keeps its
+    own copy of the counts, not the shapes)."""
+    WRAPPED = ("_recurrence_launch", "_df_launch")
+    WATCHED = ("linear_recurrence_f32", "linear_recurrence_f64",
+               "linear_recurrence_rows_f32", "linear_recurrence_rows_f64",
+               "df_prefix_sum_f32", "df_prefix_sum_rows_f32")
+
+    def __init__(self, scan_ops):
+        self.ops = scan_ops
+        self.eager = {}
+        self.captured = {}
+        self.replayed = {}
+
+    def _launch(self, fn):
+        def launch(*args):
+            # (a, ff, live, h0, rows, entry) or (xh, xl, rows, entry)
+            key = (args[-1], args[-2], args[1].shape[-1])
+            rec = getattr(self.ops._tls, "recording", None)
+            table = self.eager if rec is None else self.captured
+            table[key] = table.get(key, 0) + 1
+            return fn(*args)
+        return launch
+
+    def _replayed(self, fn):
+        def count(recorded):
+            for k, c in recorded.items():
+                if k in self.WATCHED:
+                    self.replayed[k] = self.replayed.get(k, 0) + c
+            return fn(recorded)
+        return count
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.ops, k)
+                      for k in self.WRAPPED + ("count_launches",)}
+        for k in self.WRAPPED:
+            setattr(self.ops, k, self._launch(self.saved[k]))
+        self.ops.count_launches = self._replayed(self.saved["count_launches"])
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.ops, k, fn)
+
+    def table(self) -> dict:
+        """{"eager": [[entry, rows, lanes, launches], ...] and "captured"
+        likewise, most first; "replayed": {entry: launches}}."""
+        def rows(t):
+            return sorted(([*k, c] for k, c in t.items()),
+                          key=lambda r: (-r[3], r[0], r[1], r[2]))
+        return dict(eager=rows(self.eager), captured=rows(self.captured),
+                    replayed=dict(sorted(self.replayed.items())))
+
+
 def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
     """Phase 11: the kernel checks, then the path (the three gates, the
     exact_df session, W2 and W3 through the CLI), whose launches, and
-    only those, make each kernel's `exact_launches`."""
+    only those, make each kernel's `exact_launches`; the recurrence's and
+    the df sum's are also logged by length."""
     phase_exact_kernels(torch, np, scan_ops, results)
     scan_ops.reset_launches()
-    t0 = time.perf_counter()
-    ok, fail, skip, failures = gate_fuzz("cuda")
-    check(fail == 0 and ok >= 32, f"fuzz gate: {ok} ok, {fail} fail, "
-          f"{skip} skip: {failures[:8]}")
-    t1 = time.perf_counter()
-    check(gate_shapes("cuda"), "shape gate failed")
-    t2 = time.perf_counter()
-    passed, row = gate_longrender("cuda")
-    check(passed, f"long render failed: {row}")
-    t3 = time.perf_counter()
-    exact_session(torch, np)
-    t4 = time.perf_counter()
-    exact_cli(np, tmp)
-    t5 = time.perf_counter()
+    with LaunchLengths(scan_ops) as lengths:
+        t0 = time.perf_counter()
+        ok, fail, skip, failures = gate_fuzz("cuda")
+        check(fail == 0 and ok >= 32, f"fuzz gate: {ok} ok, {fail} fail, "
+              f"{skip} skip: {failures[:8]}")
+        t1 = time.perf_counter()
+        check(gate_shapes("cuda"), "shape gate failed")
+        t2 = time.perf_counter()
+        passed, row = gate_longrender("cuda")
+        check(passed, f"long render failed: {row}")
+        t3 = time.perf_counter()
+        exact_session(torch, np)
+        t4 = time.perf_counter()
+        exact_cli(np, tmp)
+        t5 = time.perf_counter()
     counts = dict(scan_ops.launches)
     log(f"phase 11 seconds: fuzz {t1 - t0:.1f}, shapes {t2 - t1:.1f}, long "
         f"render {t3 - t2:.1f}, session {t4 - t3:.1f}, cli {t5 - t4:.1f}")
     log(f"launch counts of phase 11: {counts}")
+    log(f"phase 11's recurrence and df sum launches by length ([entry, "
+        f"rows, lanes, launches]; replays of captured graphs by entry): "
+        f"{json.dumps(lengths.table())}")
     # The deep affine scan serves only fast filters deeper than MAX_J, which
     # phase 11's path does not render (phase 12 does).
     for k, c in counts.items():
@@ -5425,11 +5694,8 @@ def main(argv) -> int:
     log(smi.stdout.strip().splitlines()[0])
 
     t0 = time.perf_counter()
-    if args.tree is not None:
-        libs = [scan_ops.build_library()]
-    else:
-        libs = scan_ops.build_libraries()
-        scan_ops.load_exact_library()
+    libs = scan_ops.build_libraries()
+    scan_ops.load_exact_library()
     scan_ops.load_library()
     build_s = time.perf_counter() - t0
     log(f"build: {', '.join(lib.name for lib in libs)} in {build_s:.1f} s "

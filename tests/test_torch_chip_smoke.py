@@ -279,3 +279,102 @@ def test_phase_mesh_fails_when_a_rows_kernel_never_launched(
     kernels = [k for k in smoke.MESH_KERNELS if k != missing]
     with pytest.raises(smoke.SmokeFailure, match=missing):
         _mesh(smoke, monkeypatch, kernels)
+
+
+# -- the recurrence's times and phase 11's launches by length --------------
+
+
+def test_rec_times_cover_the_main_path_shapes(smoke):
+    shapes = {(B, n, J, dt) for B, n, J, dt in smoke.REC_TIMES}
+    for dt in ("f32", "f64"):
+        for J in (2, 3):
+            assert {(1, 1 << 17, J, dt), (1, 65536, J, dt), (1, 1024, J, dt),
+                    (8, 1024, J, dt)} <= shapes
+    assert {(1, 1 << 17, J, "f32") for J in (9, 12, 16)} <= shapes
+    assert len(shapes) == len(smoke.REC_TIMES) == 19
+    assert set(smoke.REC_TIMES_LIVE) == {"live", "mixed"}
+    assert smoke.LIVE_BLOCK_N == 1024
+
+
+@pytest.mark.parametrize("B, n, J, dt, chain_us", [
+    (1, 1 << 17, 2, "f32", 794.2), (1, 1 << 17, 2, "f64", 1588.4),
+    (8, 1024, 2, "f32", 6.2), (1, 1024, 2, "f64", 12.4),
+    (1, 1 << 17, 9, "f32", 2648.0), (1, 1 << 17, 12, "f32", 3442.4),
+    (1, 1 << 17, 16, "f32", 4501.1)])
+def test_rec_bound_is_the_chain_model(smoke, B, n, J, dt, chain_us):
+    """(J + 1) roundings a lane at 4 (f32) or 8 (f64) cycles and 1.98 GHz:
+    PERF.md's chain models; rows run side by side.  The bytes and
+    operations bounds lie far under it."""
+    row = smoke.rec_bound(B, n, J, dt)
+    assert row["chain_bound_ms"] * 1e3 == pytest.approx(chain_us, rel=1e-3)
+    item = 4 if dt == "f32" else 8
+    want = B * (n * ((J + 2) * item + 1) + 2 * J * item) \
+        / smoke.HBM_BYTES_PER_S * 1e3
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(want)
+    assert row["bound_ms"] < row["chain_bound_ms"] / 100
+
+
+def test_one_step_check_rows_on_the_plain_version(smoke):
+    import numpy as np
+    import torch
+    from tuun_tpu_torch.engine import scan_ops
+    rng = np.random.default_rng(0)
+    args = smoke.recurrence_input(torch, np, rng, 3, 300, torch.float32,
+                                  B=3, device="cpu",
+                                  dead=("live", "stride", "dead"))
+    y, hist = scan_ops.linear_recurrence_rows(*args)
+    assert smoke.recurrence_one_step_rows(torch, args, y, hist)
+    y[1, 7] = y[1, 7] + 1
+    assert not smoke.recurrence_one_step_rows(torch, args, y, hist)
+
+
+class _Recording:
+    """A stand-in scan_ops for LaunchLengths: launches count by entry,
+    and inside `capture()` record into the thread's dict instead."""
+
+    def __init__(self):
+        import threading
+        self._tls = threading.local()
+        self._tls.recording = None
+        self.launched = []
+
+    def _recurrence_launch(self, a, ff, live, h0, rows, entry):
+        self.launched.append(entry)
+        return ff
+
+    def _df_launch(self, xh, xl, rows, entry):
+        self.launched.append(entry)
+        return xh
+
+    def count_launches(self, recorded):
+        self.launched.append(("replay", len(recorded)))
+
+
+def test_launch_lengths_count_eager_calls_and_replays(smoke):
+    import torch
+    ops = _Recording()
+    rec = ("a", torch.zeros(2, 1024), None, None, 2,
+           "linear_recurrence_rows_f32")
+    df = (torch.zeros(65536), torch.zeros(65536), 1, "df_prefix_sum_f32")
+    with smoke.LaunchLengths(ops) as lengths:
+        ops._recurrence_launch(*rec)
+        ops._recurrence_launch(*rec)
+        ops._df_launch(*df)
+        graph = {}
+        ops._tls.recording = graph
+        ops._df_launch(*df)  # captured: its replays count by entry
+        graph["df_prefix_sum_f32"] = 1
+        ops._tls.recording = None
+        for _ in range(3):
+            ops.count_launches(dict(graph))  # a graph keeps a copy
+    assert lengths.table() == {
+        "eager": [["linear_recurrence_rows_f32", 2, 1024, 2],
+                  ["df_prefix_sum_f32", 1, 65536, 1]],
+        "captured": [["df_prefix_sum_f32", 1, 65536, 1]],
+        "replayed": {"df_prefix_sum_f32": 3}}
+    # The wrappers ran, and the module is as it was.
+    assert ops.launched.count("df_prefix_sum_f32") == 2
+    assert ops.launched.count(("replay", 1)) == 3
+    assert "_df_launch" not in vars(ops) or \
+        ops._df_launch.__name__ == "_df_launch"

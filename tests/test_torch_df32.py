@@ -262,9 +262,9 @@ def test_exact_kernels_round_each_op_on_its_own():
                       "__fadd_rn"):
         assert intrinsic in src
     import re
-    lane = re.search(r"T rec_lane\(.*?\n}\n", src, re.S).group(0)
-    ring = re.search(r"void rec_tile_ring\(.*?\n}\n", src, re.S).group(0)
-    for body in (lane, ring):
+    bodies = [re.search(rf"void {fn}\(.*?\n}}\n", src, re.S).group(0)
+              for fn in ("rec_group", "rec_chain_stage", "rec_tile_ring")]
+    for body in bodies:
         assert "sub_rn(acc, mul_rn(" in body
         assert not re.search(r"acc\s*[-+]=|acc\s*=\s*acc\s*[-+]", body)
     for name in ("tuun_linear_recurrence_rows_f32",

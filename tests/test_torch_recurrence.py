@@ -1,0 +1,213 @@
+"""The linear recurrence's chain form (csrc/exact.cu, J <= 16) on the CPU.
+
+  * The plain version (scan_ops.linear_recurrence_ref) on chip_smoke.py's
+    dead-lane patterns (REC_PATTERNS, the ones phase 11 holds the kernel
+    to on the card): against tuun_tpu's CFilter._feedback in float64,
+    within 1e-12 of scale, and bit for bit a numpy loop in the oracle's
+    float32 rounding, at J = 1, 2, 8, 16 and 17 (the ring form's first).
+  * The patterns' shapes: each reaches the bodies and stage ends it is
+    there for, by chip_smoke.py's model of the kernel's staging.
+  * That model (recurrence_stage_lanes, _head, _stages), held to
+    exact.cu's constants, and a numpy model of the producer's fills from
+    it: every lane staged once and where the chain reads it, bulk copies
+    whole 16-byte grains aligned at both ends, the ring inside its budget;
+    contiguous rows and their [1:] views take bulk copies, rows misaligned
+    otherwise do not.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_exact import _bits, _chip_smoke, _jax_feedback, \
+    _numpy_recurrence, t
+from tuun_tpu_torch.engine import scan_ops
+
+smoke = _chip_smoke()
+JS = (1, 2, 8, 16, 17)
+
+
+def _inputs(J, n, dtype, pattern, seed=0, offset=0):
+    torch_dtype = torch.float32 if dtype == np.float32 else torch.float64
+    return tuple(x.numpy() for x in smoke.recurrence_input(
+        torch, np, np.random.default_rng(seed), J, n, torch_dtype,
+        offset=offset, device="cpu", dead=pattern))
+
+
+@pytest.mark.parametrize("pattern", smoke.REC_PATTERNS)
+@pytest.mark.parametrize("J", JS)
+def test_plain_matches_jax_feedback_f64_on_live_patterns(J, pattern):
+    a, ff, live, h0 = _inputs(J, 300, np.float64, pattern, seed=J)
+    y, hist = scan_ops.linear_recurrence(t(a), t(ff), t(live), t(h0))
+    wy, wh = _jax_feedback("exact", a, ff, live, h0)
+    tol = 1e-12 * max(1.0, float(np.abs(wy).max()))
+    assert np.abs(y.numpy() - wy).max() <= tol
+    assert np.abs(hist.numpy() - wh).max() <= tol
+    assert np.all(y.numpy()[~live] == 0)
+
+
+@pytest.mark.parametrize("pattern", smoke.REC_PATTERNS)
+@pytest.mark.parametrize("J", JS)
+def test_plain_is_the_oracles_float32_loop_on_live_patterns(J, pattern):
+    a, ff, live, h0 = _inputs(J, 300, np.float32, pattern, seed=J)
+    y, hist = scan_ops.linear_recurrence(t(a), t(ff), t(live), t(h0))
+    ry, rh = _numpy_recurrence(a, ff, live, h0, fused=False)
+    assert np.array_equal(_bits(y.numpy()), _bits(ry))
+    assert np.array_equal(_bits(hist.numpy()), _bits(rh))
+
+
+def _source_constant(name):
+    src = scan_ops.EXACT_SOURCE.read_text()
+    return eval(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1))
+
+
+def _group_lanes(J):
+    """exact.cu's rec_group_lanes(J), read from the source."""
+    src = scan_ops.EXACT_SOURCE.read_text()
+    m = re.search(r"int rec_group_lanes\(int J\) \{\s*return J <= (\d+) \? "
+                  r"(\d+) : (\d+);", src)
+    return int(m.group(2)) if J <= int(m.group(1)) else int(m.group(3))
+
+
+def _bodies(live, stages, G):
+    """Which of the chain's bodies each whole group of G lanes takes (all
+    live, all dead, mixed), over the stages; and whether lanes past a
+    stage's last whole group go one at a time."""
+    seen = set()
+    for st, length in stages:
+        for i in range(0, length - G + 1, G):
+            mask = live[st + i:st + i + G]
+            seen.add("live" if mask.all() else "dead" if not mask.any()
+                     else "mixed")
+        if length % G:
+            seen.add("single")
+    return seen
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_live_patterns_have_their_shape(offset):
+    n = smoke.REC_PATTERN_N
+    item = 4
+    dead = {p: ~_inputs(2, n, np.float32, p, offset=offset)[2]
+            for p in smoke.REC_PATTERNS}
+    assert not dead["live"].any() and dead["dead"].all()
+    # "stride": one dead lane at each place of a 32-lane group.
+    pos = np.flatnonzero(dead["stride"]) - offset
+    assert set(pos % 32) == set(range(32))
+    for J in (1, 2, 8, 16):
+        S = smoke.recurrence_stage_lanes(J, item)
+        stages = smoke.recurrence_stages(n, smoke.recurrence_head(offset), S)
+        assert len(stages) > 4
+        ends = [offset + st + ln for st, ln in stages]
+        # "stage_ends": dead across the first stage's end (a view's head)
+        # and the fourth's.
+        d = ~_inputs(J, n, np.float32, "stage_ends", offset=offset)[2]
+        assert d[[ends[0] - 1, ends[0], ends[3] - 1, ends[3]]].all()
+        G = _group_lanes(J)
+        live = {p: _inputs(J, n, np.float32, p, offset=offset)[2][offset:]
+                for p in smoke.REC_PATTERNS}
+        assert _bodies(live["live"], stages, G) <= {"live", "single"}
+        assert _bodies(live["dead"], stages, G) <= {"dead", "single"}
+        assert {"live", "mixed"} <= _bodies(live["stride"], stages, G)
+        assert {"live", "dead"} <= _bodies(live["stage_ends"], stages, G)
+        assert "single" in _bodies(live["mixed"], stages, G)
+
+
+# ---------------------------------------------------------------------------
+# The staging
+# ---------------------------------------------------------------------------
+
+
+def test_staging_model_has_the_sources_constants():
+    for name in ("REC_STAGES", "REC_FIRST", "REC_BUDGET", "REC_MAX_STAGE",
+                 "REC_GRAIN", "REC_REG_J"):
+        key = "kRec" + "".join(w.title() for w in name[4:].split("_"))
+        assert _source_constant(key) == getattr(smoke, name), key
+    assert [_group_lanes(J) for J in (1, 4, 5, 16)] == [64, 64, 32, 32]
+
+
+def test_stage_lanes_fill_the_budget():
+    for item in (4, 8):
+        for J in range(1, smoke.REC_REG_J + 1):
+            S = smoke.recurrence_stage_lanes(J, item)
+            lane_bytes = (J + 2) * item + 1
+            assert S & (S - 1) == 0
+            assert smoke.REC_FIRST <= S <= smoke.REC_MAX_STAGE
+            assert smoke.REC_STAGES * S * lane_bytes <= smoke.REC_BUDGET
+            assert S == smoke.REC_MAX_STAGE or \
+                smoke.REC_STAGES * 2 * S * lane_bytes > smoke.REC_BUDGET
+
+
+def _stage_model(n, J, item, a_addr, ff_addr, live_addr):
+    """The producer's fills and the chain's reads as exact.cu makes them:
+    returns (bulk, [(first lane, lanes)] of the stages); asserts every
+    lane is staged once, at the index the chain reads it from, by bulk
+    copies aligned at both ends where they are used, and that every
+    stage past the head starts on a grain, where the chain's 16-byte
+    loads of its whole groups are aligned."""
+    S = smoke.recurrence_stage_lanes(J, item)
+    head = smoke.recurrence_head(live_addr)
+    # Past the head, a and ff take bulk copies where their lanes align
+    # where the live bytes' do.
+    bulk = (ff_addr + head * item) % 16 == 0 \
+        and (a_addr + head * J * item) % 16 == 0
+    stages = smoke.recurrence_stages(n, head, S)
+    staged = np.zeros(n, int)
+    for k, (st, length) in enumerate(stages):
+        assert 1 <= length <= S
+        assert (st - head) % 16 == 0 or (k == 0 and length == min(n, head))
+        # The bulk span [st, b1): the stage's whole grains, where it
+        # starts on one; the producer's loads stage the lanes past it.
+        b1 = st + length // 16 * 16 if bulk and st >= head else st
+        buf = np.full(S, -1)
+        if b1 > st:
+            m = b1 - st
+            for addr, size in ((a_addr, J * item), (ff_addr, item),
+                               (live_addr, 1)):
+                assert (addr + st * size) % 16 == 0
+                assert (m * size) % 16 == 0
+            buf[:m] = np.arange(st, b1)
+        buf[b1 - st:length] = np.arange(b1, st + length)
+        assert np.array_equal(buf[:length], np.arange(st, st + length))
+        if length >= 32:
+            assert (st - head) % 16 == 0
+        staged[st:st + length] += 1
+    assert (staged == 1).all()
+    return bulk, stages
+
+
+# (rows, lanes a row, view offset): the staging's branches.  Whole grains
+# and no head; a ragged tail; a [1:] view (a head of 15); a view shorter
+# than its head; rows whose starts fall off the grain (a head of 8); a
+# row long enough that stages stop doubling at S.
+STAGING_CASES = {"whole grains": (1, 1024, 0), "ragged tail": (1, 4101, 0),
+                 "view": (1, 4101, 1), "view inside its head": (1, 15, 1),
+                 "rows": (3, 1000, 0), "rows of views": (3, 1000, 1),
+                 "stages at S": (1, 1 << 17, 0)}
+
+
+@pytest.mark.parametrize("case", STAGING_CASES)
+def test_staging_model_on_rows_and_views(case):
+    rows, n, off = STAGING_CASES[case]
+    base = 1 << 20  # a fresh allocation (512-byte aligned)
+    for item in (4, 8):
+        for J in (1, 2, 3, 8, 16):
+            for r in range(rows):
+                lane, m = r * n + off, n - off
+                bulk, stages = _stage_model(
+                    m, J, item, base + lane * J * item,
+                    2 * base + lane * item, 3 * base + lane)
+                assert bulk
+                head = smoke.recurrence_head(lane)
+                assert stages[0][1] == min(m, head or smoke.REC_FIRST)
+
+
+def test_staging_model_when_rows_do_not_align_alike():
+    """ff four bytes off the live bytes' grain: no lane takes a bulk
+    copy; the producer's loads stage every lane."""
+    for n in (100, 1024, 4101):
+        bulk, stages = _stage_model(n, 2, 4, 0, 4, 0)
+        assert not bulk
+        assert sum(length for _, length in stages) == n

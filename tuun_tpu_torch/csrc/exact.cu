@@ -22,17 +22,30 @@
 // (the product with h[0] = y[i-1], then J differences).  What bounds it
 // on this card: that chain's latency, n (J + 1) dependent operations a
 // row, far above the bytes (4J + 9 a lane in f32, read once and written
-// once; 8J + 17 in f64) at the main path's shapes.  The design:
-//   * one block a row; thread 0 runs the row's chain alone, from shared
-//     memory, with the history in registers (J <= 16, a template per J:
-//     fast mode's filters deeper than the affine scan's 8 run here too) or
-//     in a ring in shared memory (any larger J); with the history in
-//     registers, it reads a group of lanes' inputs into registers before
-//     the group's chain, so no shared-memory load sits on the chain;
-//   * the other warps stage the next tile of a, ff and live into shared
-//     memory (cp.async, all copies in flight at once) and write the last
-//     tile's y back, coalesced, while thread 0 works on the current one
-//     (double buffering), so the chain never waits on device memory;
+// once; 8J + 17 in f64) at the main path's shapes.  One thread running
+// the chain alone from registers takes 13.8 cycles a lane at J = 2 in f32
+// (24.8 in f64; 51.0 at J = 9, 84.5 at J = 16: affine_probe.py's chain
+// latency on an H100), so the design keeps everything else off the chain.
+// The chain form (J <= 16, a template per J: fast mode's filters deeper
+// than the affine scan's 8 run here too):
+//   * one block a row, two warps; no block barrier after set-up.  Warp 1,
+//     the producer, stages a, ff and live through a ring of kRecStages
+//     shared-memory stage buffers: three 1-D bulk copies (TMA) a stage,
+//     counted on the stage's `full` mbarrier, for the stage's whole
+//     16-lane grains; its own coalesced loads for the head (the lanes
+//     before the first whose live byte starts a grain: a [1:] view's 15)
+//     and a ragged tail, or for every lane where a, ff and live are not
+//     aligned alike.  The first stage is the head, then 64 lanes, so the
+//     chain starts ~0.5 us after launch; stages then double up to S;
+//   * warp 0 runs the chain, all 32 lanes at once on the same lanes (SIMT
+//     makes the copies free): a group's inputs come by broadcast 16-byte
+//     shared loads issued a few lanes ahead of the chain, so no load and
+//     no select sits on it; every V lanes' y go back by one 16-byte store
+//     to the stage buffer, and the producer stores the stage's y,
+//     coalesced, once the chain releases it (`empty`), then refills it;
+//   * one ballot of the live bytes per 32 lanes picks a group's body (64
+//     lanes up to J = 4, else 32): all live, with no select on the chain;
+//     all dead, zeros; mixed, the reference's selects lane by lane;
 //   * every product and difference is an intrinsic that rounds on its own
 //     (__fmul_rn / __fsub_rn, __dmul_rn / __dsub_rn): nvcc contracts
 //     a*b + c into a fused multiply-add by default, which would round once
@@ -40,10 +53,21 @@
 //     version (scan_ops.linear_recurrence_ref) in both types;
 //   * no scratch: rows share nothing, so a captured CUDA graph needs no
 //     set-up either.
-// Measured on an H100 (700 W, PERF.md): 2.76 ms at 2^17 lanes, J = 2, in
-// f32 (3.52 ms in f64), 3.5x (2.2x) a model of the chain at 4 (8) cycles
-// an operation; reading each group's inputs into registers first took
-// 1.5x off.
+// The ring form (J > 16) keeps the earlier design: thread 0 runs the chain
+// with the history in a ring in shared memory while warps 1-3 stage tiles by
+// cp.async, a block barrier a tile.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6: device time
+// of captured calls by `chip_smoke.py --phase times --tree`, in turns with
+// the earlier one-thread kernel; all lanes live): J = 2 in f32 at 2^17
+// lanes 1013-1021 us (15.3-15.4 cycles a lane at 1.98 GHz; the earlier
+// kernel 2762-2763 us), 9.90-10.01 us at 1024 lanes (23.38-23.60), f64
+// 1874-1889 us (3517-3520), J = 9 / 12 / 16 3167-3190 / 4131-4162 /
+// 5353-5396 us (7476-7477 / 8995 / 12676-12678): within 1.12x of one
+// thread running the chain from registers, or under it.  Shuffling a
+// group's inputs from lane to lane instead was 1.3-4x slower
+// (`affine_probe.py recurrence`): a warp's shared-memory and shuffle
+// instructions issue at ~1 per 5 cycles, so the 16-byte loads, which need
+// fewest, win.
 //
 // df prefix sum.  Inclusive prefix of df_add over (hi, lo) pairs along
 // each row: the same single-pass scan with decoupled look-back as
@@ -91,13 +115,34 @@ constexpr int64_t kMaxN = 2147483647;  // 2^31 - 1
 // Linear recurrence
 // ---------------------------------------------------------------------------
 
-constexpr int kRecThreads = 128;  // warp 0: the chain; warps 1-3: staging
-constexpr int kRecStagers = kRecThreads - 32;
-constexpr int kRecTile = 512;     // lanes a staged tile (J <= 16)
-// Shared memory a block may take: the generic (J > 16) form sizes its
-// tiles to this.
-constexpr int kRecSmemBudget = 200 * 1024;
 constexpr int kRecMaxJ = 4096;
+constexpr int kRecRegJ = 16;  // deepest history held in registers
+// The chain form: warp 0 runs the chain, warp 1 stages its inputs.
+constexpr int kRecChainThreads = 64;
+constexpr int kRecStages = 4;     // stage buffers in the ring
+constexpr int kRecFirst = 64;     // first stage's lanes past the head
+constexpr int kRecMaxStage = 1024;
+constexpr int kRecBudget = 48 * 1024;  // shared memory of the ring
+// A bulk copy moves whole 16-byte grains: 16 lanes of live bytes.
+constexpr int kRecGrain = 16;
+// Group width, lookahead and bulk copies were chosen by measurement
+// (PERF.md; `affine_probe.py recurrence` times the alternatives).
+// Lanes a group: one ballot per 32 decides a group's body, and the body's
+// loop is unrolled over the group.
+__host__ __device__ constexpr int rec_group_lanes(int J) {
+  return J <= 4 ? 64 : 32;
+}
+// Lanes whose inputs are loaded ahead of the chain.
+__host__ __device__ constexpr int rec_ahead_lanes(int J) {
+  return J <= 8 ? 4 : 2;
+}
+// The ring form (J > 16): warp 0 runs the chain, warps 1-3 stage tiles.
+constexpr int kRecThreads = 128;
+constexpr int kRecStagers = kRecThreads - 32;
+constexpr int kRecTile = 512;
+// Shared memory a block of the ring form may take: it sizes its tiles to
+// this.
+constexpr int kRecSmemBudget = 200 * 1024;
 
 __host__ __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -108,9 +153,329 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
-// Shared-memory layout of one block: two buffers each of a [tile * J],
-// ff [tile] and y [tile], then (generic form) the history ring [J], then
-// two live buffers [tile] of bytes.
+// Bytes a lane takes in a stage buffer: a (J), ff, y, live.
+__host__ __device__ constexpr int rec_lane_bytes(int J, int item) {
+  return (J + 2) * item + 1;
+}
+
+// Lanes of a full stage: the largest power of two from kRecFirst up to
+// kRecMaxStage whose ring of kRecStages buffers fits kRecBudget.
+__host__ __device__ constexpr int rec_stage_lanes(int J, int item) {
+  int s = kRecMaxStage;
+  while (s > kRecFirst &&
+         (int64_t)kRecStages * s * rec_lane_bytes(J, item) > kRecBudget) {
+    s >>= 1;
+  }
+  return s;
+}
+
+// One row's stages, in the order the producer fills them and the chain
+// runs them: the head (the lanes before the first whose live byte starts
+// a 16-byte grain) where there is one, then kRecFirst lanes, then twice
+// as many each time up to S, the last what is left.  Every stage past the
+// head starts on a grain, so a stage's buffer holds lane st + i at index
+// i and its 16-byte loads are aligned.
+struct RecStage {
+  int64_t st;   // first lane
+  int64_t len;  // lanes
+  int k;        // stages before it
+  int g;        // doublings: the stage after the head has 0
+  __device__ __forceinline__ RecStage(int64_t n, int head)
+      : st(0), len(lmin(n, head > 0 ? head : kRecFirst)), k(0),
+        g(head > 0 ? -1 : 0) {}
+  __device__ __forceinline__ void next(int64_t n, int S) {
+    st += len;
+    ++k;
+    ++g;
+    len = lmin(n - st, g < 16 ? lmin(S, (int64_t)kRecFirst << g) : S);
+  }
+};
+
+// mbarriers and bulk copies (PTX, sm_90).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Release: this thread's earlier accesses happen before the phase ends.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Acquire: waits for the phase of `parity` to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\nselp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier generic accesses to shared memory before
+// later bulk copies into it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A 16-byte shared-memory load of V = 16 / sizeof(T) items into out, and
+// a 16-byte store of V items from in.
+template <typename T>
+__device__ __forceinline__ void lds16(const T* p, T* out) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    const double2 v = *reinterpret_cast<const double2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void sts16(T* p, const T* in) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  } else {
+    *reinterpret_cast<double2*>(p) = make_double2(in[0], in[1]);
+  }
+}
+
+// Issues the 16-byte loads that start in lane q's inputs: its a row (the
+// chunks that begin there; one that spills into lane q + 1 comes whole)
+// and, every V lanes, V lanes' ff.  All indices are constants once the
+// caller's loop unrolls, so av and fv live in registers.
+template <typename T, int J>
+__device__ __forceinline__ void rec_fetch(const T* as, const T* fs, int q,
+                                          T* av, T* fv) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int e = q * J + j;
+    if (e % V == 0) lds16(as + e, av + e);
+  }
+  if (q % V == 0) lds16(fs + q, fv + q);
+}
+
+// The chain over one group of kRecGroup lanes (as, fs, ys: its first
+// lane, 16-byte aligned).  Every lane of the warp runs it: lane q's
+// inputs come by broadcast 16-byte loads (every lane one address) issued
+// kAhead lanes ahead of its chain, which never waits on them, and every
+// V lanes' y go out by one broadcast 16-byte store.  kAll: every lane
+// live, no select on the chain; else `mask` has bit q set for a live lane
+// q, which selects as the reference does.
+template <typename T, int J, bool kAll>
+__device__ __forceinline__ void rec_group(const T* __restrict__ as,
+                                          const T* __restrict__ fs,
+                                          uint64_t mask, T (&h)[J],
+                                          T* __restrict__ ys) {
+  constexpr int G = rec_group_lanes(J);
+  constexpr int V = 16 / sizeof(T);
+  constexpr int D = rec_ahead_lanes(J);
+  T av[G * J];
+  T fv[G];
+  T yv[G];
+#pragma unroll
+  for (int q = 0; q < D; ++q) rec_fetch<T, J>(as, fs, q, av, fv);
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    if (q + D < G) rec_fetch<T, J>(as, fs, q + D, av, fv);
+    T acc = fv[q];
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc = sub_rn(acc, mul_rn(av[q * J + j], h[j]));
+    yv[q] = acc;
+    if constexpr (kAll) {
+#pragma unroll
+      for (int j = J - 1; j >= 1; --j) h[j] = h[j - 1];
+      h[0] = acc;
+    } else {
+      const bool lv = (mask >> q) & 1u;
+#pragma unroll
+      for (int j = J - 1; j >= 1; --j) h[j] = lv ? h[j - 1] : h[j];
+      h[0] = lv ? acc : h[0];
+      yv[q] = lv ? acc : T(0);
+    }
+    if (q % V == V - 1) sts16(ys + q - (V - 1), yv + q - (V - 1));
+  }
+}
+
+// The chain over one stage of m lanes (as, fs, ls, ys: its first lane in
+// the stage buffer), run by the whole chain warp.  Each group's live
+// bytes, read a group ahead, decide by a ballot a warp's width which body
+// it takes (all live, all dead, mixed).  Lanes past the last whole group
+// go one at a time, by scalar broadcast loads.
+template <typename T, int J>
+__device__ __forceinline__ void rec_chain_stage(const T* as, const T* fs,
+                                                const uint8_t* ls, T* ys,
+                                                int m, T (&h)[J], int lane) {
+  constexpr int G = rec_group_lanes(J);
+  constexpr int W = G / 32;
+  constexpr uint64_t kAllLive = G == 64 ? ~0ull : 0xffffffffull;
+  int i = 0;
+  bool live[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    live[w] = m >= G && ls[32 * w + lane] != 0;
+  }
+  for (; i + G <= m; i += G) {
+    uint64_t mask = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      mask |= (uint64_t)__ballot_sync(kFull, live[w]) << (32 * w);
+      const int ahead = i + G + 32 * w + lane;
+      live[w] = ls[ahead < m ? ahead : m - 1] != 0;
+    }
+    if (mask == kAllLive) {
+      rec_group<T, J, true>(as + i * J, fs + i, mask, h, ys + i);
+    } else if (mask == 0) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) ys[i + 32 * w + lane] = T(0);
+    } else {
+      rec_group<T, J, false>(as + i * J, fs + i, mask, h, ys + i);
+    }
+  }
+  for (; i < m; ++i) {
+    T acc = fs[i];
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc = sub_rn(acc, mul_rn(as[i * J + j], h[j]));
+    const bool lv = ls[i] != 0;
+#pragma unroll
+    for (int j = J - 1; j >= 1; --j) h[j] = lv ? h[j - 1] : h[j];
+    h[0] = lv ? acc : h[0];
+    ys[i] = lv ? acc : T(0);
+  }
+}
+
+// One row, history in registers (J <= 16).  Warp 1, the producer, fills a
+// ring of kRecStages stage buffers: the 16-byte-aligned middle of a stage
+// by three bulk copies (a, ff, live) counted on the stage's `full`
+// mbarrier, the lanes outside it (the head, a ragged tail, or every lane
+// where the three arrays' lanes are not aligned alike) by its 32 threads'
+// loads; it stores each finished stage's y, coalesced, once the chain has
+// released the stage (`empty`), then refills it.  Warp 0 runs the chain.
+// No block barrier after set-up.
+template <typename T, int J>
+__device__ __forceinline__ void rec_chain_row(
+    const T* __restrict__ a, const T* __restrict__ ff,
+    const uint8_t* __restrict__ live, const T* __restrict__ h0,
+    T* __restrict__ y, T* __restrict__ hist, int64_t n, unsigned char* raw,
+    uint64_t* full, uint64_t* empty) {
+  constexpr int S = rec_stage_lanes(J, sizeof(T));
+  T* A = reinterpret_cast<T*>(raw);
+  T* F = A + kRecStages * S * J;
+  T* Y = F + kRecStages * S;
+  uint8_t* L = reinterpret_cast<uint8_t*>(Y + kRecStages * S);
+  // The head: the lanes before the first whose live byte starts a 16-byte
+  // grain.  Past it, a and ff take bulk copies where their lanes align
+  // there too (any contiguous row, and its [1:] views, do).
+  const int head = (int)((16 - ((uintptr_t)live & 15)) & 15);
+  const bool bulk =
+      (((uintptr_t)(ff + head) | (uintptr_t)(a + (int64_t)head * J)) & 15) == 0;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRecStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 1) {
+    RecStage fill(n, head), drain(n, head);
+    int d = 0;  // stages stored
+    auto store = [&]() {
+      const int s = d % kRecStages;
+      mbar_wait(&empty[s], (unsigned)(d / kRecStages) & 1u);
+      const T* ys = Y + s * S;
+      for (int64_t e = lane; e < drain.len; e += 32) y[drain.st + e] = ys[e];
+      drain.next(n, S);
+      ++d;
+    };
+    for (int k = 0; fill.st < n; ++k, fill.next(n, S)) {
+      const int s = k % kRecStages;
+      if (k >= kRecStages) store();
+      const int64_t st = fill.st;
+      const int64_t en = st + fill.len;
+      // The bulk span [st, b1): the stage's whole grains, where it starts
+      // on one (every stage but the head) and the row takes bulk copies.
+      const int64_t b1 = bulk && st >= head
+          ? st + (fill.len & ~(int64_t)(kRecGrain - 1)) : st;
+      T* as = A + s * S * J;
+      T* fs = F + s * S;
+      uint8_t* ls = L + s * S;
+      fence_proxy_async();
+      if (lane == 0 && b1 > st) {
+        const unsigned m = (unsigned)(b1 - st);
+        mbar_expect_tx(&full[s], m * (unsigned)((J + 1) * sizeof(T) + 1));
+        bulk_load(as, a + st * J, m * J * sizeof(T), &full[s]);
+        bulk_load(fs, ff + st, m * sizeof(T), &full[s]);
+        bulk_load(ls, live + st, m, &full[s]);
+      }
+      // The lanes past the span, flat and coalesced.
+      {
+        const int64_t lo = b1;
+        const int64_t hi = en;
+        const int64_t o = lo - st;
+        for (int64_t e = lane; e < (hi - lo) * J; e += 32) {
+          as[o * J + e] = a[lo * J + e];
+        }
+        for (int64_t e = lane; e < hi - lo; e += 32) {
+          fs[o + e] = ff[lo + e];
+          ls[o + e] = live[lo + e];
+        }
+      }
+      mbar_arrive(&full[s]);
+    }
+    while (drain.st < n) store();
+  } else {
+    T h[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) h[j] = h0[j];
+    RecStage st(n, head);
+    for (; st.st < n; st.next(n, S)) {
+      const int s = st.k % kRecStages;
+      mbar_wait(&full[s], (unsigned)(st.k / kRecStages) & 1u);
+      rec_chain_stage<T, J>(A + s * S * J, F + s * S, L + s * S, Y + s * S,
+                            (int)st.len, h, lane);
+      mbar_arrive(&empty[s]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) hist[j] = h[j];
+    }
+  }
+}
+
+// The ring form (J > 16).  Shared-memory layout of one block: two buffers
+// each of a [tile * J], ff [tile] and y [tile], then the history ring [J],
+// then two live buffers [tile] of bytes.
 template <typename T>
 struct RecSmem {
   T* a[2];
@@ -121,13 +486,12 @@ struct RecSmem {
 };
 
 template <typename T>
-__host__ __device__ constexpr size_t rec_smem_bytes(int tile, int J, bool ring) {
-  return sizeof(T) * (size_t)(2 * tile * J + 4 * tile + (ring ? J : 0)) +
-         2 * (size_t)tile;
+__host__ __device__ constexpr size_t rec_smem_bytes(int tile, int J) {
+  return sizeof(T) * (size_t)(2 * tile * J + 4 * tile + J) + 2 * (size_t)tile;
 }
 
 template <typename T>
-__device__ RecSmem<T> rec_smem(unsigned char* base, int tile, int J, bool ring) {
+__device__ RecSmem<T> rec_smem(unsigned char* base, int tile, int J) {
   RecSmem<T> s;
   T* p = reinterpret_cast<T*>(base);
   s.a[0] = p;
@@ -140,7 +504,7 @@ __device__ RecSmem<T> rec_smem(unsigned char* base, int tile, int J, bool ring) 
   s.y[1] = p + tile;
   p += 2 * tile;
   s.ring = p;
-  p += ring ? J : 0;
+  p += J;
   uint8_t* q = reinterpret_cast<uint8_t*>(p);
   s.live[0] = q;
   s.live[1] = q + tile;
@@ -181,54 +545,6 @@ __device__ __forceinline__ void rec_store(const RecSmem<T>& s, int b,
   for (int e = me; e < m; e += count) y[base + e] = s.y[b][e];
 }
 
-// One lane of the chain, history in registers.
-template <typename T, int J>
-__device__ __forceinline__ T rec_lane(const T* av, T f, bool lv, T* h) {
-  T acc = f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) acc = sub_rn(acc, mul_rn(av[j], h[j]));
-#pragma unroll
-  for (int j = J - 1; j >= 1; --j) h[j] = lv ? h[j - 1] : h[j];
-  h[0] = lv ? acc : h[0];
-  return lv ? acc : T(0);
-}
-
-// The chain over one staged tile of m lanes, history in registers.  The
-// lanes go in groups of G: a group's a, ff and live are read from shared
-// memory into registers before its chain starts, so the chain never
-// waits on a shared-memory load.
-template <typename T, int J>
-__device__ __forceinline__ void rec_tile_regs(const RecSmem<T>& s, int b, int m,
-                                              T* h) {
-  constexpr int G = J <= 2 ? 16 : (J <= 4 ? 8 : 4);
-  const T* __restrict__ a = s.a[b];
-  const T* __restrict__ ff = s.ff[b];
-  const uint8_t* __restrict__ live = s.live[b];
-  T* __restrict__ y = s.y[b];
-  int i = 0;
-  for (; i + G <= m; i += G) {
-    T av[G * J], fv[G], yv[G];
-    bool lv[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      fv[g] = ff[i + g];
-      lv[g] = live[i + g] != 0;
-#pragma unroll
-      for (int j = 0; j < J; ++j) av[g * J + j] = a[(i + g) * J + j];
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) yv[g] = rec_lane<T, J>(av + g * J, fv[g], lv[g], h);
-#pragma unroll
-    for (int g = 0; g < G; ++g) y[i + g] = yv[g];
-  }
-  for (; i < m; ++i) {
-    T av[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) av[j] = a[i * J + j];
-    y[i] = rec_lane<T, J>(av, ff[i], live[i] != 0, h);
-  }
-}
-
 // The chain over one staged tile, history in a ring in shared memory:
 // ring[p] is the newest value y[i-1], ring[(p - j) mod J] is y[i-1-j].
 template <typename T>
@@ -256,24 +572,15 @@ __device__ __forceinline__ void rec_tile_ring(const RecSmem<T>& s, int b, int m,
   }
 }
 
-// One block a row.  kJ > 0: the history in registers, kJ = 0: J (any) in
-// the ring.  Thread 0 runs the chain over tile t while warps 1-3 stage
-// tile t + 1 and store tile t - 1's y.
-template <typename T, int kJ>
-__global__ void __launch_bounds__(kRecThreads)
-linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
-                  const uint8_t* __restrict__ live_all,
-                  const T* __restrict__ h0_all, T* __restrict__ y_all,
-                  T* __restrict__ hist_all, int64_t n, int J, int tile) {
-  extern __shared__ __align__(16) unsigned char rec_raw[];
-  const RecSmem<T> s = rec_smem<T>(rec_raw, tile, J, kJ == 0);
-  const int64_t r = blockIdx.x;
-  const T* __restrict__ a = a_all + r * n * J;
-  const T* __restrict__ ff = ff_all + r * n;
-  const uint8_t* __restrict__ live = live_all + r * n;
-  const T* __restrict__ h0 = h0_all + r * J;
-  T* __restrict__ y = y_all + r * n;
-  T* __restrict__ hist = hist_all + r * J;
+// One row, any J, the history in a ring: thread 0 runs the chain over tile
+// t while warps 1-3 stage tile t + 1 and store tile t - 1's y.
+template <typename T>
+__device__ __forceinline__ void rec_ring_row(
+    const T* __restrict__ a, const T* __restrict__ ff,
+    const uint8_t* __restrict__ live, const T* __restrict__ h0,
+    T* __restrict__ y, T* __restrict__ hist, int64_t n, int J, int tile,
+    unsigned char* raw) {
+  const RecSmem<T> s = rec_smem<T>(raw, tile, J);
   const int64_t tiles = (n + tile - 1) / tile;
   const bool stager = threadIdx.x >= 32;
   const int me = threadIdx.x - 32;
@@ -282,16 +589,9 @@ linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
   __pipeline_wait_prior(0);
   __syncthreads();
 
-  constexpr int kRegs = kJ > 0 ? kJ : 1;
-  T h[kRegs];
   int p = 0;
   if (threadIdx.x == 0) {
-    if constexpr (kJ > 0) {
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) h[j] = h0[j];
-    } else {
-      for (int j = 0; j < J; ++j) s.ring[(J - j) % J] = h0[j];
-    }
+    for (int j = 0; j < J; ++j) s.ring[(J - j) % J] = h0[j];
   }
   for (int64_t t = 0; t < tiles; ++t) {
     const int cur = (int)(t & 1);
@@ -303,24 +603,37 @@ linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
       if (t > 0) rec_store<T>(s, cur ^ 1, y, n, tile, t - 1, me, kRecStagers);
       __pipeline_wait_prior(0);
     } else if (threadIdx.x == 0) {
-      const int m = (int)lmin(tile, n - t * tile);
-      if constexpr (kJ > 0) {
-        rec_tile_regs<T, kJ>(s, cur, m, h);
-      } else {
-        rec_tile_ring<T>(s, cur, m, J, p);
-      }
+      rec_tile_ring<T>(s, cur, (int)lmin(tile, n - t * tile), J, p);
     }
     __syncthreads();
   }
   rec_store<T>(s, (int)((tiles - 1) & 1), y, n, tile, tiles - 1, threadIdx.x,
                kRecThreads);
   if (threadIdx.x == 0) {
-    if constexpr (kJ > 0) {
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) hist[j] = h[j];
-    } else {
-      for (int j = 0; j < J; ++j) hist[j] = s.ring[(p - j + J) % J];
-    }
+    for (int j = 0; j < J; ++j) hist[j] = s.ring[(p - j + J) % J];
+  }
+}
+
+// One block a row.  kJ > 0: the chain form, history in registers; kJ = 0:
+// the ring form, any J.
+template <typename T, int kJ>
+__global__ void __launch_bounds__(kRecThreads)
+linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
+                  const uint8_t* __restrict__ live_all,
+                  const T* __restrict__ h0_all, T* __restrict__ y_all,
+                  T* __restrict__ hist_all, int64_t n, int J, int tile) {
+  extern __shared__ __align__(128) unsigned char rec_raw[];
+  __shared__ uint64_t rec_full[kRecStages];
+  __shared__ uint64_t rec_empty[kRecStages];
+  const int64_t r = blockIdx.x;
+  if constexpr (kJ > 0) {
+    rec_chain_row<T, kJ>(a_all + r * n * kJ, ff_all + r * n, live_all + r * n,
+                         h0_all + r * kJ, y_all + r * n, hist_all + r * kJ, n,
+                         rec_raw, rec_full, rec_empty);
+  } else {
+    rec_ring_row<T>(a_all + r * n * J, ff_all + r * n, live_all + r * n,
+                    h0_all + r * J, y_all + r * n, hist_all + r * J, n, J,
+                    tile, rec_raw);
   }
 }
 
@@ -328,23 +641,29 @@ template <typename T, int kJ>
 int launch_recurrence(const T* a, const T* ff, const uint8_t* live,
                       const T* h0, T* y, T* hist, int64_t rows, int64_t n,
                       int J, cudaStream_t stream) {
-  int tile = kRecTile;
-  if (kJ == 0) {
+  int tile = 0;
+  int threads = kRecChainThreads;
+  size_t smem;
+  if constexpr (kJ > 0) {
+    smem = (size_t)kRecStages * rec_stage_lanes(kJ, sizeof(T)) *
+           rec_lane_bytes(kJ, sizeof(T));
+  } else {
     // Tiles that fit the budget, at most kRecTile lanes.
-    const size_t per_lane = rec_smem_bytes<T>(1, J, false);
+    const size_t per_lane = sizeof(T) * (size_t)(2 * J + 4) + 2;
     const size_t room = kRecSmemBudget - sizeof(T) * (size_t)J;
     tile = (int)lmin(kRecTile, (int64_t)(room / per_lane));
     if (tile < 1) return (int)cudaErrorInvalidValue;
+    threads = kRecThreads;
+    smem = rec_smem_bytes<T>(tile, J);
   }
-  const size_t smem = rec_smem_bytes<T>(tile, J, kJ == 0);
   auto kernel = linear_recurrence<T, kJ>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(unsigned)rows, kRecThreads, smem, stream>>>(a, ff, live, h0, y,
-                                                         hist, n, J, tile);
+  kernel<<<(unsigned)rows, threads, smem, stream>>>(a, ff, live, h0, y, hist,
+                                                    n, J, tile);
   return (int)cudaGetLastError();
 }
 
