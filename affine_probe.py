@@ -50,7 +50,8 @@ all-live lanes and on chip_smoke.py's mixed input, every build is first
 held to the engine build's bits (and to the one-step check and its own
 bits on a second call; exit 1 on any miss), then timed: the parent and
 the engine build in turns, each variant in turns with the engine build,
-and the split.
+and the split (the chain form's, J <= 16; past it, the wide form, which
+no variant changes, is timed beside the parent alone).
 
 Prints one JSON object a measurement (and appends it to --out FILE) and
 the card's name and power limit.
@@ -470,12 +471,19 @@ def split(tree: Path) -> None:
 # The linear recurrence (csrc/exact.cu).  (rows or None, n, J, dtype) of
 # `recurrence`: the main path's shapes (2^17-lane blocks of the long
 # render and the shape gate, the CLI's 65536, the live block and a live
-# group of 8) at lpf's J = 2 and filter_4_3's J = 3 in both types, and the
-# deep filters' J = 9, 12, 16 at 2^17.
+# group of 8) at lpf's J = 2 and filter_4_3's J = 3 in both types, the
+# deep filters' J = 9, 12, 16 at 2^17, and the wide form's J = 17, 24, 32
+# and 64 at the same four shapes in f32, J = 17 and 32 at 2^17 in f64.
+REC_MAIN = ((None, 1 << 17), (None, 1 << 16), (None, 1024), (8, 1024))
 REC_SHAPES = tuple((rows, n, J, dt) for dt in ("f32", "f64") for J in (2, 3)
-                   for rows, n in ((None, 1 << 17), (None, 1 << 16),
-                                   (None, 1024), (8, 1024))) + tuple(
-    (None, 1 << 17, J, "f32") for J in (9, 12, 16))
+                   for rows, n in REC_MAIN) + tuple(
+    (None, 1 << 17, J, "f32") for J in (9, 12, 16)) + tuple(
+    (rows, n, J, "f32") for J in (17, 24, 32, 64) for rows, n in REC_MAIN) \
+    + tuple((None, 1 << 17, J, "f64") for J in (17, 32))
+# The deepest J whose history the chain form keeps in registers: deeper
+# rows take the wide form, which the variants and the clock64 split (all
+# of the chain form) leave as it is.
+REC_REG_J = 16
 # Copies of exact.cu timed beside the engine's: (name, {text: replacement}).
 REC_GROUP = "  return J <= 4 ? 64 : 32;"
 REC_AHEAD = "  return J <= 8 ? 4 : 2;"
@@ -488,7 +496,9 @@ REC_VARIANTS = (("groups of 32", {REC_GROUP: "  return 32;"}),
 # --quick: the shapes of REC_SHAPES that PERF.md's headline rows take.
 REC_QUICK = ((None, 1 << 17, 2, "f32"), (None, 1024, 2, "f32"),
              (None, 1 << 17, 2, "f64"), (None, 1 << 17, 3, "f32"),
-             (None, 1 << 17, 9, "f32"), (None, 1 << 17, 16, "f32"))
+             (None, 1 << 17, 9, "f32"), (None, 1 << 17, 16, "f32"),
+             (None, 1 << 17, 17, "f32"), (None, 1 << 17, 32, "f32"),
+             (None, 1024, 17, "f32"))
 # Instances whose SASS `recurrence --sass DIR` keeps (mangled name parts).
 REC_SASS = ("linear_recurrenceIfLi2EE", "linear_recurrenceIdLi2EE",
             "linear_recurrenceIfLi16EE")
@@ -605,7 +615,8 @@ def rec_build(name: str, src: str, verbose=False) -> tuple:
 
 def rec_ptxas(log: str) -> list:
     """(type, J, registers, spill stores, spill loads) of each instance of
-    linear_recurrence<T, J> that ptxas reports (J = 0: the ring form)."""
+    linear_recurrence<T, J> that ptxas reports (J = 0: the wide and ring
+    forms)."""
     out, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -711,17 +722,66 @@ __global__ void chain(const T* a, const T* f, T* h_io, long long* cyc,
   }
 ENTRY(float, f32, 1) ENTRY(float, f32, 2) ENTRY(float, f32, 3)
 ENTRY(float, f32, 9) ENTRY(float, f32, 12) ENTRY(float, f32, 16)
+ENTRY(float, f32, 17) ENTRY(float, f32, 32)
 ENTRY(double, f64, 2) ENTRY(double, f64, 3) ENTRY(double, f64, 16)
 """
+# The same chain fed from shared memory in 16-byte chunks (one warp, the
+# wide form's way), over NQ chunks a lane: by a loop whose count is known
+# only at run time, and unrolled.  Why the wide form unrolls a lane's
+# products up to kRecWideUnrolledJ.
+LOOP_SRC = r"""
+#include <stdint.h>
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+template <int NQ>
+__global__ void chunks(float* out, long long* cyc, int lanes, int nq) {
+  __shared__ __align__(16) float P[4 * 256];
+  for (int i = threadIdx.x; i < 4 * 256; i += 32) P[i] = 1e-7f * (i % 7);
+  __syncwarp();
+  const float4* P4 = reinterpret_cast<const float4*>(P);
+  float acc = 1.0f;
+  const long long t0 = clock64();
+  for (int x = 0; x < lanes; ++x) {
+    const float4* q = P4 + (x & 3) * 32;
+    if (NQ == 0) {
+      for (int c = 0; c < nq; ++c) {
+        const float4 v = q[c];
+        acc = sub(acc, v.x); acc = sub(acc, v.y);
+        acc = sub(acc, v.z); acc = sub(acc, v.w);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+        const float4 v = q[c];
+        acc = sub(acc, v.x); acc = sub(acc, v.y);
+        acc = sub(acc, v.z); acc = sub(acc, v.w);
+      }
+    }
+    acc = sub(acc, -1e-7f);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) { out[0] = acc; cyc[0] = t1 - t0; }
+}
+
+#define ENTRY(NAME, NQ) extern "C" int NAME(float* o, long long* c, \
+                                            int lanes, int nq) { \
+  chunks<NQ><<<1, 32>>>(o, c, lanes, nq); \
+  return (int)cudaDeviceSynchronize(); }
+ENTRY(loop, 0) ENTRY(unrolled_4, 4) ENTRY(unrolled_16, 16)
+"""
+LOOP_CASES = (("loop", 4), ("unrolled_4", 4), ("loop", 16),
+              ("unrolled_16", 16))
+LOOP_LANES = 4096
 LATENCY_CASES = (("f32", 1), ("f32", 2), ("f32", 3), ("f32", 9),
-                 ("f32", 12), ("f32", 16), ("f64", 2), ("f64", 3),
-                 ("f64", 16))
+                 ("f32", 12), ("f32", 16), ("f32", 17), ("f32", 32),
+                 ("f64", 2), ("f64", 3), ("f64", 16))
 LATENCY_LANES = 1 << 16
 
 
 def rec_latency(torch) -> None:
     """The chain's cycles a lane on this card (LATENCY_SRC), beside the
-    model's (J + 1) ops at 4 (f32) or 8 (f64) cycles."""
+    model's (J + 1) ops at 4 (f32) or 8 (f64) cycles; then the chain fed
+    from shared memory by a runtime loop and unrolled (LOOP_SRC)."""
     WORK.mkdir(parents=True, exist_ok=True)
     cu, so = WORK / "latency.cu", WORK / "liblatency.so"
     cu.write_text(LATENCY_SRC)
@@ -752,6 +812,27 @@ def rec_latency(torch) -> None:
              cycles_per_op=best / (J + 1),
              model_cycles_per_lane=(J + 1) * (4 if dt == "f32" else 8),
              finite=bool(torch.isfinite(h).all()))
+    cu, so = WORK / "loop.cu", WORK / "libloop.so"
+    cu.write_text(LOOP_SRC)
+    proc = subprocess.run([nvcc(), *FLAGS, "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on {cu}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    out = torch.zeros(1, device="cuda")
+    cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for name, nq in LOOP_CASES:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+        best = None
+        for _ in range(3):
+            if fn(out.data_ptr(), cyc.data_ptr(), LOOP_LANES, nq) != 0:
+                raise SystemExit("chunk chain: CUDA error")
+            c = int(cyc.item()) / LOOP_LANES
+            best = c if best is None else min(best, c)
+        emit(what="chunk chain", form=name, chunks=nq, cycles_per_lane=best,
+             cycles_per_op=best / (4 * nq + 1))
 
 
 def rec_sass(so: Path, out: Path) -> None:
@@ -847,12 +928,16 @@ def recurrence(tree: Path, parent: Path = None, quick: bool = False,
         emit(what="recurrence", rows=rows, n=n, J=J, dtype=dt, live=live,
              device_us=times, chain_bound_us=chain_us)
         for i, (name, _) in enumerate(REC_VARIANTS):
+            if J > REC_REG_J:
+                continue
             var, _, _ = rec_call(torch, libs[f"variant{i}"], args)
             t = [graph_ms(torch, f, calls, replays) * 1e3
                  for f in (new, var, var, new)]
             emit(what="recurrence variant", variant=name, rows=rows, n=n,
                  J=J, dtype=dt, live=live, engine_device_us=t[::3],
                  variant_device_us=t[1:3])
+        if J > REC_REG_J:
+            continue
         call, _, _ = rec_call(torch, libs["probe"], args)
         emit(what="recurrence split", rows=rows, n=n, J=J, dtype=dt,
              live=live, **rec_split(torch, libs["probe"], call, rows or 1, n),

@@ -291,7 +291,13 @@ def test_rec_times_cover_the_main_path_shapes(smoke):
             assert {(1, 1 << 17, J, dt), (1, 65536, J, dt), (1, 1024, J, dt),
                     (8, 1024, J, dt)} <= shapes
     assert {(1, 1 << 17, J, "f32") for J in (9, 12, 16)} <= shapes
-    assert len(shapes) == len(smoke.REC_TIMES) == 19
+    # The wide form: J = 17, 24, 32, 64 at the four shapes in f32, J = 17
+    # and 32 at 2^17 in f64.
+    for J in (17, 24, 32, 64):
+        assert {(1, 1 << 17, J, "f32"), (1, 65536, J, "f32"),
+                (1, 1024, J, "f32"), (8, 1024, J, "f32")} <= shapes
+    assert {(1, 1 << 17, 17, "f64"), (1, 1 << 17, 32, "f64")} <= shapes
+    assert len(shapes) == len(smoke.REC_TIMES) == 37
     assert set(smoke.REC_TIMES_LIVE) == {"live", "mixed"}
     assert smoke.LIVE_BLOCK_N == 1024
 
@@ -300,7 +306,11 @@ def test_rec_times_cover_the_main_path_shapes(smoke):
     (1, 1 << 17, 2, "f32", 794.2), (1, 1 << 17, 2, "f64", 1588.4),
     (8, 1024, 2, "f32", 6.2), (1, 1024, 2, "f64", 12.4),
     (1, 1 << 17, 9, "f32", 2648.0), (1, 1 << 17, 12, "f32", 3442.4),
-    (1, 1 << 17, 16, "f32", 4501.1)])
+    (1, 1 << 17, 16, "f32", 4501.1), (1, 1 << 17, 17, "f32", 4766.3),
+    (1, 1 << 17, 24, "f32", 6619.8), (1, 1 << 17, 32, "f32", 8738.1),
+    (1, 1 << 17, 64, "f32", 17211.5), (1, 65536, 64, "f32", 8605.7),
+    (1, 1024, 17, "f32", 37.2), (8, 1024, 32, "f32", 68.3),
+    (1, 1 << 17, 17, "f64", 9532.5), (1, 1 << 17, 32, "f64", 17476.3)])
 def test_rec_bound_is_the_chain_model(smoke, B, n, J, dt, chain_us):
     """(J + 1) roundings a lane at 4 (f32) or 8 (f64) cycles and 1.98 GHz:
     PERF.md's chain models; rows run side by side.  The bytes and

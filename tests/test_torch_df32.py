@@ -207,7 +207,9 @@ def test_wrappers_check_their_inputs():
 
 def test_build_libraries_runs_one_nvcc_per_source(monkeypatch, tmp_path):
     """Both kernel sources build at once, each into a library of its own
-    keyed by its hash; a second call finds both built."""
+    keyed by its hash: csrc/scan.cu by one nvcc, csrc/exact.cu by one a
+    part (TUUN_EXACT_PART 1-3, objects compiled at once) and a link; a
+    second call finds both built."""
     import types
     calls = []
     monkeypatch.setattr(scan_ops, "BUILD_DIR", tmp_path)
@@ -220,9 +222,20 @@ def test_build_libraries_runs_one_nvcc_per_source(monkeypatch, tmp_path):
     monkeypatch.setattr(scan_ops.subprocess, "run", run)
     libs = scan_ops.build_libraries()
     assert sorted(p.name.split("_")[1] for p in libs) == ["exact", "scan"]
-    assert sorted(c[-1] for c in calls) == sorted(
-        [str(scan_ops.SOURCE), str(scan_ops.EXACT_SOURCE)])
-    assert scan_ops.build_libraries() == libs and len(calls) == 2
+    scan = [c for c in calls if c[-1] == str(scan_ops.SOURCE)]
+    parts = [c for c in calls if c[-1] == str(scan_ops.EXACT_SOURCE)]
+    links = [c for c in calls if c[-1].endswith(".o")]
+    assert len(scan) == 1 and "-shared" in scan[0]
+    assert sorted(next(a for a in c if a.startswith("-DTUUN_EXACT_PART="))
+                  for c in parts) == ["-DTUUN_EXACT_PART=1",
+                                      "-DTUUN_EXACT_PART=2",
+                                      "-DTUUN_EXACT_PART=3"]
+    assert all("-c" in c and "-shared" not in c for c in parts)
+    assert len(links) == 1 and "-shared" in links[0]
+    assert sorted(links[0][-3:]) == sorted(c[c.index("-o") + 1]
+                                           for c in parts)
+    assert len(calls) == 5
+    assert scan_ops.build_libraries() == libs and len(calls) == 5
 
 
 def test_df_scratch_grows_keeps_the_old_and_is_released(monkeypatch):
@@ -262,14 +275,105 @@ def test_exact_kernels_round_each_op_on_its_own():
                       "__fadd_rn"):
         assert intrinsic in src
     import re
-    bodies = [re.search(rf"void {fn}\(.*?\n}}\n", src, re.S).group(0)
-              for fn in ("rec_group", "rec_chain_stage", "rec_tile_ring")]
-    for body in bodies:
-        assert "sub_rn(acc, mul_rn(" in body
-        assert not re.search(r"acc\s*[-+]=|acc\s*=\s*acc\s*[-+]", body)
+    def body(fn):
+        return re.search(rf"\b{fn}\(.*?\n}}\n", src, re.S).group(0)
+    for fn in ("rec_group", "rec_chain_stage", "rec_tile_ring"):
+        assert "sub_rn(acc, mul_rn(" in body(fn)
+    # The wide form: the first product on the chain, a[1] h[1] a lane
+    # ahead, the later products two lanes ahead, each rounded on its own.
+    wide = body("rec_wide_lane")
+    assert "acc = sub_rn(r.ff, mul_rn(r.a0, h0r));" in wide
+    assert "acc = sub_rn(acc, r.p1);" in wide
+    assert "r.p1 = mul_rn(a11, h0r);" in wide
+    assert "mul_rn(in.v[s], in.h[s]);" in body("rec_wide_put")
+    run = body("rec_wide_run")
+    assert "acc = sub_rn(acc, q[c % 4][k]);" in run
+    assert "acc = sub_rn(acc, z[k]);" in run
+    # df_add's every op an intrinsic, as the df kernel folds with it.
+    add = body("df_add")
+    assert add.count("__fadd_rn(") == 5 and add.count("__fsub_rn(") == 6
+    assert "df_add(" in body("df_prefix_sum")
+    for fn in ("rec_group", "rec_chain_stage", "rec_tile_ring",
+               "rec_wide_lane", "rec_wide_run", "df_add", "df_prefix_sum",
+               "df_look_back"):
+        assert not re.search(r"(acc|\.h|\.l)\s*[-+]=|acc\s*=\s*acc\s*[-+]"
+                             r"|[^_]\b\w+\.[hl]\s*[-+*]\s*\w", body(fn)), fn
     for name in ("tuun_linear_recurrence_rows_f32",
                  "tuun_linear_recurrence_rows_f64",
                  "tuun_df_prefix_sum_rows_f32", "tuun_df_scratch_words",
                  "tuun_df_tile", "tuun_recurrence_max_j"):
         assert re.search(rf"\b{name}\(", src)
     assert f"kRecMaxJ = {scan_ops.MAX_RECURRENCE_J};" in src
+
+
+# -- the df kernel's grouping (chip_smoke.df_model) --------------------------
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_df_tests",
+        Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_df_model_has_the_kernels_geometry():
+    """chip_smoke's model of the df kernel takes exact.cu's tiles: its
+    DF_GEOMETRY is the source's constants and launches, an anchor every
+    `threads` tiles."""
+    import re
+    cs = _smoke()
+    src = scan_ops.EXACT_SOURCE.read_text()
+
+    def const(name):
+        return eval(re.search(rf"constexpr \w+ {name} = ([^;]+);",
+                              src).group(1))
+    assert const("kDfOneTile") == cs.DF_GEOMETRY[0][0]
+    assert "const bool anchor = t % kThreads == 0;" in src
+    assert "(t - 1) / kThreads * kThreads;" in src
+    launches = re.findall(r"return launch_df<(\d+), (\d+), \w+>", src)
+    assert {(int(a), int(b)) for a, b in launches} == \
+        {g[1:] for g in cs.DF_GEOMETRY}
+    assert [const(k) for k in ("kDfOneTile", "kDfWideTile", "kDfTile",
+                               "kDfWideTile")] == \
+        [a * b for _, a, b in cs.DF_GEOMETRY]
+    assert (const("kDfWideTile"), const("kDfTileMax")) == \
+        tuple(g[0] for g in cs.DF_GEOMETRY[1:3])
+
+
+@pytest.mark.parametrize("n", [1 << 10, (1 << 12) + 3, 1 << 14, 1 << 17,
+                               1 << 20])
+def test_df_model_holds_the_f64_bound(n):
+    """The kernel's grouping in numpy float32 at chip_smoke's DF_SIZES:
+    within DF_REL_TOL of sum |x| of the float64 cumsum, as phase 11 holds
+    the kernel, and 10^3 below the f32 cumsum's drift at 2^17 and up."""
+    cs = _smoke()
+    assert n in cs.DF_SIZES
+    xh, xl = (x.numpy() for x in _fm_increments(np.random.default_rng(8),
+                                                 (n,)))
+    oh, ol = cs.df_model(np, xh, xl)
+    x = xh.astype(np.float64) + xl.astype(np.float64)
+    ref = np.cumsum(x)
+    err = np.abs(oh.astype(np.float64) + ol.astype(np.float64) - ref).max()
+    assert err <= cs.DF_REL_TOL * np.abs(x).sum()
+    if n >= 1 << 17:
+        f32 = np.abs(np.cumsum(xh).astype(np.float64) - ref).max()
+        assert err < f32 / 1e3
+
+
+@pytest.mark.parametrize("n", [97, 1024, 1500, 4096 + 3, (1 << 18) + 3])
+def test_df_model_rows_are_single_rows(n):
+    """A row of a rows call has a one-row call's bits: the grouping is a
+    function of the lane's place in its row alone (one tile, one staged
+    tile, tiles with a look-back)."""
+    cs = _smoke()
+    xh, xl = (x.numpy() for x in _fm_increments(np.random.default_rng(9),
+                                                 (3, n)))
+    oh, ol = cs.df_model(np, xh, xl)
+    for r in range(3):
+        sh, sl = cs.df_model(np, xh[r], xl[r])
+        assert np.array_equal(sh.view(np.int32), oh[r].view(np.int32))
+        assert np.array_equal(sl.view(np.int32), ol[r].view(np.int32))

@@ -594,3 +594,48 @@ def test_phase13_mesh_checks_on_cpu(monkeypatch, capsys):
                  "mesh M2 ", "phase 13 seconds: M1 "):
         assert line in out
     assert '"lane_sharded": true' in out and '"modified": "fm' in out
+
+
+def _load_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_mesh_mix", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("extra, passes", [
+    ("silent block", True), ("sounding block", False),
+    ("voiced shorter", False), ("other voice modified", False)])
+def test_m3_compares_audio_not_trailing_silent_blocks(extra, passes):
+    """phase_m3's comparison (check_mesh_mix) on a synthetic pair of
+    deferred sessions: a meshed mix with one more trailing block than the
+    meshless one passes if that block is silent and fails if it holds a
+    sample; a meshed mix whose last voiced sample is zeroed, or another
+    voice modified, fails."""
+    cs = _load_smoke()
+    n, tol = 64, 1e-5
+    rng = np.random.default_rng(3)
+    ref = np.concatenate([rng.standard_normal(3 * n).astype(np.float32),
+                          np.zeros(n, np.float32)])
+    levels = [({"fm1": (1.0, 1.0)}, 1)] * 3
+    got, mod = ref.copy(), "fm1"
+    if extra == "silent block":
+        got = np.concatenate([ref, np.zeros(n, np.float32)])
+    elif extra == "sounding block":
+        got = np.concatenate([ref, np.zeros(n, np.float32)])
+        got[-5] = 1e-3
+    elif extra == "voiced shorter":
+        got[3 * n - 1] = 0.0
+    else:
+        mod = "fm2"
+    if passes:
+        diff = cs.check_mesh_mix(np, "test", got, ref, mod, "fm1", levels,
+                                 n, tol)
+        assert len(diff) == len(ref) and not diff.any()
+        assert cs.voiced_length(np, got) == 3 * n
+    else:
+        with pytest.raises(cs.SmokeFailure, match="M3 test"):
+            cs.check_mesh_mix(np, "test", got, ref, mod, "fm1", levels, n,
+                              tol)

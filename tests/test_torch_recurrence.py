@@ -1,10 +1,12 @@
-"""The linear recurrence's chain form (csrc/exact.cu, J <= 16) on the CPU.
+"""The linear recurrence's chain form (csrc/exact.cu, J <= 16) and wide
+form (17 <= J <= 95) on the CPU.
 
   * The plain version (scan_ops.linear_recurrence_ref) on chip_smoke.py's
     dead-lane patterns (REC_PATTERNS, the ones phase 11 holds the kernel
     to on the card): against tuun_tpu's CFilter._feedback in float64,
     within 1e-12 of scale, and bit for bit a numpy loop in the oracle's
-    float32 rounding, at J = 1, 2, 8, 16 and 17 (the ring form's first).
+    float32 rounding, at J = 1, 2, 8, 16 (the chain form) and 17, 24,
+    32, 64 (the wide form).
   * The patterns' shapes: each reaches the bodies and stage ends it is
     there for, by chip_smoke.py's model of the kernel's staging.
   * That model (recurrence_stage_lanes, _head, _stages), held to
@@ -13,6 +15,10 @@
     whole 16-byte grains aligned at both ends, the ring inside its budget;
     contiguous rows and their [1:] views take bulk copies, rows misaligned
     otherwise do not.
+  * The wide form's model: its constants held to exact.cu's, its stages
+    within its shared-memory budget and its windows within their buffers
+    at every J it takes.  Its bits are held on the card (chip_smoke.py
+    phase 11, REC_JS and REC_PATTERN_JS).
 """
 
 import re
@@ -26,7 +32,9 @@ from test_torch_exact import _bits, _chip_smoke, _jax_feedback, \
 from tuun_tpu_torch.engine import scan_ops
 
 smoke = _chip_smoke()
-JS = (1, 2, 8, 16, 17)
+# The chain form's depths, then the wide form's: its first, J = 24, 32
+# (an unrolled window) and 64 (a looped one).
+JS = (1, 2, 8, 16, 17, 24, 32, 64)
 
 
 def _inputs(J, n, dtype, pattern, seed=0, offset=0):
@@ -211,3 +219,56 @@ def test_staging_model_when_rows_do_not_align_alike():
         bulk, stages = _stage_model(n, 2, 4, 0, 4, 0)
         assert not bulk
         assert sum(length for _, length in stages) == n
+
+
+# ---------------------------------------------------------------------------
+# The wide form (REC_REG_J < J <= REC_WIDE_MAX_J)
+# ---------------------------------------------------------------------------
+
+
+def test_wide_form_has_the_sources_constants():
+    for name in ("REC_WIDE_MAX_J", "REC_WIDE_BUDGET", "REC_WIDE_BUFS",
+                 "REC_WIDE_PS", "REC_WIDE_UNROLLED_J"):
+        key = "kRec" + "".join(w.title() for w in name[4:].split("_"))
+        assert _source_constant(key) == getattr(smoke, name), key
+    # The kernel picks a thread's share of a lane's J - 2 products by
+    # depth.
+    src = scan_ops.EXACT_SOURCE.read_text()
+    # Unrolled windows of 16, 24 and 32 products (one slot), then a loop
+    # with three slots.
+    cases = re.findall(r"case (\d): TUUN_WIDE_ROW\((\d), (\d+) / V\)", src)
+    assert [(int(c), int(s), int(w)) for c, s, w in cases] == \
+        [(k, 1, 8 * k) for k in range(2, 5)]
+    assert 8 * 4 + 2 == smoke.REC_WIDE_UNROLLED_J
+    assert "default: TUUN_WIDE_ROW(3, 0);" in src
+    assert [smoke.recurrence_wide_slots(J) for J in (17, 34, 35, 95)] \
+        == [1, 1, 3, 3]
+    assert smoke.recurrence_wide_slots(smoke.REC_WIDE_MAX_J) == 3
+
+
+def test_wide_stages_fit_the_budget():
+    """At every J of the wide form, both types: S a power of two from
+    REC_FIRST to REC_MAX_STAGE whose shared memory fits the budget (and
+    twice S does not), the budget within a block's 227 KB, a product
+    buffer holding its window and the item dropped products go to."""
+    for item in (4, 8):
+        V = 16 // item
+        for J in range(smoke.REC_REG_J + 1, smoke.REC_WIDE_MAX_J + 1):
+            S = smoke.recurrence_stage_lanes(J, item)
+            assert S & (S - 1) == 0
+            assert smoke.REC_FIRST <= S <= smoke.REC_MAX_STAGE
+            assert smoke.recurrence_wide_bytes(J, S, item) \
+                <= smoke.REC_WIDE_BUDGET
+            assert S == smoke.REC_MAX_STAGE or smoke.recurrence_wide_bytes(
+                J, 2 * S, item) > smoke.REC_WIDE_BUDGET
+            # A window holds the lane's J - 2 products after at most 7
+            # zeros (V - 1 where a loop reads it), whole chunks, at least
+            # the four register sets' where unrolled, and lies in the
+            # buffer before the item dropped products go to.
+            W, first, unrolled = smoke.recurrence_wide_window(J, item)
+            assert 0 <= W - (J - 2) - first * V < (8 if unrolled else V)
+            assert W % V == 0 and unrolled == (J <= smoke.REC_WIDE_UNROLLED_J)
+            assert not unrolled or (first == 0 and W // V >= 4)
+            assert W < smoke.REC_WIDE_PS
+    assert smoke.REC_WIDE_BUDGET + 64 <= 232448
+    assert smoke.REC_WIDE_PS % 4 == 0

@@ -53,9 +53,22 @@
 //     version (scan_ops.linear_recurrence_ref) in both types;
 //   * no scratch: rows share nothing, so a captured CUDA graph needs no
 //     set-up either.
-// The ring form (J > 16) keeps the earlier design: thread 0 runs the chain
-// with the history in a ring in shared memory while warps 1-3 stage tiles by
-// cp.async, a block barrier a tile.
+// The wide form (J = 17 .. kRecWideMaxJ = 95, J at run time: one kernel
+// for every such J, unrolled windows up to J = 34): the chain form's ring
+// of stages, producer warp and chain warp, but the history a linear
+// buffer in shared memory and each lane's products formed ahead of it by
+// the warp's 32 threads together, so only the first product and the J
+// differences sit on the chain (rec_wide_row, below).  Measured (PERF.md
+// section 6, `--phase times --tree` in turns, all lanes live): J = 17 /
+// 24 / 32 / 64 at 2^17 lanes 8.83-8.89 / 10.99-11.07 / 13.29-13.39 /
+// 41.3-41.6 ms against 69.4-69.9 / 92.0-92.6 / 118.4-119.4 / 224.1-225.8
+// for the ring form before it (1.85-1.87 / 1.66-1.67 / 1.52-1.53 /
+// 2.40-2.42x the chain model; ~1.4x and ~1.15x the card's own chain at J
+// = 17 and 32), 1024 lanes at J = 17 71.6-72.2 us against 546-550.
+// Deeper rows, up to
+// kRecMaxJ, take the ring form: thread 0 runs the chain with the history
+// in a ring in shared memory while warps 1-3 stage tiles by cp.async, a
+// block barrier a tile.
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6: device time
 // of captured calls by `chip_smoke.py --phase times --tree`, in turns with
 // the earlier one-thread kernel; all lanes live): J = 2 in f32 at 2^17
@@ -70,34 +83,55 @@
 // fewest, win.
 //
 // df prefix sum.  Inclusive prefix of df_add over (hi, lo) pairs along
-// each row: the same single-pass scan with decoupled look-back as
-// scan.cu's prefix sum (scan_single_pass), over pairs.  What bounds it:
-// bytes, 16 a lane (two floats read, two written; 1 MB at 65536 lanes,
-// 0.31 us at 3.35 TB/s), and below ~2^20 lanes launch latency and the
-// chain of memory trips of the look-back.  The design follows scan.cu's:
-//   * one kernel, tile index from an atomic counter, 256 threads x 8
-//     lanes a tile, each thread folds its lanes in sequence, a shuffle
-//     scan across the block (hi and lo shuffled as a pair);
-//   * status: a pair and a flag do not fit in one 64-bit word, so each
-//     tile has a flag word and a record of two floats; a tile writes its
-//     record, then the flag with st.release; a reader loads the flag with
-//     ld.acquire and only then the record, from L2 (ld.cg), as scan.cu's
-//     affine scan does;
+// each row.  What bounds it: bytes, 16 a lane (two floats read, two
+// written; 2 MB at 2^17 lanes, 0.63 us at 3.35 TB/s), and below ~2^20
+// lanes the latency of launch, of a tile's dependent adds and of the
+// memory trips of a look-back.  So the design keeps all three short:
+//   * tiles sized by the call (df_tile): a row of up to 1024 lanes (the
+//     live block, a group's rows) is one block of 256 threads x 4 lanes,
+//     loaded straight into registers by float4, a shuffle scan a warp and
+//     one exchange of warp totals through shared memory; a row of up to
+//     4096 lanes one block of 512 x 8; both touch no scratch.  Longer rows
+//     take 2048-lane tiles up to 2^18 lanes and 4096-lane ones past it
+//     (the fewest look-back records that still fill the card), staged
+//     through shared memory so that loads and stores stay coalesced;
+//   * a longer row's tiles are a single-pass scan with decoupled
+//     look-back; a tile waits only on tiles of lower index.  Where the
+//     card holds the whole grid at once (df_resident: every shape of the
+//     main path), block b is tile b, with no atomic before the loads:
+//     every block is resident or waits only for room that a kernel which
+//     does not wait on it frees.  A larger grid takes its tile from an
+//     atomic counter, so that every tile below a running one has been
+//     taken by a running block: CUDA does not promise to dispatch blocks
+//     in index order.  Either way the tile, not the block, fixes the bits.
+//     The first rule is proven only for one call on the card at a time:
+//     two calls overlapping from two streams (a graph's warm-up beside a
+//     render) could together exceed what the card holds, and then rest on
+//     its dispatching each grid's blocks in index order.  A pair and a
+//     flag do not fit in one 64-bit word, so each tile has a flag word and
+//     a record of two floats; a tile writes its record, then the flag with
+//     st.release; a reader loads the flag with ld.acquire and only then
+//     the record, from L2 (ld.cg), as scan.cu's affine scan does;
 //   * fixed grouping, so a call gives the same bits every time: every
-//     256th tile is an anchor and publishes its inclusive prefix, every
-//     other tile its aggregate at once; tile t folds anchor a's prefix
-//     and the aggregates of a + 1 .. t - 1 by a fixed shuffle tree.
-//     df_add is not associative, so these bits differ from XLA's
-//     associative_scan and from the plain doubling scan in the last
-//     compensated bits; each is held to the float64 cumsum;
+//     tile whose index is a multiple of its thread count (256 or 512) is
+//     an anchor and publishes its inclusive prefix, every other tile its
+//     aggregate at once; tile t folds anchor a's prefix and the aggregates
+//     of a + 1 .. t - 1, a record a thread, by a fixed tree.  df_add is
+//     not associative, so these bits differ from XLA's associative_scan
+//     and from the plain doubling scan in the last compensated bits; each
+//     is held to the float64 cumsum (chip_smoke.df_model gives the
+//     kernel's own bits);
 //   * df_add's additions are __fadd_rn / __fsub_rn: TwoSum's error term
 //     is exact only if each rounds on its own;
-//   * the scratch (counters, flags, records) is the caller's persistent
-//     buffer for its (device, stream), zeroed once; the last block to
-//     count itself done clears the counters and flags, so the next call
-//     or graph replay finds it clean.  N <= one tile touches no scratch.
-// Measured on an H100 (700 W, PERF.md): 5.7-5.9 us at 2^17 lanes against
-// the 0.63 us bytes bound.
+//   * the scratch (a done counter, a tile counter, flags, records) is the
+//     caller's persistent buffer for its (device, stream), zeroed once;
+//     the last block to count itself done clears the counters and flags,
+//     so the next call or graph replay finds it clean.  A one-tile row
+//     touches no scratch.
+// Measured (PERF.md section 6, in turns with the kernel before it): 1024
+// lanes 2.14-2.29 us against 2.72-2.74, rows (8, 1024) 2.24-2.39 against
+// 2.76, 2^17 5.48-5.49 against 5.92-5.98 (bytes bound 0.63), 2^20
+// 10.36-10.42 against 13.02-13.04.
 //
 // C interface, bound with ctypes (tuun_tpu_torch/engine/scan_ops.py).
 // Every entry returns cudaGetLastError() after its launch.
@@ -105,6 +139,27 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Build parts.  The engine compiles this file three times at once and
+// links the objects (engine/scan_ops.py): TUUN_EXACT_PART 1 and 2 hold
+// the chain form's instances for J = 1-8 and 9-16 (most of the build's
+// time), 3 the rest and the C interface.  Without the macro one object
+// holds all.
+#ifndef TUUN_EXACT_PART
+#define TUUN_EXACT_PART 0
+#endif
+
+namespace tuun_exact {
+// The chain form's launch for J = 1-8 (part 1) and 9-16 (part 2).
+template <typename T>
+int launch_chain_lo(const T* a, const T* ff, const uint8_t* live,
+                    const T* h0, T* y, T* hist, int64_t rows, int64_t n,
+                    int J, cudaStream_t stream);
+template <typename T>
+int launch_chain_hi(const T* a, const T* ff, const uint8_t* live,
+                    const T* h0, T* y, T* hist, int64_t rows, int64_t n,
+                    int J, cudaStream_t stream);
+}  // namespace tuun_exact
 
 namespace {
 
@@ -371,6 +426,98 @@ __device__ __forceinline__ void rec_chain_stage(const T* as, const T* fs,
   }
 }
 
+// The head of a row: the lanes before the first whose live byte starts a
+// 16-byte grain.
+__device__ __forceinline__ int rec_head(const uint8_t* live) {
+  return (int)((16 - ((uintptr_t)live & 15)) & 15);
+}
+
+// Past the head, a and ff take bulk copies where their lanes align there
+// too (any contiguous row, and its [1:] views, do).
+template <typename T>
+__device__ __forceinline__ bool rec_bulk(const T* a, const T* ff, int head,
+                                         int J) {
+  return (((uintptr_t)(ff + head) | (uintptr_t)(a + (int64_t)head * J)) &
+          15) == 0;
+}
+
+// The ring's mbarriers, then a block barrier: `full` completes when the
+// producer warp has arrived and its bulk copies have landed, `empty` when
+// the chain warp has arrived.
+__device__ __forceinline__ void rec_ring_init(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRecStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp of one row of the wide form (the chain form's, inline
+// in rec_chain_row, does the same): fills
+// the ring of kRecStages stage buffers of S lanes (A: a, F: ff, L: live),
+// the 16-byte-aligned middle of a stage by three bulk copies (a, ff, live)
+// counted on the stage's `full` mbarrier, the lanes outside it (the head,
+// a ragged tail, or every lane where the three arrays' lanes are not
+// aligned alike) by its 32 threads' loads; it stores each finished
+// stage's y (Y), coalesced, once the chain has released the stage
+// (`empty`), then refills it.
+template <typename T>
+__device__ __forceinline__ void rec_produce(
+    const T* __restrict__ a, const T* __restrict__ ff,
+    const uint8_t* __restrict__ live, T* __restrict__ y, int64_t n, int J,
+    int S, int head, bool bulk, T* A, T* F, const T* Y, uint8_t* L,
+    uint64_t* full, uint64_t* empty, int lane) {
+  RecStage fill(n, head), drain(n, head);
+  int d = 0;  // stages stored
+  auto store = [&]() {
+    const int s = d % kRecStages;
+    mbar_wait(&empty[s], (unsigned)(d / kRecStages) & 1u);
+    T* dst = y + drain.st;
+    for (int64_t e = lane; e < drain.len; e += 32) dst[e] = Y[s * S + e];
+    drain.next(n, S);
+    ++d;
+  };
+  for (int k = 0; fill.st < n; ++k, fill.next(n, S)) {
+    const int s = k % kRecStages;
+    if (k >= kRecStages) store();
+    const int64_t st = fill.st;
+    const int64_t en = st + fill.len;
+    // The bulk span [st, b1): the stage's whole grains, where it starts
+    // on one (every stage but the head) and the row takes bulk copies.
+    const int64_t b1 = bulk && st >= head
+        ? st + (fill.len & ~(int64_t)(kRecGrain - 1)) : st;
+    T* as = A + s * S * J;
+    T* fs = F + s * S;
+    uint8_t* ls = L + s * S;
+    fence_proxy_async();
+    if (lane == 0 && b1 > st) {
+      const unsigned m = (unsigned)(b1 - st);
+      mbar_expect_tx(&full[s], m * (unsigned)((J + 1) * sizeof(T) + 1));
+      bulk_load(as, a + st * J, m * J * sizeof(T), &full[s]);
+      bulk_load(fs, ff + st, m * sizeof(T), &full[s]);
+      bulk_load(ls, live + st, m, &full[s]);
+    }
+    // The lanes past the span, flat and coalesced.
+    {
+      const int64_t lo = b1;
+      const int64_t hi = en;
+      const int64_t o = lo - st;
+      for (int64_t e = lane; e < (hi - lo) * J; e += 32) {
+        as[o * J + e] = a[lo * J + e];
+      }
+      for (int64_t e = lane; e < hi - lo; e += 32) {
+        fs[o + e] = ff[lo + e];
+        ls[o + e] = live[lo + e];
+      }
+    }
+    mbar_arrive(&full[s]);
+  }
+  while (drain.st < n) store();
+}
+
 // One row, history in registers (J <= 16).  Warp 1, the producer, fills a
 // ring of kRecStages stage buffers: the 16-byte-aligned middle of a stage
 // by three bulk copies (a, ff, live) counted on the stage's `full`
@@ -473,9 +620,339 @@ __device__ __forceinline__ void rec_chain_row(
   }
 }
 
-// The ring form (J > 16).  Shared-memory layout of one block: two buffers
-// each of a [tile * J], ff [tile] and y [tile], then the history ring [J],
-// then two live buffers [tile] of bytes.
+// The wide form (kRecRegJ < J <= kRecWideMaxJ, one kernel for every such
+// J).  The chain form's ring of stages, producer warp and chain warp,
+// whose 32 threads all run the chain; but the history is a buffer in
+// shared memory and most of a lane's inputs are made ahead of it:
+//   * the history buffer Hb holds the outputs of live lanes, oldest first
+//     (h0 reversed, then each live lane's y; a dead lane appends nothing),
+//     moved to its front when a stage would run past it; its two newest
+//     values also sit in registers, h0r and h1r;
+//   * lane x's chain: acc = ff - a[0] * h[0] (h0r), then - a[1] * h[1],
+//     then the products a[j] * h[j] for j = 2 .. J - 1 in order: J + 1
+//     roundings, the chain model.  Only the first product waits on lane x
+//     - 1's output.  ff, a[0] and a[1] * h[1] are formed by every thread a
+//     lane ahead; the later products two lanes ahead by the warp's
+//     threads together (thread t the products t, t + 32, t + 64: its loads
+//     of a and Hb at the start of lane x - 2, coalesced; its product and
+//     store at that lane's end, then one __syncwarp), each rounded on its
+//     own as the reference rounds it, into one of four buffers in turn;
+//   * the chain reads the products by broadcast 16-byte loads.  A runtime
+//     loop over them runs ~7 cycles an f32 op on this card where
+//     straight-line code runs ~4.1, so up to kRecWideUnrolledJ (J - 2 <=
+//     32) a lane's products run unrolled from four register sets, each
+//     reloaded four chunks ahead, the last four with the next lane's first
+//     four: a window of 16, 24 or 32 items that ends with the products,
+//     led by zeros (acc - (+0) is acc, bit for bit).  Deeper rows loop;
+//   * a ballot of 32 live bytes a group: an all-live group runs with no
+//     branch a lane, an all-dead one writes zeros, a mixed one runs a live
+//     lane's chain and skips a dead one's (y = 0, the history as it was);
+//     no select on the chain.
+constexpr int kRecWideMaxJ = 95;
+// Up to this depth a lane's products (at most 32: one a thread) run
+// unrolled from registers; deeper, by a loop over the window's chunks.
+constexpr int kRecWideUnrolledJ = 34;
+// Shared memory the wide form takes at most: it sizes its stages to this.
+constexpr int kRecWideBudget = 200 * 1024;
+constexpr int kRecWideBufs = 4;   // product buffers
+constexpr int kRecWidePs = 100;   // items a buffer: its window, then the
+                                  // item dropped products are stored to
+
+// 16-byte chunks of the looped form's window: room for kRecWideMaxJ - 2
+// products.
+__host__ __device__ constexpr int rec_wide_chunks(int item) {
+  return (kRecWideMaxJ - 2 + 16 / item - 1) / (16 / item);
+}
+
+static_assert(rec_wide_chunks(4) * 4 < kRecWidePs &&
+                  rec_wide_chunks(8) * 2 < kRecWidePs && kRecWidePs % 4 == 0,
+              "a product buffer holds its window and the dropped item");
+
+// Bytes of the wide form's shared memory at depth J with stages of S
+// lanes: the ring of stages (a, ff, y, live), the product buffers, the
+// history (2J + S values: a stage appends at most S to the newest J).
+__host__ __device__ constexpr int64_t rec_wide_bytes(int J, int S, int item) {
+  return (int64_t)kRecStages * S * rec_lane_bytes(J, item) +
+         (int64_t)item * (kRecWideBufs * kRecWidePs + 2 * J + S);
+}
+
+// Lanes of a full stage of the wide form: the largest power of two from
+// kRecFirst up to kRecMaxStage whose shared memory fits kRecWideBudget.
+__host__ __device__ constexpr int rec_wide_stage_lanes(int J, int item) {
+  int s = kRecMaxStage;
+  while (s > kRecFirst && rec_wide_bytes(J, s, item) > kRecWideBudget) {
+    s >>= 1;
+  }
+  return s;
+}
+
+static_assert(rec_wide_bytes(kRecWideMaxJ, kRecFirst, 8) <= kRecWideBudget,
+              "the wide form's deepest f64 row fits the budget");
+
+// Lane x's products, formed by thread `lane` of the chain warp: entry k =
+// 32 s + lane (s < kSlots) is a[x, k + 2] times h[k + 2] = ht[-3 - k] (ht:
+// one past the newest history entry lane x sees).  kk[s]: the thread's k,
+// cut at J - 3 (a thread past the products loads entry J - 3's factors).
+// Product k goes to item W - (J - 2) + k of the buffer (W: the window's
+// items), so the last ends the window; every thread stores, a dropped
+// product to item kRecWidePs - 1.
+template <typename T, int kSlots>
+struct RecWideIn {
+  T v[kSlots];
+  T h[kSlots];
+};
+
+template <typename T, int kSlots>
+__device__ __forceinline__ RecWideIn<T, kSlots> rec_wide_get(
+    const T* ax, const T* ht, const int (&kk)[kSlots]) {
+  RecWideIn<T, kSlots> in;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    in.v[s] = ax[kk[s] + 2];
+    in.h[s] = ht[-3 - kk[s]];
+  }
+  return in;
+}
+
+template <typename T, int kSlots>
+__device__ __forceinline__ void rec_wide_put(const RecWideIn<T, kSlots>& in,
+                                             T* P, bool keep, int W, int J,
+                                             int lane) {
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int k = 32 * s + lane;
+    P[keep && k < J - 2 ? W - (J - 2) + k : kRecWidePs - 1] =
+        mul_rn(in.v[s], in.h[s]);
+  }
+}
+
+// The chain's register sets: chunk c of a window sits in q[c % 4].
+template <typename T>
+using RecWideQ = T[4][16 / sizeof(T)];
+
+// Loads the first four chunks of the window P (from chunk 0) into their
+// register sets.
+template <typename T>
+__device__ __forceinline__ void rec_wide_first(const T* P, RecWideQ<T>& q) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) lds16(P + s * (16 / sizeof(T)), q[s]);
+}
+
+// acc minus a lane's products.  kNQ > 0: the window is kNQ chunks, in
+// registers four chunks ahead, unrolled: each set reloaded with chunk c +
+// 4 as chunk c is done, the last four with the next lane's first four
+// (Pn).  kNQ = 0: the window's chunks from `first` to `last` by a loop.
+template <typename T, int kNQ>
+__device__ __forceinline__ T rec_wide_run(T acc, RecWideQ<T>& q,
+                                          const T* Px, const T* Pn,
+                                          int first, int last) {
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (kNQ > 0) {
+#pragma unroll
+    for (int c = 0; c < kNQ; ++c) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc = sub_rn(acc, q[c % 4][k]);
+      lds16(c + 4 < kNQ ? Px + (c + 4) * V : Pn + (c % 4) * V, q[c % 4]);
+    }
+  } else {
+    for (int c = first; c < last; ++c) {
+      T z[V];
+      lds16(Px + c * V, z);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc = sub_rn(acc, z[k]);
+    }
+  }
+  return acc;
+}
+
+// A lane's inputs held in registers ahead of its chain: ff, a[0], a[1] *
+// h[1]; with kNQ > 0, its products' first four chunks sit in the register
+// sets.
+template <typename T>
+struct RecWideRegs {
+  T ff, a0, p1;
+};
+
+// Lane x of a stage in the wide form, run by the whole chain warp.  On
+// entry r (and q) hold lane x's registers, buffer Px its products; Pn
+// holds lane x + 1's (formed a lane ago); a1, f1: lane x + 1's a row and
+// ff, a2 lane x + 2's a row; ht one past the newest history entry.  It
+// loads lane x + 1's registers, forms lane x + 2's products into Pf
+// (keep2: the stage has that lane; live1: lane x + 1 is live) and, if
+// live, runs lane x's chain (else y = 0 and the history stays).  kAll:
+// lane x is live, with no branch, so that its loads and products
+// interleave with the chain.
+template <typename T, int kSlots, int kNQ, bool kAll>
+__device__ __forceinline__ void rec_wide_lane(
+    bool live, const T* a1, const T* f1, const T* a2, T* yx, T*& ht, T& h0r,
+    T& h1r, RecWideRegs<T>& r, RecWideQ<T>& q, const T* Px, const T* Pn,
+    T* Pf, bool keep2, int live1, int W, int first, int J,
+    const int (&kk)[kSlots], int lane) {
+  const T ff1 = *f1;
+  const T a01 = a1[0];
+  const T a11 = a1[1];
+  const RecWideIn<T, kSlots> in =
+      rec_wide_get<T, kSlots>(a2, ht + (live ? 1 : 0) + live1, kk);
+  if (kAll || live) {
+    T acc = sub_rn(r.ff, mul_rn(r.a0, h0r));
+    acc = sub_rn(acc, r.p1);
+    acc = rec_wide_run<T, kNQ>(acc, q, Px, Pn, first,
+                               W / (16 / (int)sizeof(T)));
+    *yx = acc;
+    *ht++ = acc;
+    r.p1 = mul_rn(a11, h0r);  // lane x + 1's h[1] is lane x's h[0]
+    h1r = h0r;
+    h0r = acc;
+  } else {
+    if constexpr (kNQ > 0) rec_wide_first<T>(Pn, q);
+    *yx = T(0);
+    r.p1 = mul_rn(a11, h1r);
+  }
+  rec_wide_put<T, kSlots>(in, Pf, keep2, W, J, lane);
+  __syncwarp();
+  r.ff = ff1;
+  r.a0 = a01;
+}
+
+// The chain over one stage of m lanes in the wide form (as, fs, ls, ys:
+// its first lane in the stage buffer), 32-lane groups at a time.  b: the
+// product buffer of the next lane, advanced a lane at a time; ht: one past
+// the newest history entry; W items a window, its products' chunks from
+// `first`.  Reads past the stage's lanes (of the lanes after its last two)
+// stay in shared memory and reach no output.
+template <typename T, int kSlots, int kNQ>
+__device__ __forceinline__ void rec_wide_stage(const T* as, const T* fs,
+                                               const uint8_t* ls, T* ys,
+                                               int m, int J, int W, int first,
+                                               T*& ht, T& h0r, T& h1r, T* P,
+                                               int& b, int lane) {
+  int kk[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) kk[s] = min(32 * s + lane, J - 3);
+  RecWideRegs<T> r;
+  RecWideQ<T> q;
+  auto buf = [&](int i) { return P + (i % kRecWideBufs) * kRecWidePs; };
+  // Lanes x's and x + 1's products into buffers b and b + 1, lane x's
+  // registers, from the history as it stands (live0: lane x is live).
+  auto prime = [&](int x, int live0) {
+    T* Pb = buf(b);
+    __syncwarp();
+    rec_wide_put<T, kSlots>(rec_wide_get<T, kSlots>(as + x * J, ht, kk), Pb,
+                            true, W, J, lane);
+    rec_wide_put<T, kSlots>(
+        rec_wide_get<T, kSlots>(as + (x + 1) * J, ht + live0, kk),
+        buf(b + 1), x + 1 < m, W, J, lane);
+    r.ff = fs[x];
+    r.a0 = as[x * J];
+    r.p1 = mul_rn(as[x * J + 1], h1r);
+    __syncwarp();
+    if constexpr (kNQ > 0) rec_wide_first<T>(Pb, q);
+  };
+  unsigned mask = __ballot_sync(kFull, lane < m && ls[lane] != 0);
+  prime(0, mask & 1u);
+  for (int g = 0; g < m; g += 32) {
+    const int len = min(32, m - g);
+    const int g2 = g + 32;
+    const unsigned next =
+        __ballot_sync(kFull, g2 + lane < m && ls[g2 + lane] != 0);
+    if (mask == 0) {
+      if (lane < len) ys[g + lane] = T(0);
+      if (g2 < m) prime(g2, next & 1u);
+      mask = next;
+      continue;
+    }
+    const uint64_t M = mask | (uint64_t)next << 32;
+    const T* Px = buf(b);
+    const T* Pn = buf(b + 1);
+    T* Pf = buf(b + 2);
+    const T* a1 = as + (g + 1) * J;
+    auto step = [&]() {
+      a1 += J;
+      Px = Pn;
+      Pn = Pf;
+      Pf = buf(++b + 2);
+    };
+    if (mask == (len == 32 ? kFull : (1u << len) - 1u)) {
+      for (int q0 = 0; q0 < len; ++q0) {
+        const int x = g + q0;
+        rec_wide_lane<T, kSlots, kNQ, true>(
+            true, a1, fs + x + 1, a1 + J, ys + x, ht, h0r, h1r, r, q, Px, Pn,
+            Pf, x + 2 < m, (int)((M >> (q0 + 1)) & 1u), W, first, J, kk,
+            lane);
+        step();
+      }
+    } else {
+      for (int q0 = 0; q0 < len; ++q0) {
+        const int x = g + q0;
+        rec_wide_lane<T, kSlots, kNQ, false>(
+            (M >> q0) & 1u, a1, fs + x + 1, a1 + J, ys + x, ht, h0r, h1r, r,
+            q, Px, Pn, Pf, x + 2 < m, (int)((M >> (q0 + 1)) & 1u), W, first,
+            J, kk, lane);
+        step();
+      }
+    }
+    mask = next;
+  }
+}
+
+// One row of the wide form: warp 1 the producer (rec_produce, stages of
+// rec_wide_stage_lanes), warp 0 the chain.  Shared memory: the ring (a,
+// ff, y, live), then the product buffers, then the history.  kNQ > 0: a
+// window of kNQ chunks (the products of J <= kRecWideNQ's rows), else
+// rec_wide_chunks.
+template <typename T, int kSlots, int kNQ>
+__device__ __forceinline__ void rec_wide_row(
+    const T* __restrict__ a, const T* __restrict__ ff,
+    const uint8_t* __restrict__ live, const T* __restrict__ h0,
+    T* __restrict__ y, T* __restrict__ hist, int64_t n, int J,
+    unsigned char* raw, uint64_t* full, uint64_t* empty) {
+  constexpr int V = 16 / sizeof(T);
+  rec_ring_init(full, empty);
+  const int S = rec_wide_stage_lanes(J, sizeof(T));
+  T* A = reinterpret_cast<T*>(raw);
+  T* F = A + kRecStages * S * J;
+  T* Y = F + kRecStages * S;
+  uint8_t* L = reinterpret_cast<uint8_t*>(Y + kRecStages * S);
+  T* P = reinterpret_cast<T*>(L + kRecStages * S);
+  T* Hb = P + kRecWideBufs * kRecWidePs;
+  const int head = rec_head(live);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) {
+    rec_produce<T>(a, ff, live, y, n, J, S, head, rec_bulk(a, ff, head, J),
+                   A, F, Y, L, full, empty, lane);
+    return;
+  }
+  const int W = (kNQ > 0 ? kNQ : rec_wide_chunks(sizeof(T))) * V;
+  const int first = W / V - (J - 2 + V - 1) / V;
+  for (int e = lane; e < J; e += 32) Hb[e] = h0[J - 1 - e];
+  // The windows' leading items stay 0: only products are stored later.
+  for (int e = lane; e < kRecWideBufs * kRecWidePs; e += 32) P[e] = T(0);
+  T h0r = h0[0];
+  T h1r = h0[1];
+  T* ht = Hb + J;  // one past the newest history entry
+  int b = 0;
+  for (RecStage sg(n, head); sg.st < n; sg.next(n, S)) {
+    const int s = sg.k % kRecStages;
+    mbar_wait(&full[s], (unsigned)(sg.k / kRecStages) & 1u);
+    const int m = (int)sg.len;
+    if (ht + m > Hb + 2 * J + S) {
+      // The newest J entries to the front (more than 2J: no overlap).
+      __syncwarp();
+      for (int e = lane; e < J; e += 32) Hb[e] = ht[e - J];
+      ht = Hb + J;
+    }
+    rec_wide_stage<T, kSlots, kNQ>(A + s * S * J, F + s * S, L + s * S,
+                                   Y + s * S, m, J, W, first, ht, h0r, h1r,
+                                   P, b, lane);
+    mbar_arrive(&empty[s]);
+  }
+  __syncwarp();
+  for (int j = lane; j < J; j += 32) hist[j] = ht[-1 - j];
+}
+
+// The ring form (J > kRecWideMaxJ).  Shared-memory layout of one block:
+// two buffers each of a [tile * J], ff [tile] and y [tile], then the
+// history ring [J], then two live buffers [tile] of bytes.
 template <typename T>
 struct RecSmem {
   T* a[2];
@@ -615,7 +1092,7 @@ __device__ __forceinline__ void rec_ring_row(
 }
 
 // One block a row.  kJ > 0: the chain form, history in registers; kJ = 0:
-// the ring form, any J.
+// any deeper J, the wide form up to kRecWideMaxJ, the ring form past it.
 template <typename T, int kJ>
 __global__ void __launch_bounds__(kRecThreads)
 linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
@@ -631,9 +1108,30 @@ linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
                          h0_all + r * kJ, y_all + r * n, hist_all + r * kJ, n,
                          rec_raw, rec_full, rec_empty);
   } else {
-    rec_ring_row<T>(a_all + r * n * J, ff_all + r * n, live_all + r * n,
-                    h0_all + r * J, y_all + r * n, hist_all + r * J, n, J,
-                    tile, rec_raw);
+    const T* a = a_all + r * n * J;
+    const T* ff = ff_all + r * n;
+    const uint8_t* live = live_all + r * n;
+    const T* h0 = h0_all + r * J;
+    T* y = y_all + r * n;
+    T* hist = hist_all + r * J;
+    if (J > kRecWideMaxJ) {
+      rec_ring_row<T>(a, ff, live, h0, y, hist, n, J, tile, rec_raw);
+      return;
+    }
+    // The window: 16, 24 or 32 products (a multiple of 8: at most 7 zeros
+    // before them; one a thread), unrolled, up to kRecWideUnrolledJ, else
+    // rec_wide_chunks by a loop, a thread forming up to three products.
+    constexpr int V = 16 / sizeof(T);
+#define TUUN_WIDE_ROW(slots, nq)                                          \
+    rec_wide_row<T, slots, nq>(a, ff, live, h0, y, hist, n, J, rec_raw, \
+                               rec_full, rec_empty)
+    switch (J > kRecWideUnrolledJ ? 0 : (J - 2 + 7) / 8) {
+      case 2: TUUN_WIDE_ROW(1, 16 / V); break;
+      case 3: TUUN_WIDE_ROW(1, 24 / V); break;
+      case 4: TUUN_WIDE_ROW(1, 32 / V); break;
+      default: TUUN_WIDE_ROW(3, 0);
+    }
+#undef TUUN_WIDE_ROW
   }
 }
 
@@ -647,6 +1145,9 @@ int launch_recurrence(const T* a, const T* ff, const uint8_t* live,
   if constexpr (kJ > 0) {
     smem = (size_t)kRecStages * rec_stage_lanes(kJ, sizeof(T)) *
            rec_lane_bytes(kJ, sizeof(T));
+  } else if (J <= kRecWideMaxJ) {
+    smem = (size_t)rec_wide_bytes(J, rec_wide_stage_lanes(J, sizeof(T)),
+                                  sizeof(T));
   } else {
     // Tiles that fit the budget, at most kRecTile lanes.
     const size_t per_lane = sizeof(T) * (size_t)(2 * J + 4) + 2;
@@ -675,34 +1176,43 @@ int run_recurrence(const T* a, const T* ff, const uint8_t* live, const T* h0,
       J > kRecMaxJ) {
     return (int)cudaErrorInvalidValue;
   }
-  switch (J) {
-#define TUUN_REC_CASE(k) \
-    case k: return launch_recurrence<T, k>(a, ff, live, h0, y, hist, rows, \
-                                           n, J, stream);
-    TUUN_REC_CASE(1) TUUN_REC_CASE(2) TUUN_REC_CASE(3) TUUN_REC_CASE(4)
-    TUUN_REC_CASE(5) TUUN_REC_CASE(6) TUUN_REC_CASE(7) TUUN_REC_CASE(8)
-    TUUN_REC_CASE(9) TUUN_REC_CASE(10) TUUN_REC_CASE(11) TUUN_REC_CASE(12)
-    TUUN_REC_CASE(13) TUUN_REC_CASE(14) TUUN_REC_CASE(15) TUUN_REC_CASE(16)
-#undef TUUN_REC_CASE
-    default:
-      return launch_recurrence<T, 0>(a, ff, live, h0, y, hist, rows, n, J,
-                                     stream);
+  if (J <= kRecRegJ / 2) {
+    return tuun_exact::launch_chain_lo<T>(a, ff, live, h0, y, hist, rows, n,
+                                          J, stream);
   }
+  if (J <= kRecRegJ) {
+    return tuun_exact::launch_chain_hi<T>(a, ff, live, h0, y, hist, rows, n,
+                                          J, stream);
+  }
+  return launch_recurrence<T, 0>(a, ff, live, h0, y, hist, rows, n, J,
+                                 stream);
 }
 
 // ---------------------------------------------------------------------------
 // df prefix sum
 // ---------------------------------------------------------------------------
 
-constexpr int kDfThreads = 256;
-constexpr int kDfItems = 8;                       // lanes per thread
-constexpr int kDfTile = kDfThreads * kDfItems;    // 2048 lanes per block
-constexpr int kDfVecs = kDfItems / 4;             // float4 per thread per word
-// Scratch, in 32-bit words, for `cap` tiles: [0] tile counter, [1] done
-// counter, [2, 2 + cap) a flag per tile, then from df_record_offset(cap)
-// two floats (hi, lo) per tile.  Only counters and flags must be zero when
-// a call starts.
+// Tiles by the call's row length n (df_tile): a row of at most kDfOneTile
+// lanes is one tile (256 threads x 4 lanes, straight from registers), of
+// at most kDfWideTile one wide tile (512 x 8); both touch no scratch.  A
+// longer row takes tiles of kDfTile (256 x 8) up to kDfTileMax lanes, wide
+// tiles past it (chosen on the card among 512- to 4096-lane tiles).
+// Multi-lane tiles are staged through shared memory, so that loads and
+// stores stay coalesced.
+constexpr int kDfOneTile = 1024;
+constexpr int kDfTile = 2048;
+constexpr int kDfWideTile = 4096;
+constexpr int64_t kDfTileMax = 1 << 18;
+// Scratch, in 32-bit words, for `cap` tiles: [0] done counter, [1] tile
+// counter (a grid larger than the card holds at once), [2, 2 + cap) a
+// flag per tile, then from df_record_offset(cap) two floats (hi, lo) per
+// tile.  Only the counters and flags must be zero when a call starts.
 constexpr int kDfHead = 2;
+
+__host__ __device__ constexpr int df_tile(int64_t n) {
+  return n <= kDfOneTile ? kDfOneTile
+         : n <= kDfWideTile || n > kDfTileMax ? kDfWideTile : kDfTile;
+}
 
 __host__ __device__ constexpr int64_t df_record_offset(int64_t cap) {
   return (kDfHead + cap + 1) / 2 * 2;
@@ -732,10 +1242,9 @@ __device__ __forceinline__ Df shfl_down_df(Df v, int d) {
   return Df{__shfl_down_sync(kFull, v.h, d), __shfl_down_sync(kFull, v.l, d)};
 }
 
-// Shared-memory index of lane j of the tile: 4 pad words after every 32
-// (scan.cu's pad), so coalesced stores and each thread's float4 reads of
-// its own lanes are free of bank conflicts.
-__device__ __forceinline__ int df_pad(int j) { return j + ((j >> 5) << 2); }
+__device__ __forceinline__ Df shfl_df(Df v, int src) {
+  return Df{__shfl_sync(kFull, v.h, src), __shfl_sync(kFull, v.l, src)};
+}
 
 __device__ __forceinline__ unsigned df_load_acquire(const unsigned* p) {
   unsigned v;
@@ -756,61 +1265,29 @@ __device__ __forceinline__ unsigned df_count_acq_rel(unsigned* p) {
   return old;
 }
 
-// Exclusive scan of one pair per thread across the block; thread 0's
-// result is unused (it has no predecessor).  *total: the block's total.
-__device__ Df df_block_exclusive(Df v, Df* warp_tot, Df* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int kWarps = kDfThreads / 32;
-  Df incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const Df o = shfl_up_df(incl, d);
-    if (lane >= d) incl = df_add(o, incl);
-  }
-  Df excl = shfl_up_df(incl, 1);
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    Df t = lane < kWarps ? warp_tot[lane] : Df{0.0f, 0.0f};
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const Df o = shfl_up_df(t, d);
-      if (lane >= d) t = df_add(o, t);
-    }
-    if (lane < kWarps) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (warp > 0) {
-    const Df before = warp_tot[warp - 1];
-    excl = lane == 0 ? before : df_add(before, excl);
-  }
-  *total = warp_tot[kWarps - 1];
-  __syncthreads();
-  return excl;
-}
-
 // Run by the whole block of tile t > 0; the result is thread 0's.  Anchor
-// a's inclusive prefix (a = the last multiple of kDfThreads below t), then
+// a's inclusive prefix (a = the last multiple of kThreads below t), then
 // the aggregates of tiles a + 1 .. t - 1, folded in sequence order by a
-// fixed shuffle tree: thread k waits for tile a + k's flag (acquire) and
-// reads its record from L2.  With at most 32 records only warp 0 takes
-// part and no barrier is needed.
+// fixed grouping: thread k waits for the flag of record a + k (acquire)
+// and reads the record from L2, a shuffle tree folds each warp's, and
+// thread 0 the warps' partials in turn.  With at most 32 records only
+// warp 0 takes part and no barrier is needed.
+template <int kThreads>
 __device__ Df df_look_back(const unsigned* flags, const float* records,
-                           int64_t t, Df* warp_tot) {
-  const int64_t a = (t - 1) / kDfThreads * kDfThreads;
+                           int64_t t, Df* part) {
+  const int64_t a = (t - 1) / kThreads * kThreads;
   const int words = (int)(t - a);
   const int lane = threadIdx.x & 31;
   Df v{0.0f, 0.0f};
   if (words <= 32 && threadIdx.x >= 32) return v;
-  const bool mine = (int)threadIdx.x < words;
-  bool ready = !mine;
+  const int k = threadIdx.x;
+  bool wait = k < words;
   // The warp spins as one, as scan.cu's look-backs do.
-  while (__any_sync(kFull, !ready)) {
-    if (!ready) ready = df_load_acquire(&flags[a + threadIdx.x]) != 0;
+  while (__any_sync(kFull, wait)) {
+    if (wait && df_load_acquire(&flags[a + k]) != 0) wait = false;
   }
-  if (mine) {
-    const float* rec = records + 2 * (a + threadIdx.x);
+  if (k < words) {
+    const float* rec = records + 2 * (a + k);
     v = Df{__ldcg(rec), __ldcg(rec + 1)};
   }
   // Lanes past the words hold (0, 0), which df_add passes through.
@@ -820,76 +1297,102 @@ __device__ Df df_look_back(const unsigned* flags, const float* records,
     if (lane + d < 32) v = df_add(v, o);
   }
   if (words <= 32) return v;
-  if (lane == 0) warp_tot[threadIdx.x >> 5] = v;
+  if (lane == 0) part[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < (words + 31) / 32; ++w) v = df_add(v, warp_tot[w]);
+    for (int w = 1; w < (words + 31) / 32; ++w) v = df_add(v, part[w]);
   }
   return v;
 }
 
-// Loads `count`-lane tile words into the padded shared tile: float4 when
-// whole and 16-byte aligned, else masked scalars (lanes past n are 0).
-__device__ __forceinline__ void df_load(const float* __restrict__ src,
-                                        int64_t base, int64_t n, bool vec,
-                                        float* tile) {
+// Shared-memory index of lane j of a staged tile: 4 pad words after every
+// 32 (scan.cu's pad), so coalesced stores and each thread's float4 reads
+// of its own lanes are free of bank conflicts.
+__device__ __forceinline__ int df_pad(int j) { return j + ((j >> 5) << 2); }
+
+// A tile's lanes [base, base + kTile) of src into the padded stage: float4
+// when whole and 16-byte aligned, else masked scalars (lanes past n are
+// 0); and back out to dst.
+template <int kThreads, int kTile>
+__device__ __forceinline__ void df_stage_in(const float* __restrict__ src,
+                                            int64_t base, int64_t n,
+                                            bool vec, float* stage) {
   if (vec) {
     const float4* s4 = reinterpret_cast<const float4*>(src + base);
 #pragma unroll
-    for (int k = 0; k < kDfVecs; ++k) {
-      const int v = k * kDfThreads + threadIdx.x;
-      *reinterpret_cast<float4*>(&tile[df_pad(4 * v)]) = s4[v];
+    for (int k = 0; k < kTile / 4 / kThreads; ++k) {
+      const int v = k * kThreads + threadIdx.x;
+      *reinterpret_cast<float4*>(&stage[df_pad(4 * v)]) = s4[v];
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < kDfItems; ++k) {
-      const int j = k * kDfThreads + threadIdx.x;
-      tile[df_pad(j)] = base + j < n ? src[base + j] : 0.0f;
+    for (int k = 0; k < kTile / kThreads; ++k) {
+      const int j = k * kThreads + threadIdx.x;
+      stage[df_pad(j)] = base + j < n ? src[base + j] : 0.0f;
     }
   }
 }
 
-__device__ __forceinline__ void df_store(float* __restrict__ dst, int64_t base,
-                                         int64_t n, bool vec,
-                                         const float* tile) {
+template <int kThreads, int kTile>
+__device__ __forceinline__ void df_stage_out(float* __restrict__ dst,
+                                             int64_t base, int64_t n,
+                                             bool vec, const float* stage) {
   if (vec) {
     float4* d4 = reinterpret_cast<float4*>(dst + base);
 #pragma unroll
-    for (int k = 0; k < kDfVecs; ++k) {
-      const int v = k * kDfThreads + threadIdx.x;
-      d4[v] = *reinterpret_cast<const float4*>(&tile[df_pad(4 * v)]);
+    for (int k = 0; k < kTile / 4 / kThreads; ++k) {
+      const int v = k * kThreads + threadIdx.x;
+      d4[v] = *reinterpret_cast<const float4*>(&stage[df_pad(4 * v)]);
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < kDfItems; ++k) {
-      const int j = k * kDfThreads + threadIdx.x;
-      if (base + j < n) dst[base + j] = tile[df_pad(j)];
+    for (int k = 0; k < kTile / kThreads; ++k) {
+      const int j = k * kThreads + threadIdx.x;
+      if (base + j < n) dst[base + j] = stage[df_pad(j)];
     }
   }
 }
 
 // Single-pass inclusive df scan of each of `rows` rows of n lanes (row r
-// at r * n in each of xh, xl, oh, ol).  As in scan.cu, a tile never
-// crosses a row and its look-back reads only its own row's status in a
-// single row's grouping, so row r gives the bits of a one-row call on it.
-__global__ void __launch_bounds__(kDfThreads)
+// at r * n in each of xh, xl, oh, ol), tiles of kThreads x kItems lanes,
+// block b the tile b of the rows in order.  Thread k of a tile takes its
+// kItems lanes into registers (kStaged: through the padded stage, with
+// coalesced float4 loads of the tile; else straight from device memory,
+// float4 where whole and 16-byte aligned, masked scalars otherwise; lanes
+// past n are 0) and folds them in turn; a shuffle scan across its warp;
+// one exchange of warp totals through shared memory, which every warp
+// scans the same way; a tile of a longer row then publishes its aggregate
+// (or its inclusive prefix, an anchor), looks back, and folds the prefix
+// before it into its lanes.  A tile waits only on tiles of lower index:
+// block b is tile b, or with `counted` (a grid larger than the card holds
+// at once) the block takes the next tile from the scratch's tile counter.
+// A tile never crosses a row and its look-back reads only its own row's status
+// in a single row's grouping, so row r gives the bits of a one-row call
+// on it.
+template <int kThreads, int kItems, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
 df_prefix_sum(const float* __restrict__ xh_all, const float* __restrict__ xl_all,
               float* __restrict__ oh_all, float* __restrict__ ol_all,
-              unsigned* scratch, int64_t cap, int64_t rows, int64_t n) {
-  constexpr int kPadded = kDfTile + kDfTile / 8;
-  __shared__ __align__(16) float tile_h[kPadded];
-  __shared__ __align__(16) float tile_l[kPadded];
-  __shared__ Df warp_tot[32];
-  __shared__ unsigned tile_index;
+              unsigned* scratch, int64_t cap, int64_t rows, int64_t n,
+              bool counted) {
+  constexpr int kTile = kThreads * kItems;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kVecs = kItems / 4;
+  constexpr int kPadded = kStaged ? kTile + kTile / 8 : 4;
+  __shared__ __align__(16) float stage_h[kPadded];
+  __shared__ __align__(16) float stage_l[kPadded];
+  __shared__ Df warp_tot[kWarps];
+  __shared__ Df part[kWarps];
   __shared__ Df tile_prefix;
   __shared__ bool last_block;
-  const int64_t nbr = (n + kDfTile - 1) / kDfTile;  // tiles per row
+  __shared__ unsigned taken;
+  const int64_t nbr = (n + kTile - 1) / kTile;  // tiles per row
   const int64_t nb = rows * nbr;
   int64_t gt = blockIdx.x;
-  if (nbr > 1) {
-    if (threadIdx.x == 0) tile_index = atomicAdd(&scratch[0], 1u);
+  if (counted) {
+    if (threadIdx.x == 0) taken = atomicAdd(&scratch[1], 1u);
     __syncthreads();
-    gt = (int64_t)tile_index;
+    gt = taken;
   }
   const int64_t r = (int64_t)((unsigned)gt / (unsigned)nbr);
   const int64_t t = gt - r * nbr;
@@ -897,95 +1400,246 @@ df_prefix_sum(const float* __restrict__ xh_all, const float* __restrict__ xl_all
   const float* __restrict__ xl = xl_all + r * n;
   float* __restrict__ oh = oh_all + r * n;
   float* __restrict__ ol = ol_all + r * n;
-  unsigned* flags = scratch + kDfHead + r * nbr;
-  float* records = reinterpret_cast<float*>(scratch + df_record_offset(cap)) +
-                   2 * r * nbr;
-  const int64_t base = t * kDfTile;
-  const bool whole = base + kDfTile <= n;
-  const bool vec_in = whole && (((uintptr_t)xh | (uintptr_t)xl) & 15) == 0;
-  const bool vec_out = whole && (((uintptr_t)oh | (uintptr_t)ol) & 15) == 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base = t * kTile;
+  const int own = (int)threadIdx.x * kItems;  // the thread's first lane
+  const int64_t first = base + own;
+  const bool whole = kStaged ? base + kTile <= n : first + kItems <= n;
 
-  df_load(xh, base, n, vec_in, tile_h);
-  df_load(xl, base, n, vec_in, tile_l);
-  __syncthreads();
-
-  // Each thread folds its own lanes in sequence.
-  Df items[kDfItems];
-  const int first = threadIdx.x * kDfItems;
+  Df items[kItems];
+  if constexpr (kStaged) {
+    const bool vec = whole && (((uintptr_t)xh | (uintptr_t)xl) & 15) == 0;
+    df_stage_in<kThreads, kTile>(xh, base, n, vec, stage_h);
+    df_stage_in<kThreads, kTile>(xl, base, n, vec, stage_l);
+    __syncthreads();
 #pragma unroll
-  for (int q = 0; q < kDfVecs; ++q) {
-    const float4 fh = *reinterpret_cast<const float4*>(&tile_h[df_pad(first + 4 * q)]);
-    const float4 fl = *reinterpret_cast<const float4*>(&tile_l[df_pad(first + 4 * q)]);
-    items[4 * q] = Df{fh.x, fl.x};
-    items[4 * q + 1] = Df{fh.y, fl.y};
-    items[4 * q + 2] = Df{fh.z, fl.z};
-    items[4 * q + 3] = Df{fh.w, fl.w};
+    for (int q = 0; q < kVecs; ++q) {
+      const float4 fh =
+          *reinterpret_cast<const float4*>(&stage_h[df_pad(own + 4 * q)]);
+      const float4 fl =
+          *reinterpret_cast<const float4*>(&stage_l[df_pad(own + 4 * q)]);
+      items[4 * q] = Df{fh.x, fl.x};
+      items[4 * q + 1] = Df{fh.y, fl.y};
+      items[4 * q + 2] = Df{fh.z, fl.z};
+      items[4 * q + 3] = Df{fh.w, fl.w};
+    }
+  } else if (whole && (((uintptr_t)xh | (uintptr_t)xl) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      const float4 fh = reinterpret_cast<const float4*>(xh + first)[q];
+      const float4 fl = reinterpret_cast<const float4*>(xl + first)[q];
+      items[4 * q] = Df{fh.x, fl.x};
+      items[4 * q + 1] = Df{fh.y, fl.y};
+      items[4 * q + 2] = Df{fh.z, fl.z};
+      items[4 * q + 3] = Df{fh.w, fl.w};
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const bool in = first + k < n;
+      items[k] = Df{in ? xh[first + k] : 0.0f, in ? xl[first + k] : 0.0f};
+    }
   }
 #pragma unroll
-  for (int k = 1; k < kDfItems; ++k) items[k] = df_add(items[k - 1], items[k]);
-  Df total;
-  const Df excl = df_block_exclusive(items[kDfItems - 1], warp_tot, &total);
+  for (int k = 1; k < kItems; ++k) items[k] = df_add(items[k - 1], items[k]);
+
+  // The thread totals' inclusive scan across the warp, then the warp
+  // totals', done alike by every warp from one exchange.
+  Df incl = items[kItems - 1];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Df o = shfl_up_df(incl, d);
+    if (lane >= d) incl = df_add(o, incl);
+  }
+  const Df excl = shfl_up_df(incl, 1);
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  Df wt = lane < kWarps ? warp_tot[lane] : Df{0.0f, 0.0f};
+#pragma unroll
+  for (int d = 1; d < kWarps; d <<= 1) {
+    const Df o = shfl_up_df(wt, d);
+    if (lane >= d) wt = df_add(o, wt);
+  }
+  const Df before_warp = shfl_df(wt, warp > 0 ? warp - 1 : 0);
+  const Df total = shfl_df(wt, kWarps - 1);
 
   if (nbr > 1) {
-    const bool anchor = t % kDfThreads == 0;
+    unsigned* flags = scratch + kDfHead + r * nbr;
+    float* records = reinterpret_cast<float*>(scratch + df_record_offset(cap)) +
+                     2 * r * nbr;
+    const bool anchor = t % kThreads == 0;
     if (threadIdx.x == 0 && !anchor) {
       records[2 * t] = total.h;
       records[2 * t + 1] = total.l;
       df_store_release(&flags[t], 1u);
     }
     Df before{0.0f, 0.0f};
-    if (t > 0) before = df_look_back(flags, records, t, warp_tot);
+    if (t > 0) before = df_look_back<kThreads>(flags, records, t, part);
     if (threadIdx.x == 0) {
       if (anchor) {
-        const Df incl = t > 0 ? df_add(before, total) : total;
-        records[2 * t] = incl.h;
-        records[2 * t + 1] = incl.l;
+        const Df whole_incl = t > 0 ? df_add(before, total) : total;
+        records[2 * t] = whole_incl.h;
+        records[2 * t + 1] = whole_incl.l;
         df_store_release(&flags[t], 1u);
       }
       tile_prefix = before;
       // Every read of a flag or record by this block is done, and this
       // tile's flag is final.
-      last_block = df_count_acq_rel(&scratch[1]) == (unsigned)(nb - 1);
+      last_block = df_count_acq_rel(&scratch[0]) == (unsigned)(nb - 1);
     }
     __syncthreads();
   }
 
-  // Fold in the tile's carry, then the thread's exclusive prefix within
-  // the tile (thread 0 has none).
+  // What precedes the thread's lanes: the tile's prefix (a later tile of
+  // a longer row), its warp's, its own within the warp, in that order.
   const bool has_tile = nbr > 1 && t > 0;
-  if (has_tile || threadIdx.x > 0) {
-    Df carry = excl;
-    if (has_tile) carry = threadIdx.x > 0 ? df_add(tile_prefix, excl) : tile_prefix;
-#pragma unroll
-    for (int k = 0; k < kDfItems; ++k) items[k] = df_add(carry, items[k]);
+  bool has = lane > 0;
+  Df carry = excl;
+  if (warp > 0) {
+    carry = has ? df_add(before_warp, carry) : before_warp;
+    has = true;
   }
-#pragma unroll
-  for (int q = 0; q < kDfVecs; ++q) {
-    *reinterpret_cast<float4*>(&tile_h[df_pad(first + 4 * q)]) = make_float4(
-        items[4 * q].h, items[4 * q + 1].h, items[4 * q + 2].h, items[4 * q + 3].h);
-    *reinterpret_cast<float4*>(&tile_l[df_pad(first + 4 * q)]) = make_float4(
-        items[4 * q].l, items[4 * q + 1].l, items[4 * q + 2].l, items[4 * q + 3].l);
+  if (has_tile) {
+    carry = has ? df_add(tile_prefix, carry) : tile_prefix;
+    has = true;
   }
-  __syncthreads();
-  df_store(oh, base, n, vec_out, tile_h);
-  df_store(ol, base, n, vec_out, tile_l);
+  if (has) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) items[k] = df_add(carry, items[k]);
+  }
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      *reinterpret_cast<float4*>(&stage_h[df_pad(own + 4 * q)]) = make_float4(
+          items[4 * q].h, items[4 * q + 1].h, items[4 * q + 2].h,
+          items[4 * q + 3].h);
+      *reinterpret_cast<float4*>(&stage_l[df_pad(own + 4 * q)]) = make_float4(
+          items[4 * q].l, items[4 * q + 1].l, items[4 * q + 2].l,
+          items[4 * q + 3].l);
+    }
+    __syncthreads();
+    const bool vec = whole && (((uintptr_t)oh | (uintptr_t)ol) & 15) == 0;
+    df_stage_out<kThreads, kTile>(oh, base, n, vec, stage_h);
+    df_stage_out<kThreads, kTile>(ol, base, n, vec, stage_l);
+  } else if (whole && (((uintptr_t)oh | (uintptr_t)ol) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      reinterpret_cast<float4*>(oh + first)[q] =
+          make_float4(items[4 * q].h, items[4 * q + 1].h, items[4 * q + 2].h,
+                      items[4 * q + 3].h);
+      reinterpret_cast<float4*>(ol + first)[q] =
+          make_float4(items[4 * q].l, items[4 * q + 1].l, items[4 * q + 2].l,
+                      items[4 * q + 3].l);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (first + k < n) {
+        oh[first + k] = items[k].h;
+        ol[first + k] = items[k].l;
+      }
+    }
+  }
 
   // The last block to finish its look-back leaves the scratch clean.
   if (nbr > 1 && last_block) {
     unsigned* all = scratch + kDfHead;
-    for (int64_t i = threadIdx.x; i < nb; i += kDfThreads) all[i] = 0;
-    if (threadIdx.x == 0) {
-      scratch[0] = 0;
-      scratch[1] = 0;
-    }
+    for (int64_t i = threadIdx.x; i < nb; i += kThreads) all[i] = 0;
+    if (threadIdx.x == 0) scratch[0] = scratch[1] = 0;
   }
+}
+
+static_assert(256 * 4 == kDfOneTile && 256 * 8 == kDfTile &&
+                  512 * 8 == kDfWideTile,
+              "the launches' geometry is df_tile's");
+
+// Blocks of df_prefix_sum<kThreads, kItems, kStaged> that the current
+// device holds at once (0 if the runtime cannot say).
+template <int kThreads, int kItems, bool kStaged>
+int64_t df_resident() {
+  static const int per_sm = [] {
+    int k = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &k, df_prefix_sum<kThreads, kItems, kStaged>, kThreads, 0) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    return k;
+  }();
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (int64_t)per_sm * sms;
+}
+
+template <int kThreads, int kItems, bool kStaged>
+int launch_df(const float* xh, const float* xl, float* oh, float* ol,
+              unsigned* scratch, int64_t cap, int64_t rows, int64_t n,
+              int64_t blocks, cudaStream_t stream) {
+  const bool counted = blocks > rows &&
+                       blocks > df_resident<kThreads, kItems, kStaged>();
+  df_prefix_sum<kThreads, kItems, kStaged>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(xh, xl, oh, ol, scratch,
+                                                   cap, rows, n, counted);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#define TUUN_REC_CASE(k) \
+    case k: return launch_recurrence<T, k>(a, ff, live, h0, y, hist, rows, \
+                                           n, J, stream);
+#define TUUN_REC_PART(name)                                                  \
+  template int name<float>(const float*, const float*, const uint8_t*,       \
+                           const float*, float*, float*, int64_t, int64_t,   \
+                           int, cudaStream_t);                               \
+  template int name<double>(const double*, const double*, const uint8_t*,    \
+                            const double*, double*, double*, int64_t,        \
+                            int64_t, int, cudaStream_t);
+
+namespace tuun_exact {
+#if TUUN_EXACT_PART == 0 || TUUN_EXACT_PART == 1
+template <typename T>
+int launch_chain_lo(const T* a, const T* ff, const uint8_t* live,
+                    const T* h0, T* y, T* hist, int64_t rows, int64_t n,
+                    int J, cudaStream_t stream) {
+  switch (J) {
+    TUUN_REC_CASE(1) TUUN_REC_CASE(2) TUUN_REC_CASE(3) TUUN_REC_CASE(4)
+    TUUN_REC_CASE(5) TUUN_REC_CASE(6) TUUN_REC_CASE(7) TUUN_REC_CASE(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+TUUN_REC_PART(launch_chain_lo)
+#endif
+#if TUUN_EXACT_PART == 0 || TUUN_EXACT_PART == 2
+template <typename T>
+int launch_chain_hi(const T* a, const T* ff, const uint8_t* live,
+                    const T* h0, T* y, T* hist, int64_t rows, int64_t n,
+                    int J, cudaStream_t stream) {
+  switch (J) {
+    TUUN_REC_CASE(9) TUUN_REC_CASE(10) TUUN_REC_CASE(11) TUUN_REC_CASE(12)
+    TUUN_REC_CASE(13) TUUN_REC_CASE(14) TUUN_REC_CASE(15) TUUN_REC_CASE(16)
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+TUUN_REC_PART(launch_chain_hi)
+#endif
+}  // namespace tuun_exact
+#undef TUUN_REC_PART
+#undef TUUN_REC_CASE
+
+#if TUUN_EXACT_PART == 0 || TUUN_EXACT_PART == 3
 extern "C" {
 
-int tuun_df_tile() { return kDfTile; }
+// Lanes of a df prefix-sum tile for rows of n lanes (a row of at most one
+// tile takes no scratch).
+int tuun_df_tile(long long n) { return df_tile(n); }
 int tuun_recurrence_max_j() { return kRecMaxJ; }
 
 // Words (32-bit) of a df prefix-sum scratch buffer for up to `tiles` tiles.
@@ -1017,20 +1671,30 @@ int tuun_linear_recurrence_rows_f64(const double* a, const double* ff,
 // of each row, in one launch, the same bits on every call and for a row
 // as for a one-row call on it.  scratch: the caller's persistent buffer of
 // tuun_df_scratch_words(cap) words for this stream, counters and flags
-// zero, cap >= rows * ceil(n / tuun_df_tile()) (null when n <= one tile);
+// zero, cap >= rows * ceil(n / tuun_df_tile(n)) (null when n <= one tile);
 // the kernel leaves it so.  Calls that share a scratch must not overlap.
 int tuun_df_prefix_sum_rows_f32(const float* xh, const float* xl, float* oh,
                                 float* ol, unsigned* scratch, long long cap,
                                 long long rows, long long n, void* stream) {
   if (n <= 0 || n > kMaxN || rows <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t nbr = (n + kDfTile - 1) / kDfTile;
+  const int tile = df_tile(n);
+  const int64_t nbr = (n + tile - 1) / tile;
   const int64_t nb = rows * nbr;
   if (nb > kMaxN || (nbr > 1 && (scratch == nullptr || nb > cap))) {
     return (int)cudaErrorInvalidValue;
   }
-  df_prefix_sum<<<(unsigned)nb, kDfThreads, 0, (cudaStream_t)stream>>>(
-      xh, xl, oh, ol, scratch, cap, rows, n);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tile == kDfOneTile) {
+    return launch_df<256, 4, false>(xh, xl, oh, ol, scratch, cap, rows, n, nb,
+                                    s);
+  }
+  if (tile == kDfTile) {
+    return launch_df<256, 8, true>(xh, xl, oh, ol, scratch, cap, rows, n, nb,
+                                   s);
+  }
+  return launch_df<512, 8, true>(xh, xl, oh, ol, scratch, cap, rows, n, nb,
+                                 s);
 }
 
 }  // extern "C"
+#endif

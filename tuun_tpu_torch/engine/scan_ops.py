@@ -97,6 +97,10 @@ BUILD_DIR = PKG_DIR / "_build"
 # transcendentals (see the FMA and sinf notes in ROADMAP.md queue 3).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Sources built as parts at once, then linked, where the source names the
+# macro: (macro, its values).  csrc/exact.cu's chain-form instances take
+# most of its build.
+SOURCE_PARTS = {"exact.cu": ("TUUN_EXACT_PART", (1, 2, 3))}
 MAX_J = 8
 # The deep affine scan takes MAX_J < J <= MAX_DEEP_J.
 MAX_DEEP_J = 16
@@ -137,6 +141,8 @@ DEEP_SCRATCH_MIN_LANES = 1 << 20
 
 _lib = None
 _exact_lib = None
+# Lanes a df prefix-sum tile at DF_SCRATCH_MIN_LANES, read from the library
+# once: it sizes the first scratch.
 _df_tile = 0
 # Read from the library once: lanes per prefix-scan tile, the 64-bit
 # words of a stream's prefix-scan scratch, and lanes per deep affine tile.
@@ -229,19 +235,40 @@ def _nvcc() -> str:
 
 def build_library(source: Path = SOURCE) -> Path:
     """Compiles `source` (csrc/scan.cu by default) unless a build of this
-    exact source exists."""
+    exact source exists; a source of SOURCE_PARTS as its parts at once,
+    each an object, then links them."""
     src = source.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = SOURCE_PARTS.get(source.name)
+    if parts is not None and parts[0].encode() not in src:
+        parts = None
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            + repr(parts).encode()).hexdigest()
     lib = BUILD_DIR / f"libtuun_{source.stem}_{digest[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}"
                         f".tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+
+    def nvcc(argv):
+        proc = subprocess.run([_nvcc(), *argv], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    if parts is None:
+        nvcc([*NVCC_FLAGS, "-o", str(tmp), str(source)])
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+        macro, values = parts
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [tmp.with_name(f"{tmp.name}.{v}.o") for v in values]
+        with ThreadPoolExecutor(len(values)) as pool:
+            list(pool.map(lambda v, o: nvcc(
+                [*compile_flags, f"-D{macro}={v}", "-c", "-o", str(o),
+                 str(source)]), values, objs))
+        nvcc([*NVCC_FLAGS, "-o", str(tmp), *map(str, objs)])
+        for o in objs:
+            o.unlink()
     os.replace(tmp, lib)  # atomic: concurrent builders converge
     return lib
 
@@ -314,9 +341,10 @@ def load_exact_library() -> ctypes.CDLL:
             return _exact_lib
         lib = ctypes.CDLL(str(build_library(EXACT_SOURCE)))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("tuun_df_tile", "tuun_recurrence_max_j"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i32
+        lib.tuun_recurrence_max_j.argtypes = []
+        lib.tuun_recurrence_max_j.restype = i32
+        lib.tuun_df_tile.argtypes = [i64]
+        lib.tuun_df_tile.restype = i32
         lib.tuun_df_scratch_words.argtypes = [i64]
         lib.tuun_df_scratch_words.restype = i64
         for name in ("tuun_linear_recurrence_rows_f32",
@@ -329,7 +357,7 @@ def load_exact_library() -> ctypes.CDLL:
         if lib.tuun_recurrence_max_j() != MAX_RECURRENCE_J:
             raise RuntimeError("exact.cu and scan_ops.MAX_RECURRENCE_J "
                                "disagree")
-        _df_tile = lib.tuun_df_tile()
+        _df_tile = lib.tuun_df_tile(DF_SCRATCH_MIN_LANES)
         _exact_lib = lib
         return lib
 
@@ -1019,7 +1047,7 @@ def _df_launch(xh, xl, rows: int, entry: str):
     n = xh.shape[-1]
     dev = xh.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    per_row = -(-n // _df_tile)
+    per_row = -(-n // lib.tuun_df_tile(n))
     scratch, cap = df_scratch(dev, stream, rows * per_row) \
         if per_row > 1 else (None, 0)
     oh = torch.empty_like(xh)
@@ -1031,7 +1059,6 @@ def _df_launch(xh, xl, rows: int, entry: str):
     _check(status, entry)
     _launched(entry)
     return oh, ol
-
 
 
 # ---------------------------------------------------------------------------
