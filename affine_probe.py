@@ -615,8 +615,8 @@ def rec_build(name: str, src: str, verbose=False) -> tuple:
 
 def rec_ptxas(log: str) -> list:
     """(type, J, registers, spill stores, spill loads) of each instance of
-    linear_recurrence<T, J> that ptxas reports (J = 0: the wide and ring
-    forms)."""
+    linear_recurrence<T, J> that ptxas reports (J = 0: the wide and
+    streamed forms)."""
     out, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)

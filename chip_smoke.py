@@ -164,12 +164,13 @@ Phases, each of which exits non-zero on failure:
      failure fails the run (no budget stop, no caught exception).  First
      the two kernels of csrc/exact.cu against their plain versions: the
      linear recurrence (K1, exact mode's IIR) in f32 and f64 at J = 1, 2,
-     3, 8, 9, 12, 16 (the chain form), 17, 32, 64 (the wide form), bit for
-     bit the plain version at 1000 and 4101 lanes
+     3, 8, 9, 12, 16 (the chain form), 17, 32, 64 (the wide form), 96,
+     128, 257, 4096 (the streamed form), bit for bit the plain version
+     (past J = 96 its numpy twin, recurrence_np) at 1000 and 4101 lanes
      (aligned and on a[1:], ff[1:], live[1:]) and at 2^17 + 5 lanes for J =
-     2, and at 2^17 + 5 lanes for every J each lane the step from its own
-     history (which makes it the plain version's bits by induction), the
-     same bits on a repeat; at J = 1, 2, 8, 16, 17, 32, 64 on
+     2, and at 2^17 + 5 lanes for every J (16389 at J = 4096) each lane the
+     step from its own history (which makes it the plain version's bits by
+     induction), the same bits on a repeat; at REC_PATTERN_JS on
      REC_PATTERNS' dead lanes (all live, all dead, one dead lane at each
      place of a 32-lane group, dead runs across stage ends, the mixed
      default) at REC_PATTERN_N lanes, aligned and on [1:] views, bit for
@@ -179,8 +180,11 @@ Phases, each of which exits non-zero on failure:
      of sum |x| of the float64 cumsum (as its plain doubling scan is), 10^3
      below the f32 cumsum's drift, the same bits on 20 repeats and as the
      numpy model of its grouping (df_model), its rows
-     form row for row a single call; both captured in CUDA graphs replayed
-     in turns; each timed at 2^17 lanes, 1024 lanes and (8, 1024) (events,
+     form row for row a single call, two rows calls at once on two
+     streams whose grids fit the card one at a time but not together, in
+     a child process that must answer within DF_STREAMS_TIMEOUT (every
+     call the bits of the same call alone); both captured in CUDA graphs
+     replayed in turns; each timed at 2^17 lanes, 1024 lanes and (8, 1024) (events,
      device, host, the plain version, and for K2 torch.cumsum in float64).
      Then the path, whose launches, and only those, make each kernel's
      `exact_launches`: the fuzz gate (bench.py's fuzz_tpu lane on the port:
@@ -205,8 +209,9 @@ Phases, each of which exits non-zero on failure:
      (tools), on the card at full size; every failure fails the run.
      Deep filters: the ramp of tests/test_torch_stream.py's _deep through
      J = 9, 12 and 16 feedback coefficients (past the affine scan's
-     MAX_J = 8: fast mode runs the deep affine scan) and 17 (past its
-     MAX_DEEP_J = 16: the linear recurrence), 2^17 samples at 48 kHz in
+     MAX_J = 8: fast mode runs the deep affine scan) and 17, 96 and 128
+     (past its MAX_DEEP_J = 16: the linear recurrence's wide and streamed
+     forms), 2^17 samples at 48 kHz in
      65536- and 1024-lane blocks, each within DEEP_TOL of scale of the
      native oracle, reaching its kernel and not the other, the time a
      block logged; four J = 12 voices in one group through the fast
@@ -3852,15 +3857,23 @@ EXACT_OFF_PATH = ("linear_recurrence_f64", "linear_recurrence_rows_f64",
 # 9, 12 and 16 of both modes: the history in registers up to J = 16), 17,
 # 32 and 64, the wide form's (its first depth, the deepest of its
 # 8-product windows, and one past its unrolled depths, where a loop reads
-# the products: recurrence_wide_window), and 96, the ring form's first
-# (J > REC_WIDE_MAX_J).
+# the products: recurrence_wide_window), and 96, 128, 257 and 4096, the
+# streamed form's (J > REC_WIDE_MAX_J: its first depth, a whole number of
+# product slots, one product past them, the deepest).
 # Up to REC_PLAIN_N lanes every result is held
 # bit for bit against the plain version; at REC_LONG_N the plain version
 # (a Python loop over lanes, ~5-40 us a lane on the host) runs only at
-# J = 2, and every J is held by the one-step check.
-REC_JS = (1, 2, 3, 8, 9, 12, 16, 17, 32, 64, 96)
+# J = 2, and every J is held by the one-step check, on fewer lanes where
+# a's values would pass REC_LONG_VALUES.  The plain version takes ~10 us
+# a lane and feedback coefficient on the host, so past REC_PLAIN_MAX_J
+# its numpy twin (recurrence_np: the same ops in the same order, each
+# rounded in the inputs' type; tests/test_torch_recurrence.py holds it to
+# the plain version bit for bit) stands in for it.
+REC_JS = (1, 2, 3, 8, 9, 12, 16, 17, 32, 64, 96, 128, 257, 4096)
 REC_PLAIN_N = (1000, 4096 + 5)
 REC_LONG_N = (1 << 17) + 5
+REC_LONG_VALUES = 1 << 26
+REC_PLAIN_MAX_J = 96
 # The df prefix sum's lengths, and its bound against the float64 cumsum,
 # as a fraction of sum |x|: the CPU's plain scan and JAX's df_cumsum err
 # 2-3e-14 of it at 2^10-2^20 lanes of FM phase increments (df_div_f32 of
@@ -3880,20 +3893,23 @@ EXACT_TIMES = ((1, EXACT_MAIN_N), (1, 1024), (8, 1024))
 # Its depths: REC_JS' forms, and the edges of the wide form's windows (34,
 # its last unrolled depth; 35, its first looped one; 95, its deepest).
 REC_PATTERN_N = 2205
-REC_PATTERN_JS = (1, 2, 8, 16, 17, 32, 34, 35, 64, 95, 96)
+REC_PATTERN_JS = (1, 2, 8, 16, 17, 32, 34, 35, 64, 95, 96, 128, 257, 4096)
 # --phase times: the recurrence at the main path's shapes, (B, N, J, type):
 # the long render's and the shape gate's 2^17-lane blocks, the CLI's 65536,
 # the live block and a live group of 8, at lpf's J = 2 and filter_4_3's J
-# = 3, the deep filters' J = 9, 12, 16 at 2^17, and the wide form's J =
-# 17, 24, 32 and 64 at the same four shapes in f32 and J = 17, 32 at 2^17
-# in f64; on all-live lanes (the path's: lanes die only past a voice's
-# fin) and on phase 11's mixed input.
+# = 3, the deep filters' J = 9, 12, 16 at 2^17, the wide form's J = 17,
+# 24, 32 and 64 and the streamed form's J = 96, 128 and 256 at the same
+# four shapes in f32, J = 17, 32 and 96 at 2^17 in f64, and J = 4096 at
+# 1024 lanes in both; on all-live lanes (the path's: lanes die only past
+# a voice's fin) and on phase 11's mixed input.
 REC_MAIN = ((1, EXACT_MAIN_N), (1, 65536), (1, 1024), (8, 1024))
 REC_TIMES = tuple((B, n, J, dt) for dt in ("f32", "f64") for J in (2, 3)
                   for B, n in REC_MAIN) + tuple(
     (1, EXACT_MAIN_N, J, "f32") for J in (9, 12, 16)) + tuple(
-    (B, n, J, "f32") for J in (17, 24, 32, 64) for B, n in REC_MAIN) + tuple(
-    (1, EXACT_MAIN_N, J, "f64") for J in (17, 32))
+    (B, n, J, "f32") for J in (17, 24, 32, 64, 96, 128, 256)
+    for B, n in REC_MAIN) + tuple(
+    (1, EXACT_MAIN_N, J, "f64") for J in (17, 32, 96)) + tuple(
+    (1, 1024, 4096, dt) for dt in ("f32", "f64"))
 REC_TIMES_LIVE = ("live", "mixed")
 # The live block: the single-form prefix scans and the df sum are timed
 # there too, the prefix scans beside torch.cumsum / torch.cummax.
@@ -3903,6 +3919,15 @@ LIVE_BLOCK_N = 1024
 # at once (DF_ROWS' last two: the tile counter's).
 DF_TIMES = ((1, LIVE_BLOCK_N), (8, LIVE_BLOCK_N), (1, EXACT_MAIN_N),
             (1, 1 << 20), (64, 65536), (8, 1 << 20))
+# The df sum's two-stream check (phase 11, a child process that must
+# answer within DF_STREAMS_TIMEOUT seconds): two rows calls of
+# DF_STREAMS_N lanes a row, each grid as many whole rows as the card
+# holds at once and the two together past it, DF_STREAMS_ROUNDS calls on
+# each of two streams that one event releases at once, every call the
+# bits of the same call alone.
+DF_STREAMS_N = EXACT_MAIN_N
+DF_STREAMS_ROUNDS = 20
+DF_STREAMS_TIMEOUT = 300
 # H100 SXM peaks (NVIDIA data sheet, 700 W) for the operations bound, and
 # the dependent chain's model: one f32 (f64) multiply or subtract takes 4
 # (8) cycles of latency at the 1.98 GHz boost clock.
@@ -3967,14 +3992,70 @@ REC_WIDE_UNROLLED_J = 34
 REC_WIDE_BUDGET = 200 * 1024
 REC_WIDE_BUFS = 4
 REC_WIDE_PS = 100
+# The streamed form (REC_WIDE_MAX_J < J <= MAX_RECURRENCE_J; exact.cu's
+# kRecStream* constants): the same stage order, the stages holding ff, y
+# and live; a's rows stream in blocks of recurrence_stream_block_lanes
+# lanes (at least REC_STREAM_ROW_BYTES, or one lane) into
+# recurrence_stream_bufs buffers (REC_STREAM_BUFS, halved down to
+# REC_STREAM_MIN_BUFS while the smallest stages do not fit); two product
+# buffers of recurrence_stream_window items; the history of 2J + S items;
+# REC_STREAM_BARS bytes of mbarriers first; all within REC_STREAM_BUDGET.
+REC_STREAM_BUDGET = 200 * 1024
+REC_STREAM_THREADS = 96
+REC_STREAM_BUFS = 4
+REC_STREAM_MIN_BUFS = 2
+REC_STREAM_ROW_BYTES = 4096
+REC_STREAM_BARS = 128
+
+
+def recurrence_stream_block_lanes(J: int, itemsize: int) -> int:
+    """Lanes of a block of a's rows in the streamed form."""
+    return max(1, REC_STREAM_ROW_BYTES // (J * itemsize))
+
+
+def recurrence_stream_block_bytes(J: int, itemsize: int) -> int:
+    """Bytes of an a buffer: a block's rows rounded out to 16-byte
+    grains (up to 15 bytes either side)."""
+    rows = recurrence_stream_block_lanes(J, itemsize) * J * itemsize
+    return -(-rows // 16) * 16 + 32
+
+
+def recurrence_stream_window(J: int) -> int:
+    """Items of a product buffer: a lane's J - 2 products, 32 a slot."""
+    return -(-(J - 2) // 32) * 32
+
+
+def recurrence_stream_bytes(J: int, S: int, bufs: int, itemsize: int) -> int:
+    """The streamed form's shared memory at depth J with stages of S
+    lanes and `bufs` a buffers: mbarriers, product buffers, a buffers, the
+    ring of stages (ff, y, live), the history."""
+    return (REC_STREAM_BARS + 2 * recurrence_stream_window(J) * itemsize
+            + bufs * recurrence_stream_block_bytes(J, itemsize)
+            + REC_STAGES * S * (2 * itemsize + 1) + (2 * J + S) * itemsize)
+
+
+def recurrence_stream_bufs(J: int, itemsize: int) -> int:
+    """The streamed form's a buffers at depth J."""
+    bufs = REC_STREAM_BUFS
+    while bufs > REC_STREAM_MIN_BUFS and recurrence_stream_bytes(
+            J, REC_FIRST, bufs, itemsize) > REC_STREAM_BUDGET:
+        bufs //= 2
+    return bufs
 
 
 def recurrence_stage_lanes(J: int, itemsize: int) -> int:
     """Lanes of a full stage at depth J, items of `itemsize` bytes: a
     stage buffer holds (J + 2) items (a, ff, y) and a live byte a lane;
-    past REC_REG_J the wide form's (recurrence_wide_bytes)."""
+    past REC_REG_J the wide form's (recurrence_wide_bytes), past
+    REC_WIDE_MAX_J the streamed form's (recurrence_stream_bytes)."""
     lane_bytes = (J + 2) * itemsize + 1
     s = REC_MAX_STAGE
+    if J > REC_WIDE_MAX_J:
+        bufs = recurrence_stream_bufs(J, itemsize)
+        while s > REC_FIRST and recurrence_stream_bytes(
+                J, s, bufs, itemsize) > REC_STREAM_BUDGET:
+            s //= 2
+        return s
     if J > REC_REG_J:
         while s > REC_FIRST and recurrence_wide_bytes(J, s, itemsize) \
                 > REC_WIDE_BUDGET:
@@ -4034,8 +4115,7 @@ def rec_live(np, rng, pattern, n, J, itemsize, offset=0):
     """One row's live lanes (n of them, after `offset` live lanes that a
     [offset:] view drops) in `pattern`; "stage_ends" finds the stage ends
     of the kernel's staging, recurrence_stages, for a row whose live bytes
-    start `offset` bytes past a 16-byte boundary (past REC_WIDE_MAX_J,
-    where the ring form stages tiles of its own, the wide form's ends)."""
+    start `offset` bytes past a 16-byte boundary."""
     if pattern == "mixed":
         live = rng.random(n) > 0.05
         live[n // 3:n // 3 + 64] = False
@@ -4126,12 +4206,40 @@ def check_recurrence_plain(torch, scan_ops, args, y, hist, what) -> None:
           f"plain version")
 
 
+def recurrence_np(np, a, ff, live, h0) -> tuple:
+    """The plain version's numpy twin on arrays (a [..., N, J], ff and
+    live [..., N], h0 [..., J]; leading axes are rows side by side), in
+    a's type: a lane's products a[j] h[j] each rounded on its own, then
+    ff minus them in order by subtract.accumulate, each difference
+    rounded on its own; a dead lane yields 0 and keeps the history.
+    Returns (y, hist)."""
+    lead, (n, J) = a.shape[:-2], a.shape[-2:]
+    a = a.reshape(-1, n, J)
+    ff, live = ff.reshape(-1, n), live.reshape(-1, n)
+    h = h0.reshape(-1, J).astype(a.dtype)
+    y = np.zeros(ff.shape, a.dtype)
+    terms = np.empty((a.shape[0], J + 1), a.dtype)
+    for i in range(n):
+        terms[:, 0] = ff[:, i]
+        np.multiply(a[:, i], h, out=terms[:, 1:])
+        acc = np.subtract.accumulate(terms, axis=1)[:, -1]
+        lv = live[:, i]
+        y[lv, i] = acc[lv]
+        h[lv] = np.concatenate([acc[lv, None], h[lv, :-1]], 1)
+    return y.reshape(*lead, n), h.reshape(*lead, J)
+
+
 def plain_rows(torch, scan_ops, singles) -> tuple:
     """The plain version of single calls of one length, each (a, ff, live,
     h0), as the rows of one call on host copies (its loop over lanes
-    costs the same for one row as for many): (y, hist), a row a call."""
-    return scan_ops.linear_recurrence_rows(*(
-        torch.stack([args[k] for args in singles]).cpu() for k in range(4)))
+    costs the same for one row as for many): (y, hist), a row a call.
+    Past REC_PLAIN_MAX_J its numpy twin, recurrence_np."""
+    rows = [torch.stack([args[k] for args in singles]).cpu()
+            for k in range(4)]
+    if rows[0].shape[-1] <= REC_PLAIN_MAX_J:
+        return scan_ops.linear_recurrence_rows(*rows)
+    y, hist = recurrence_np(np, *(x.numpy() for x in rows))
+    return torch.from_numpy(y), torch.from_numpy(hist)
 
 
 def check_recurrence_patterns(torch, np, scan_ops, rng, dtype) -> None:
@@ -4400,6 +4508,101 @@ def df_times(torch, np, scan_ops, B, n, rng):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def df_resident(scan_ops, n: int) -> int:
+    """Blocks of the df sum's kernel for rows of n lanes that the card
+    holds at once (exact.cu's tuun_df_resident)."""
+    import ctypes
+    lib = scan_ops.load_exact_library()
+    lib.tuun_df_resident.argtypes = [ctypes.c_longlong]
+    lib.tuun_df_resident.restype = ctypes.c_longlong
+    return int(lib.tuun_df_resident(n))
+
+
+def df_streams(torch, np, scan_ops) -> dict:
+    """Two df rows calls at once on two streams (the `--df-streams`
+    child): each grid as many whole rows of DF_STREAMS_N lanes as the card
+    holds at once, so that the two together do not fit; both streams held
+    behind one event until a spin kernel ends, then DF_STREAMS_ROUNDS
+    calls on each; every call's bits against the same call alone.  Logs
+    the two streams' time together beside one stream's alone."""
+    n = DF_STREAMS_N
+    tiles = -(-n // scan_ops.load_exact_library().tuun_df_tile(n))
+    resident = df_resident(scan_ops, n)
+    B = resident // tiles
+    check(B >= 1 and 2 * B * tiles > resident,
+          f"df two-stream check: {resident} resident blocks give no rows "
+          f"count whose grid fits alone and not twice")
+    rng = np.random.default_rng(21)
+    xs = [df_input(torch, np, rng, n, B) for _ in range(2)]
+    want = [scan_ops.df_prefix_sum_rows_f32(*x) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s, x in zip(streams, xs):  # each stream's scratch, made here
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            scan_ops.df_prefix_sum_rows_f32(*x)
+    torch.cuda.synchronize()
+    gate, go = torch.cuda.Stream(), torch.cuda.Event()
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(int(0.05 * SM_CLOCK_HZ))
+        go.record(gate)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in streams]
+    outs = [[] for _ in streams]
+    for s, (start, _) in zip(streams, marks):
+        s.wait_event(go)
+        start.record(s)
+    for _ in range(DF_STREAMS_ROUNDS):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(scan_ops.df_prefix_sum_rows_f32(*xs[k]))
+    for s, (_, end) in zip(streams, marks):
+        end.record(s)
+    torch.cuda.synchronize()
+    bad = sum(not all(torch.equal(bits(torch, o), bits(torch, w))
+                      for o, w in zip(out, want[k]))
+              for k in range(2) for out in outs[k])
+    both = max(marks[0][0].elapsed_time(end) for _, end in marks)
+    # One stream's calls alone, queued behind a spin kernel as above.
+    alone = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.cuda.stream(streams[0]):
+        torch.cuda._sleep(int(0.05 * SM_CLOCK_HZ))
+        alone[0].record(streams[0])
+        for _ in range(DF_STREAMS_ROUNDS):
+            scan_ops.df_prefix_sum_rows_f32(*xs[0])
+        alone[1].record(streams[0])
+    torch.cuda.synchronize()
+    return dict(ok=bad == 0, n=n, rows=B, tiles_a_grid=B * tiles,
+                resident_blocks=resident, calls=2 * DF_STREAMS_ROUNDS,
+                bad_calls=bad, both_ms=both,
+                one_stream_ms=alone[0].elapsed_time(alone[1]),
+                device=torch.cuda.get_device_name(0))
+
+
+def df_streams_in_child() -> dict:
+    """df_streams in a child process (`--df-streams`): a grid that never
+    finishes hangs the child, not this run, and fails the phase at
+    DF_STREAMS_TIMEOUT seconds, as does a call that differs."""
+    argv = [sys.executable, str(Path(__file__).resolve()), "--df-streams"]
+    try:
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=DF_STREAMS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"df two-stream check: no answer from the child "
+                           f"in {DF_STREAMS_TIMEOUT} s (a grid that never "
+                           f"finished)") from None
+    check(proc.returncode == 0, f"df two-stream check: exit "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(row["ok"], f"df two-stream check: {row['bad_calls']} of "
+          f"{row['calls']} calls differ from the same call alone: "
+          f"{json.dumps(row)}")
+    log(f"df_prefix_sum_rows_f32 on two streams at once ({row['rows']} "
+        f"rows of {row['n']} lanes a grid, {row['tiles_a_grid']} tiles "
+        f"each, {row['resident_blocks']} blocks resident): every call the "
+        f"bits of the same call alone {json.dumps(row)}")
+    return row
+
+
 def exact_graph_check(torch, np, scan_ops, rng) -> None:
     """Both kernels, single and rows forms, captured in CUDA graphs on one
     stream (after a plain call each on it, so that the df scratch exists),
@@ -4452,8 +4655,15 @@ def exact_graph_check(torch, np, scan_ops, rng) -> None:
 def phase_exact_kernels(torch, np, scan_ops, results) -> None:
     """K1 (the linear recurrence) and K2 (the df prefix sum) against their
     plain versions, repeat bits, rows against single calls, graphs, and
-    times at EXACT_TIMES."""
+    times at EXACT_TIMES; logs the seconds of each part."""
     rng = np.random.default_rng(11)
+    secs = {}
+    mark = [time.perf_counter()]
+
+    def took(part):
+        now = time.perf_counter()
+        secs[part] = secs.get(part, 0.0) + now - mark[0]
+        mark[0] = now
     # -- K1 ------------------------------------------------------------
     for dtype in (torch.float32, torch.float64):
         sfx = "f32" if dtype == torch.float32 else "f64"
@@ -4473,28 +4683,34 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
                     check(recurrence_one_step(torch, args, y, hist),
                           f"linear_recurrence {sfx} J={J} n={n}: one-step "
                           f"check failed")
-            args = recurrence_input(torch, np, rng, J, REC_LONG_N, dtype,
+            took(f"plain J={J}")
+            long_n = min(REC_LONG_N, REC_LONG_VALUES // J + 5)
+            args = recurrence_input(torch, np, rng, J, long_n, dtype,
                                     offset=1)
             y, hist = scan_ops.linear_recurrence(*args)
             again = scan_ops.linear_recurrence(*args)
             check(recurrence_one_step(torch, args, y, hist),
-                  f"linear_recurrence {sfx} J={J} n={REC_LONG_N}: a lane "
+                  f"linear_recurrence {sfx} J={J} n={long_n}: a lane "
                   f"is not the step from its own history")
             check(torch.equal(bits(torch, y), bits(torch, again[0]))
                   and torch.equal(bits(torch, hist), bits(torch, again[1])),
                   f"linear_recurrence {sfx} J={J}: a repeat differs")
             if J == 2:
                 check_recurrence_plain(torch, scan_ops, args, y, hist,
-                                       f"{sfx} J=2 n={REC_LONG_N}")
+                                       f"{sfx} J=2 n={long_n}")
             scale = max(1.0, float(y.abs().max()))
             log(f"linear_recurrence_{sfx} J={J}: bit for bit the plain "
-                f"version at {REC_PLAIN_N} lanes (aligned and on a[1:], "
-                f"ff[1:], live[1:])" + (f" and at {REC_LONG_N}" if J == 2
+                f"version" + ("" if J <= REC_PLAIN_MAX_J else
+                              " (its numpy twin)")
+                + f" at {REC_PLAIN_N} lanes (aligned and on a[1:], "
+                f"ff[1:], live[1:])" + (f" and at {long_n}" if J == 2
                                         else "")
                 + f"; every lane the step from its own history at "
-                f"{REC_LONG_N} lanes on a[1:], the same bits on a repeat "
+                f"{long_n} lanes on a[1:], the same bits on a repeat "
                 f"(max |y| {scale:.3g})")
+            took(f"long J={J}")
         check_recurrence_patterns(torch, np, scan_ops, rng, dtype)
+        took("patterns")
         # Rows: each row the bits of a single call on it.
         for B, n in ((8, 1024), (4, 65536 + 3)):
             args = recurrence_input(torch, np, rng, 3, n, dtype, B)
@@ -4517,6 +4733,7 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
             key = f"linear_recurrence_{'rows_' if B > 1 else ''}{sfx}"
             results[key].append(dict(row, err=0.0))
             log(f"{key} {json.dumps(row)}")
+        took("rows and times")
     # -- K2 ------------------------------------------------------------
     errs = {}
     for n in DF_SIZES:
@@ -4558,6 +4775,7 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
     # (64, 65536) and (8, 2^20): grids of 2048 tiles, past what the card
     # holds at once (528-1056 blocks), which take their tiles from the
     # tile counter; a one-row call on either holds its whole grid.
+    took("df sizes")
     for B, n in DF_ROWS:
         xh, xl = df_input(torch, np, rng, n, B)
         oh, ol = scan_ops.df_prefix_sum_rows_f32(xh, xl)
@@ -4578,12 +4796,18 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
                   f"single call")
     log(f"df_prefix_sum_rows_f32: every row of {DF_ROWS} bit for bit a "
         f"single call on it and df_model, within the bound")
+    took("df rows")
+    df_streams_in_child()
+    took("df two streams")
     for B, n in EXACT_TIMES:
         row = df_times(torch, np, scan_ops, B, n, rng)
         key = "df_prefix_sum_rows_f32" if B > 1 else "df_prefix_sum_f32"
         results[key].append(dict(row, err=max(errs.values())))
         log(f"{key} {json.dumps(row)}")
     exact_graph_check(torch, np, scan_ops, rng)
+    took("df times and graphs")
+    log("phase 11 kernel checks seconds (both types): " + ", ".join(
+        f"{part} {t:.1f}" for part, t in secs.items()))
 
 
 def exact_one_launch_calls(torch, np, scan_ops, rng) -> list:
@@ -4592,7 +4816,7 @@ def exact_one_launch_calls(torch, np, scan_ops, rng) -> list:
     calls, sym = [], scan_ops.KERNEL_SYMBOLS
     for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
         # J = 12: a register-history depth past the affine scan's (fast
-        # mode's deep filters); 17: the wide form; 96: the ring form.
+        # mode's deep filters); 17: the wide form; 96: the streamed form.
         for J, tag in ((2, 2), (12, 12), (17, 0), (96, 0)):
             for n, off in ((1000, 0), (REC_LONG_N, 1)):
                 calls.append((scan_ops.linear_recurrence, recurrence_input(
@@ -5053,9 +5277,10 @@ def deep_kernel_rows(results, phases) -> list:
 # Phase 12: fast-mode filters deeper than the affine scan, and the tools
 # ---------------------------------------------------------------------------
 
-# Fast mode runs J = 9, 12, 16 on the deep affine scan and 17 (past
-# MAX_DEEP_J) on the linear recurrence.
-DEEP_JS = (9, 12, 16, 17)
+# Fast mode runs J = 9, 12, 16 on the deep affine scan and deeper filters
+# (past MAX_DEEP_J) on the linear recurrence: 17 on its wide form, 96 and
+# 128 on its streamed form.
+DEEP_JS = (9, 12, 16, 17, 96, 128)
 DEEP_N = 1 << 17
 DEEP_BLOCKS = (65536, 1024)
 # Against the native oracle, as a fraction of the render's peak: the
@@ -5088,7 +5313,8 @@ INSTRUMENTS = (
     ("ukulele", "pm_ukulele(10, 0.41, 0.2)(2.0, 276)", 3.0,
      ("std", "pm_synth")))
 # The kernels phase 12's path must launch: the deep filters' (the deep
-# scan alone and in the group, the recurrence at J = 17) and the tools'.
+# scan alone and in the group, the recurrence past J = 16) and the
+# tools'.
 TOOLS_KERNELS = ("prefix_sum_f32", "prefix_max_f32", "affine_scan_f32",
                  "affine_scan_deep_f32", "affine_scan_deep_rows_f32",
                  "linear_recurrence_f32")
@@ -5901,6 +6127,10 @@ def main(argv) -> int:
                     "G1one, G2) in one profiler session and print a JSON "
                     "row each (phases 6 and 8 run them in children), or "
                     "`launches`: phase 2's one-kernel-a-call check")
+    ap.add_argument("--df-streams", action="store_true",
+                    help="phase 11's two-stream check of the df sum alone, "
+                    "in this process (phase 11 runs it in a child), and "
+                    "print its JSON row")
     ap.add_argument("--live", action="store_true",
                     help="phase 10's R2 alone, in this process (phase 10 "
                     "runs it in a child), and print its JSON row")
@@ -5922,6 +6152,9 @@ def main(argv) -> int:
         from tuun_tpu_torch.engine import scan_ops
     if args.live:
         print(json.dumps(r2_live()), flush=True)
+        return 0
+    if args.df_streams:
+        print(json.dumps(df_streams(torch, np, scan_ops)), flush=True)
         return 0
     if args.profile == LAUNCH_PROFILE:
         scan_ops.load_library()

@@ -291,13 +291,15 @@ def test_rec_times_cover_the_main_path_shapes(smoke):
             assert {(1, 1 << 17, J, dt), (1, 65536, J, dt), (1, 1024, J, dt),
                     (8, 1024, J, dt)} <= shapes
     assert {(1, 1 << 17, J, "f32") for J in (9, 12, 16)} <= shapes
-    # The wide form: J = 17, 24, 32, 64 at the four shapes in f32, J = 17
-    # and 32 at 2^17 in f64.
-    for J in (17, 24, 32, 64):
+    # The wide form: J = 17, 24, 32, 64, and the streamed form: J = 96,
+    # 128, 256, at the four shapes in f32; J = 17, 32 and 96 at 2^17 in
+    # f64; J = 4096 at 1024 lanes in both.
+    for J in (17, 24, 32, 64, 96, 128, 256):
         assert {(1, 1 << 17, J, "f32"), (1, 65536, J, "f32"),
                 (1, 1024, J, "f32"), (8, 1024, J, "f32")} <= shapes
-    assert {(1, 1 << 17, 17, "f64"), (1, 1 << 17, 32, "f64")} <= shapes
-    assert len(shapes) == len(smoke.REC_TIMES) == 37
+    assert {(1, 1 << 17, J, "f64") for J in (17, 32, 96)} <= shapes
+    assert {(1, 1024, 4096, "f32"), (1, 1024, 4096, "f64")} <= shapes
+    assert len(shapes) == len(smoke.REC_TIMES) == 52
     assert set(smoke.REC_TIMES_LIVE) == {"live", "mixed"}
     assert smoke.LIVE_BLOCK_N == 1024
 
@@ -310,7 +312,10 @@ def test_rec_times_cover_the_main_path_shapes(smoke):
     (1, 1 << 17, 24, "f32", 6619.8), (1, 1 << 17, 32, "f32", 8738.1),
     (1, 1 << 17, 64, "f32", 17211.5), (1, 65536, 64, "f32", 8605.7),
     (1, 1024, 17, "f32", 37.2), (8, 1024, 32, "f32", 68.3),
-    (1, 1 << 17, 17, "f64", 9532.5), (1, 1 << 17, 32, "f64", 17476.3)])
+    (1, 1 << 17, 17, "f64", 9532.5), (1, 1 << 17, 32, "f64", 17476.3),
+    (1, 1 << 17, 96, "f32", 25685.2), (1, 1 << 17, 128, "f32", 34158.3),
+    (1, 1 << 17, 256, "f32", 68051.0), (1, 1 << 17, 96, "f64", 51370.4),
+    (1, 1024, 4096, "f32", 8475.4), (1, 1024, 4096, "f64", 16950.8)])
 def test_rec_bound_is_the_chain_model(smoke, B, n, J, dt, chain_us):
     """(J + 1) roundings a lane at 4 (f32) or 8 (f64) cycles and 1.98 GHz:
     PERF.md's chain models; rows run side by side.  The bytes and
@@ -388,3 +393,60 @@ def test_launch_lengths_count_eager_calls_and_replays(smoke):
     assert ops.launched.count(("replay", 1)) == 3
     assert "_df_launch" not in vars(ops) or \
         ops._df_launch.__name__ == "_df_launch"
+
+
+# -- phase 11's two-stream check of the df sum ------------------------------
+
+
+class _Proc:
+    def __init__(self, row, returncode=0):
+        import json
+        self.returncode = returncode
+        self.stdout = "build ...\n" + json.dumps(row) + "\n"
+        self.stderr = "a traceback" if returncode else ""
+
+
+def _streams_child(smoke, monkeypatch, outcome):
+    """df_streams_in_child over a child that times out (outcome None) or
+    exits with the given (row, returncode)."""
+    import subprocess
+    seen = []
+
+    class Sub:
+        TimeoutExpired = subprocess.TimeoutExpired
+
+        @staticmethod
+        def run(argv, **kw):
+            seen.append((argv[-1], kw["timeout"]))
+            if outcome is None:
+                raise subprocess.TimeoutExpired(argv, kw["timeout"])
+            return _Proc(*outcome)
+    monkeypatch.setattr(smoke, "subprocess", Sub)
+    try:
+        return smoke.df_streams_in_child()
+    finally:
+        assert seen == [("--df-streams", smoke.DF_STREAMS_TIMEOUT)]
+
+
+def _streams_row(bad=0):
+    return dict(ok=bad == 0, n=1 << 17, rows=16, tiles_a_grid=1024,
+                resident_blocks=1056, calls=40, bad_calls=bad, both_ms=1.0,
+                one_stream_ms=0.6, device="stand-in")
+
+
+@pytest.mark.parametrize("outcome, match", [
+    (None, "no answer from the child in 300 s"),
+    ((_streams_row(bad=3),), "3 of 40 calls differ from the same call alone"),
+    ((_streams_row(), 1), "exit 1: a traceback")])
+def test_df_streams_check_fails_the_run(smoke, monkeypatch, outcome, match):
+    """A hang (the child's timeout), a call whose bits differ, or a child
+    that fails: each raises, so phase 11 fails and the run exits non-zero."""
+    with pytest.raises(smoke.SmokeFailure, match=match):
+        _streams_child(smoke, monkeypatch, outcome)
+
+
+def test_df_streams_check_passes_when_every_call_matches(smoke, monkeypatch,
+                                                          capsys):
+    assert _streams_child(smoke, monkeypatch, (_streams_row(),))["ok"]
+    assert "every call the bits of the same call alone" in \
+        capsys.readouterr().out

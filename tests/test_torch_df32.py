@@ -277,7 +277,7 @@ def test_exact_kernels_round_each_op_on_its_own():
     import re
     def body(fn):
         return re.search(rf"\b{fn}\(.*?\n}}\n", src, re.S).group(0)
-    for fn in ("rec_group", "rec_chain_stage", "rec_tile_ring"):
+    for fn in ("rec_group", "rec_chain_stage"):
         assert "sub_rn(acc, mul_rn(" in body(fn)
     # The wide form: the first product on the chain, a[1] h[1] a lane
     # ahead, the later products two lanes ahead, each rounded on its own.
@@ -289,19 +289,29 @@ def test_exact_kernels_round_each_op_on_its_own():
     run = body("rec_wide_run")
     assert "acc = sub_rn(acc, q[c % 4][k]);" in run
     assert "acc = sub_rn(acc, z[k]);" in run
+    # The streamed form: the same chain, lane x + 1's products formed
+    # during lane x's, each rounded on its own.
+    lane = body("rec_stream_lane")
+    assert "acc = sub_rn(r.ff, mul_rn(r.a0, h0r));" in lane
+    assert "acc = sub_rn(acc, r.p1);" in lane
+    assert "r.p1 = mul_rn(a11, h0r);" in lane
+    assert "Pn[j - 2] = mul_rn(av, hv);" in body("rec_stream_slot")
+    assert "acc = sub_rn(acc, q[c % 4][k]);" in body("rec_stream_chunks")
     # df_add's every op an intrinsic, as the df kernel folds with it.
     add = body("df_add")
     assert add.count("__fadd_rn(") == 5 and add.count("__fsub_rn(") == 6
     assert "df_add(" in body("df_prefix_sum")
-    for fn in ("rec_group", "rec_chain_stage", "rec_tile_ring",
-               "rec_wide_lane", "rec_wide_run", "df_add", "df_prefix_sum",
+    for fn in ("rec_group", "rec_chain_stage", "rec_wide_lane",
+               "rec_wide_run", "rec_stream_lane", "rec_stream_slot",
+               "rec_stream_chunks", "df_add", "df_prefix_sum",
                "df_look_back"):
         assert not re.search(r"(acc|\.h|\.l)\s*[-+]=|acc\s*=\s*acc\s*[-+]"
                              r"|[^_]\b\w+\.[hl]\s*[-+*]\s*\w", body(fn)), fn
     for name in ("tuun_linear_recurrence_rows_f32",
                  "tuun_linear_recurrence_rows_f64",
                  "tuun_df_prefix_sum_rows_f32", "tuun_df_scratch_words",
-                 "tuun_df_tile", "tuun_recurrence_max_j"):
+                 "tuun_df_tile", "tuun_recurrence_max_j",
+                 "tuun_df_resident"):
         assert re.search(rf"\b{name}\(", src)
     assert f"kRecMaxJ = {scan_ops.MAX_RECURRENCE_J};" in src
 
@@ -342,6 +352,45 @@ def test_df_model_has_the_kernels_geometry():
         [a * b for _, a, b in cs.DF_GEOMETRY]
     assert (const("kDfWideTile"), const("kDfTileMax")) == \
         tuple(g[0] for g in cs.DF_GEOMETRY[1:3])
+
+
+def test_df_sum_counts_every_multi_tile_grid():
+    """Every grid whose rows have more than one tile takes its tiles from
+    the tile counter, whatever the card holds at once; a one-tile row's
+    block is its tile.  The rule, read from exact.cu as the constants
+    are, is "more than one tile a row", and the launch no longer asks
+    how many blocks the card holds."""
+    import re
+    src = scan_ops.EXACT_SOURCE.read_text()
+    rule = re.search(r"constexpr bool df_counted\(int64_t (\w+)\) \{\s*"
+                     r"return ([^;]+);", src)
+    arg, expr = rule.groups()
+    assert [eval(expr, {arg: k}) for k in range(4)] == \
+        [False, False, True, True]
+    kernel = re.search(r"\bdf_prefix_sum\(.*?\n}\n", src, re.S).group(0)
+    assert "const int64_t nbr = (n + kTile - 1) / kTile;  // tiles per row" \
+        in kernel
+    assert "const bool counted = df_counted(nbr);" in kernel
+    # While the counter answers, the block sends tile blockIdx.x towards
+    # L2; it stages the tile it drew.
+    counter = kernel.index("drawn = atomicAdd(&scratch[kDfTicket], 1u);")
+    ahead = kernel.index("df_prefetch_tile<kThreads, kTile>(xh_all, xl_all, "
+                         "n, nbr, gt);")
+    drawn = kernel.index("gt = taken;")
+    staged = kernel.index("df_stage_tile<kThreads, kTile>(xh_all, xl_all, "
+                          "n, nbr, gt, stage_h,")
+    assert kernel.index("int64_t gt = blockIdx.x;") < counter < ahead \
+        < drawn < staged
+    # The counter has a 128-byte line of its own, between the done counter
+    # (word 0) and the flags (from kDfHead).
+    words = {k: eval(re.search(rf"constexpr int {k} = ([^;]+);", src).group(1))
+             for k in ("kDfTicket", "kDfHead")}
+    assert words["kDfTicket"] * 4 >= 128
+    assert (words["kDfHead"] - words["kDfTicket"]) * 4 >= 128
+    assert "scratch[0] = scratch[kDfTicket] = 0;" in kernel
+    launch = re.search(r"int launch_df\(.*?\n}\n", src, re.S).group(0)
+    assert "resident" not in launch and "counted" not in launch
+    assert "cap, rows, n);" in launch
 
 
 @pytest.mark.parametrize("n", [1 << 10, (1 << 12) + 3, 1 << 14, 1 << 17,

@@ -1,12 +1,15 @@
-"""The linear recurrence's chain form (csrc/exact.cu, J <= 16) and wide
-form (17 <= J <= 95) on the CPU.
+"""The linear recurrence's chain form (csrc/exact.cu, J <= 16), wide
+form (17 <= J <= 95) and streamed form (96 <= J <= 4096) on the CPU.
 
   * The plain version (scan_ops.linear_recurrence_ref) on chip_smoke.py's
     dead-lane patterns (REC_PATTERNS, the ones phase 11 holds the kernel
     to on the card): against tuun_tpu's CFilter._feedback in float64,
     within 1e-12 of scale, and bit for bit a numpy loop in the oracle's
-    float32 rounding, at J = 1, 2, 8, 16 (the chain form) and 17, 24,
-    32, 64 (the wide form).
+    float32 rounding, at J = 1, 2, 8, 16 (the chain form), 17, 24, 32,
+    64 (the wide form) and 96, 128, 257 (the streamed form).
+  * Its numpy twin (chip_smoke.recurrence_np, which phase 11 holds the
+    kernel to past REC_PLAIN_MAX_J): bit for bit the plain version in
+    both types, on the patterns as rows and on [1:] views.
   * The patterns' shapes: each reaches the bodies and stage ends it is
     there for, by chip_smoke.py's model of the kernel's staging.
   * That model (recurrence_stage_lanes, _head, _stages), held to
@@ -19,6 +22,10 @@ form (17 <= J <= 95) on the CPU.
     within its shared-memory budget and its windows within their buffers
     at every J it takes.  Its bits are held on the card (chip_smoke.py
     phase 11, REC_JS and REC_PATTERN_JS).
+  * The streamed form's model (chip_smoke's REC_STREAM_* and
+    recurrence_stream_*): its constants and layout held to exact.cu's;
+    with the wide form's, a block's 227 KB holds every J from 17 to
+    MAX_RECURRENCE_J in both types.
 """
 
 import re
@@ -33,8 +40,9 @@ from tuun_tpu_torch.engine import scan_ops
 
 smoke = _chip_smoke()
 # The chain form's depths, then the wide form's: its first, J = 24, 32
-# (an unrolled window) and 64 (a looped one).
-JS = (1, 2, 8, 16, 17, 24, 32, 64)
+# (an unrolled window) and 64 (a looped one); then the streamed form's:
+# its first, a whole number of product slots, one product past them.
+JS = (1, 2, 8, 16, 17, 24, 32, 64, 96, 128, 257)
 
 
 def _inputs(J, n, dtype, pattern, seed=0, offset=0):
@@ -272,3 +280,132 @@ def test_wide_stages_fit_the_budget():
             assert W < smoke.REC_WIDE_PS
     assert smoke.REC_WIDE_BUDGET + 64 <= 232448
     assert smoke.REC_WIDE_PS % 4 == 0
+
+
+# ---------------------------------------------------------------------------
+# The plain version's numpy twin
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("J", [1, 2, 17, 96, 128, 257])
+def test_numpy_twin_is_the_plain_version(J, dtype):
+    """chip_smoke.recurrence_np, which phase 11 holds the kernel to past
+    REC_PLAIN_MAX_J (the plain version takes ~10 us a lane and
+    coefficient on the host), gives the plain version's bits: the
+    patterns as the rows of one call, and a [1:] view alone."""
+    rows = [_inputs(J, 200, dtype, p, seed=J, offset=1)
+            for p in smoke.REC_PATTERNS]
+    args = [np.stack([r[k][1:] if k < 3 else r[k] for r in rows])
+            for k in range(4)]
+    y, hist = scan_ops.linear_recurrence_rows(*map(t, args))
+    ty, th = smoke.recurrence_np(np, *args)
+    assert ty.dtype == dtype and th.dtype == dtype
+    assert np.array_equal(_bits(y.numpy()), _bits(ty))
+    assert np.array_equal(_bits(hist.numpy()), _bits(th))
+    view = tuple(t(x) for x in rows[0])
+    view = (view[0][1:], view[1][1:], view[2][1:], view[3])
+    y1, h1 = scan_ops.linear_recurrence(*view)
+    ty1, th1 = smoke.recurrence_np(np, *(x.numpy() for x in view))
+    assert np.array_equal(_bits(y1.numpy()), _bits(ty1))
+    assert np.array_equal(_bits(h1.numpy()), _bits(th1))
+
+
+def test_phase_11_takes_the_twin_past_the_plain_depths():
+    assert smoke.REC_PLAIN_MAX_J == smoke.REC_WIDE_MAX_J + 1
+    assert {96, 128, 257, scan_ops.MAX_RECURRENCE_J} <= set(smoke.REC_JS)
+    assert {96, 128, 257, scan_ops.MAX_RECURRENCE_J} <= \
+        set(smoke.REC_PATTERN_JS)
+    # The long one-step check keeps a's values within REC_LONG_VALUES.
+    for J in smoke.REC_JS:
+        n = min(smoke.REC_LONG_N, smoke.REC_LONG_VALUES // J + 5)
+        assert n * J <= smoke.REC_LONG_VALUES + 5 * J
+        assert n == smoke.REC_LONG_N or J > 257
+
+
+# ---------------------------------------------------------------------------
+# The streamed form (REC_WIDE_MAX_J < J <= MAX_RECURRENCE_J)
+# ---------------------------------------------------------------------------
+
+# A block's shared memory (the card's 227 KB) and what the kernel holds
+# besides the dynamic part: the ring's 2 x REC_STAGES mbarriers.
+BLOCK_SMEM = 232448
+STATIC_SMEM = 2 * smoke.REC_STAGES * 8
+
+
+def test_streamed_form_has_the_sources_constants():
+    for name in ("REC_STREAM_BUDGET", "REC_STREAM_THREADS", "REC_STREAM_BUFS",
+                 "REC_STREAM_MIN_BUFS", "REC_STREAM_ROW_BYTES",
+                 "REC_STREAM_BARS"):
+        key = "kRec" + "".join(w.title() for w in name[4:].split("_"))
+        assert _source_constant(key) == getattr(smoke, name), key
+    src = scan_ops.EXACT_SOURCE.read_text()
+    # Past the wide form's depths the kernel takes the streamed form, with
+    # its threads and its layout's bytes; the ring form is gone.
+    assert "if (J > kRecWideMaxJ) {\n      rec_stream_row<T>(" in src
+    assert "threads = kRecStreamThreads;" in src
+    assert "smem = (size_t)rec_stream_bytes(J, rec_stream_stage_lanes(J, " \
+        "sizeof(T)),\n                                    rec_stream_bufs(J, " \
+        "sizeof(T))," in src
+    for gone in ("rec_ring_row", "rec_tile_ring", "RecSmem", "rec_smem_bytes",
+                 "kRecThreads", "kRecStagers", "kRecTile", "kRecSmemBudget"):
+        assert not re.search(rf"\b{gone}\b", src), gone
+    # The layout, term by term: mbarriers, two product buffers, the a
+    # buffers, the stages' ff, y and live, the history of 2J + S.
+    layout = re.search(r"constexpr int64_t rec_stream_bytes\(.*?\n}\n", src,
+                       re.S).group(0)
+    for term in ("kRecStreamBars", "2LL * rec_stream_window(J) * item",
+                 "NA * rec_stream_block_bytes(J, item)",
+                 "(int64_t)kRecStages * S * (2 * item + 1)",
+                 "(int64_t)(2 * J + S) * item"):
+        assert term in layout, term
+    assert "return (J - 2 + 31) / 32 * 32;" in src
+    assert "((int64_t)rec_stream_block_lanes(J, item) * J * item + 15) / 16 " \
+        "* 16 +\n         32;" in src
+
+
+def test_deep_layouts_fit_a_block_at_every_depth():
+    """Every J from 17 to MAX_RECURRENCE_J, both types, in the form that
+    takes it: stages of a power of two lanes from REC_FIRST to
+    REC_MAX_STAGE, the largest that fits the form's budget; the budget,
+    with the kernel's static mbarriers, within a block's 227 KB; the
+    streamed form's a buffers a power of two from REC_STREAM_MIN_BUFS to
+    REC_STREAM_BUFS, the most that fit, each holding a block's rows and
+    the grains either side, and its product buffers whole 16-byte chunks
+    of at least the lane's J - 2 products."""
+    assert smoke.REC_WIDE_BUDGET + STATIC_SMEM <= BLOCK_SMEM
+    assert smoke.REC_STREAM_BUDGET + STATIC_SMEM <= BLOCK_SMEM
+    assert smoke.REC_STREAM_BARS >= 2 * smoke.REC_STREAM_BUFS * 8
+    for item in (4, 8):
+        for J in range(smoke.REC_REG_J + 1, scan_ops.MAX_RECURRENCE_J + 1):
+            S = smoke.recurrence_stage_lanes(J, item)
+            assert S & (S - 1) == 0
+            assert smoke.REC_FIRST <= S <= smoke.REC_MAX_STAGE
+            if J <= smoke.REC_WIDE_MAX_J:
+                assert smoke.recurrence_wide_bytes(J, S, item) \
+                    <= smoke.REC_WIDE_BUDGET
+                continue
+            bufs = smoke.recurrence_stream_bufs(J, item)
+            assert bufs in (2, 4) and bufs >= smoke.REC_STREAM_MIN_BUFS
+            size = smoke.recurrence_stream_bytes(J, S, bufs, item)
+            assert size <= smoke.REC_STREAM_BUDGET, (J, item)
+            assert S == smoke.REC_MAX_STAGE or smoke.recurrence_stream_bytes(
+                J, 2 * S, bufs, item) > smoke.REC_STREAM_BUDGET
+            assert bufs == smoke.REC_STREAM_BUFS or \
+                smoke.recurrence_stream_bytes(J, smoke.REC_FIRST, 2 * bufs,
+                                              item) > smoke.REC_STREAM_BUDGET
+            lanes = smoke.recurrence_stream_block_lanes(J, item)
+            rb = smoke.recurrence_stream_block_bytes(J, item)
+            assert lanes >= 1 and rb % 16 == 0
+            assert rb >= lanes * J * item + 30
+            assert lanes == 1 or lanes * J * item <= smoke.REC_STREAM_ROW_BYTES
+            W = smoke.recurrence_stream_window(J)
+            assert W % 32 == 0 and J - 2 <= W < J - 2 + 32
+            # Every region starts 16-byte aligned where the chain or a bulk
+            # copy needs it: the products, the a buffers, ff, y, live.
+            for off in (smoke.REC_STREAM_BARS,
+                        smoke.REC_STREAM_BARS + 2 * W * item,
+                        smoke.REC_STREAM_BARS + 2 * W * item + bufs * rb):
+                assert off % 16 == 0
+            assert (smoke.REC_STAGES * S * item) % 16 == 0
+            assert (smoke.REC_STAGES * S) % 16 == 0

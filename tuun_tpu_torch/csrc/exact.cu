@@ -65,10 +65,13 @@
 // for the ring form before it (1.85-1.87 / 1.66-1.67 / 1.52-1.53 /
 // 2.40-2.42x the chain model; ~1.4x and ~1.15x the card's own chain at J
 // = 17 and 32), 1024 lanes at J = 17 71.6-72.2 us against 546-550.
-// Deeper rows, up to
-// kRecMaxJ, take the ring form: thread 0 runs the chain with the history
-// in a ring in shared memory while warps 1-3 stage tiles by cp.async, a
-// block barrier a tile.
+// The streamed form (J = 96 .. kRecMaxJ = 4096, J at run time): the wide
+// form's stages, history and products formed ahead by the chain warp's
+// threads, but a lane's a row, too large for a ring of stages, streams in
+// by bulk copies of its own into a small ring of buffers, and a lane's
+// products are formed while the lane before it runs its chain, so that
+// the chain reads them by broadcast 16-byte loads (rec_stream_row,
+// below; its times beside the ring form it replaced: PERF.md section 6).
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6: device time
 // of captured calls by `chip_smoke.py --phase times --tree`, in turns with
 // the earlier one-thread kernel; all lanes live): J = 2 in f32 at 2^17
@@ -96,18 +99,18 @@
 //     (the fewest look-back records that still fill the card), staged
 //     through shared memory so that loads and stores stay coalesced;
 //   * a longer row's tiles are a single-pass scan with decoupled
-//     look-back; a tile waits only on tiles of lower index.  Where the
-//     card holds the whole grid at once (df_resident: every shape of the
-//     main path), block b is tile b, with no atomic before the loads:
-//     every block is resident or waits only for room that a kernel which
-//     does not wait on it frees.  A larger grid takes its tile from an
-//     atomic counter, so that every tile below a running one has been
-//     taken by a running block: CUDA does not promise to dispatch blocks
-//     in index order.  Either way the tile, not the block, fixes the bits.
-//     The first rule is proven only for one call on the card at a time:
-//     two calls overlapping from two streams (a graph's warm-up beside a
-//     render) could together exceed what the card holds, and then rest on
-//     its dispatching each grid's blocks in index order.  A pair and a
+//     look-back; a tile waits only on tiles of lower index.  Every grid
+//     whose rows have more than one tile takes its tiles from an atomic
+//     counter (df_counted), so every tile below a running one has been
+//     taken by a block that is running or done, and a running block waits
+//     only on those: the scan makes progress whatever else the card runs
+//     (two calls overlapping from two streams, a graph's warm-up beside a
+//     render) and whatever order CUDA dispatches blocks in, which it does
+//     not promise.  While the counter answers, a block sends tile
+//     blockIdx.x towards L2, so that whichever block draws a tile finds
+//     it there or on its way (blocks that start together draw in no fixed
+//     order).  A block runs one tile, and the tile, not the block, fixes
+//     the bits.  A pair and a
 //     flag do not fit in one 64-bit word, so each tile has a flag word and
 //     a record of two floats; a tile writes its record, then the flag with
 //     st.release; a reader loads the flag with ld.acquire and only then
@@ -136,7 +139,6 @@
 // C interface, bound with ctypes (tuun_tpu_torch/engine/scan_ops.py).
 // Every entry returns cudaGetLastError() after its launch.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -191,13 +193,6 @@ __host__ __device__ constexpr int rec_group_lanes(int J) {
 __host__ __device__ constexpr int rec_ahead_lanes(int J) {
   return J <= 8 ? 4 : 2;
 }
-// The ring form (J > 16): warp 0 runs the chain, warps 1-3 stage tiles.
-constexpr int kRecThreads = 128;
-constexpr int kRecStagers = kRecThreads - 32;
-constexpr int kRecTile = 512;
-// Shared memory a block of the ring form may take: it sizes its tiles to
-// this.
-constexpr int kRecSmemBudget = 200 * 1024;
 
 __host__ __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -463,8 +458,9 @@ __device__ __forceinline__ void rec_ring_init(uint64_t* full, uint64_t* empty) {
 // a ragged tail, or every lane where the three arrays' lanes are not
 // aligned alike) by its 32 threads' loads; it stores each finished
 // stage's y (Y), coalesced, once the chain has released the stage
-// (`empty`), then refills it.
-template <typename T>
+// (`empty`), then refills it.  Without kA (the streamed form, J = 0) it
+// stages ff and live only.
+template <typename T, bool kA = true>
 __device__ __forceinline__ void rec_produce(
     const T* __restrict__ a, const T* __restrict__ ff,
     const uint8_t* __restrict__ live, T* __restrict__ y, int64_t n, int J,
@@ -496,7 +492,7 @@ __device__ __forceinline__ void rec_produce(
     if (lane == 0 && b1 > st) {
       const unsigned m = (unsigned)(b1 - st);
       mbar_expect_tx(&full[s], m * (unsigned)((J + 1) * sizeof(T) + 1));
-      bulk_load(as, a + st * J, m * J * sizeof(T), &full[s]);
+      if constexpr (kA) bulk_load(as, a + st * J, m * J * sizeof(T), &full[s]);
       bulk_load(fs, ff + st, m * sizeof(T), &full[s]);
       bulk_load(ls, live + st, m, &full[s]);
     }
@@ -950,155 +946,395 @@ __device__ __forceinline__ void rec_wide_row(
   for (int j = lane; j < J; j += 32) hist[j] = ht[-1 - j];
 }
 
-// The ring form (J > kRecWideMaxJ).  Shared-memory layout of one block:
-// two buffers each of a [tile * J], ff [tile] and y [tile], then the
-// history ring [J], then two live buffers [tile] of bytes.
-template <typename T>
-struct RecSmem {
-  T* a[2];
-  T* ff[2];
-  T* y[2];
-  T* ring;
-  uint8_t* live[2];
-};
+// The streamed form (kRecWideMaxJ < J <= kRecMaxJ, one kernel for every
+// such J).  The wide form's shape, but a lane's a row (J values, 384
+// bytes or more) no longer fits a ring of stages, so a is not staged with
+// the stages:
+//   * warp 1 stages ff and live through the ring of stages and stores y
+//     (rec_produce without a); warp 2 streams a, block after block of the
+//     rows of rec_stream_block_lanes lanes (the 16-byte grains that cover
+//     them, by one 1-D bulk copy), into a ring of rec_stream_bufs buffers,
+//     each on its own `full` and `empty` mbarrier;
+//   * the chain warp runs lane x's chain, acc = ff - a[0] h[0] - a[1] h[1]
+//     (a lane ahead, in registers), then the products a[j] h[j] for j = 2
+//     .. J - 1 in order by broadcast 16-byte loads four chunks ahead, in a
+//     loop unrolled over 32 products: J + 1 roundings, the chain model;
+//   * meanwhile its 32 threads form lane x + 1's products (thread t the
+//     products t + 2, t + 34, ...: coalesced shared loads of that lane's a
+//     row and of the history, one product a thread per 32 products of the
+//     chain), each rounded on its own as the reference rounds it, into the
+//     other of two product buffers; a product of lane x + 1 needs only
+//     outputs before lane x;
+//   * the history is the wide form's buffer of live lanes' outputs; a dead
+//     lane skips its chain and appends nothing, and a lane's products are
+//     formed only if it is live.
+// Shared memory a block of the streamed form takes at most: it sizes its
+// a buffers and stages to this.
+constexpr int kRecStreamBudget = 200 * 1024;
+constexpr int kRecStreamThreads = 96;   // chain, stage producer, a streamer
+constexpr int kRecStreamBufs = 4;       // a buffers, at most
+constexpr int kRecStreamMinBufs = 2;    // and at least
+constexpr int kRecStreamRowBytes = 4096;  // a block of a rows: at least
+                                          // this many bytes, or one lane
+constexpr int kRecStreamBars = 128;     // bytes of the a buffers' mbarriers
 
-template <typename T>
-__host__ __device__ constexpr size_t rec_smem_bytes(int tile, int J) {
-  return sizeof(T) * (size_t)(2 * tile * J + 4 * tile + J) + 2 * (size_t)tile;
+// Lanes of a block of a rows.
+__host__ __device__ constexpr int rec_stream_block_lanes(int J, int item) {
+  return kRecStreamRowBytes / (J * item) > 1 ? kRecStreamRowBytes / (J * item)
+                                             : 1;
 }
 
-template <typename T>
-__device__ RecSmem<T> rec_smem(unsigned char* base, int tile, int J) {
-  RecSmem<T> s;
-  T* p = reinterpret_cast<T*>(base);
-  s.a[0] = p;
-  s.a[1] = p + tile * J;
-  p += 2 * tile * J;
-  s.ff[0] = p;
-  s.ff[1] = p + tile;
-  p += 2 * tile;
-  s.y[0] = p;
-  s.y[1] = p + tile;
-  p += 2 * tile;
-  s.ring = p;
-  p += J;
-  uint8_t* q = reinterpret_cast<uint8_t*>(p);
-  s.live[0] = q;
-  s.live[1] = q + tile;
+// Bytes of an a buffer: a block's rows, rounded out to 16-byte grains.
+__host__ __device__ constexpr int64_t rec_stream_block_bytes(int J, int item) {
+  return ((int64_t)rec_stream_block_lanes(J, item) * J * item + 15) / 16 * 16 +
+         32;
+}
+
+// Items of a product buffer: a lane's J - 2 products, 32 a slot, and
+// zeros past them (acc - (+0) is acc, bit for bit).
+__host__ __device__ constexpr int rec_stream_window(int J) {
+  return (J - 2 + 31) / 32 * 32;
+}
+
+// Bytes of the streamed form's shared memory at depth J with stages of S
+// lanes and NA a buffers: the mbarriers, two product buffers, the a
+// buffers, the ring of stages (ff, y, live) and the history (2J + S
+// values, as the wide form's).
+__host__ __device__ constexpr int64_t rec_stream_bytes(int J, int S, int NA,
+                                                       int item) {
+  return kRecStreamBars + 2LL * rec_stream_window(J) * item +
+         NA * rec_stream_block_bytes(J, item) +
+         (int64_t)kRecStages * S * (2 * item + 1) + (int64_t)(2 * J + S) * item;
+}
+
+// a buffers at depth J: kRecStreamBufs, halved down to kRecStreamMinBufs
+// while the smallest stages do not fit kRecStreamBudget.
+__host__ __device__ constexpr int rec_stream_bufs(int J, int item) {
+  int na = kRecStreamBufs;
+  while (na > kRecStreamMinBufs &&
+         rec_stream_bytes(J, kRecFirst, na, item) > kRecStreamBudget) {
+    na >>= 1;
+  }
+  return na;
+}
+
+// Lanes of a full stage of the streamed form: the largest power of two
+// from kRecFirst up to kRecMaxStage that fits kRecStreamBudget.
+__host__ __device__ constexpr int rec_stream_stage_lanes(int J, int item) {
+  int s = kRecMaxStage;
+  while (s > kRecFirst &&
+         rec_stream_bytes(J, s, rec_stream_bufs(J, item), item) >
+             kRecStreamBudget) {
+    s >>= 1;
+  }
   return s;
 }
 
-// Copies tile `t` of the row's a, ff and live into buffer `b`, with the
-// threads [first, first + count) of the block: a and ff by cp.async
-// (every copy in flight at once; the caller waits), live by plain loads.
-template <typename T>
-__device__ __forceinline__ void rec_stage(const RecSmem<T>& s, int b,
-                                          const T* __restrict__ a,
-                                          const T* __restrict__ ff,
-                                          const uint8_t* __restrict__ live,
-                                          int64_t n, int J, int tile, int64_t t,
-                                          int me, int count) {
-  const int64_t base = t * tile;
-  const int m = (int)lmin(tile, n - base);
-  const T* src_a = a + base * J;
-  for (int e = me; e < m * J; e += count) {
-    __pipeline_memcpy_async(&s.a[b][e], &src_a[e], sizeof(T));
-  }
-  for (int e = me; e < m; e += count) {
-    __pipeline_memcpy_async(&s.ff[b][e], &ff[base + e], sizeof(T));
-    s.live[b][e] = live[base + e];
-  }
-  __pipeline_commit();
-}
+static_assert(rec_stream_bytes(kRecMaxJ, kRecFirst, kRecStreamMinBufs, 8) <=
+                  kRecStreamBudget,
+              "the streamed form's deepest f64 row fits the budget");
+static_assert(2 * kRecStreamBufs * 8 <= kRecStreamBars,
+              "the a buffers' mbarriers fit their bytes");
 
-// Writes the y of tile `t` from buffer `b`, coalesced.
+// The a streamer (one thread of warp 2): block q's rows, lanes [q La, (q
+// + 1) La), into buffer q % NA once the chain has released its last block
+// (`empty`), by one bulk copy of the grains that cover them, counted on
+// the buffer's `full` mbarrier.
 template <typename T>
-__device__ __forceinline__ void rec_store(const RecSmem<T>& s, int b,
-                                          T* __restrict__ y, int64_t n,
-                                          int tile, int64_t t, int me,
-                                          int count) {
-  const int64_t base = t * tile;
-  const int m = (int)lmin(tile, n - base);
-  for (int e = me; e < m; e += count) y[base + e] = s.y[b][e];
-}
-
-// The chain over one staged tile, history in a ring in shared memory:
-// ring[p] is the newest value y[i-1], ring[(p - j) mod J] is y[i-1-j].
-template <typename T>
-__device__ __forceinline__ void rec_tile_ring(const RecSmem<T>& s, int b, int m,
-                                              int J, int& p) {
-  const T* __restrict__ a = s.a[b];
-  const T* __restrict__ ff = s.ff[b];
-  const uint8_t* __restrict__ live = s.live[b];
-  T* __restrict__ y = s.y[b];
-  T* ring = s.ring;
-  for (int i = 0; i < m; ++i) {
-    T acc = ff[i];
-    int k = p;
-    for (int j = 0; j < J; ++j) {
-      acc = sub_rn(acc, mul_rn(a[i * J + j], ring[k]));
-      k = k == 0 ? J - 1 : k - 1;
-    }
-    if (live[i]) {
-      p = p == J - 1 ? 0 : p + 1;
-      ring[p] = acc;
-      y[i] = acc;
-    } else {
-      y[i] = T(0);
+__device__ __forceinline__ void rec_stream_a(const T* __restrict__ a, int64_t n,
+                                             int J, int La, int NA,
+                                             int64_t RB, unsigned char* A,
+                                             uint64_t* full, uint64_t* empty) {
+  int s = 0;          // the buffer of block x0 / La
+  unsigned ph = 0;    // the phase of its `empty` to wait for
+  bool again = false;  // every buffer filled once
+  for (int64_t x0 = 0; x0 < n; x0 += La) {
+    if (again) mbar_wait(&empty[s], ph);
+    const uintptr_t src = (uintptr_t)(a + x0 * J);
+    const uintptr_t lo = src & ~(uintptr_t)15;
+    const uintptr_t hi =
+        (src + (uintptr_t)(lmin(La, n - x0) * J * sizeof(T)) + 15) &
+        ~(uintptr_t)15;
+    fence_proxy_async();
+    mbar_expect_tx(&full[s], (unsigned)(hi - lo));
+    bulk_load(A + s * RB, reinterpret_cast<const void*>(lo),
+              (unsigned)(hi - lo), &full[s]);
+    mbar_arrive(&full[s]);
+    if (++s == NA) {
+      s = 0;
+      ph ^= again ? 1u : 0u;
+      again = true;
     }
   }
 }
 
-// One row, any J, the history in a ring: thread 0 runs the chain over tile
-// t while warps 1-3 stage tile t + 1 and store tile t - 1's y.
+// The chain warp's view of the a stream: each lane's row in turn, waiting
+// for its block's copy at the block's first lane and releasing the block
+// after its last.
 template <typename T>
-__device__ __forceinline__ void rec_ring_row(
+struct RecStreamRows {
+  const T* a;
+  const unsigned char* A;
+  uint64_t* full;
+  uint64_t* empty;
+  int64_t n, RB;
+  int J, La, NA;
+  int64_t x0 = 0;    // the first lane of the next lane's block
+  int i = 0;         // the next lane's place in it
+  int s = 0;         // the block's buffer
+  unsigned ph = 0;   // and the phase of its `full`
+  int64_t seen = 0;  // lanes given
+  const T* base = nullptr;
+
+  // The next lane's a row.
+  __device__ __forceinline__ const T* next() {
+    if (i == 0) {
+      mbar_wait(&full[s], ph);
+      base = reinterpret_cast<const T*>(A + s * RB) +
+             ((uintptr_t)(a + x0 * J) & 15) / sizeof(T);
+    }
+    ++seen;
+    return base + (int64_t)i * J;
+  }
+
+  // Done with the row next() gave last.
+  __device__ __forceinline__ void done() {
+    if (++i == La || seen == n) {
+      mbar_arrive(&empty[s]);
+      i = 0;
+      x0 += La;
+      if (++s == NA) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+  }
+};
+
+// acc minus chunks [c0, c0 + 32 / V) of a lane's products Px (kLast: only
+// those below nc), each from its register set in q, which is reloaded
+// with the chunk four on as its own is done.
+template <typename T, bool kLast>
+__device__ __forceinline__ T rec_stream_chunks(T acc, RecWideQ<T>& q,
+                                               const T* Px, int c0, int nc) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int c = 0; c < 32 / V; ++c) {
+    if (!kLast || c0 + c < nc) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc = sub_rn(acc, q[c % 4][k]);
+    }
+    lds16(Px + (c0 + c + 4) * V, q[c % 4]);
+  }
+  return acc;
+}
+
+// Slot s of lane x's chain and of lane x + 1's products (rec_stream_run):
+// a thread's product j = 2 + 32 s + lane, loaded before the slot's 32
+// products of the chain, formed and stored after them.
+template <typename T, bool kChain, bool kForm, bool kLast>
+__device__ __forceinline__ T rec_stream_slot(T acc, RecWideQ<T>& q,
+                                             const T* Px, T* Pn, const T* a1,
+                                             const T* hb, int J, int s,
+                                             int nc, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  const int j = 2 + 32 * s + lane;
+  const int jj = min(j, J - 1);
+  T av = T(0), hv = T(0);
+  if constexpr (kForm) {
+    av = a1[jj];
+    hv = hb[-jj];
+  }
+  if constexpr (kChain) {
+    acc = rec_stream_chunks<T, kLast>(acc, q, Px, s * (32 / V), nc);
+  }
+  if constexpr (kForm) {
+    if (j < J) Pn[j - 2] = mul_rn(av, hv);
+  }
+  return acc;
+}
+
+// kChain: acc minus lane x's products Px in order (its first four chunks
+// already in q); kForm: lane x + 1's products into Pn, product j from its
+// a row a1 and hb[-j] (its h[j]).  The last slot, whose chunks may end
+// early, runs outside the loop: inside it, a branch a slot that picked
+// the slot's body slowed every slot.
+template <typename T, bool kChain, bool kForm>
+__device__ __forceinline__ T rec_stream_run(T acc, RecWideQ<T>& q,
+                                            const T* Px, T* Pn, const T* a1,
+                                            const T* hb, int J, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  const int slots = (J - 2 + 31) / 32;
+  const int nc = (J - 2 + V - 1) / V;
+  int s = 0;
+  for (; s + 1 < slots; ++s) {
+    acc = rec_stream_slot<T, kChain, kForm, false>(acc, q, Px, Pn, a1, hb, J,
+                                                   s, nc, lane);
+  }
+  return rec_stream_slot<T, kChain, kForm, true>(acc, q, Px, Pn, a1, hb, J, s,
+                                                 nc, lane);
+}
+
+// One lane x of a stage in the streamed form, run by the whole chain
+// warp.  On entry r holds its ff, a[0] and a[1] h[1], Px its products (q
+// their first four chunks); a1 is lane x + 1's a row (any shared address
+// past the stage), ff1 its ff, live1 whether it is live; ht one past the
+// newest history entry.  Runs lane x's chain if it is live (else y = 0
+// and the history stays), forms lane x + 1's products into Pn and its
+// registers if it is live.
+template <typename T>
+__device__ __forceinline__ void rec_stream_lane(
+    bool live, bool live1, const T* a1, T ff1, T* yx, T*& ht, T& h0r, T& h1r,
+    RecWideRegs<T>& r, RecWideQ<T>& q, const T* Px, T* Pn, int J,
+    int lane) {
+  const T a01 = a1[0];
+  const T a11 = a1[1];
+  if (live) {
+    T acc = sub_rn(r.ff, mul_rn(r.a0, h0r));
+    acc = sub_rn(acc, r.p1);
+    // Lane x + 1's h[j] is lane x's h[j - 1], ht[-j].
+    acc = live1
+        ? rec_stream_run<T, true, true>(acc, q, Px, Pn, a1, ht, J, lane)
+        : rec_stream_run<T, true, false>(acc, q, Px, Pn, a1, ht, J, lane);
+    *yx = acc;
+    *ht++ = acc;
+    r.p1 = mul_rn(a11, h0r);  // lane x + 1's h[1] is lane x's h[0]
+    h1r = h0r;
+    h0r = acc;
+  } else {
+    *yx = T(0);
+    // Lane x + 1's history is lane x's: h[j] = ht[-1 - j].
+    if (live1) {
+      rec_stream_run<T, false, true>(T(0), q, Px, Pn, a1, ht - 1, J, lane);
+    }
+    r.p1 = mul_rn(a11, h1r);
+  }
+  r.ff = ff1;
+  r.a0 = a01;
+}
+
+// One row of the streamed form: warp 1 the stage producer (rec_produce
+// without a, stages of rec_stream_stage_lanes), warp 2 the a streamer,
+// warp 0 the chain.  Shared memory: the a buffers' mbarriers, the two
+// product buffers, the a buffers, the ring (ff, y, live), the history.
+template <typename T>
+__device__ __forceinline__ void rec_stream_row(
     const T* __restrict__ a, const T* __restrict__ ff,
     const uint8_t* __restrict__ live, const T* __restrict__ h0,
-    T* __restrict__ y, T* __restrict__ hist, int64_t n, int J, int tile,
-    unsigned char* raw) {
-  const RecSmem<T> s = rec_smem<T>(raw, tile, J);
-  const int64_t tiles = (n + tile - 1) / tile;
-  const bool stager = threadIdx.x >= 32;
-  const int me = threadIdx.x - 32;
-
-  rec_stage<T>(s, 0, a, ff, live, n, J, tile, 0, threadIdx.x, kRecThreads);
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  int p = 0;
+    T* __restrict__ y, T* __restrict__ hist, int64_t n, int J,
+    unsigned char* raw, uint64_t* full, uint64_t* empty) {
+  constexpr int item = sizeof(T);
+  const int NA = rec_stream_bufs(J, item);
+  const int S = rec_stream_stage_lanes(J, item);
+  const int La = rec_stream_block_lanes(J, item);
+  const int64_t RB = rec_stream_block_bytes(J, item);
+  const int W = rec_stream_window(J);
+  uint64_t* afull = reinterpret_cast<uint64_t*>(raw);
+  uint64_t* aempty = afull + kRecStreamBufs;
+  T* P = reinterpret_cast<T*>(raw + kRecStreamBars);
+  unsigned char* A = reinterpret_cast<unsigned char*>(P + 2 * W);
+  T* F = reinterpret_cast<T*>(A + NA * RB);
+  T* Y = F + kRecStages * S;
+  uint8_t* L = reinterpret_cast<uint8_t*>(Y + kRecStages * S);
+  T* Hb = reinterpret_cast<T*>(L + kRecStages * S);
+  const int head = rec_head(live);
+  const int role = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int j = 0; j < J; ++j) s.ring[(J - j) % J] = h0[j];
-  }
-  for (int64_t t = 0; t < tiles; ++t) {
-    const int cur = (int)(t & 1);
-    if (stager) {
-      if (t + 1 < tiles) {
-        rec_stage<T>(s, cur ^ 1, a, ff, live, n, J, tile, t + 1, me,
-                     kRecStagers);
-      }
-      if (t > 0) rec_store<T>(s, cur ^ 1, y, n, tile, t - 1, me, kRecStagers);
-      __pipeline_wait_prior(0);
-    } else if (threadIdx.x == 0) {
-      rec_tile_ring<T>(s, cur, (int)lmin(tile, n - t * tile), J, p);
+    for (int s = 0; s < NA; ++s) {
+      mbar_init(&afull[s], 1);
+      mbar_init(&aempty[s], 32);
     }
-    __syncthreads();
   }
-  rec_store<T>(s, (int)((tiles - 1) & 1), y, n, tile, tiles - 1, threadIdx.x,
-               kRecThreads);
-  if (threadIdx.x == 0) {
-    for (int j = 0; j < J; ++j) hist[j] = s.ring[(p - j + J) % J];
+  rec_ring_init(full, empty);
+  if (role == 1) {
+    rec_produce<T, false>(a, ff, live, y, n, 0, S, head,
+                          ((uintptr_t)(ff + head) & 15) == 0, nullptr, F, Y,
+                          L, full, empty, lane);
+    return;
   }
+  if (role == 2) {
+    if (lane == 0) rec_stream_a<T>(a, n, J, La, NA, RB, A, afull, aempty);
+    return;
+  }
+  for (int e = lane; e < J; e += 32) Hb[e] = h0[J - 1 - e];
+  // Past a lane's products the windows stay 0: only products are stored.
+  for (int e = lane; e < 2 * W; e += 32) P[e] = T(0);
+  T h0r = h0[0];
+  T h1r = h0[1];
+  T* ht = Hb + J;  // one past the newest history entry
+  int b = 0;       // the product buffer of the next lane
+  RecStreamRows<T> rows{a, A, afull, aempty, n, RB, J, La, NA};
+  RecWideRegs<T> r{T(0), T(0), T(0)};
+  RecWideQ<T> q;
+  for (RecStage sg(n, head); sg.st < n; sg.next(n, S)) {
+    const int s = sg.k % kRecStages;
+    mbar_wait(&full[s], (unsigned)(sg.k / kRecStages) & 1u);
+    const int m = (int)sg.len;
+    const T* fs = F + s * S;
+    const uint8_t* ls = L + s * S;
+    T* ys = Y + s * S;
+    __syncwarp();
+    if (ht + m > Hb + 2 * J + S) {
+      // The newest J entries to the front (more than 2J: no overlap).
+      for (int e = lane; e < J; e += 32) Hb[e] = ht[e - J];
+      ht = Hb + J;
+      __syncwarp();
+    }
+    // The live bytes of 32 lanes a ballot, a group ahead.
+    unsigned mask = __ballot_sync(kFull, lane < m && ls[lane] != 0);
+    // The stage's first lane: its registers and products from the
+    // history as it stands.
+    {
+      const T* a0 = rows.next();
+      if (mask & 1u) {
+        r.ff = fs[0];
+        r.a0 = a0[0];
+        r.p1 = mul_rn(a0[1], h1r);
+        rec_stream_run<T, false, true>(T(0), q, nullptr, P + (b & 1) * W,
+                                       a0, ht - 1, J, lane);
+      }
+      rows.done();
+      __syncwarp();
+      rec_wide_first<T>(P + (b & 1) * W, q);
+    }
+    for (int g = 0; g < m; g += 32) {
+      const int g2 = g + 32;
+      const unsigned next =
+          __ballot_sync(kFull, g2 + lane < m && ls[g2 + lane] != 0);
+      const uint64_t M = mask | (uint64_t)next << 32;
+      const int len = min(32, m - g);
+      for (int k = 0; k < len; ++k, ++b) {
+        const int x = g + k;
+        const bool more = x + 1 < m;
+        T* Pn = P + ((b + 1) & 1) * W;
+        // Past the stage a1 and ff1 are read but not used.
+        rec_stream_lane<T>((M >> k) & 1u, (M >> (k + 1)) & 1u,
+                           more ? rows.next() : P, fs[x + 1], ys + x, ht,
+                           h0r, h1r, r, q, P + (b & 1) * W, Pn, J, lane);
+        if (more) rows.done();
+        __syncwarp();
+        // The next lane's first four chunks, in flight while the next
+        // lane's registers and a row are found.
+        rec_wide_first<T>(Pn, q);
+      }
+      mask = next;
+    }
+    mbar_arrive(&empty[s]);
+  }
+  __syncwarp();
+  for (int j = lane; j < J; j += 32) hist[j] = ht[-1 - j];
 }
 
 // One block a row.  kJ > 0: the chain form, history in registers; kJ = 0:
-// any deeper J, the wide form up to kRecWideMaxJ, the ring form past it.
+// any deeper J, the wide form up to kRecWideMaxJ, the streamed form past
+// it.
 template <typename T, int kJ>
-__global__ void __launch_bounds__(kRecThreads)
+__global__ void __launch_bounds__(kRecStreamThreads)
 linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
                   const uint8_t* __restrict__ live_all,
                   const T* __restrict__ h0_all, T* __restrict__ y_all,
-                  T* __restrict__ hist_all, int64_t n, int J, int tile) {
+                  T* __restrict__ hist_all, int64_t n, int J) {
   extern __shared__ __align__(128) unsigned char rec_raw[];
   __shared__ uint64_t rec_full[kRecStages];
   __shared__ uint64_t rec_empty[kRecStages];
@@ -1115,7 +1351,8 @@ linear_recurrence(const T* __restrict__ a_all, const T* __restrict__ ff_all,
     T* y = y_all + r * n;
     T* hist = hist_all + r * J;
     if (J > kRecWideMaxJ) {
-      rec_ring_row<T>(a, ff, live, h0, y, hist, n, J, tile, rec_raw);
+      rec_stream_row<T>(a, ff, live, h0, y, hist, n, J, rec_raw, rec_full,
+                        rec_empty);
       return;
     }
     // The window: 16, 24 or 32 products (a multiple of 8: at most 7 zeros
@@ -1139,7 +1376,6 @@ template <typename T, int kJ>
 int launch_recurrence(const T* a, const T* ff, const uint8_t* live,
                       const T* h0, T* y, T* hist, int64_t rows, int64_t n,
                       int J, cudaStream_t stream) {
-  int tile = 0;
   int threads = kRecChainThreads;
   size_t smem;
   if constexpr (kJ > 0) {
@@ -1149,13 +1385,11 @@ int launch_recurrence(const T* a, const T* ff, const uint8_t* live,
     smem = (size_t)rec_wide_bytes(J, rec_wide_stage_lanes(J, sizeof(T)),
                                   sizeof(T));
   } else {
-    // Tiles that fit the budget, at most kRecTile lanes.
-    const size_t per_lane = sizeof(T) * (size_t)(2 * J + 4) + 2;
-    const size_t room = kRecSmemBudget - sizeof(T) * (size_t)J;
-    tile = (int)lmin(kRecTile, (int64_t)(room / per_lane));
-    if (tile < 1) return (int)cudaErrorInvalidValue;
-    threads = kRecThreads;
-    smem = rec_smem_bytes<T>(tile, J);
+    // The streamed form: a buffers and stages sized to its budget.
+    threads = kRecStreamThreads;
+    smem = (size_t)rec_stream_bytes(J, rec_stream_stage_lanes(J, sizeof(T)),
+                                    rec_stream_bufs(J, sizeof(T)),
+                                    sizeof(T));
   }
   auto kernel = linear_recurrence<T, kJ>;
   if (smem > 48 * 1024) {
@@ -1164,7 +1398,7 @@ int launch_recurrence(const T* a, const T* ff, const uint8_t* live,
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<(unsigned)rows, threads, smem, stream>>>(a, ff, live, h0, y, hist,
-                                                    n, J, tile);
+                                                    n, J);
   return (int)cudaGetLastError();
 }
 
@@ -1203,11 +1437,16 @@ constexpr int kDfOneTile = 1024;
 constexpr int kDfTile = 2048;
 constexpr int kDfWideTile = 4096;
 constexpr int64_t kDfTileMax = 1 << 18;
-// Scratch, in 32-bit words, for `cap` tiles: [0] done counter, [1] tile
-// counter (a grid larger than the card holds at once), [2, 2 + cap) a
-// flag per tile, then from df_record_offset(cap) two floats (hi, lo) per
-// tile.  Only the counters and flags must be zero when a call starts.
-constexpr int kDfHead = 2;
+// Scratch, in 32-bit words, for `cap` tiles: [0] done counter,
+// [kDfTicket] tile counter (every grid of rows longer than one tile),
+// [kDfHead, kDfHead + cap) a flag per tile, then from df_record_offset(cap)
+// two floats (hi, lo) per tile.  Only the counters and flags must be zero
+// when a call starts.  The tile counter has a 128-byte line of its own:
+// all of a grid's blocks draw from it at once, and on the line of the
+// done counter and the flags that the look-back polls, the draws of a
+// 2^20-lane row's 256 blocks queued long enough to show in its time.
+constexpr int kDfTicket = 32;
+constexpr int kDfHead = 64;
 
 __host__ __device__ constexpr int df_tile(int64_t n) {
   return n <= kDfOneTile ? kDfOneTile
@@ -1353,9 +1592,55 @@ __device__ __forceinline__ void df_stage_out(float* __restrict__ dst,
   }
 }
 
+// Whether a grid's blocks take their tiles from the tile counter: every
+// grid whose rows have more than one tile, so that every tile below a
+// running one has been taken by a block that is running or done, whatever
+// else runs on the card.
+__host__ __device__ constexpr bool df_counted(int64_t tiles_a_row) {
+  return tiles_a_row > 1;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
+// Global tile gt (of rows of nbr tiles of kTile lanes) towards L2: a
+// prefetch a 128-byte line of xh and of xl.
+template <int kThreads, int kTile>
+__device__ __forceinline__ void df_prefetch_tile(const float* xh_all,
+                                                 const float* xl_all,
+                                                 int64_t n, int64_t nbr,
+                                                 int64_t gt) {
+  const int64_t r = (int64_t)((unsigned)gt / (unsigned)nbr);
+  const int64_t base = (gt - r * nbr) * kTile;
+  const int lines = (int)((lmin(kTile, n - base) + 31) / 32);
+  for (int v = threadIdx.x; v < 2 * lines; v += kThreads) {
+    prefetch_l2((v < lines ? xh_all : xl_all) + r * n + base +
+                32 * (v < lines ? v : v - lines));
+  }
+}
+
+// Global tile gt (of rows of nbr tiles of kTile lanes) into the padded
+// stages, float4 where the tile is whole and 16-byte aligned.
+template <int kThreads, int kTile>
+__device__ __forceinline__ void df_stage_tile(const float* __restrict__ xh_all,
+                                              const float* __restrict__ xl_all,
+                                              int64_t n, int64_t nbr,
+                                              int64_t gt, float* stage_h,
+                                              float* stage_l) {
+  const int64_t r = (int64_t)((unsigned)gt / (unsigned)nbr);
+  const int64_t base = (gt - r * nbr) * kTile;
+  const float* xh = xh_all + r * n;
+  const float* xl = xl_all + r * n;
+  const bool vec =
+      base + kTile <= n && (((uintptr_t)xh | (uintptr_t)xl) & 15) == 0;
+  df_stage_in<kThreads, kTile>(xh, base, n, vec, stage_h);
+  df_stage_in<kThreads, kTile>(xl, base, n, vec, stage_l);
+}
+
 // Single-pass inclusive df scan of each of `rows` rows of n lanes (row r
 // at r * n in each of xh, xl, oh, ol), tiles of kThreads x kItems lanes,
-// block b the tile b of the rows in order.  Thread k of a tile takes its
+// a block a tile, the tiles of the rows in order.  Thread k of a tile takes its
 // kItems lanes into registers (kStaged: through the padded stage, with
 // coalesced float4 loads of the tile; else straight from device memory,
 // float4 where whole and 16-byte aligned, masked scalars otherwise; lanes
@@ -1363,18 +1648,19 @@ __device__ __forceinline__ void df_stage_out(float* __restrict__ dst,
 // one exchange of warp totals through shared memory, which every warp
 // scans the same way; a tile of a longer row then publishes its aggregate
 // (or its inclusive prefix, an anchor), looks back, and folds the prefix
-// before it into its lanes.  A tile waits only on tiles of lower index:
-// block b is tile b, or with `counted` (a grid larger than the card holds
-// at once) the block takes the next tile from the scratch's tile counter.
-// A tile never crosses a row and its look-back reads only its own row's status
-// in a single row's grouping, so row r gives the bits of a one-row call
-// on it.
+// before it into its lanes.  A tile waits only on tiles of lower index.
+// A one-tile row's block b is tile b; a longer row's block takes the next
+// tile from the scratch's tile counter (df_counted), and while the counter
+// answers it sends tile b towards L2, so that whichever block draws a tile
+// finds it there or on its way.  A block runs one tile, and the tile, not
+// the block, fixes the bits.  A tile never crosses a row and its look-back
+// reads only its own row's status in a single row's grouping, so row r
+// gives the bits of a one-row call on it.
 template <int kThreads, int kItems, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 df_prefix_sum(const float* __restrict__ xh_all, const float* __restrict__ xl_all,
               float* __restrict__ oh_all, float* __restrict__ ol_all,
-              unsigned* scratch, int64_t cap, int64_t rows, int64_t n,
-              bool counted) {
+              unsigned* scratch, int64_t cap, int64_t rows, int64_t n) {
   constexpr int kTile = kThreads * kItems;
   constexpr int kWarps = kThreads / 32;
   constexpr int kVecs = kItems / 4;
@@ -1388,11 +1674,21 @@ df_prefix_sum(const float* __restrict__ xh_all, const float* __restrict__ xl_all
   __shared__ unsigned taken;
   const int64_t nbr = (n + kTile - 1) / kTile;  // tiles per row
   const int64_t nb = rows * nbr;
+  const bool counted = df_counted(nbr);
   int64_t gt = blockIdx.x;
   if (counted) {
-    if (threadIdx.x == 0) taken = atomicAdd(&scratch[1], 1u);
+    // The drawn tile stays in a register while the prefetches go out.
+    unsigned drawn = 0;
+    if (threadIdx.x == 0) drawn = atomicAdd(&scratch[kDfTicket], 1u);
+    df_prefetch_tile<kThreads, kTile>(xh_all, xl_all, n, nbr, gt);
+    if (threadIdx.x == 0) taken = drawn;
     __syncthreads();
     gt = taken;
+  }
+  if constexpr (kStaged) {
+    df_stage_tile<kThreads, kTile>(xh_all, xl_all, n, nbr, gt, stage_h,
+                                   stage_l);
+    __syncthreads();
   }
   const int64_t r = (int64_t)((unsigned)gt / (unsigned)nbr);
   const int64_t t = gt - r * nbr;
@@ -1409,10 +1705,6 @@ df_prefix_sum(const float* __restrict__ xh_all, const float* __restrict__ xl_all
 
   Df items[kItems];
   if constexpr (kStaged) {
-    const bool vec = whole && (((uintptr_t)xh | (uintptr_t)xl) & 15) == 0;
-    df_stage_in<kThreads, kTile>(xh, base, n, vec, stage_h);
-    df_stage_in<kThreads, kTile>(xl, base, n, vec, stage_l);
-    __syncthreads();
 #pragma unroll
     for (int q = 0; q < kVecs; ++q) {
       const float4 fh =
@@ -1546,7 +1838,7 @@ df_prefix_sum(const float* __restrict__ xh_all, const float* __restrict__ xl_all
   if (nbr > 1 && last_block) {
     unsigned* all = scratch + kDfHead;
     for (int64_t i = threadIdx.x; i < nb; i += kThreads) all[i] = 0;
-    if (threadIdx.x == 0) scratch[0] = scratch[1] = 0;
+    if (threadIdx.x == 0) scratch[0] = scratch[kDfTicket] = 0;
   }
 }
 
@@ -1555,21 +1847,15 @@ static_assert(256 * 4 == kDfOneTile && 256 * 8 == kDfTile &&
               "the launches' geometry is df_tile's");
 
 // Blocks of df_prefix_sum<kThreads, kItems, kStaged> that the current
-// device holds at once (0 if the runtime cannot say).
+// device holds at once (0 if the runtime cannot say).  No launch reads
+// it; tuun_df_resident reports it.
 template <int kThreads, int kItems, bool kStaged>
 int64_t df_resident() {
-  static const int per_sm = [] {
-    int k = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &k, df_prefix_sum<kThreads, kItems, kStaged>, kThreads, 0) !=
-        cudaSuccess) {
-      cudaGetLastError();
-      return 0;
-    }
-    return k;
-  }();
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, df_prefix_sum<kThreads, kItems, kStaged>, kThreads, 0) !=
+          cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess) {
     cudaGetLastError();
@@ -1582,11 +1868,9 @@ template <int kThreads, int kItems, bool kStaged>
 int launch_df(const float* xh, const float* xl, float* oh, float* ol,
               unsigned* scratch, int64_t cap, int64_t rows, int64_t n,
               int64_t blocks, cudaStream_t stream) {
-  const bool counted = blocks > rows &&
-                       blocks > df_resident<kThreads, kItems, kStaged>();
   df_prefix_sum<kThreads, kItems, kStaged>
       <<<(unsigned)blocks, kThreads, 0, stream>>>(xh, xl, oh, ol, scratch,
-                                                   cap, rows, n, counted);
+                                                   cap, rows, n);
   return (int)cudaGetLastError();
 }
 
@@ -1641,6 +1925,16 @@ extern "C" {
 // tile takes no scratch).
 int tuun_df_tile(long long n) { return df_tile(n); }
 int tuun_recurrence_max_j() { return kRecMaxJ; }
+
+// Blocks of the df prefix sum's kernel for rows of n lanes that the
+// current card holds at once (0 if the runtime cannot say).  The kernel
+// does not depend on it: chip_smoke.py sizes its two-stream check by it.
+long long tuun_df_resident(long long n) {
+  const int tile = df_tile(n);
+  return tile == kDfOneTile ? df_resident<256, 4, false>()
+         : tile == kDfTile  ? df_resident<256, 8, true>()
+                            : df_resident<512, 8, true>();
+}
 
 // Words (32-bit) of a df prefix-sum scratch buffer for up to `tiles` tiles.
 long long tuun_df_scratch_words(long long tiles) {

@@ -853,12 +853,11 @@ def linear_recurrence_ref(a_rows: torch.Tensor, ff: torch.Tensor,
     yields 0 and passes the history through.  The plain version of both
     forms, in the inputs' dtype: leading axes (a [..., N, J], ff and live
     [..., N], h0 [..., J]) are rows run side by side."""
-    J = a_rows.shape[-1]
     n = ff.shape[-1]
     ffl = ff.unbind(-1)
     lvl = live.unbind(-1)
-    cols = [c.unbind(-1) for c in a_rows.unbind(-1)]
-    h = list(h0.unbind(-1))
+    lanes = a_rows.unbind(-2)
+    h = h0.clone(memory_format=torch.contiguous_format)
     # Lanes live (or dead) in every row skip the selects, which would
     # leave every value as it is: the same bits in fewer ops.
     flat = live.reshape(-1, n)
@@ -867,19 +866,21 @@ def linear_recurrence_ref(a_rows: torch.Tensor, ff: torch.Tensor,
     ys = []
     for i in range(n):
         acc = ffl[i]
-        for j in range(J):
-            acc = acc - cols[j][i] * h[j]
+        # A lane's J products in one op, each rounded on its own; then
+        # the differences in order.
+        for prod in (lanes[i] * h).unbind(-1):
+            acc = acc - prod
         if all_live[i]:
-            h = [acc] + h[:-1]
+            h = torch.cat([acc.unsqueeze(-1), h[..., :-1]], -1)
         elif not any_live[i]:
             acc = torch.zeros_like(acc)
         else:
             lv = lvl[i]
             acc = torch.where(lv, acc, 0.0)
-            h = [torch.where(lv, acc, h[0])] + [
-                torch.where(lv, h[j - 1], h[j]) for j in range(1, J)]
+            h = torch.where(lv.unsqueeze(-1), torch.cat(
+                [acc.unsqueeze(-1), h[..., :-1]], -1), h)
         ys.append(acc)
-    return torch.stack(ys, -1), torch.stack(h, -1)
+    return torch.stack(ys, -1), h
 
 
 def _check_recurrence(a_rows, ff, live, h0, rows: bool) -> None:
