@@ -1771,9 +1771,8 @@ class TrackerRuns:
         out["dispatches"] = {k: sorted({d for p, d in self.blocks if p == k})
                              for k in out if out[k]}
         for name in ("captures_started", "captures_finished", "replays",
-                     "window_opens", "_prefetch_hits", "_prefetch_misses"):
-            out[name.strip("_")] = sum(getattr(t, name)
-                                       for t in self.trackers)
+                     "window_opens", "prefetch_hits", "prefetch_misses"):
+            out[name] = sum(getattr(t, name) for t in self.trackers)
         out["capture_s"] = [x for t in self.trackers
                             for x in t.capture_seconds]
         if self.pools:  # at the first close, the session's end

@@ -362,7 +362,7 @@ def test_window_prefetch_invalidated_by_modify_between_windows():
             if fuse:
                 tts._drain_prefetch(t)
         if fuse:
-            assert t._prefetch_misses >= 1  # the stale one was rejected
+            assert t.prefetch_misses >= 1  # the stale one was rejected
         outs.append(np.concatenate(mix))
         t.close()
     np.testing.assert_allclose(outs[1], outs[0], atol=1e-6)

@@ -506,7 +506,7 @@ def test_window_prefetch_adopts_and_matches_per_block():
         _drain_prefetch(t)  # deterministic adoption
     np.testing.assert_allclose(np.concatenate(got), np.concatenate(want),
                                atol=1e-6)
-    assert t._prefetch_hits >= 2
+    assert t.prefetch_hits >= 2
     t.close()
 
 
@@ -535,13 +535,13 @@ def test_window_prefetch_invalidated_by_an_interrupting_play():
     ref = _window_tracker(fuse=False, lookahead=1)
     want = [host(ref.render_block()[0]) for _ in range(k0)]
     ref.play(P(3), sine(11.0))
-    misses = t._prefetch_misses
+    misses = t.prefetch_misses
     got = []
     for _ in range(8):
         got.append(host(t.render_block()[0]))
         want.append(host(ref.render_block()[0]))
         _drain_prefetch(t)
-    assert t._prefetch_misses > misses and t._prefetch is not pf
+    assert t.prefetch_misses > misses and t._prefetch is not pf
     np.testing.assert_allclose(np.concatenate(got),
                                np.concatenate(want[k0:]), atol=1e-6)
     t.close()
@@ -556,12 +556,12 @@ def test_window_prefetch_invalidated_by_a_regroup():
     t.play(P(3), sine(3.5), start=end)  # no interrupt: starts at the end
     assert t._window is not None
     pf = t._prefetch
-    hits, misses = t._prefetch_hits, t._prefetch_misses
+    hits, misses = t.prefetch_hits, t.prefetch_misses
     while t.now < end + 8 * 16:
         t.render_block()
         _drain_prefetch(t)
-    assert t._prefetch_misses > misses or (
-        t._prefetch_hits == hits and t._prefetch is not pf)
+    assert t.prefetch_misses > misses or (
+        t.prefetch_hits == hits and t._prefetch is not pf)
     assert pf["result"] is not None  # it was rendered, then not adopted
     t.close()
 
@@ -571,7 +571,7 @@ def test_window_prefetch_disabled_flag():
     t.prefetch_windows = False
     for _ in range(16):
         t.render_block()
-    assert t._prefetch_hits == 0 and t._prefetch is None
+    assert t.prefetch_hits == 0 and t._prefetch is None
     t.close()
 
 
@@ -618,7 +618,7 @@ def test_stream_matches_jax_tracker_with_windows():
     got, pd = _stream(pt, _stream_notes(tuun_tpu_torch, sr), blocks)
     np.testing.assert_allclose(got, want, rtol=0, atol=8 * 2e-5)
     assert pd == jd
-    assert pt.window_opens >= 2 and pt._prefetch_hits >= 1
+    assert pt.window_opens >= 2 and pt.prefetch_hits >= 1
     assert 0 in pd and 1 in pd
     pt.close()
 
@@ -930,7 +930,7 @@ def test_captured_windows_interrupt_and_prefetch(modelled):
         _drain_prefetch(t)
     np.testing.assert_allclose(np.concatenate(got), np.concatenate(want),
                                atol=1e-6)
-    assert t.window_opens >= 3 and t._prefetch_hits >= 1
+    assert t.window_opens >= 3 and t.prefetch_hits >= 1
     t.close()
 
 
@@ -1057,5 +1057,5 @@ def test_threads_stress_captured_windows(monkeypatch):
     for got, t in results.values():
         np.testing.assert_allclose(got, want, atol=1e-6)
         if t.window_opens:
-            assert t._prefetch_hits + t._prefetch_misses == \
+            assert t.prefetch_hits + t.prefetch_misses == \
                 t.window_opens - 1

@@ -37,13 +37,17 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
     is closed or collected.  One capture runs at a time in the process,
     with capture_error_mode="thread_local", so that another thread may serve
     blocks on the card meanwhile.  A scan launch recorded by the capture is
-    counted at every replay (scan_ops.count_launches).
+    counted at every replay (scan_ops.count_launches), and the shapes of
+    the scan calls it recorded (`scan_calls`) are marked on the profiler's
+    clock at every replay under a session (scan_ops.mark_calls).
   * A call replays on the caller's current stream, under the step's own
-    lock (a window's prefetch worker and the serve thread both call it).
+    lock (a window's prefetch worker and the serve thread both call it),
+    inside the span `tuun.engine.replay` (spans.py).
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 import weakref
@@ -51,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import spans
 from . import scan_ops
 from .graph import Params
 
@@ -135,6 +140,8 @@ class EagerStep:
     """A step called as it is (the CPU)."""
 
     captured = False
+    # Its scans mark themselves where they run.
+    scan_calls: Tuple = ()
 
     def __init__(self, fn: Callable, device):
         self.fn = fn
@@ -189,6 +196,7 @@ class GraphStep:
         self._layout: List = []
         self._out_spec = None
         self.launches: Dict[str, int] = {}
+        self.scan_calls: Tuple[scan_ops.Call, ...] = ()
         self._lock = threading.Lock()
         self._done = None  # an event after the last call's work
         self.capture_seconds: Optional[float] = None
@@ -249,7 +257,9 @@ class GraphStep:
             stream.synchronize()
             self.capture_seconds = time.perf_counter() - t0
         self._out_spec, self._packed, self._layout = body
-        self.launches = dict(recorded)
+        self.scan_calls = tuple(recorded)
+        self.launches = dict(collections.Counter(
+            entry for entry, *_ in recorded))
         self._graph = graph
 
     def _replay(self) -> None:
@@ -267,7 +277,7 @@ class GraphStep:
             torch._foreach_copy_(dst, src)
 
     def __call__(self, params, states, scalars: Tuple[int, ...]):
-        with self._lock:
+        with spans.span("engine.replay"), self._lock:
             if self._graph is None:
                 raise RuntimeError("the session step is not captured, or "
                                    "was closed")
@@ -292,6 +302,7 @@ class GraphStep:
                 self._scalars_host = scalars
             self._replay()
             scan_ops.count_launches(self.launches)
+            scan_ops.mark_calls(self.scan_calls)
             out = unflatten(self._out_spec, _views(
                 {dt: b.clone() for dt, b in self._packed.items()},
                 self._layout))

@@ -17,6 +17,11 @@ first CUDA call that needs it, keyed by a hash of the source and flags,
 and binds through ctypes (`build_libraries` runs both nvcc at once).
 Each entry point counts its kernel launches in `launches` (reset with
 `reset_launches`), so a run can show which kernels its path reached.
+Each also records its call's shape as (entry, rows, lanes, J), J None
+for the scans that take none: a capture keeps the calls it recorded
+(graph_scope), and an eager call under a profiler session marks itself
+`tuun.scan.<entry>:<rows>x<lanes>[:J<J>]` (spans.py), so a trace names
+the shapes its kernels ran at.
 
 Each kernel is one launch per call: a single-pass scan with decoupled
 look-back, in a fixed grouping, so a call gives the same bits every
@@ -85,9 +90,11 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+
+from .. import spans
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "scan.cu"
@@ -162,7 +169,7 @@ _df_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
 _affine_retired: List[torch.Tensor] = []
 _owner_retired: Dict[Any, List[torch.Tensor]] = {}
 # Per thread: the graph_scope's owner and, while a graph captures, the
-# launches its scans recorded.
+# calls its scans recorded.
 _tls = threading.local()
 # Held for the first load of the library and for each scratch creation
 # (never by a launch that finds its buffer): threads at first use (the
@@ -178,11 +185,9 @@ def reset_launches() -> None:
 
 
 def _launched(entry: str) -> None:
-    rec = getattr(_tls, "recording", None)
-    if rec is None:
+    # A capture's launches are its recorded calls (graph_scope).
+    if getattr(_tls, "recording", None) is None:
         launches[entry] += 1
-    else:
-        rec[entry] = rec.get(entry, 0) + 1
 
 
 def count_launches(recorded: Dict[str, int]) -> None:
@@ -191,14 +196,44 @@ def count_launches(recorded: Dict[str, int]) -> None:
         launches[k] += c
 
 
+# A scan call's shape: (entry, rows, lanes, J or None).
+Call = Tuple[str, int, int, Optional[int]]
+
+
+def call_marker(call: Call) -> str:
+    """The marker's name of a scan call, after "tuun."."""
+    entry, rows, lanes, J = call
+    return f"scan.{entry}:{rows}x{lanes}" + ("" if J is None else f":J{J}")
+
+
+def mark_calls(calls: Sequence[Call]) -> None:
+    """One marker per call while a profiler session runs (a captured
+    step's calls, at its dispatch)."""
+    if calls and spans.traced():
+        for call in calls:
+            spans.mark(call_marker(call))
+
+
+def _called(entry: str, rows: int, lanes: int,
+            J: Optional[int] = None) -> None:
+    """Records a call: in the capture's recording while a graph captures,
+    else as a marker under a session."""
+    rec = getattr(_tls, "recording", None)
+    if rec is not None:
+        rec.append((entry, rows, lanes, J))
+    elif spans.traced():
+        spans.mark(call_marker((entry, rows, lanes, J)))
+
+
 @contextlib.contextmanager
-def graph_scope(owner, record: bool = False) -> Iterator[Dict[str, int]]:
+def graph_scope(owner, record: bool = False) -> Iterator[List[Call]]:
     """While active on this thread, the scans use scratch of `owner`'s
-    own; with record=True (a capture) they record their launches in the
-    yielded dict instead of counting them."""
+    own; with record=True (a capture) they append their calls to the
+    yielded list instead of counting their launches and marking them:
+    each call a captured graph holds is one launch at every replay."""
     if getattr(_tls, "owner", None) is not None:
         raise RuntimeError("graph_scope does not nest")
-    recorded: Dict[str, int] = {}
+    recorded: List[Call] = []
     _tls.owner = owner
     _tls.recording = recorded if record else None
     try:
@@ -469,6 +504,7 @@ def prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
     if _is_batched(x):
         return _vmap_op("prefix_sum")(x)
     _check_vector(x, "prefix_sum_f32")
+    _called("prefix_sum_f32", 1, x.shape[0])
     if x.is_cpu:
         return prefix_sum_ref(x)
     return _prefix_launch(load_library().tuun_prefix_sum_rows_f32,
@@ -481,6 +517,7 @@ def prefix_max_f32(x: torch.Tensor) -> torch.Tensor:
     if _is_batched(x):
         return _vmap_op("prefix_max")(x)
     _check_vector(x, "prefix_max_f32")
+    _called("prefix_max_f32", 1, x.shape[0])
     if x.is_cpu:
         return prefix_max_ref(x)
     return _prefix_launch(load_library().tuun_prefix_max_rows_f32,
@@ -491,6 +528,7 @@ def prefix_sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
     """prefix_sum_f32 of each row of a float32 [B, N] tensor, in one
     launch; row r has the bits of prefix_sum_f32(x[r])."""
     _check_vector(x, "prefix_sum_rows_f32", dims=2)
+    _called("prefix_sum_rows_f32", *x.shape)
     if x.is_cpu:
         return prefix_sum_ref(x)
     return _prefix_launch(load_library().tuun_prefix_sum_rows_f32,
@@ -501,6 +539,7 @@ def prefix_max_rows_f32(x: torch.Tensor) -> torch.Tensor:
     """prefix_max_f32 of each row of a float32 [B, N] tensor, in one
     launch: bit-identical to torch.cummax(x, -1).values."""
     _check_vector(x, "prefix_max_rows_f32", dims=2)
+    _called("prefix_max_rows_f32", *x.shape)
     if x.is_cpu:
         return prefix_max_ref(x)
     return _prefix_launch(load_library().tuun_prefix_max_rows_f32,
@@ -714,6 +753,7 @@ def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,
             or _is_batched(h0):
         return _vmap_op("affine_scan")(a_rows, ff, live, h0)
     _check_affine(a_rows, ff, live, h0)
+    _called("affine_scan_f32", 1, *a_rows.shape)
     if ff.is_cpu:
         return affine_y_ref(a_rows, ff, live, h0)
     return _affine_launch(a_rows, ff, live, h0, 1, "affine_scan_f32")
@@ -726,6 +766,7 @@ def affine_scan_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     J], ff f32[B, N], live bool[B, N], h0 f32[B, J] -> (y f32[B, N],
     hist f32[B, J]); row r has the bits of a single call on row r."""
     _check_affine_rows(a_rows, ff, live, h0)
+    _called("affine_scan_rows_f32", *a_rows.shape)
     if ff.is_cpu:
         return affine_y_ref(a_rows, ff, live, h0)
     return _affine_launch(a_rows, ff, live, h0, ff.shape[0],
@@ -775,6 +816,7 @@ def affine_scan_deep_f32(a_rows: torch.Tensor, ff: torch.Tensor,
             or _is_batched(h0):
         return _vmap_op("affine_scan_deep")(a_rows, ff, live, h0)
     _check_affine(a_rows, ff, live, h0, "affine_scan_deep_f32", _DEEP_DEPTHS)
+    _called("affine_scan_deep_f32", 1, *a_rows.shape)
     if ff.is_cpu:
         return _deep_cpu(a_rows, ff, live, h0)
     return _deep_launch(a_rows, ff, live, h0, 1, "affine_scan_deep_f32")
@@ -789,6 +831,7 @@ def affine_scan_deep_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     row r."""
     _check_affine_rows(a_rows, ff, live, h0, "affine_scan_deep_rows_f32",
                        _DEEP_DEPTHS)
+    _called("affine_scan_deep_rows_f32", *a_rows.shape)
     if ff.is_cpu:
         return _deep_cpu(a_rows, ff, live, h0)
     return _deep_launch(a_rows, ff, live, h0, ff.shape[0],
@@ -935,6 +978,7 @@ def linear_recurrence(a_rows: torch.Tensor, ff: torch.Tensor,
             or _is_batched(h0):
         return _vmap_op("linear_recurrence")(a_rows, ff, live, h0)
     _check_recurrence(a_rows, ff, live, h0, rows=False)
+    _called(f"linear_recurrence_{_suffix(ff.dtype)}", 1, *a_rows.shape)
     if ff.is_cpu:
         return linear_recurrence_ref(a_rows, ff, live, h0)
     return _recurrence_launch(a_rows, ff, live, h0, 1,
@@ -948,6 +992,7 @@ def linear_recurrence_rows(a_rows: torch.Tensor, ff: torch.Tensor,
     and live [B, N], h0 [B, J] -> (y [B, N], hist [B, J]); row r has the
     bits of a single call on row r."""
     _check_recurrence(a_rows, ff, live, h0, rows=True)
+    _called(f"linear_recurrence_rows_{_suffix(ff.dtype)}", *a_rows.shape)
     if ff.is_cpu:
         return linear_recurrence_ref(a_rows, ff, live, h0)
     return _recurrence_launch(a_rows, ff, live, h0, ff.shape[0],
@@ -1014,6 +1059,7 @@ def df_prefix_sum_f32(xh: torch.Tensor, xl: torch.Tensor
     if _is_batched(xh) or _is_batched(xl):
         return _vmap_op("df_prefix_sum")(xh, xl)
     _check_df(xh, xl, 1, "df_prefix_sum_f32")
+    _called("df_prefix_sum_f32", 1, xh.shape[0])
     if xh.is_cpu:
         return df_prefix_sum_ref(xh, xl)
     return _df_launch(xh, xl, 1, "df_prefix_sum_f32")
@@ -1024,6 +1070,7 @@ def df_prefix_sum_rows_f32(xh: torch.Tensor, xl: torch.Tensor
     """df_prefix_sum_f32 of each row of [B, N] float32 pairs in one
     launch; row r has the bits of a single call on row r."""
     _check_df(xh, xl, 2, "df_prefix_sum_rows_f32")
+    _called("df_prefix_sum_rows_f32", *xh.shape)
     if xh.is_cpu:
         return df_prefix_sum_ref(xh, xl)
     return _df_launch(xh, xl, xh.shape[0], "df_prefix_sum_rows_f32")

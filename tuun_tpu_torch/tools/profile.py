@@ -55,7 +55,7 @@ def _sync(torch, device) -> None:
 
 def block_census(torch, scan_ops, block, device) -> dict:
     """One call of block() under torch.profiler, after a warm session:
-    the device events (or top-level CPU operators) and their most
+    the device events (or outermost CPU aten operators) and their most
     frequent names (short_name), the wrappers' launches, the hand-written
     kernels the profiler saw, busy and wall milliseconds."""
     from torch.autograd import DeviceType
@@ -76,8 +76,13 @@ def block_census(torch, scan_ops, block, device) -> dict:
     if cuda:
         work = [e for e in events if e.device_type == DeviceType.CUDA]
     else:
+        # The outermost aten operators: under a span (spans.py) or
+        # another non-aten range an operator still counts, as it does
+        # at the top level.
         work = [e for e in events if e.device_type == DeviceType.CPU
-                and e.cpu_parent is None and e.name.startswith("aten::")]
+                and e.name.startswith("aten::")
+                and not (e.cpu_parent is not None
+                         and e.cpu_parent.name.startswith("aten::"))]
     spans = sorted((e.time_range.start, e.time_range.end) for e in work)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # the union of the intervals, in microseconds

@@ -40,6 +40,19 @@ The streaming path, with the reference's names and rules:
     window's end states, and is adopted only if every member still has
     the params, state object and state generation it was built from.
 
+Spans (spans.py): under a torch.profiler session the serve thread's
+work is named on the profiler's clock: `tuun.tracker.run_to_completion`
+(flush, copy_wait, concat), `tuun.tracker.render_block` (activate,
+materialize, regroup; window_open holding prefetch_wait, window_dispatch
+and prefetch_submit; window_serve, window_finalize; fused_render;
+pervoice_render with a group_render per group or lone voice; sync with
+stage_pending, copy_wait and retire), `tuun.tracker.stage_host`, and the
+commands' phases (play, modify).  A window's spans carry its first
+block's index.  The workers (prefetch, fetch, capture) enter spans of
+their own, which only a session that records every thread keeps.  The
+command phases of
+`op_log` are the same spans' seconds.
+
 Live edits (tuun_tpu/tracker.py:198-254, 715-825): Modify substitutes the
 subtree under a mark and carries the state of every structurally
 unchanged node into the recompiled voice (carry_state), so a slider ramp
@@ -78,7 +91,9 @@ import numpy as np
 import torch
 
 from . import _threads, ir, native, oracle
+from .spans import span, spanned
 from .engine import CompiledVoice, EngineConfig, structure_key
+from .engine import scan_ops
 from .engine.capture import flatten, make_step, tree_clone
 from .engine.graph import (MAX_BLOCK, check_device, stack_params, stack_tree,
                            tree_index)
@@ -638,19 +653,21 @@ class Tracker:
         # one opens, and is adopted only if its inputs are still current.
         self.prefetch_windows = True
         self._prefetch: Optional[Dict[str, Any]] = None
-        self._prefetch_hits = 0
-        self._prefetch_misses = 0
         # Counters of the session steps: captures started and finished,
-        # graph replays (the prefetch worker's included), windows opened.
+        # graph replays (the prefetch worker's included), windows opened,
+        # and windows adopted from the prefetch (hits) or rendered inline
+        # after a prefetch was found stale or not yet started (misses).
         self.captures_started = 0
         self.captures_finished = 0
         self.capture_seconds: List[float] = []  # each finished capture's
         self.replays = 0
         self.window_opens = 0
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
         self._count_lock = _threading.Lock()
         # Command-path phase log: every play, modify, activation and costly
         # window open appends (op, block_index, total_seconds,
-        # {phase: seconds}).
+        # {phase: seconds}), each phase timed by its span.
         self.op_log: _collections.deque = _collections.deque(maxlen=256)
         self._staged_q: List = []
         # (window, block, k) of the block render_block last served from a
@@ -684,6 +701,7 @@ class Tracker:
 
     # -- commands ------------------------------------------------------
 
+    @spanned("tracker.play")
     def play(self, wid, waveform: ir.Waveform, start: Optional[int] = None,
              repeat_every: Optional[int] = None) -> None:
         if repeat_every is not None and repeat_every <= 0:
@@ -695,17 +713,17 @@ class Tracker:
         phases: Dict[str, float] = {}
         if self._window is not None and start < \
                 self._window["start"] + self._window["K"] * self.block_size:
-            self._interrupt_window()
-            phases["interrupt"] = _time.perf_counter() - t0
-        t = _time.perf_counter()
-        marks = collect_marks(waveform, self.sample_rate, wid, start)
-        phases["marks"] = _time.perf_counter() - t
+            with span("tracker.interrupt", phases):
+                self._interrupt_window()
+        with span("tracker.marks", phases):
+            marks = collect_marks(waveform, self.sample_rate, wid, start)
         self.pending.append(Pending(wid, waveform, start, repeat_every,
                                     marks))
         self.pending.sort(key=lambda p: p.start)
         self.op_log.append(("play", self.now // self.block_size,
                             _time.perf_counter() - t0, phases))
 
+    @spanned("tracker.modify")
     def modify(self, wid, mark_id, new_waveform: ir.Waveform) -> None:
         """Replaces the subtree under `mark_id` in voice `wid` (active and
         pending), carrying the state of every unchanged node.
@@ -725,40 +743,34 @@ class Tracker:
             return
         t0 = _time.perf_counter()
         phases: Dict[str, float] = {}
-
-        def _mark_phase(name: str, since: float) -> float:
-            now = _time.perf_counter()
-            phases[name] = phases.get(name, 0.0) + (now - since)
-            return now
-
-        self._interrupt_window()
-        t = _mark_phase("interrupt", t0)
+        with span("tracker.interrupt", phases):
+            self._interrupt_window()
         # The states, not the valid ends in flight: those go to the fetch
         # worker (a voice whose end is still in flight gets a harmless
         # splice: it renders zeros and retires at a later sync).  The
         # groups' states come back onto their voices, cloned off any
         # captured step's buffers, so no later replay reaches what is
         # carried below.
-        self._materialize_groups(drain=False)
-        t = _mark_phase("materialize", t)
+        with span("tracker.materialize", phases):
+            self._materialize_groups(drain=False)
         for voice in self.active:
             if voice.id != wid or not has_mark(voice.waveform):
                 continue
-            new_w = ir.substitute(voice.waveform, mark_id, new_waveform)
-            compiled = self.cache.get(new_w, self.cfg)
-            old_compiled = voice.compiled
-            needs_replay = voice.fast or old_compiled._has_timeline
-            if old_compiled._has_timeline or compiled._has_timeline:
-                # A timeline keeps one position per score, and a subtree
-                # that starts fresh mid-stream has no place in a literal
-                # schedule: compile both sides as plain trees (the same
-                # const order, so params and carry_state line up) and
-                # rebuild the old tree's state by replay.
-                plain = _dataclasses.replace(self.cfg, timeline=False)
-                compiled = self.cache.get(new_w, plain)
-                old_compiled = self.cache.get(voice.waveform, plain)
-            params = compiled.params_for(new_w, seed=voice.host_seed)
-            t = _mark_phase("splice", t)
+            with span("tracker.splice", phases):
+                new_w = ir.substitute(voice.waveform, mark_id, new_waveform)
+                compiled = self.cache.get(new_w, self.cfg)
+                old_compiled = voice.compiled
+                needs_replay = voice.fast or old_compiled._has_timeline
+                if old_compiled._has_timeline or compiled._has_timeline:
+                    # A timeline keeps one position per score, and a
+                    # subtree that starts fresh mid-stream has no place in
+                    # a literal schedule: compile both sides as plain trees
+                    # (the same const order, so params and carry_state line
+                    # up) and rebuild the old tree's state by replay.
+                    plain = _dataclasses.replace(self.cfg, timeline=False)
+                    compiled = self.cache.get(new_w, plain)
+                    old_compiled = self.cache.get(voice.waveform, plain)
+                params = compiled.params_for(new_w, seed=voice.host_seed)
             old_pos, old_rst = voice.state
             if needs_replay:
                 # The fast path and the timeline schedule never advance
@@ -769,23 +781,23 @@ class Tracker:
                 # large blocks (block-size invariance is an engine
                 # contract): one render a served block since sample 0
                 # would cost a long-lived voice's first edit dearly.
-                old_rst = old_compiled.state_at(
-                    voice.params, self.now - voice.start,
-                    max(8192, self.block_size))
-                t = _mark_phase("state_at", t)
+                with span("tracker.state_at", phases):
+                    old_rst = old_compiled.state_at(
+                        voice.params, self.now - voice.start,
+                        max(8192, self.block_size))
                 voice.fast = False
             voice.lits = None
-            _, fresh_rst = compiled.init(params)
-            _set_state(voice, (old_pos, carry_state(
-                voice.waveform, new_w, old_rst, fresh_rst,
-                replaced_mark=mark_id)))
-            t = _mark_phase("carry", t)
+            with span("tracker.carry", phases):
+                _, fresh_rst = compiled.init(params)
+                _set_state(voice, (old_pos, carry_state(
+                    voice.waveform, new_w, old_rst, fresh_rst,
+                    replaced_mark=mark_id)))
             voice.waveform = new_w
             voice.compiled = compiled
             voice.params = params
-            voice.marks = collect_marks(new_w, self.sample_rate, voice.id,
-                                        voice.start)
-            t = _mark_phase("marks", t)
+            with span("tracker.marks", phases):
+                voice.marks = collect_marks(new_w, self.sample_rate,
+                                            voice.id, voice.start)
             # A subtree that starts mid-stream makes the voice's length
             # unreadable from the IR (a stop ramp shortens it): retire by
             # the valid end.
@@ -818,29 +830,33 @@ class Tracker:
 
     # -- rendering -----------------------------------------------------
 
+    @spanned("tracker.activate")
     def _activate(self, p: Pending, block_start: int) -> Voice:
+        """The voice of `p`, its phases logged: compile (the structure's
+        CompiledVoice, built on a cache miss), params, init, lits, length
+        and, for a late start, catchup."""
         t0 = _time.perf_counter()
         phases: Dict[str, float] = {}
-        compiled = self.cache.get(p.waveform, self.cfg)
-        self._seed_counter += 1
-        params = compiled.params_for(p.waveform, seed=self._seed_counter)
-        state = compiled.init(params)
-        phases["build"] = _time.perf_counter() - t0
-        t = _time.perf_counter()
-        fast = compiled.fast_default
-        lits = compiled.lits_for(params) \
-            if fast or compiled._has_timeline else None
-        voice = Voice(p.id, p.waveform, compiled, params, state, p.start,
-                      list(p.marks), fast=fast, lits=lits,
-                      host_seed=self._seed_counter)
-        phases["lits"] = _time.perf_counter() - t
-        t = _time.perf_counter()
+        with span("tracker.compile", phases):
+            compiled = self.cache.get(p.waveform, self.cfg)
+        with span("tracker.params", phases):
+            self._seed_counter += 1
+            params = compiled.params_for(p.waveform, seed=self._seed_counter)
+        with span("tracker.init", phases):
+            state = compiled.init(params)
+        with span("tracker.lits", phases):
+            fast = compiled.fast_default
+            lits = compiled.lits_for(params) \
+                if fast or compiled._has_timeline else None
+            voice = Voice(p.id, p.waveform, compiled, params, state, p.start,
+                          list(p.marks), fast=fast, lits=lits,
+                          host_seed=self._seed_counter)
         # Exact retirement: the symbolic length of a relocatable
         # structure, else the oracle's length() (generator.rs:787-862).
-        total = compiled.symbolic_len(params, lits)
-        if total is None:
-            total = _voice_total_length(p.waveform, self.sample_rate)
-        phases["length"] = _time.perf_counter() - t
+        with span("tracker.length", phases):
+            total = compiled.symbolic_len(params, lits)
+            if total is None:
+                total = _voice_total_length(p.waveform, self.sample_rate)
         voice.total_len = total
         if total is None:
             self._ends_known = False
@@ -850,13 +866,12 @@ class Tracker:
         if delta > 0:
             # Late start: render and discard the missed span
             # (tracker.rs:514-537); captures are kept.
-            t = _time.perf_counter()
-            off = 0
-            while off < delta and not voice.finished:
-                m = min(self.block_size, delta - off)
-                self._render_voice(voice, m, 0)
-                off += m
-            phases["catchup"] = _time.perf_counter() - t
+            with span("tracker.catchup", phases):
+                off = 0
+                while off < delta and not voice.finished:
+                    m = min(self.block_size, delta - off)
+                    self._render_voice(voice, m, 0)
+                    off += m
         self.op_log.append(("activate", block_start // self.block_size,
                             _time.perf_counter() - t0, phases))
         return voice
@@ -1036,7 +1051,8 @@ class Tracker:
 
             def work():
                 try:
-                    step.capture()
+                    with span("capture.step"):
+                        step.capture()
                     ent["fn"] = step
                     self._count("captures_finished")
                     self.capture_seconds.append(step.capture_seconds)
@@ -1132,18 +1148,22 @@ class Tracker:
         Without defer each call's valid ends are read at once."""
         acc = None
         for voice in self._singles:
-            s = max(voice.start - block_start, 0)
-            y = self._render_voice(voice, n, s, defer=defer)
-            acc = y if acc is None else acc + y
+            with span("tracker.group_render"):
+                s = max(voice.start - block_start, 0)
+                y = self._render_voice(voice, n, s, defer=defer)
+                acc = y if acc is None else acc + y
         for group in self._groups:
-            starts = [max(v.start - block_start, 0) for v in group.voices]
-            y_sum, v_arr, caps, lv = group.render(
-                n, starts, n, levels=self.report_levels)
-            if defer:
-                group._pending.append((v_arr, caps, lv, tuple(starts), n))
-            else:
-                group.resolve(v_arr, caps, starts, n, lv)
-            acc = y_sum if acc is None else acc + y_sum
+            with span("tracker.group_render"):
+                starts = [max(v.start - block_start, 0)
+                          for v in group.voices]
+                y_sum, v_arr, caps, lv = group.render(
+                    n, starts, n, levels=self.report_levels)
+                if defer:
+                    group._pending.append((v_arr, caps, lv, tuple(starts),
+                                           n))
+                else:
+                    group.resolve(v_arr, caps, starts, n, lv)
+                acc = y_sum if acc is None else acc + y_sum
         return acc
 
     # -- lookahead windows ---------------------------------------------
@@ -1226,27 +1246,32 @@ class Tracker:
         step = self._window_fn(key, n, K, scalars)
         if step is None:
             return None
-        t0 = _time.perf_counter()
-        res = self._adopt_prefetch(key, K, block_start)
-        t1 = _time.perf_counter()
-        phases = {"adopt": t1 - t0}
-        if res is None:
-            res = step(tuple(_params_of(m) for m in members),
-                       tuple(_state_of(m) for m in members), scalars)
-            if step.captured:
-                self._count("replays")
-            phases["dispatch"] = _time.perf_counter() - t1
-        if sum(phases.values()) > 0.002:
-            self.op_log.append(("window", block_start // n,
-                                sum(phases.values()), phases))
-        finals, (acc, vs, lvs) = res
-        self._count("window_opens")
-        self._window = {"acc": acc, "vs": vs, "lvs": lvs, "finals": finals,
-                        "k": 0, "K": K, "key": key, "start": block_start,
-                        "singles": list(self._singles),
-                        "groups": list(self._groups)}
-        if self.prefetch_windows:
-            self._submit_prefetch(key, K, step, finals, window_end, scalars)
+        first = block_start // n
+        phases: Dict[str, float] = {}
+        with span("tracker.window_open", args=first):
+            with span("tracker.prefetch_wait", phases, "adopt", first):
+                res = self._adopt_prefetch(key, K, block_start)
+            if res is None:
+                with span("tracker.window_dispatch", phases, "dispatch",
+                          first):
+                    res = step(tuple(_params_of(m) for m in members),
+                               tuple(_state_of(m) for m in members), scalars)
+                    if step.captured:
+                        self._count("replays")
+            if sum(phases.values()) > 0.002:
+                self.op_log.append(("window", first, sum(phases.values()),
+                                    phases))
+            finals, (acc, vs, lvs) = res
+            self._count("window_opens")
+            self._window = {"acc": acc, "vs": vs, "lvs": lvs,
+                            "finals": finals, "k": 0, "K": K, "key": key,
+                            "start": block_start,
+                            "singles": list(self._singles),
+                            "groups": list(self._groups)}
+            if self.prefetch_windows:
+                with span("tracker.prefetch_submit", args=first):
+                    self._submit_prefetch(key, K, step, finals, window_end,
+                                          scalars)
         return self._serve_window()
 
     def _adopt_prefetch(self, key, K: int, block_start: int):
@@ -1275,14 +1300,14 @@ class Tracker:
                 # waiting in line.
                 pf["state"] = "abandoned"
         if not valid or not started:
-            self._prefetch_misses += 1
+            self._count("prefetch_misses")
             return None
         if not pf["done"].wait(timeout=120):  # pragma: no cover
-            self._prefetch_misses += 1
+            self._count("prefetch_misses")
             return None
         if pf["error"] is not None:
             raise RuntimeError("the window prefetch failed") from pf["error"]
-        self._prefetch_hits += 1
+        self._count("prefetch_hits")
         return pf["result"]
 
     def _submit_prefetch(self, key, K: int, step, finals, start: int,
@@ -1291,7 +1316,9 @@ class Tracker:
         prefetch worker.  The window step never changes its inputs, so an
         unadopted prefetch is only discarded output.  Each member's state
         generation is expected one higher at adoption: the finalize of
-        this window sets it to `finals`."""
+        this window sets it to `finals`.  Under a profiler session the
+        step's scan calls are marked here, on the serving thread, which the
+        session records."""
         members = self._members()
         params = tuple(_params_of(m) for m in members)
         refs = [(m, p, f, m.gen + 1) for m, p, f in zip(members, params,
@@ -1304,6 +1331,7 @@ class Tracker:
                "result": None, "error": None, "key": key, "K": K,
                "start": start, "singles": list(self._singles),
                "groups": list(self._groups), "refs": refs}
+        scan_ops.mark_calls(step.scan_calls)
         self._prefetch = job
         self._ensure_prefetcher()
         self._prefetch_q.put(job)
@@ -1325,14 +1353,16 @@ class Tracker:
                         continue
                     job["state"] = "running"
                 try:
-                    if job["stream"] is not None:
-                        # The serve thread's stream: its replays and this
-                        # one never overlap on the card.
-                        with torch.cuda.stream(job["stream"]):
+                    with span("prefetch.window", args=job["start"] //
+                              self.block_size):
+                        if job["stream"] is not None:
+                            # The serve thread's stream: its replays and
+                            # this one never overlap on the card.
+                            with torch.cuda.stream(job["stream"]):
+                                job["result"] = job["fn"](*job["args"])
+                            self._count("replays")
+                        else:
                             job["result"] = job["fn"](*job["args"])
-                        self._count("replays")
-                    else:
-                        job["result"] = job["fn"](*job["args"])
                 except Exception as e:  # raised at adoption
                     job["error"] = e
                 job["done"].set()
@@ -1345,11 +1375,14 @@ class Tracker:
     def _serve_window(self):
         w = self._window
         n = self.block_size
-        y = w["acc"][w["k"] * n:(w["k"] + 1) * n]
-        self._served = (w, y, w["k"])
-        w["k"] += 1
+        first = w["start"] // n
+        with span("tracker.window_serve", args=first):
+            y = w["acc"][w["k"] * n:(w["k"] + 1) * n]
+            self._served = (w, y, w["k"])
+            w["k"] += 1
         if w["k"] >= w["K"]:
-            self._finalize_window()
+            with span("tracker.window_finalize", args=first):
+                self._finalize_window()
         return y
 
     def _queue_window(self, w, finals, vs, lvs, e: int) -> None:
@@ -1414,6 +1447,7 @@ class Tracker:
             if self._render_all_fused(w["key"], n, bs, True) is None:
                 self._render_all_pervoice(n, bs, True)
 
+    @spanned("tracker.render_block")
     def render_block(self):
         """Renders the next block of `block_size` samples (the audio
         callback: tracker.rs:321-368 + generate:484-644).  Returns (mix,
@@ -1433,7 +1467,8 @@ class Tracker:
                 # The regroup below stacks voice states: take the groups'
                 # progress back onto their voices first, without waiting
                 # on the card for valid ends still in flight.
-                self._materialize_groups(drain=False)
+                with span("tracker.materialize"):
+                    self._materialize_groups(drain=False)
                 if p.repeat_every is not None:
                     nxt = p.start + p.repeat_every
                     while nxt < block_start:  # skip missed repetitions
@@ -1447,7 +1482,8 @@ class Tracker:
         self.pending = sorted(still_pending, key=lambda q: q.start)
 
         if self._groups_dirty:
-            self._rebuild_groups()
+            with span("tracker.regroup"):
+                self._rebuild_groups()
 
         defer = self.sync_interval > 1
         acc = None
@@ -1468,11 +1504,13 @@ class Tracker:
                 if acc is not None:
                     served = opened = True
             if not served and fused:
-                acc = self._render_all_fused(fused_key, n, block_start,
-                                             defer)
+                with span("tracker.fused_render"):
+                    acc = self._render_all_fused(fused_key, n, block_start,
+                                                 defer)
                 fused = acc is not None  # None: still being captured
             if not served and not fused:
-                acc = self._render_all_pervoice(n, block_start, defer)
+                with span("tracker.pervoice_render"):
+                    acc = self._render_all_pervoice(n, block_start, defer)
         # Exact retirement: voices with a known total length finish the
         # moment their final block has been rendered, without a read.
         for voice in self.active:
@@ -1493,9 +1531,11 @@ class Tracker:
             # until its states are adopted at finalize.
             self._since_sync += 1
             if not defer:
-                self._sync_voices(drain=True)
+                with span("tracker.sync"):
+                    self._sync_voices(drain=True)
             elif self._since_sync >= self.sync_interval:
-                self._sync_voices(drain=False)
+                with span("tracker.sync"):
+                    self._sync_voices(drain=False)
         if acc is None:
             out = np.zeros(n, np.float32)
         else:
@@ -1517,6 +1557,7 @@ class Tracker:
         self.dispatch_metric.set(float(status.dispatches))
         return out, status
 
+    @spanned("tracker.stage_host")
     def stage_host(self, y):
         """Starts the copy to host memory of the block that render_block
         has just returned, for a reader on another thread, without
@@ -1574,7 +1615,9 @@ class Tracker:
         if staged is None:
             return
         copy, plan = staged
-        self._apply_resolved(_staged_host(copy), plan)
+        with span("tracker.copy_wait"):
+            data = _staged_host(copy)
+        self._apply_resolved(data, plan)
 
     def _apply_resolved(self, data: np.ndarray, plan) -> None:
         cursor = 0
@@ -1622,7 +1665,8 @@ class Tracker:
                     return
                 copy, plan = item
                 try:
-                    data = _staged_host(copy)  # waits on the copy's event
+                    with span("fetch.copy_wait"):
+                        data = _staged_host(copy)  # waits on its event
                 except Exception:
                     data = None
                 self._fetched_q.put((data, plan))
@@ -1665,7 +1709,11 @@ class Tracker:
         with block=True waits for every outstanding fetch."""
         while self._fetch_outstanding:
             try:
-                data, plan = self._fetched_q.get(timeout=60 if block else 0)
+                if block:
+                    with span("tracker.copy_wait"):
+                        data, plan = self._fetched_q.get(timeout=60)
+                else:
+                    data, plan = self._fetched_q.get(timeout=0)
             except _queue.Empty:
                 if block:
                     raise RuntimeError("staged fetch worker stalled")
@@ -1683,7 +1731,8 @@ class Tracker:
         self._since_sync = 0
         self._ensure_fetcher()
         queue = self._staged_q
-        staged = self._stage_pending()
+        with span("tracker.stage_pending"):
+            staged = self._stage_pending()
         if staged is not None:
             queue.append(staged)
         self._apply_fetched(block=drain)
@@ -1704,15 +1753,17 @@ class Tracker:
             # without captures retire without this wait.
             self._apply_fetched(block=True)
         if finished:
-            self._detach_states()
-            for group in self._groups:
-                if any(v.finished for v in group.voices):
-                    group.materialize_states()
-            self._groups_dirty = True
-            for voice in finished:
-                self._close_voice(voice)
-            self.active = [v for v in self.active if not v.finished]
-            self._singles = [v for v in self._singles if not v.finished]
+            with span("tracker.retire"):
+                self._detach_states()
+                for group in self._groups:
+                    if any(v.finished for v in group.voices):
+                        group.materialize_states()
+                self._groups_dirty = True
+                for voice in finished:
+                    self._close_voice(voice)
+                self.active = [v for v in self.active if not v.finished]
+                self._singles = [v for v in self._singles
+                                 if not v.finished]
 
     def _close_voice(self, voice: Voice) -> None:
         if not voice.captures:
@@ -1728,6 +1779,7 @@ class Tracker:
 
     # -- convenience ---------------------------------------------------
 
+    @spanned("tracker.run_to_completion")
     def run_to_completion(self, max_seconds: float = 120.0,
                           sink: Optional[Callable[[np.ndarray], None]] = None
                           ) -> np.ndarray:
@@ -1744,17 +1796,20 @@ class Tracker:
         def flush_window():
             if not window:
                 return
-            packed = window[0][None] if len(window) == 1 \
-                else torch.stack(window)
-            window.clear()
-            in_flight.append(_start_host_copies(packed))
+            with span("tracker.flush"):
+                packed = window[0][None] if len(window) == 1 \
+                    else torch.stack(window)
+                window.clear()
+                in_flight.append(_start_host_copies(packed))
 
         def resolve(limit: Optional[int] = None):
             while in_flight and (
                     (limit is not None and len(in_flight) > limit)
                     or _staged_ready(in_flight[0])):
-                arr = np.asarray(_staged_host(in_flight.pop(0)),
-                                 np.float32).reshape(-1, self.block_size)
+                with span("tracker.copy_wait"):
+                    host = _staged_host(in_flight.pop(0))
+                arr = np.asarray(host, np.float32).reshape(
+                    -1, self.block_size)
                 for row in arr:
                     chunks.append(row)
                     if sink is not None:
@@ -1781,4 +1836,5 @@ class Tracker:
         resolve(limit=0)
         if not chunks:
             return np.zeros(0, np.float32)
-        return np.concatenate(chunks)
+        with span("tracker.concat"):
+            return np.concatenate(chunks)
