@@ -40,7 +40,12 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
     (a scan's or an interval gate's) is counted at every replay
     (scan_ops.count_launches), and the shapes of
     the scan calls it recorded (`scan_calls`) are marked on the profiler's
-    clock at every replay under a session (scan_ops.mark_calls).
+    clock at every replay under a session (scan_ops.mark_calls).  The
+    capture also counts the device operations it adds to the graph by the
+    engine node class whose render enqueued them (`node_ops`, NodeOps),
+    marked at every replay under a session as
+    `tuun.engine.ops.<Class>:<n>` (`GraphStep.mark`).  The count runs
+    only inside a capture.
   * A call replays on the caller's current stream, under the step's own
     lock (a window's prefetch worker and the serve thread both call it),
     inside the span `tuun.engine.replay` (spans.py).
@@ -48,18 +53,153 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import ctypes
+import sys
 import threading
 import time
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from .. import spans
 from . import scan_ops
-from .graph import Params
+from .graph import Node, Params
 
 _capture_lock = threading.Lock()
+
+# The node class of operations enqueued outside every engine node's
+# render (the step's mix, the states written back, the outputs packed).
+OTHER = "other"
+# CUstreamCaptureStatus: the stream is capturing.
+_CAPTURE_ACTIVE = 1
+_libcuda = None
+
+
+def captured_nodes(stream: int) -> Optional[int]:
+    """The device operations (graph nodes: kernels, copies, sets) that the
+    capture on the CUDA stream `stream` (a raw handle) holds so far, read
+    through libcuda; None where it cannot be read.  The two libcuda calls
+    return at once and keep the interpreter lock (PyDLL), so the capture
+    never waits for it behind the thread that serves blocks meanwhile."""
+    global _libcuda
+    if _libcuda is None:
+        try:
+            lib = ctypes.PyDLL("libcuda.so.1")
+            lib.cuStreamGetCaptureInfo_v2.argtypes = [ctypes.c_void_p] + \
+                [ctypes.c_void_p] * 5
+            lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p] * 3
+            lib.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
+            lib.cuGraphGetNodes.restype = ctypes.c_int
+            _libcuda = lib
+        except (OSError, AttributeError):
+            _libcuda = False
+    if not _libcuda:
+        return None
+    status, cid = ctypes.c_int(), ctypes.c_uint64()
+    graph, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), \
+        ctypes.c_size_t()
+    if _libcuda.cuStreamGetCaptureInfo_v2(
+            ctypes.c_void_p(stream), ctypes.byref(status),
+            ctypes.byref(cid), ctypes.byref(graph), ctypes.byref(deps),
+            ctypes.byref(ndeps)) != 0 or status.value != _CAPTURE_ACTIVE:
+        return None
+    n = ctypes.c_size_t()
+    if _libcuda.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        return None
+    return n.value
+
+
+def _render_classes() -> Dict[Any, str]:
+    """Each engine node class's `render` code object, and the class's
+    name."""
+    codes, todo = {}, [Node]
+    while todo:
+        cls = todo.pop()
+        todo += cls.__subclasses__()
+        fn = cls.__dict__.get("render")
+        if fn is not None:
+            codes[fn.__code__] = cls.__name__
+    return codes
+
+
+class NodeOps:
+    """Counts, while active on a thread, the device operations enqueued
+    there by the engine node class whose render enqueued them: a node's
+    count is what `nodes()` (the operations enqueued so far) grew by
+    while its render ran, less its children's renders; what grew outside
+    every render is OTHER's.  The renders' starts and returns come from
+    sys.monitoring events set on the `render` code objects alone, so no
+    other call pays for them and no call makes this thread wait for the
+    interpreter lock; renders on other threads are passed over.  Nothing
+    is counted where `nodes()` reads None or no monitoring tool id is
+    free."""
+
+    def __init__(self, nodes: Callable[[], Optional[int]]):
+        self.nodes = nodes
+        self.counts: collections.Counter = collections.Counter()
+        self._stack: List[list] = []
+        self._tool: Optional[int] = None
+        self._lost = False  # a reading of None after the start
+
+    def _now(self) -> int:
+        n = self.nodes()
+        if n is None:
+            self._lost = True
+            return 0
+        return n
+
+    def _start_render(self, code, offset) -> None:
+        if threading.get_ident() == self._thread:
+            self._stack.append([self._codes[code], self._now(), 0])
+
+    def _return_render(self, code, offset, value) -> None:
+        if threading.get_ident() == self._thread and self._stack:
+            cls, start, inner = self._stack.pop()
+            grown = self._now() - start
+            self.counts[cls] += grown - inner
+            if self._stack:
+                self._stack[-1][2] += grown
+
+    def __enter__(self) -> "NodeOps":
+        self._start = self.nodes()
+        mon = sys.monitoring
+        free = [i for i in (3, 4) if mon.get_tool(i) is None]
+        if self._start is None or not free:
+            return self
+        try:
+            mon.use_tool_id(free[0], "tuun.node_ops")
+        except ValueError:  # taken meanwhile
+            return self
+        self._tool, self._thread = free[0], threading.get_ident()
+        self._codes = _render_classes()
+        mon.register_callback(self._tool, mon.events.PY_START,
+                              self._start_render)
+        mon.register_callback(self._tool, mon.events.PY_RETURN,
+                              self._return_render)
+        for code in self._codes:
+            mon.set_local_events(self._tool, code, mon.events.PY_START
+                                 | mon.events.PY_RETURN)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._tool is None:
+            return False
+        mon = sys.monitoring
+        for code in self._codes:
+            mon.set_local_events(self._tool, code, 0)
+        mon.register_callback(self._tool, mon.events.PY_START, None)
+        mon.register_callback(self._tool, mon.events.PY_RETURN, None)
+        mon.free_tool_id(self._tool)
+        end = self._now()
+        inside = sum(self.counts.values())
+        if self._lost:
+            self.counts.clear()
+        elif end - self._start > inside:
+            self.counts[OTHER] += end - self._start - inside
+        return False
 
 
 def flatten(tree) -> Tuple[Any, List[torch.Tensor]]:
@@ -151,6 +291,10 @@ class EagerStep:
         sc = torch.tensor(scalars, dtype=torch.int64, device=self.device)
         return self.fn(params, states, sc)
 
+    def mark(self) -> None:
+        """Nothing: its scans mark themselves where they run, and no
+        capture counted its node operations."""
+
     def idle(self) -> bool:
         return True
 
@@ -197,6 +341,8 @@ class GraphStep:
         self._out_spec = None
         self.launches: Dict[str, int] = {}
         self.scan_calls: Tuple[scan_ops.Call, ...] = ()
+        # Device operations of one replay by engine node class (NodeOps).
+        self.node_ops: Dict[str, int] = {}
         self._lock = threading.Lock()
         self._done = None  # an event after the last call's work
         self.capture_seconds: Optional[float] = None
@@ -242,11 +388,12 @@ class GraphStep:
                     self.fn(self.static_params, self.static_states,
                             self.scalars)
                 graph = torch.cuda.CUDAGraph()
-                with scan_ops.graph_scope(self._scratch_owner,
-                                          record=True) as recorded:
+                raw = stream.cuda_stream
+                with self._recording(lambda: captured_nodes(raw)) as count:
                     graph.capture_begin(capture_error_mode="thread_local")
                     try:
-                        body = self._body()
+                        with count:
+                            body = self._body()
                     except Exception:
                         try:  # end the broken capture; its error is moot
                             graph.capture_end()
@@ -257,9 +404,33 @@ class GraphStep:
             stream.synchronize()
             self.capture_seconds = time.perf_counter() - t0
         self._out_spec, self._packed, self._layout = body
+        self._graph = graph
+
+    @contextlib.contextmanager
+    def _recording(self, nodes: Callable[[], Optional[int]]
+                   ) -> Iterator[NodeOps]:
+        """Records what the capture inside it enqueues, for the replays:
+        the scans' calls and the hand-written kernels' launches
+        (scan_ops.graph_scope: `scan_calls`, `launches`) and, inside the
+        NodeOps it yields (over `nodes`, the operations captured so far),
+        the device operations by engine node class (`node_ops`)."""
+        counter = NodeOps(nodes)
+        with scan_ops.graph_scope(self._scratch_owner,
+                                  record=True) as recorded:
+            yield counter
         self.scan_calls = tuple(recorded)
         self.launches = dict(recorded.launches)
-        self._graph = graph
+        self.node_ops = dict(counter.counts)
+
+    def mark(self) -> None:
+        """Under a profiler session, marks what one replay enqueues on
+        the profiler's clock: each scan call's shape
+        (scan_ops.mark_calls) and each engine node class's operations,
+        `tuun.engine.ops.<Class>:<n>`."""
+        if spans.traced():
+            scan_ops.mark_calls(self.scan_calls)
+            for cls, n in sorted(self.node_ops.items()):
+                spans.mark(f"engine.ops.{cls}:{n}")
 
     def _replay(self) -> None:
         self._graph.replay()
@@ -301,7 +472,7 @@ class GraphStep:
                 self._scalars_host = scalars
             self._replay()
             scan_ops.count_launches(self.launches)
-            scan_ops.mark_calls(self.scan_calls)
+            self.mark()
             out = unflatten(self._out_spec, _views(
                 {dt: b.clone() for dt, b in self._packed.items()},
                 self._layout))

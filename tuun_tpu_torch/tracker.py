@@ -93,7 +93,6 @@ import torch
 from . import _threads, ir, native, oracle
 from .spans import span, spanned
 from .engine import CompiledVoice, EngineConfig, structure_key
-from .engine import scan_ops
 from .engine.capture import flatten, make_step, tree_clone
 from .engine.graph import (MAX_BLOCK, check_device, stack_params, stack_tree,
                            tree_index)
@@ -1317,8 +1316,9 @@ class Tracker:
         unadopted prefetch is only discarded output.  Each member's state
         generation is expected one higher at adoption: the finalize of
         this window sets it to `finals`.  Under a profiler session the
-        step's scan calls are marked here, on the serving thread, which the
-        session records."""
+        step's scan calls and node operations are marked here
+        (`step.mark()`), on the serving thread, which the session
+        records."""
         members = self._members()
         params = tuple(_params_of(m) for m in members)
         refs = [(m, p, f, m.gen + 1) for m, p, f in zip(members, params,
@@ -1331,7 +1331,7 @@ class Tracker:
                "result": None, "error": None, "key": key, "K": K,
                "start": start, "singles": list(self._singles),
                "groups": list(self._groups), "refs": refs}
-        scan_ops.mark_calls(step.scan_calls)
+        step.mark()
         self._prefetch = job
         self._ensure_prefetcher()
         self._prefetch_q.put(job)
