@@ -158,11 +158,42 @@ def test_fm_counts_its_sines_and_no_envelope(counted):
 def test_piano_counts_its_envelopes(counted):
     t = _tracker("pm_piano")
     try:
-        ops = _window(t).node_ops
-        # two envelopes of 12 time ramps and 6 alts each, four sines
+        step = _window(t)
+        ops = step.node_ops
+        # two envelopes of 12 time ramps and 6 alts each, four sines; the
+        # shared subtrees leave one time ramp and four alts to render
+        # (tests/test_torch_share.py), and count what they saved
         assert ops["CTime"] > 0 and ops["CAlt"] > 0 and ops["CSine"] > 0
-        assert ops["CTime"] % 24 == 0 and ops["CAlt"] % 12 == 0
-        assert _window(t).scan_calls == ()
+        assert ops["CAlt"] % 4 == 0
+        assert step.shared_renders == 111
+        assert step.scan_calls == ()
+    finally:
+        t.close()
+
+
+@pytest.mark.parametrize("config,saved", [("pm_piano", 111),
+                                          ("fm_vibrato", 1),
+                                          ("saw_lpf", 0)])
+def test_replays_mark_the_renders_shared_subtrees_saved(counted, config,
+                                                        saved):
+    """The capture counts the node renders a window step's shared
+    subtrees saved (a stored result returned counts its subtree's
+    nodes), the compiled voice's own count for its one group render,
+    and each replay under a session marks it as
+    `tuun.engine.shared:<n>`, 0 included."""
+    t = _tracker(config)
+    try:
+        step = _window(t)
+        (group,) = t._groups
+        assert step.shared_renders == group.compiled.shared_renders == saved
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(2 * K):
+                t.render_block()
+                if t._prefetch is not None:
+                    assert t._prefetch["done"].wait(10)
+        got = [e.name for e in prof.events()
+               if e.name.startswith("tuun.engine.shared:")]
+        assert got and set(got) == {f"tuun.engine.shared:{saved}"}
     finally:
         t.close()
 

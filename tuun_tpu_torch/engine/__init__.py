@@ -2,7 +2,7 @@
 programs that run on the CPU or on a CUDA card."""
 
 from .graph import (CompiledVoice, EngineConfig, compile_voice, render,
-                    structure_key)
+                    share_plan, structure_key)
 
 __all__ = ["CompiledVoice", "EngineConfig", "compile_voice", "render",
-           "structure_key"]
+           "share_plan", "structure_key"]

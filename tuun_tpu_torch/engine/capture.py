@@ -44,8 +44,10 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
     capture also counts the device operations it adds to the graph by the
     engine node class whose render enqueued them (`node_ops`, NodeOps),
     marked at every replay under a session as
-    `tuun.engine.ops.<Class>:<n>` (`GraphStep.mark`).  The count runs
-    only inside a capture.
+    `tuun.engine.ops.<Class>:<n>` (`GraphStep.mark`), and the node
+    renders that shared subtrees saved (`shared_renders`, graph.CShared),
+    marked as `tuun.engine.shared:<n>`.  The counts run only inside a
+    capture.
   * A call replays on the caller's current stream, under the step's own
     lock (a window's prefetch worker and the serve thread both call it),
     inside the span `tuun.engine.replay` (spans.py).
@@ -66,7 +68,7 @@ import torch
 
 from .. import spans
 from . import scan_ops
-from .graph import Node, Params
+from .graph import Node, Params, counting_shared
 
 _capture_lock = threading.Lock()
 
@@ -159,7 +161,8 @@ class NodeOps:
         if threading.get_ident() == self._thread and self._stack:
             cls, start, inner = self._stack.pop()
             grown = self._now() - start
-            self.counts[cls] += grown - inner
+            if grown != inner:  # a render that only returned a stored
+                self.counts[cls] += grown - inner  # result adds nothing
             if self._stack:
                 self._stack[-1][2] += grown
 
@@ -341,8 +344,10 @@ class GraphStep:
         self._out_spec = None
         self.launches: Dict[str, int] = {}
         self.scan_calls: Tuple[scan_ops.Call, ...] = ()
-        # Device operations of one replay by engine node class (NodeOps).
+        # Device operations of one replay by engine node class (NodeOps),
+        # and the node renders that shared subtrees saved in it.
         self.node_ops: Dict[str, int] = {}
+        self.shared_renders = 0
         self._lock = threading.Lock()
         self._done = None  # an event after the last call's work
         self.capture_seconds: Optional[float] = None
@@ -413,24 +418,29 @@ class GraphStep:
         the scans' calls and the hand-written kernels' launches
         (scan_ops.graph_scope: `scan_calls`, `launches`) and, inside the
         NodeOps it yields (over `nodes`, the operations captured so far),
-        the device operations by engine node class (`node_ops`)."""
+        the device operations by engine node class (`node_ops`), and
+        the node renders that shared subtrees saved (`shared_renders`)."""
         counter = NodeOps(nodes)
         with scan_ops.graph_scope(self._scratch_owner,
-                                  record=True) as recorded:
+                                  record=True) as recorded, \
+                counting_shared() as saved:
             yield counter
         self.scan_calls = tuple(recorded)
         self.launches = dict(recorded.launches)
         self.node_ops = dict(counter.counts)
+        self.shared_renders = saved[0]
 
     def mark(self) -> None:
         """Under a profiler session, marks what one replay enqueues on
         the profiler's clock: each scan call's shape
-        (scan_ops.mark_calls) and each engine node class's operations,
-        `tuun.engine.ops.<Class>:<n>`."""
+        (scan_ops.mark_calls), each engine node class's operations,
+        `tuun.engine.ops.<Class>:<n>`, and the node renders shared
+        subtrees saved, `tuun.engine.shared:<n>`."""
         if spans.traced():
             scan_ops.mark_calls(self.scan_calls)
             for cls, n in sorted(self.node_ops.items()):
                 spans.mark(f"engine.ops.{cls}:{n}")
+            spans.mark(f"engine.shared:{self.shared_renders}")
 
     def _replay(self) -> None:
         self._graph.replay()

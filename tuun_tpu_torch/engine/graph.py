@@ -78,6 +78,13 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
   * The timeline's step sums scatter each block's deltas at points that
     are host ints merged on the host, so no two deltas meet in one slot
     and the scatter needs no float atomics: the same bits every call.
+  * Shared subtrees.  XLA's common-subexpression pass merges identical
+    computations of the jitted render (std.tuun's `min` and `max` write
+    their operands twice; an envelope applied twice is one computation).
+    The eager render merges nothing, so the compiler plans it
+    (share_plan): an occurrence proven identical to, and equally ranged
+    with, an earlier one is a CShared, and one render enqueues each such
+    class once.
   * Exact-mode IIR feedback (both exact precisions) runs the linear
     recurrence kernel (a lax.scan in JAX), in float32 as the JAX engine
     and the oracle run it; exact_df's phase prefix sum runs the df prefix
@@ -89,7 +96,9 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import weakref
 from dataclasses import dataclass
 from functools import partial
@@ -328,6 +337,9 @@ class Ctx:
         # Host-computed literal Fin cutoffs, when the caller has them:
         # timeline nodes build their schedules from these.
         self.lits = lits
+        # Share class -> the (y, v, w, state') its first member rendered
+        # in this render (CShared); one root render per Ctx.
+        self.shared: Dict[int, Tuple] = {}
 
     @property
     def fidx(self) -> torch.Tensor:
@@ -1572,6 +1584,57 @@ class CWrap(Node):
         return self.inner.advance(P, st, s, e, ctx)
 
 
+class CShared(CWrap):
+    """A member of a share class (share_plan): an occurrence proven
+    identical to, and equally ranged with, the class's other members.
+    It holds its own compiled copy (`inner`) and its own state slot, so
+    the state tree's layout is the unshared one.  The first member a
+    render reaches renders its copy and stores the result in the Ctx;
+    every later member returns that result, its state' included, which
+    the plan's invariant makes equal to what its own copy would give.
+    The class's last member takes the result out of the Ctx, so the
+    samples live no longer than the last member that reads them.
+    `size` is the node renders a member that returns a stored result
+    saves (counted where counting_shared() is active).  Every other
+    path (advance, reloc, state reconstruction) goes to the copy."""
+
+    def __init__(self, cfg, inner: Node, cls: int, size: int, last: bool):
+        super().__init__(cfg, inner)
+        self.cls, self.size, self.last = cls, size, last
+        self.static_len = inner.static_len
+        self.has_capture = inner.has_capture
+
+    def render(self, P, st, s, e, ctx):
+        out = ctx.shared.pop(self.cls, None) if self.last \
+            else ctx.shared.get(self.cls)
+        if out is not None:
+            tally = getattr(_SHARED_TALLY, "box", None)
+            if tally is not None:
+                tally[0] += self.size
+            return out
+        out = self.inner.render(P, st, s, e, ctx)
+        if not self.last:
+            ctx.shared[self.cls] = out
+        return out
+
+
+_SHARED_TALLY = threading.local()
+
+
+@contextlib.contextmanager
+def counting_shared():
+    """Yields a one-element list that counts, while the block runs, the
+    node renders that shared results saved on this thread (each stored
+    result a CShared returned counts its `size`)."""
+    box = [0]
+    prev = getattr(_SHARED_TALLY, "box", None)
+    _SHARED_TALLY.box = box
+    try:
+        yield box
+    finally:
+        _SHARED_TALLY.box = prev
+
+
 def _apply_op(op, a, b):
     if op in (ir.Operator.ADD, ir.Operator.MERGE):
         return a + b
@@ -1770,8 +1833,14 @@ def reconstruct_state(node: Node, P, lits, r: int, adv: int = 0):
 
 
 class Compiler:
-    def __init__(self, cfg: EngineConfig):
+    def __init__(self, cfg: EngineConfig, plan: "SharePlan" = ()):
         self.cfg = cfg
+        # uid -> (share class, size, last member) of each occurrence
+        # that compiles to a CShared (share_plan): members render in uid
+        # order.
+        last = {cls: uid for uid, cls, _ in plan}
+        self.share = {uid: (cls, size, last[cls] == uid)
+                      for uid, cls, size in plan}
         self.const_values: List[np.float32] = []
         self.fixed_values: List[np.ndarray] = []
         self.uid = 0
@@ -1788,8 +1857,11 @@ class Compiler:
         return len(self.const_values) - 1
 
     def compile(self, w: ir.Waveform) -> Node:
+        share = self.share.get(self.uid)
         node = self._compile(w)
         node.has_capture = any(isinstance(n, ir.Captured) for n in w.walk())
+        if share is not None:
+            node = CShared(self.cfg, node, *share)
         return node
 
     def _compile(self, w: ir.Waveform) -> Node:
@@ -1926,13 +1998,27 @@ class CompiledVoice:
     """A waveform compiled for block rendering on cfg.device.
 
     Const values travel in Params, so same-structure waveforms (slider
-    moves, per-voice frequencies) share one compiled voice."""
+    moves, per-voice frequencies) share one compiled voice when they
+    also share its sharing plan (`plan`: share_plan(w, cfg) by default;
+    () renders every occurrence, for states not proven equal across
+    a class, as a modify's splice leaves them)."""
 
-    def __init__(self, w: ir.Waveform, cfg: EngineConfig):
+    def __init__(self, w: ir.Waveform, cfg: EngineConfig,
+                 plan: Optional[SharePlan] = None):
         check_device(cfg.device)
         self.cfg = cfg
         self.waveform = w
-        compiler = Compiler(cfg)
+        self.plan = share_plan(w, cfg) if plan is None else plan
+        # Node renders a root render saves by returning stored results:
+        # every member but the first of each class.
+        firsts = {cls for _, cls, _ in self.plan}
+        self.shared_renders = 0
+        for _, cls, size in self.plan:
+            if cls in firsts:
+                firsts.discard(cls)
+            else:
+                self.shared_renders += size
+        compiler = Compiler(cfg, self.plan)
         self.root = compiler.compile(w)
         self.capture_stems = compiler.captures
         # A relocatable root is a pure function of the absolute sample
@@ -2038,6 +2124,7 @@ class CompiledVoice:
             k = min(n, pos - done)
             e = ctx.end if k == n else torch.full((), k, dtype=I64,
                                                   device=P.device)
+            ctx.shared.clear()  # one root render per memo
             _, _, _, st = self.root.render(P, st, ctx.zero, e, ctx)
             done += k
         return st
@@ -2226,6 +2313,151 @@ def structure_key(w: ir.Waveform, sample_rate: Optional[int] = None,
                 structure_key(w.waveform, sample_rate, in_trigger))
     return (type(w).__name__,) + tuple(
         structure_key(c, sample_rate, in_trigger) for c in w.children())
+
+
+# (uid, share class, size) of each CShared occurrence, in uid order.
+SharePlan = Tuple[Tuple[int, int, int], ...]
+
+
+def _timeline_candidate(w: ir.Waveform, cfg: EngineConfig) -> bool:
+    """Whether Compiler._compile hands this Merge to the timeline pass."""
+    if not (cfg.timeline and isinstance(w, ir.BinaryPointOp)
+            and w.op == ir.Operator.MERGE):
+        return False
+    from .timeline import MIN_LEAVES, _flatten
+    leaves: List[ir.Waveform] = []
+    _flatten(w, leaves)
+    return len(leaves) >= MIN_LEAVES
+
+
+def _const_ir(w: ir.Waveform, cfg: EngineConfig) -> bool:
+    """Whether `w` compiles to a node with a const_expr."""
+    if isinstance(w, ir.Const):
+        return True
+    if isinstance(w, (ir.Marked, ir.Captured)):
+        return _const_ir(w.waveform, cfg)
+    if isinstance(w, ir.BinaryPointOp):
+        return not _timeline_candidate(w, cfg) and _const_ir(w.a, cfg) \
+            and _const_ir(w.b, cfg)
+    return False
+
+
+def share_plan(w: ir.Waveform, cfg: EngineConfig) -> SharePlan:
+    """The occurrences of `w` that compile to a CShared: (uid, class,
+    size) each, uid the compiler's pre-order number, class the index of
+    its share class in order of first member, size the node renders of
+    its subtree (its nodes but an NCO sine's frequency, which never
+    renders).  Two occurrences share a class when both hold:
+
+      * Identical.  The same node types and operators over identical
+        children, with the same constants (their float32 bits), Fixed
+        payloads and NCO choice.  A Noise's key holds its uid, so no two
+        noises share.  A subtree that holds a capture (its render writes
+        the Ctx) or a timeline (a Merge tree the timeline pass takes) is
+        in no class.
+      * Equally ranged.  Each receives, in every render and advance, the
+        voice root's (s, e).  The edges that pass the root's range on:
+        CBinary's a; its b when the op is MERGE or a is provably
+        infinite; CAlt's trigger, and its pos and neg when the trigger
+        is provably infinite; an NCO CSine's phase (its frequency never
+        renders); a non-NCO CSine's frequency, and its phase when the
+        frequency is provably infinite; CWrap's inner.  Every other edge
+        stops it: CAppend's b (and a, which ends), CFin, CReset,
+        CFilter, a timeline.  Provably infinite: a node whose valid end
+        is always the e it was given: Const, Time, Noise, an NCO CSine
+        over an infinite phase, a CBinary over two infinite operands, a
+        CAlt over an infinite trigger, a CWrap over an infinite inner.
+        A node class that is in neither list is a stop and finite.
+
+    From equal inits, equal ranges and equal constants, the members of a
+    class hold equal states and render the same (y, v, w, state') at
+    every block, by induction.  Along these edges a render reaches the
+    members in pre-order, once each; a class is kept when a member
+    follows another, and an occurrence inside a member that returns a
+    stored result is never rendered, so it is left out."""
+    fast = cfg.precision == "fast"
+    keys: Dict[Tuple, int] = {}
+    # [uid, key id (None: in no class), size, uid past its subtree] of
+    # each equally ranged occurrence, in pre-order.
+    ranged: List[list] = []
+    counter = [0]
+
+    def visit(node, flag):
+        """-> (key id, size, provably infinite, shareable)."""
+        me = counter[0]
+        counter[0] += 1
+        entry = [me, None, 0, 0]
+        if flag:
+            ranged.append(entry)
+        ok = True
+        if isinstance(node, ir.Const):
+            key = ("C", np.float32(node.value).tobytes())
+            size, inf = 1, True
+        elif isinstance(node, ir.Time):
+            key, size, inf = ("T",), 1, True
+        elif isinstance(node, ir.Noise):
+            key, size, inf = ("N", me), 1, True
+        elif isinstance(node, ir.Fixed):
+            key = ("X", np.asarray(node.samples, np.float32).tobytes())
+            size, inf = 1, False
+        elif _timeline_candidate(node, cfg):
+            counter[0] = me + sum(1 for _ in node.walk())
+            key, size, inf, ok = ("#", me), 0, False, False
+        elif isinstance(node, ir.BinaryPointOp):
+            a = visit(node.a, flag)
+            b = visit(node.b, flag and (node.op == ir.Operator.MERGE
+                                        or a[2]))
+            key = ("B", node.op.value, a[0], b[0])
+            size, inf, ok = 1 + a[1] + b[1], a[2] and b[2], a[3] and b[3]
+        elif isinstance(node, ir.Sine):
+            nco = fast and _const_ir(node.frequency, cfg)
+            f = visit(node.frequency, flag and not nco)
+            p = visit(node.phase, flag and (nco or f[2]))
+            key = ("S", nco, f[0], p[0])
+            size = 1 + p[1] + (0 if nco else f[1])
+            inf, ok = nco and p[2], f[3] and p[3]
+        elif isinstance(node, ir.Alt):
+            t = visit(node.trigger, flag)
+            pos = visit(node.positive, flag and t[2])
+            neg = visit(node.negative, flag and t[2])
+            key = ("Alt", t[0], pos[0], neg[0])
+            size, inf = 1 + t[1] + pos[1] + neg[1], t[2]
+            ok = t[3] and pos[3] and neg[3]
+        elif isinstance(node, (ir.Marked, ir.Captured)):
+            i = visit(node.waveform, flag)
+            captured = isinstance(node, ir.Captured)
+            key = ("#", me) if captured else ("M", str(node.id), i[0])
+            size, inf, ok = 1 + i[1], i[2], i[3] and not captured
+        else:  # Fin, Append, Filter, Reset: every edge stops the range
+            kids = [visit(c, False) for c in node.children()]
+            shape = (len(node.feed_forward), len(node.feedback)) \
+                if isinstance(node, ir.Filter) else ()
+            key = (type(node).__name__,) + shape + tuple(k[0] for k in kids)
+            size, inf = 1 + sum(k[1] for k in kids), False
+            ok = all(k[3] for k in kids)
+        kid = keys.setdefault(key, len(keys))
+        if ok:
+            entry[1:] = [kid, size, counter[0]]
+        return kid, size, inf, ok
+
+    visit(w, True)
+    first: Dict[int, Tuple[int, int]] = {}  # key id -> (uid, size)
+    hits: List[Tuple[int, int, int]] = []
+    past = -1
+    for me, kid, size, end in ranged:
+        if kid is None or me < past:
+            continue
+        if kid in first:
+            hits.append((me, kid, size))
+            past = end
+        else:
+            first[kid] = (me, size)
+    classes: Dict[int, int] = {}
+    for kid in sorted({kid for _, kid, _ in hits}, key=lambda k: first[k]):
+        classes[kid] = len(classes)
+    members = [(first[kid][0], kid, first[kid][1]) for kid in classes]
+    return tuple(sorted((me, classes[kid], size)
+                        for me, kid, size in members + hits))
 
 
 def render(w: ir.Waveform, n: int, sample_rate: int, *,

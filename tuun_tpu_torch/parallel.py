@@ -35,8 +35,8 @@ import torch
 
 from . import ir
 from .engine.graph import (CompiledVoice, EngineConfig, Params, check_device,
-                           reloc_block, stack_params, stack_tree, structure_key,
-                           tree_index, tree_to)
+                           reloc_block, share_plan, stack_params, stack_tree,
+                           structure_key, tree_index, tree_to)
 
 AXES = ("voice", "time")
 
@@ -347,10 +347,18 @@ def render_voices_meshed(waveforms: Sequence[ir.Waveform], n_samples: int,
         raise ValueError(f"a {mesh.device_type} mesh for a render on "
                          f"{cfg.device}")
 
+    def compiled(cfg):
+        """The batch's one CompiledVoice: the voices' sharing plan where
+        they all have one, else none (share_plan is per voice: its
+        classes hold constants equal by value)."""
+        plans = {share_plan(w, cfg) for w in waveforms}
+        return CompiledVoice(waveforms[0], cfg,
+                             plans.pop() if len(plans) == 1 else ())
+
     # Timeline schedules are literal per parameter set: when every voice
     # resolves the same schedule (one score, detuned parameters), the
     # timeline compile is shared; otherwise the plain tree.
-    voice = CompiledVoice(waveforms[0], cfg)
+    voice = compiled(cfg)
     params = [voice.params_for(w, seed=seed + i)
               for i, w in enumerate(waveforms)]
     lits = None
@@ -360,7 +368,7 @@ def render_voices_meshed(waveforms: Sequence[ir.Waveform], n_samples: int,
             lits = all_lits.pop()
         else:
             cfg = EngineConfig(sample_rate, precision, device, timeline=False)
-            voice = CompiledVoice(waveforms[0], cfg)
+            voice = compiled(cfg)
             params = [voice.params_for(w, seed=seed + i)
                       for i, w in enumerate(waveforms)]
     if lane_shard is None:

@@ -92,7 +92,7 @@ import torch
 
 from . import _threads, ir, native, oracle
 from .spans import span, spanned
-from .engine import CompiledVoice, EngineConfig, structure_key
+from .engine import CompiledVoice, EngineConfig, share_plan, structure_key
 from .engine.capture import flatten, make_step, tree_clone
 from .engine.graph import (MAX_BLOCK, check_device, stack_params, stack_tree,
                            tree_index)
@@ -222,21 +222,26 @@ def _mark_ids(w: ir.Waveform) -> frozenset:
 
 
 class _CompileCache:
-    """Per-structure compile cache: same-shaped waveforms share one
-    CompiledVoice.  get() may run on more than one thread (the reference
-    compiles ahead on a prewarm worker beside the serve thread), so two
-    racing threads converge on one CompiledVoice."""
+    """Per-structure compile cache: same-shaped waveforms with the same
+    sharing plan (engine share_plan: which of their subtrees render once)
+    share one CompiledVoice.  get() may run on more than one thread (the
+    reference compiles ahead on a prewarm worker beside the serve
+    thread), so two racing threads converge on one CompiledVoice."""
 
     def __init__(self):
         self._cache: Dict[Tuple, CompiledVoice] = {}
         self._lock = _threading.Lock()
 
-    def get(self, w: ir.Waveform, cfg: EngineConfig) -> CompiledVoice:
-        key = (structure_key(w, cfg.sample_rate), cfg.sample_rate,
+    def get(self, w: ir.Waveform, cfg: EngineConfig,
+            plan=None) -> CompiledVoice:
+        """The CompiledVoice of `w`; `plan` as CompiledVoice takes it."""
+        if plan is None:
+            plan = share_plan(w, cfg)
+        key = (structure_key(w, cfg.sample_rate), plan, cfg.sample_rate,
                cfg.precision, str(cfg.device), cfg.timeline, cfg.reloc_fast)
         voice = self._cache.get(key)
         if voice is None:
-            voice = CompiledVoice(w, cfg)
+            voice = CompiledVoice(w, cfg, plan)
             with self._lock:
                 voice = self._cache.setdefault(key, voice)
         return voice
@@ -757,7 +762,10 @@ class Tracker:
                 continue
             with span("tracker.splice", phases):
                 new_w = ir.substitute(voice.waveform, mark_id, new_waveform)
-                compiled = self.cache.get(new_w, self.cfg)
+                # The splice starts the new subtree fresh and carries the
+                # rest: the twins of a share class may then hold unequal
+                # states, so the spliced voice shares nothing.
+                compiled = self.cache.get(new_w, self.cfg, plan=())
                 old_compiled = voice.compiled
                 needs_replay = voice.fast or old_compiled._has_timeline
                 if old_compiled._has_timeline or compiled._has_timeline:
@@ -767,7 +775,7 @@ class Tracker:
                     # (the same const order, so params and carry_state line
                     # up) and rebuild the old tree's state by replay.
                     plain = _dataclasses.replace(self.cfg, timeline=False)
-                    compiled = self.cache.get(new_w, plain)
+                    compiled = self.cache.get(new_w, plain, plan=())
                     old_compiled = self.cache.get(voice.waveform, plain)
                 params = compiled.params_for(new_w, seed=voice.host_seed)
             old_pos, old_rst = voice.state
