@@ -306,7 +306,7 @@ bound of y out (4J + 9 bytes a lane), the recurrence's beside its chain
 model, the prefix scans at the live block beside torch.cumsum and
 torch.cummax.
 With --tree, the kernels are those of the checkout at DIR (its
-tuun_tpu_torch/engine/scan_ops.py, loaded on its own), so that two
+tuun_tpu_torch package, imported first), so that two
 commits are compared with one set of inputs and clocks, each in its own
 process and in turns (parent, change, change, parent).
 """
@@ -1019,15 +1019,13 @@ def phase_times(torch, np, scan_ops, label: str) -> None:
 
 
 def tree_scan_ops(tree: Path):
-    """engine/scan_ops.py of the checkout at `tree`, loaded on its own
-    (it imports only torch); it builds that checkout's csrc/scan.cu.  A
-    checkout whose plain (y, hist) version has its older name gets it
-    under affine_y_ref too."""
-    import importlib.util
-    path = tree / "tuun_tpu_torch" / "engine" / "scan_ops.py"
-    spec = importlib.util.spec_from_file_location("tree_scan_ops", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    """engine/scan_ops.py of the checkout at `tree`, imported from that
+    checkout's package (first on the path, before this process imports
+    the package); it builds that checkout's csrc/scan.cu.  A checkout
+    whose plain (y, hist) version has its older name gets it under
+    affine_y_ref too."""
+    sys.path.insert(0, str(tree))
+    from tuun_tpu_torch.engine import scan_ops as mod
     if not hasattr(mod, "affine_y_ref"):
         mod.affine_y_ref = mod.affine_scan_deep_ref
     return mod
@@ -1395,11 +1393,12 @@ def one_launch_calls(torch, np, scan_ops, rng) -> list:
     on a[1:], ff[1:], live[1:]; the voices x lanes forms at every shape of
     phase_rows; the deep affine scan at J = 9 and 16 and its rows form;
     phase 11's kernels (exact_one_launch_calls)."""
+    from tuun_tpu_torch.engine import kernels
     xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
           for n in PREFIX_SIZES]
     xs.append(torch.from_numpy(
         rng.standard_normal(4097).astype(np.float32)).cuda()[1:])
-    sym = scan_ops.KERNEL_SYMBOLS
+    sym = kernels.KERNEL_SYMBOLS
     prefix = (("prefix_sum_f32", "SumOp"), ("prefix_max_f32", "MaxOp"))
     calls = [(getattr(scan_ops, key), (x,), sym[key], op)
              for x in xs for key, op in prefix]
@@ -1442,10 +1441,11 @@ def profile_calls(torch, scan_ops, calls, rounds: int = 1):
     the wrappers counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tuun_tpu_torch.engine import kernels
     for fn, args, _, _ in calls:
         fn(*args)
     torch.cuda.synchronize()
-    before = sum(scan_ops.launches.values())
+    before = sum(kernels.launches.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(rounds):
@@ -1453,12 +1453,12 @@ def profile_calls(torch, scan_ops, calls, rounds: int = 1):
                 fn(*args)
         torch.cuda.synchronize()
     events = prof.events()
-    kernels = [e.name for e in sorted(
+    device = [e.name for e in sorted(
         (e for e in events if e.device_type == DeviceType.CUDA),
         key=lambda e: e.time_range.start)]
     host = [e.name for e in events if e.device_type == DeviceType.CPU
             and "LaunchKernel" in e.name]
-    return kernels, host, sum(scan_ops.launches.values()) - before
+    return device, host, sum(kernels.launches.values()) - before
 
 
 def check_one_launch(torch, np, scan_ops, rng) -> dict:
@@ -1795,6 +1795,7 @@ def lane_kernels_per_call(torch, lane_ops, n: int, rows: int) -> dict:
     another kernel, fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tuun_tpu_torch.engine import kernels
     s = torch.arange(rows, device="cuda") * 3
     e = s + n // 2
     a = torch.randn(rows, n, device="cuda")
@@ -1804,7 +1805,7 @@ def lane_kernels_per_call(torch, lane_ops, n: int, rows: int) -> dict:
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    before = {k: lane_ops.scan_ops.launches[k] for k in LANE_KERNELS}
+    before = {k: kernels.launches[k] for k in LANE_KERNELS}
     rounds = 8
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1816,7 +1817,7 @@ def lane_kernels_per_call(torch, lane_ops, n: int, rows: int) -> dict:
              if ev.device_type == DeviceType.CUDA]
     gate = sum("interval_gate_kernel" in x for x in names)
     mask = sum("interval_mask_kernel" in x for x in names)
-    launched = {k: lane_ops.scan_ops.launches[k] - before[k]
+    launched = {k: kernels.launches[k] - before[k]
                 for k in LANE_KERNELS}
     row = dict(calls=2 * rounds, launched=launched, gate_kernels=gate,
                mask_kernels=mask, other=len(names) - gate - mask)
@@ -1833,6 +1834,7 @@ def lane_graph_replays(torch, scan_ops, lane_ops, rows: int, n: int) -> dict:
     graph_scope, replayed three times over new ends and operands copied
     into the static inputs, each replay bit for bit the chain; the
     capture records their launches, and no scan call (so no marker)."""
+    from tuun_tpu_torch.engine import kernels
     rng = np.random.default_rng(5)
     s, e = lane_intervals(torch, rng, rows, n)
     a = torch.randn(rows, n, device="cuda")
@@ -1848,7 +1850,7 @@ def lane_graph_replays(torch, scan_ops, lane_ops, rows: int, n: int) -> dict:
     with torch.cuda.stream(stream):
         step()
         g = torch.cuda.CUDAGraph()
-        with scan_ops.graph_scope(owner, record=True) as rec:
+        with kernels.graph_scope(owner, record=True) as rec:
             g.capture_begin()
             out = step()
             g.capture_end()
@@ -2232,6 +2234,7 @@ def graph_memory(torch) -> dict:
 
 def phase_main_path(torch, np, scan_ops, tmp: Path):
     from tuun_tpu_torch import cli, native, optimizer, oracle
+    from tuun_tpu_torch.engine import kernels
     from tuun_tpu_torch.evaluator import Evaluator
     from tuun_tpu_torch.expr import ESeq
     from tuun_tpu_torch.player import build_top_level_waveform
@@ -2240,7 +2243,7 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
     ev = Evaluator(SR, 90, cli.DEFAULT_LIBRARY)
     summary = []
     for name, expr, precompute, needs in WORKLOADS:
-        before = dict(scan_ops.launches)
+        before = dict(kernels.launches)
         out = tmp / f"{name}.wav"
         argv = ["--expr", expr, "--sample_rate", str(SR), "--buffer_size",
                 str(BUFFER), "--device", "cuda", "--render-out", str(out),
@@ -2297,7 +2300,7 @@ def phase_main_path(torch, np, scan_ops, tmp: Path):
         stats = fast_mode_errors(got[:m], ref)
         check_fast_mode(name, stats, fm=name == "W3")
         for k in needs:
-            check(scan_ops.launches[k] > before[k],
+            check(kernels.launches[k] > before[k],
                   f"{name}: kernel {k} was never launched")
         seconds = len(got) / SR
         log(f"{name} paths " + json.dumps(dict(workload=name, cold=paths[0],
@@ -2433,17 +2436,18 @@ def profile_session(torch, scan_ops, runs) -> list:
     wall, the device's idle share and the scan launches, per block."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from tuun_tpu_torch.engine import kernels
     walls, scans, outs = [], [], []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i, (_, run) in enumerate(runs):
             torch.cuda.synchronize()
-            scan_ops.reset_launches()
+            kernels.reset_launches()
             with record_function(f"smoke_run_{i}"):
                 t0 = time.perf_counter()
                 outs.append(run())  # ends synchronized
                 walls.append(time.perf_counter() - t0)
-            scans.append(dict(scan_ops.launches))
+            scans.append(dict(kernels.launches))
     events = prof.events()
     spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
              if e.name.startswith("smoke_run_")
@@ -2455,10 +2459,10 @@ def profile_session(torch, scan_ops, runs) -> list:
         lo, hi = spans[f"smoke_run_{i}"]
         evs = [e for e in device if lo <= e.time_range.start < hi]
         busy_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
-                      for e in evs)
+        n_kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                        for e in evs)
         rows.append(dict(meta, blocks=blocks, device_events=len(evs),
-                         kernels=kernels, events_per_block=len(evs) / blocks,
+                         kernels=n_kernels, events_per_block=len(evs) / blocks,
                          device_busy_ms=busy_ms, wall_ms=walls[i] * 1e3,
                          idle_share=1.0 - busy_ms / (walls[i] * 1e3),
                          scan=scans[i], **extra))
@@ -2697,15 +2701,13 @@ class GroupCalls:
     """While active, records every VoiceGroup.render (structure, voices,
     the scan launches it made) and every voice the tracker activates."""
 
-    def __init__(self, scan_ops):
-        self.scan_ops = scan_ops
-
     def __enter__(self):
         from tuun_tpu_torch import tracker as T
+        from tuun_tpu_torch.engine import kernels
         self.groups, self.voices = [], []
         self._saved = (T.VoiceGroup.render, T.Tracker._activate)
         g_render, activate = self._saved
-        launches = self.scan_ops.launches
+        launches = kernels.launches
 
         def group_render(group, *a, **k):
             before = dict(launches)
@@ -2838,7 +2840,7 @@ def group_profile(torch, name: str):
             torch.cuda.synchronize()
             return 3, dict(audio_s=3 * n / SR,
                            voices=G1_VOICES if name == "G1" else 1)
-    run()  # warm: caches, allocator, custom ops
+    run()  # warm: caches, allocator, kernel libraries
     return dict(profile=name), run
 
 
@@ -2873,9 +2875,10 @@ def phase_g2(torch, np, scan_ops, session) -> dict:
     launched in its voices x lanes form exactly as often as one voice of
     that structure launches its single form, whatever the group's size.
     Then timed in turns against the per-voice loop (NoGroups)."""
+    from tuun_tpu_torch.engine import kernels
     block, tol = session[0], session[4]
     waves = g2_waveforms(g2_notes(session))
-    with GroupCalls(scan_ops) as calls:
+    with GroupCalls() as calls:
         mix, walls, shape, _ = g2_session(torch, session, waves)
     group_calls, voices = calls.groups, calls.voices
     ref, mag = g2_reference(torch, np, voices, block, len(mix))
@@ -2891,9 +2894,9 @@ def phase_g2(torch, np, scan_ops, session) -> dict:
         cv, P = voice.compiled, voice.params
         if id(cv) not in per_voice:
             st = cv.init(P)  # a filter's init renders (its delay line)
-            before = dict(scan_ops.launches)
+            before = dict(kernels.launches)
             cv.render_block(P, st, block, fast=voice.fast, lits=voice.lits)
-            per_voice[id(cv)] = {k: scan_ops.launches[k] - before[k]
+            per_voice[id(cv)] = {k: kernels.launches[k] - before[k]
                                  for k in ROWS_OF}
     sizes = {}
     for cid, B, d in group_calls:
@@ -3847,7 +3850,8 @@ def phase_session(torch, scan_ops) -> dict:
     """Phase 9: S1 and S2 on the card at each of LIVE_INTERVALS and on
     the CPU at sync_interval 1, S3 on the card.  Returns each scan's
     launches in the phase's card runs."""
-    scan_ops.reset_launches()
+    from tuun_tpu_torch.engine import kernels
+    kernels.reset_launches()
     rows = {}
     s1, s2 = {}, {}
     for si in LIVE_INTERVALS:
@@ -3861,7 +3865,7 @@ def phase_session(torch, scan_ops) -> dict:
         rows[f"S2 si={si}"] = live_row(
             runs, s2[si], sum(len(r["mix"]) for r in s2[si].values())
             / LIVE_SR)
-    launched = dict(scan_ops.launches)
+    launched = dict(kernels.launches)
     # One dispatch a block again once each burst of commands has passed
     # (the fused step, or the one group a chord forms), and the fused
     # step served while released notes left their groups.
@@ -3892,9 +3896,9 @@ def phase_session(torch, scan_ops) -> dict:
                                S2=card_vs_cpu(s2[1], cpu2),
                                cpu_seconds=time.perf_counter() - t0)
     rows["stiff filter"] = stiff_filter(scan_ops)
-    scan_ops.reset_launches()
+    kernels.reset_launches()
     rows["S3"] = s3_server(torch)
-    for k, c in scan_ops.launches.items():
+    for k, c in kernels.launches.items():
         launched[k] += c
     score = [op for op in s1[1]["score"]["modifies"] if "state_at" in op[3]]
     check(score, "S1 score: the detune move did not replay state_at")
@@ -4029,9 +4033,9 @@ def r2_live() -> dict:
     import io
     import threading
     from tuun_tpu_torch import prewarm
-    from tuun_tpu_torch.engine import scan_ops
+    from tuun_tpu_torch.engine import kernels
     from tuun_tpu_torch.repl import Repl
-    scan_ops.reset_launches()
+    kernels.reset_launches()
     workdir = Path(tempfile.mkdtemp(prefix="tuun_r2_"))
     song = workdir / "song.tuun"
     song.write_text(SONG.read_text())
@@ -4152,7 +4156,7 @@ def r2_live() -> dict:
         prewarm_s=warm.get("seconds"), prewarm_warmed=warm.get("n"),
         first_sound_ms=(first_sound[0] - t_play) * 1e3,
         stall_notes=stalls, peak=float(np.abs(samples).max()),
-        launches=dict(scan_ops.launches), slow_ops=slow_ops, paths=paths)
+        launches=dict(kernels.launches), slow_ops=slow_ops, paths=paths)
 
 
 def r3_cli(tmp: Path) -> dict:
@@ -4198,14 +4202,15 @@ def phase_repl(torch, scan_ops, build_s: float) -> dict:
     """Phase 10: R1 on the card and its first R1_CPU_LINES on the CPU, R2
     in a child, R3 in a child.  Returns each scan's launches in R1 and
     R2."""
+    from tuun_tpu_torch.engine import kernels
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        scan_ops.reset_launches()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         card = r1_run("cuda", R1_SCRIPT, tmp / "card")
         r1_s = time.perf_counter() - t0
-        launched = dict(scan_ops.launches)
+        launched = dict(kernels.launches)
         rows["R1"] = dict(check_r1(card, R1_SCRIPT), seconds=r1_s,
                           launches=launched,
                           slowest=sorted(card["walls"],
@@ -5216,7 +5221,8 @@ def phase_exact_kernels(torch, np, scan_ops, results) -> None:
 def exact_one_launch_calls(torch, np, scan_ops, rng) -> list:
     """The recurrence and the df sum for check_one_launch: each form and
     type at one tile and at many, on a[1:], and the rows forms."""
-    calls, sym = [], scan_ops.KERNEL_SYMBOLS
+    from tuun_tpu_torch.engine import kernels
+    calls, sym = [], kernels.KERNEL_SYMBOLS
     for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
         # J = 12: a register-history depth past the affine scan's (fast
         # mode's deep filters); 17: the wide form; 96: the streamed form.
@@ -5537,14 +5543,17 @@ class LaunchLengths:
     (entry, rows, lanes): an eager call as it launches, a call that a CUDA
     graph captures as it is recorded; a graph's replays relaunch what its
     capture recorded and are counted by entry alone (the graph keeps its
-    own copy of the counts, not the shapes)."""
+    own copy of the counts, not the shapes).  The launches are
+    scan_ops'; the capture's recording and the replays' count are
+    kernels'."""
     WRAPPED = ("_recurrence_launch", "_df_launch")
     WATCHED = ("linear_recurrence_f32", "linear_recurrence_f64",
                "linear_recurrence_rows_f32", "linear_recurrence_rows_f64",
                "df_prefix_sum_f32", "df_prefix_sum_rows_f32")
 
-    def __init__(self, scan_ops):
+    def __init__(self, scan_ops, kernels):
         self.ops = scan_ops
+        self.kernels = kernels
         self.eager = {}
         self.captured = {}
         self.replayed = {}
@@ -5553,7 +5562,7 @@ class LaunchLengths:
         def launch(*args):
             # (a, ff, live, h0, rows, entry) or (xh, xl, rows, entry)
             key = (args[-1], args[-2], args[1].shape[-1])
-            rec = getattr(self.ops._tls, "recording", None)
+            rec = getattr(self.kernels._tls, "recording", None)
             table = self.eager if rec is None else self.captured
             table[key] = table.get(key, 0) + 1
             return fn(*args)
@@ -5568,16 +5577,17 @@ class LaunchLengths:
         return count
 
     def __enter__(self):
-        self.saved = {k: getattr(self.ops, k)
-                      for k in self.WRAPPED + ("count_launches",)}
+        self.saved = {k: getattr(self.ops, k) for k in self.WRAPPED}
+        self.counted = self.kernels.count_launches
         for k in self.WRAPPED:
             setattr(self.ops, k, self._launch(self.saved[k]))
-        self.ops.count_launches = self._replayed(self.saved["count_launches"])
+        self.kernels.count_launches = self._replayed(self.counted)
         return self
 
     def __exit__(self, *exc):
         for k, fn in self.saved.items():
             setattr(self.ops, k, fn)
+        self.kernels.count_launches = self.counted
 
     def table(self) -> dict:
         """{"eager": [[entry, rows, lanes, launches], ...] and "captured"
@@ -5594,9 +5604,10 @@ def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
     exact_df session, W2 and W3 through the CLI), whose launches, and
     only those, make each kernel's `exact_launches`; the recurrence's and
     the df sum's are also logged by length."""
+    from tuun_tpu_torch.engine import kernels
     phase_exact_kernels(torch, np, scan_ops, results)
-    scan_ops.reset_launches()
-    with LaunchLengths(scan_ops) as lengths:
+    kernels.reset_launches()
+    with LaunchLengths(scan_ops, kernels) as lengths:
         t0 = time.perf_counter()
         ok, fail, skip, failures = gate_fuzz("cuda")
         check(fail == 0 and ok >= 32, f"fuzz gate: {ok} ok, {fail} fail, "
@@ -5611,7 +5622,7 @@ def phase_exact(torch, np, scan_ops, results, tmp: Path) -> dict:
         t4 = time.perf_counter()
         exact_cli(np, tmp)
         t5 = time.perf_counter()
-    counts = dict(scan_ops.launches)
+    counts = dict(kernels.launches)
     log(f"phase 11 seconds: fuzz {t1 - t0:.1f}, shapes {t2 - t1:.1f}, long "
         f"render {t3 - t2:.1f}, session {t4 - t3:.1f}, cli {t5 - t4:.1f}")
     log(f"launch counts of phase 11: {counts}")
@@ -5739,6 +5750,7 @@ def deep_offline(device, n=DEEP_N, blocks=DEEP_BLOCKS) -> dict:
     linear recurrence (past it), and not the other.  Logs the error and
     the engine's wall time a block."""
     from tuun_tpu_torch import ir, native
+    from tuun_tpu_torch.engine import kernels
     from tuun_tpu_torch.engine import render, scan_ops
     sr = SR
     rows = {}
@@ -5757,13 +5769,13 @@ def deep_offline(device, n=DEEP_N, blocks=DEEP_BLOCKS) -> dict:
             # first call's set-up.
             render(w, block, sr, precision="fast", block=block,
                    device=device)
-            before = dict(scan_ops.launches)
+            before = dict(kernels.launches)
             t0 = time.perf_counter()
             got = render(w, n, sr, precision="fast", block=block,
                          device=device)
             wall = time.perf_counter() - t0
             if device == "cuda":
-                went = {k: scan_ops.launches[k] - before[k]
+                went = {k: kernels.launches[k] - before[k]
                         for k in (route, other)}
                 check(went[route] > 0 and went[other] == 0,
                       f"deep J={J} in {block}-lane blocks launched {went}")
@@ -5806,7 +5818,7 @@ def deep_session(torch, scan_ops, device, session=DEEP_SESSION) -> dict:
     t = Tracker(sr, block, precision="fast", device=device,
                 sync_interval=si)
     t.fuse_blocking = True
-    with GroupCalls(scan_ops) as calls:
+    with GroupCalls() as calls:
         for i in range(4):
             sine = ir.Sine(ir.Const(2 * math.pi * (220 + 55 * i)),
                            ir.Const(0.0))
@@ -6101,7 +6113,8 @@ def phase_tools(torch, np, scan_ops, tmp: Path, reference=None) -> dict:
     kernel's `tools_launches`; then the recurrence's bits at J = 12 and
     the deep times (the deep scan beside the recurrence and the affine
     scan), which the counts leave out."""
-    scan_ops.reset_launches()
+    from tuun_tpu_torch.engine import kernels
+    kernels.reset_launches()
     marks = [time.perf_counter()]
     deep_offline("cuda")
     deep_session(torch, scan_ops, "cuda")
@@ -6113,7 +6126,7 @@ def phase_tools(torch, np, scan_ops, tmp: Path, reference=None) -> dict:
     tools_scope("cuda", tmp)
     tools_spectra("cuda")
     marks.append(time.perf_counter())
-    counts = dict(scan_ops.launches)
+    counts = dict(kernels.launches)
     log(f"launch counts of phase 12: {counts}")
     for k in TOOLS_KERNELS:
         check(counts[k] > 0, f"kernel {k} was never launched in phase 12")
@@ -6192,13 +6205,14 @@ def group_reference(torch, voice, bP, block: int, blocks: int, fast):
     return np.concatenate(mix), np.concatenate(mag), scale
 
 
-def counted(scan_ops, counts, fn, *args, **kw):
+def counted(counts, fn, *args, **kw):
     """fn(*args, **kw) with the launch counts set to 0 just before it and
     added to `counts` just after: a meshed path's launches."""
-    scan_ops.reset_launches()
+    from tuun_tpu_torch.engine import kernels
+    kernels.reset_launches()
     out = fn(*args, **kw)
     for k in counts:
-        counts[k] += scan_ops.launches[k]
+        counts[k] += kernels.launches[k]
     return out
 
 
@@ -6228,6 +6242,7 @@ def phase_m1(torch, np, scan_ops, counts, device="cuda") -> dict:
     beside the meshless group's, warm, in turns (meshless, the meshes,
     the meshes again in reverse, meshless)."""
     from tuun_tpu_torch import ir
+    from tuun_tpu_torch.engine import kernels
     from tuun_tpu_torch.parallel import default_mesh, render_voices_meshed
     voice, params, bP = g1_voices(torch, np, device)
     base, _ = workload_waveform(G1_EXPR)
@@ -6247,9 +6262,8 @@ def phase_m1(torch, np, scan_ops, counts, device="cuda") -> dict:
         walls = []
         for _ in range(2):  # the first call takes the kernels' first use
             t0 = time.perf_counter()
-            mix = counted(scan_ops, counts, render_voices_meshed, waves,
-                          total, SR, mesh=mesh, block=G1_BLOCK,
-                          device=device)
+            mix = counted(counts, render_voices_meshed, waves, total, SR,
+                          mesh=mesh, block=G1_BLOCK, device=device)
             walls.append(time.perf_counter() - t0)
         check(mix.shape == (total,) and bool(np.isfinite(mix).all()),
               f"M1 {name}: {mix.shape} samples, finite "
@@ -6263,7 +6277,7 @@ def phase_m1(torch, np, scan_ops, counts, device="cuda") -> dict:
                           call_walls_s=walls,
                           launches_per_block={
                               k: v / G1_BLOCKS
-                              for k, v in scan_ops.launches.items() if v})
+                              for k, v in kernels.launches.items() if v})
     fn = voice.batched_render_fn(G1_BLOCK, fast=G1_FAST)
     starts = torch.zeros(G1_VOICES, dtype=torch.int64, device=device)
     e = torch.full((), G1_BLOCK, dtype=torch.int64, device=device)
@@ -6405,7 +6419,7 @@ def phase_m3(torch, np, scan_ops, counts, device="cuda") -> dict:
             bound_levels = ref_lv
         before = dict(counts)
         got, got_lv, got_mod, walls = counted(
-            scan_ops, counts, mesh_session, torch, waves, mesh, si, device)
+            counts, mesh_session, torch, waves, mesh, si, device)
         launched = {k: counts[k] - before[k] for k in MESH_KERNELS}
         diff = check_mesh_mix(np, f"sync_interval={si}", got, ref, got_mod,
                               ref_mod, bound_levels, n, tol)
@@ -6450,7 +6464,7 @@ def phase_mesh_exact(torch, np, scan_ops, counts, device="cuda") -> dict:
         f=pitches[i % len(pitches)], d=1.0))[0]
         for i in range(MESH_EXACT_VOICES)]
     before = dict(counts)
-    mix = counted(scan_ops, counts, render_voices_meshed, waves,
+    mix = counted(counts, render_voices_meshed, waves,
                   MESH_EXACT_BLOCKS * n, SR, mesh=mesh_of((4, 1), device),
                   precision="exact_df", block=n, device=device)
     launched = {k: counts[k] - before[k] for k in counts
@@ -6482,7 +6496,8 @@ def phase_mesh(torch, np, scan_ops, device="cuda") -> dict:
     have launched.  The meshless references, and M2 (whose dryrun renders
     its own), are not counted."""
     from tuun_tpu_torch import graft_entry
-    counts = {k: 0 for k in scan_ops.launches}
+    from tuun_tpu_torch.engine import kernels
+    counts = {k: 0 for k in kernels.launches}
     marks = [time.perf_counter()]
     phase_m1(torch, np, scan_ops, counts, device)
     marks.append(time.perf_counter())
@@ -6552,8 +6567,10 @@ def main(argv) -> int:
     import numpy as np
     if args.tree is not None:
         scan_ops = tree_scan_ops(args.tree.resolve())
+        # A checkout from before engine/kernels.py builds in scan_ops.
+        kernels = getattr(scan_ops, "kernels", scan_ops)
     else:
-        from tuun_tpu_torch.engine import scan_ops
+        from tuun_tpu_torch.engine import kernels, scan_ops
     if args.live:
         print(json.dumps(r2_live()), flush=True)
         return 0
@@ -6591,7 +6608,7 @@ def main(argv) -> int:
     log(smi.stdout.strip().splitlines()[0])
 
     t0 = time.perf_counter()
-    libs = scan_ops.build_libraries()
+    libs = kernels.build_libraries()
     scan_ops.load_exact_library()
     scan_ops.load_library()
     build_s = time.perf_counter() - t0
@@ -6601,7 +6618,7 @@ def main(argv) -> int:
         phase_times(torch, np, scan_ops, str(args.tree or "."))
         return 0
     if args.phase == "deep":
-        phase_deep(torch, np, scan_ops, {k: [] for k in scan_ops.launches})
+        phase_deep(torch, np, scan_ops, {k: [] for k in kernels.launches})
         deep_times(torch, scan_ops)
         log_phase(started, "2 (deep) and 12's deep times")
         return 0
@@ -6620,7 +6637,7 @@ def main(argv) -> int:
         check_launches_in_child()
         with tempfile.TemporaryDirectory() as tmp:
             phase_exact(torch, np, scan_ops,
-                        {k: [] for k in scan_ops.launches}, Path(tmp))
+                        {k: [] for k in kernels.launches}, Path(tmp))
         log_phase(started, "11")
         return 0
     if args.phase == "tools":
@@ -6637,7 +6654,7 @@ def main(argv) -> int:
         log_phase(started, "2b")
         return 0
 
-    results = {k: [] for k in scan_ops.launches}
+    results = {k: [] for k in kernels.launches}
     phase_kernels(torch, np, scan_ops, results)
     phase_noise(torch, np)
     phase_sin(torch)
@@ -6648,15 +6665,15 @@ def main(argv) -> int:
     log_phase(started, "2b")
 
     # The launches of the main path, and only those, make the counts.
-    scan_ops.reset_launches()
+    kernels.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         summary = phase_main_path(torch, np, scan_ops, Path(tmp))
-        counts = {k: scan_ops.launches[k]
+        counts = {k: kernels.launches[k]
                   for k in tuple(ROWS_OF) + LANE_KERNELS}
         # The deep scan's path is phase 12; the main path reaches it only
         # through a filter deeper than MAX_J (none of its workloads).
         deep_main = {"affine_scan_deep_f32":
-                     scan_ops.launches["affine_scan_deep_f32"]}
+                     kernels.launches["affine_scan_deep_f32"]}
         log(f"launch counts of the main path (phase 3): {counts}, "
             f"{deep_main}")
         log(f"memory after the CLI runs {json.dumps(graph_memory(torch))}")
@@ -6664,11 +6681,11 @@ def main(argv) -> int:
         for k, c in counts.items():
             check(c > 0, f"kernel {k} was never launched on the main path")
         phase_cross_device(torch, np, Path(tmp))
-    scan_ops.reset_launches()
+    kernels.reset_launches()
     summary.append(phase_engine(torch, np))
     log_phase(started, "4-5")
     log(f"launch counts of W4 (phase 5, not in the kernels line): "
-        f"{dict(scan_ops.launches)}")
+        f"{dict(kernels.launches)}")
     log("x realtime (warm): " + ", ".join(f"{n} {x:.1f}" for n, x in summary))
     phase_profiles()
     log_phase(started, "6")
@@ -6677,7 +6694,7 @@ def main(argv) -> int:
 
     # Phase 8, the voice groups: the path of the voices x lanes forms,
     # whose launches, and only those, make their counts.
-    scan_ops.reset_launches()
+    kernels.reset_launches()
     phase_g1(torch, np)
     for session in G2_SESSIONS:
         phase_g2(torch, np, scan_ops, session)
@@ -6688,8 +6705,8 @@ def main(argv) -> int:
     log_phase(started, "8, G3")
     phase_capture_check(torch, np)
     log_phase(started, "8, capture check")
-    counts.update({k: scan_ops.launches[k] for k in ROWS_OF.values()})
-    deep_main["affine_scan_deep_rows_f32"] = scan_ops.launches[
+    counts.update({k: kernels.launches[k] for k in ROWS_OF.values()})
+    deep_main["affine_scan_deep_rows_f32"] = kernels.launches[
         "affine_scan_deep_rows_f32"]
     log(f"launch counts of the voices x lanes forms (phase 8): "
         f"{ {k: counts[k] for k in ROWS_OF.values()} }, {deep_main}")
@@ -6711,7 +6728,7 @@ def main(argv) -> int:
     mesh = phase_mesh(torch, np, scan_ops)
     log_phase(started, "13")
 
-    kernels = []
+    kernel_rows = []
     for k in SCAN_KERNELS:
         rows = results[k]
         affine = k.startswith("affine")
@@ -6722,7 +6739,7 @@ def main(argv) -> int:
         main_row = next(r for r in rows if r["n"] == MAIN_N
                         and r.get("J", 2) == 2)
         lane_bytes = 4 * 2 + 9 if affine else 8
-        kernels.append({
+        kernel_rows.append({
             "name": k, "route": "cuda",
             "source": "tuun_tpu_torch/csrc/scan.cu",
             "replaces": REPLACES[k], "launches": counts[k],
@@ -6743,11 +6760,11 @@ def main(argv) -> int:
             # calls (torch.cumsum, torch.cummax along the lanes); no
             # single call computes the affine scan.
             "library_ms": None if affine else main_row["plain_ms"]})
-    kernels += exact_kernel_rows(results, exact, tools, mesh)
+    kernel_rows += exact_kernel_rows(results, exact, tools, mesh)
     for k in LANE_KERNELS:
         # The timed case of each: the engine's commonest gate, the mask.
         t = lanes["times"][0 if k == "interval_gate" else -1]
-        kernels.append({
+        kernel_rows.append({
             "name": k, "route": "cuda",
             "source": "tuun_tpu_torch/csrc/lanes.cu",
             "replaces": "none (XLA fused the JAX engine's interval masks)",
@@ -6759,11 +6776,11 @@ def main(argv) -> int:
             "plain_device_ms": min(t["chain_ms"]),
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None})
-    kernels += deep_kernel_rows(results, dict(
+    kernel_rows += deep_kernel_rows(results, dict(
         main=deep_main, session=session, repl=repl, exact=exact,
         tools=tools, mesh=mesh))
     log(f"elapsed: {time.perf_counter() - started:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -121,22 +121,22 @@ def test_launch_child_fails_when_a_wrapper_missed_its_count(smoke,
 
 
 class _ScanOps:
-    """A stand-in scan_ops: launches counted by name, reset to zero."""
+    """A stand-in scan_ops whose launches, counted by name, are the launch
+    table's (kernels.launches, monkeypatched; kernels.reset_launches
+    zeroes it)."""
 
-    def __init__(self, smoke):
+    def __init__(self, smoke, monkeypatch):
+        from tuun_tpu_torch.engine import kernels
         self.launches = {k: 7 for k in smoke.EXACT_KERNELS
                          + smoke.SCAN_KERNELS + smoke.DEEP_KERNELS}
-
-    def reset_launches(self):
-        for k in self.launches:
-            self.launches[k] = 0
+        monkeypatch.setattr(kernels, "launches", self.launches)
 
 
 def _tools(smoke, monkeypatch, path_kernels):
     """phase_tools with every check stood in: the path's checks launch
     `path_kernels` once each, the bit check and the times launch the
     recurrence 100 times.  Returns (counts, what ran in order)."""
-    ops = _ScanOps(smoke)
+    ops = _ScanOps(smoke, monkeypatch)
     ran = []
 
     def path(name, kernels=()):
@@ -240,7 +240,7 @@ def _mesh(smoke, monkeypatch, meshed_kernels):
     reference and M2's dryrun launch every rows kernel 100 times.
     Returns (counts, what ran in order)."""
     from tuun_tpu_torch import graft_entry
-    ops = _ScanOps(smoke)
+    ops = _ScanOps(smoke, monkeypatch)
     ran = []
 
     def launch(kernels, times=1):
@@ -251,7 +251,7 @@ def _mesh(smoke, monkeypatch, meshed_kernels):
         def fn(torch, np, scan_ops, counts, device="cuda"):
             ran.append(name)
             launch(smoke.MESH_KERNELS, 100)  # a meshless reference
-            smoke.counted(scan_ops, counts, launch, meshed_kernels)
+            smoke.counted(counts, launch, meshed_kernels)
         return fn
     for name in ("phase_m1", "phase_m3", "phase_mesh_exact"):
         monkeypatch.setattr(smoke, name, part(name))
@@ -345,8 +345,9 @@ def test_one_step_check_rows_on_the_plain_version(smoke):
 
 
 class _Recording:
-    """A stand-in scan_ops for LaunchLengths: launches count by entry,
-    and inside `capture()` record into the thread's dict instead."""
+    """A stand-in scan_ops and kernels for LaunchLengths: launches count
+    by entry, and inside `capture()` record into the thread's dict
+    instead."""
 
     def __init__(self):
         import threading
@@ -372,7 +373,7 @@ def test_launch_lengths_count_eager_calls_and_replays(smoke):
     rec = ("a", torch.zeros(2, 1024), None, None, 2,
            "linear_recurrence_rows_f32")
     df = (torch.zeros(65536), torch.zeros(65536), 1, "df_prefix_sum_f32")
-    with smoke.LaunchLengths(ops) as lengths:
+    with smoke.LaunchLengths(ops, ops) as lengths:
         ops._recurrence_launch(*rec)
         ops._recurrence_launch(*rec)
         ops._df_launch(*df)

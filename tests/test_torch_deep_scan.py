@@ -33,7 +33,7 @@ import torch
 
 import tuun_tpu.engine.graph as jgraph
 from tuun_tpu_torch import ir
-from tuun_tpu_torch.engine import render, scan_ops
+from tuun_tpu_torch.engine import kernels, render, scan_ops
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -244,7 +244,7 @@ def test_fast_feedback_routes_by_depth(J, want, monkeypatch):
 
 def _deep_geometry():
     """(segment lanes, segments a tile, anchor stride) of csrc/scan.cu."""
-    src = scan_ops.SOURCE.read_text()
+    src = kernels.SOURCE.read_text()
 
     def get(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
@@ -461,7 +461,7 @@ def test_deep_scratch_grows_keyed_by_stream_and_owner(monkeypatch):
     other, _ = scan_ops.deep_scratch(0, 8, 2, alloc)  # another stream
     assert other is not buf2
     owner = object()
-    with scan_ops.graph_scope(owner):
+    with kernels.graph_scope(owner):
         mine, _ = scan_ops.deep_scratch(0, 7, 2, alloc)
         assert mine is not buf2
         scan_ops.deep_scratch(0, 7, 3 * first, alloc)

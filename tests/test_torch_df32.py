@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tuun_tpu.engine import df32 as jdf32
-from tuun_tpu_torch.engine import df32, scan_ops
+from tuun_tpu_torch.engine import df32, kernels, scan_ops
 
 torch.set_num_threads(1)
 
@@ -212,20 +212,20 @@ def test_build_libraries_runs_one_nvcc_per_source(monkeypatch, tmp_path):
     once) and a link; a second call finds them all built."""
     import types
     calls = []
-    monkeypatch.setattr(scan_ops, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(scan_ops, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
 
     def run(argv, **kw):
         calls.append(argv)
         (tmp_path / argv[argv.index("-o") + 1]).write_bytes(b"so")
         return types.SimpleNamespace(returncode=0, stderr="")
-    monkeypatch.setattr(scan_ops.subprocess, "run", run)
-    libs = scan_ops.build_libraries()
+    monkeypatch.setattr(kernels.subprocess, "run", run)
+    libs = kernels.build_libraries()
     assert sorted(p.name.split("_")[1] for p in libs) == ["exact", "lanes",
                                                           "scan"]
-    scan = [c for c in calls if c[-1] == str(scan_ops.SOURCE)]
-    lanes = [c for c in calls if c[-1] == str(scan_ops.LANES_SOURCE)]
-    parts = [c for c in calls if c[-1] == str(scan_ops.EXACT_SOURCE)]
+    scan = [c for c in calls if c[-1] == str(kernels.SOURCE)]
+    lanes = [c for c in calls if c[-1] == str(kernels.LANES_SOURCE)]
+    parts = [c for c in calls if c[-1] == str(kernels.EXACT_SOURCE)]
     links = [c for c in calls if c[-1].endswith(".o")]
     assert len(scan) == 1 and "-shared" in scan[0]
     assert len(lanes) == 1 and "-shared" in lanes[0]
@@ -238,7 +238,7 @@ def test_build_libraries_runs_one_nvcc_per_source(monkeypatch, tmp_path):
     assert sorted(links[0][-3:]) == sorted(c[c.index("-o") + 1]
                                            for c in parts)
     assert len(calls) == 6
-    assert scan_ops.build_libraries() == libs and len(calls) == 6
+    assert kernels.build_libraries() == libs and len(calls) == 6
 
 
 def test_df_scratch_grows_keeps_the_old_and_is_released(monkeypatch):
@@ -260,7 +260,7 @@ def test_df_scratch_grows_keeps_the_old_and_is_released(monkeypatch):
     buf2, cap2 = scan_ops.df_scratch(0, 7, first + 1, alloc)
     assert cap2 == 2 * first and scan_ops._affine_retired == [buf]
     owner = object()
-    with scan_ops.graph_scope(owner):
+    with kernels.graph_scope(owner):
         own, _ = scan_ops.df_scratch(0, 7, 3, alloc)
     assert own is not buf2 and (0, 7, owner) in scan_ops._df_scratch
     scan_ops.release_scratch(owner)
@@ -273,7 +273,7 @@ def test_exact_kernels_round_each_op_on_its_own():
     df_add's sums as intrinsics that round on their own (nvcc would
     contract a*b+c into a fused multiply-add), and its C entry points
     match scan_ops' bindings."""
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
     for intrinsic in ("__fmul_rn", "__fsub_rn", "__dmul_rn", "__dsub_rn",
                       "__fadd_rn"):
         assert intrinsic in src
@@ -339,7 +339,7 @@ def test_df_model_has_the_kernels_geometry():
     `threads` tiles."""
     import re
     cs = _smoke()
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
 
     def const(name):
         return eval(re.search(rf"constexpr \w+ {name} = ([^;]+);",
@@ -364,7 +364,7 @@ def test_df_sum_counts_every_multi_tile_grid():
     are, is "more than one tile a row", and the launch no longer asks
     how many blocks the card holds."""
     import re
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
     rule = re.search(r"constexpr bool df_counted\(int64_t (\w+)\) \{\s*"
                      r"return ([^;]+);", src)
     arg, expr = rule.groups()

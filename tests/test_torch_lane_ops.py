@@ -1,12 +1,13 @@
 """The engine's interval gates (tuun_tpu_torch.engine.lane_ops, and
-graph.py's _gate and _mask that call them on the card) on the CPU.
+graph.py's _gate and _mask that call them on every device) on the CPU.
 
 On a CPU tensor lane_ops runs its plain version over the operands as
 csrc/lanes.cu's kernel reads them (pointer, row stride, lane mode or an
-immediate), so these tests hold the layouts that its batching rule hands
-the kernel to the engine's plain expression, torch.where((idx >= s) &
-(idx < e), a, b), bit for bit: every operand form, with and without
-torch.func.vmap, at edge intervals.  The kernel itself is held to the
+immediate), so these tests hold the layouts that its batched path
+(kernels.vmapped into the rows forms) hands the kernel to the engine's
+plain expression, torch.where((idx >= s) & (idx < e), a, b), bit for
+bit: every operand form, with and without torch.func.vmap, at edge
+intervals.  The kernel itself is held to the
 same expression on the card by chip_smoke.py's lanes phase.
 """
 
@@ -15,7 +16,7 @@ import itertools
 import pytest
 import torch
 
-from tuun_tpu_torch.engine import graph, lane_ops, scan_ops
+from tuun_tpu_torch.engine import graph, kernels, lane_ops
 
 torch.set_num_threads(1)
 
@@ -194,7 +195,8 @@ def test_vmap_rule_reads_shared_operands_in_place(monkeypatch):
 
 
 def test_engine_helpers_are_the_expression_on_the_cpu():
-    """graph.py's _gate and _mask run today's expression on the CPU."""
+    """graph.py's _gate and _mask, lane_ops on the CPU too, are the
+    expression."""
     ctx = graph.Ctx(N, "cpu")
     a, b = torch.randn(N), torch.randn(N)
     for s, e in zip(STARTS, ENDS):
@@ -235,17 +237,47 @@ def test_gate_refuses_other_dtypes_on_the_card():
 
 def test_captures_count_gate_launches_without_a_scan_call():
     """A launch made while a graph captures is the capture's, counted at
-    each replay (scan_ops.count_launches), and records no scan call, so
+    each replay (kernels.count_launches), and records no scan call, so
     no tuun.scan.* marker names it."""
-    scan_ops.reset_launches()
-    with scan_ops.graph_scope(object(), record=True) as rec:
-        scan_ops._launched(lane_ops.GATE)
-        scan_ops._launched(lane_ops.MASK)
-        scan_ops._launched(lane_ops.GATE)
+    kernels.reset_launches()
+    with kernels.graph_scope(object(), record=True) as rec:
+        kernels.launched(lane_ops.GATE, 0)
+        kernels.launched(lane_ops.MASK, 0)
+        kernels.launched(lane_ops.GATE, 0)
     assert rec == [] and dict(rec.launches) == {"interval_gate": 2,
                                                 "interval_mask": 1}
-    assert scan_ops.launches["interval_gate"] == 0
-    scan_ops.count_launches(rec.launches)
-    assert scan_ops.launches["interval_gate"] == 2
-    assert scan_ops.launches["interval_mask"] == 1
-    scan_ops.reset_launches()
+    assert kernels.launches["interval_gate"] == 0
+    kernels.count_launches(rec.launches)
+    assert kernels.launches["interval_gate"] == 2
+    assert kernels.launches["interval_mask"] == 1
+    kernels.reset_launches()
+
+
+def test_group_render_on_the_cpu_takes_the_batched_path(monkeypatch):
+    """A voice group that the Tracker renders on the CPU gates its lanes
+    through lane_ops under vmap, into the rows forms once a call for all
+    its voices: the path every render on the card takes (graph._gate
+    and _mask have no device fork)."""
+    from pathlib import Path
+
+    import tuun_tpu_torch
+    from tuun_tpu_torch import optimizer
+    from tuun_tpu_torch.evaluator import Evaluator
+    from tuun_tpu_torch.tracker import Tracker
+    calls = []
+    for name in ("interval_gate_rows", "interval_mask_rows"):
+        def counted(idx, *xs, real=getattr(lane_ops, name)):
+            calls.append(idx.shape[0])
+            return real(idx, *xs)
+        monkeypatch.setattr(lane_ops, name, counted)
+    stdlib = Path(tuun_tpu_torch.__file__).resolve().parent / "stdlib" / "v0"
+    ev = Evaluator(8000, 60, stdlib)
+    tracker = Tracker(8000, 128, precision="fast", device="cpu")
+    for i, f in enumerate((220, 330, 440)):
+        w = ev.evaluate_source(f"sine(2*pi*{f}, 0) * 0.5 | fin(time - 0.1)",
+                               opens=("std",)).waveform
+        tracker.play(i, optimizer.optimize(w), start=0)
+    y, status = tracker.render_block()
+    assert status.voices - status.dispatches == 2  # one group of three
+    assert calls and set(calls) == {3}
+    assert float(abs(y).max()) > 0.1

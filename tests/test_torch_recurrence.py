@@ -36,7 +36,7 @@ import torch
 
 from test_torch_exact import _bits, _chip_smoke, _jax_feedback, \
     _numpy_recurrence, t
-from tuun_tpu_torch.engine import scan_ops
+from tuun_tpu_torch.engine import kernels, scan_ops
 
 smoke = _chip_smoke()
 # The chain form's depths, then the wide form's: its first, J = 24, 32
@@ -75,13 +75,13 @@ def test_plain_is_the_oracles_float32_loop_on_live_patterns(J, pattern):
 
 
 def _source_constant(name):
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
     return eval(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1))
 
 
 def _group_lanes(J):
     """exact.cu's rec_group_lanes(J), read from the source."""
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
     m = re.search(r"int rec_group_lanes\(int J\) \{\s*return J <= (\d+) \? "
                   r"(\d+) : (\d+);", src)
     return int(m.group(2)) if J <= int(m.group(1)) else int(m.group(3))
@@ -241,7 +241,7 @@ def test_wide_form_has_the_sources_constants():
         assert _source_constant(key) == getattr(smoke, name), key
     # The kernel picks a thread's share of a lane's J - 2 products by
     # depth.
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
     # Unrolled windows of 16, 24 and 32 products (one slot), then a loop
     # with three slots.
     cases = re.findall(r"case (\d): TUUN_WIDE_ROW\((\d), (\d+) / V\)", src)
@@ -339,7 +339,7 @@ def test_streamed_form_has_the_sources_constants():
                  "REC_STREAM_BARS"):
         key = "kRec" + "".join(w.title() for w in name[4:].split("_"))
         assert _source_constant(key) == getattr(smoke, name), key
-    src = scan_ops.EXACT_SOURCE.read_text()
+    src = kernels.EXACT_SOURCE.read_text()
     # Past the wide form's depths the kernel takes the streamed form, with
     # its threads and its layout's bytes; the ring form is gone.
     assert "if (J > kRecWideMaxJ) {\n      rec_stream_row<T>(" in src

@@ -13,7 +13,7 @@ import torch
 import jax.numpy as jnp
 
 import tuun_tpu.engine.pallas_ops as po
-from tuun_tpu_torch.engine import scan_ops
+from tuun_tpu_torch.engine import kernels, lane_ops, scan_ops
 
 torch.set_num_threads(1)
 LANE = po.LANE
@@ -219,7 +219,7 @@ def test_affine_wrapper_rejects_bad_inputs():
 
 
 def _scan_geometry():
-    src = scan_ops.SOURCE.read_text()
+    src = kernels.SOURCE.read_text()
     threads = int(re.search(r"kScanThreads = (\d+);", src).group(1))
     items = int(re.search(r"kScanItems = (\d+);", src).group(1))
     return threads, items
@@ -446,7 +446,7 @@ def test_prefix_scratch_sized_once_from_the_library(monkeypatch):
 
 
 def _aff_constants():
-    src = scan_ops.SOURCE.read_text()
+    src = kernels.SOURCE.read_text()
 
     def get(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
@@ -898,6 +898,8 @@ class _FakeFn:
 
 
 class _FakeLib:
+    """The three libraries' functions that their binds call or set."""
+
     def __init__(self):
         self.tuun_affine_max_j = _FakeFn(scan_ops.MAX_J)
         self.tuun_affine_deep_max_j = _FakeFn(scan_ops.MAX_DEEP_J)
@@ -908,9 +910,17 @@ class _FakeLib:
         self.tuun_scan_scratch_words = _FakeFn(64)
         self.tuun_affine_scratch_words = _FakeFn(16)
         self.tuun_affine_deep_scratch_words = _FakeFn(16)
+        self.tuun_recurrence_max_j = _FakeFn(scan_ops.MAX_RECURRENCE_J)
+        self.tuun_df_tile = _FakeFn(2048)
+        self.tuun_df_scratch_words = _FakeFn(16)
         for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32",
                      "tuun_affine_scan_rows_f32",
-                     "tuun_affine_scan_deep_rows_f32"):
+                     "tuun_affine_scan_deep_rows_f32",
+                     "tuun_linear_recurrence_rows_f32",
+                     "tuun_linear_recurrence_rows_f64",
+                     "tuun_df_prefix_sum_rows_f32",
+                     "tuun_interval_gate_rows_f32",
+                     "tuun_interval_mask_rows"):
             setattr(self, name, _FakeFn(0))
 
 
@@ -939,12 +949,28 @@ def _race(fn, threads=16):
     return out
 
 
-def test_load_library_builds_and_loads_once_under_a_race(monkeypatch):
+# (source, the wrapper's loader, the sources its first use builds, what
+# its bind read from the library)
+_LIBRARIES = {
+    "scan": (kernels.SOURCE, scan_ops.load_library, kernels.FAST_SOURCES,
+             lambda: (scan_ops._scan_tile, scan_ops._deep_tile) == (
+                 4096, 1024)),
+    "exact": (kernels.EXACT_SOURCE, scan_ops.load_exact_library,
+              (kernels.EXACT_SOURCE,), lambda: scan_ops._df_tile == 2048),
+    "lanes": (kernels.LANES_SOURCE, lane_ops.load_library,
+              kernels.FAST_SOURCES, lambda: True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LIBRARIES))
+def test_load_library_builds_and_loads_once_under_a_race(monkeypatch, name):
     """Threads at first use (the audio thread, the prewarm, the bake and
-    capture workers) get one library, built and loaded once; the build
-    runs csrc/lanes.cu's beside it (every fast render needs both)."""
+    capture workers) get one library through kernels.library, built,
+    loaded and bound once; the first use of csrc/scan.cu or
+    csrc/lanes.cu builds both (every fast render needs both)."""
     import ctypes
     import time
+    source, load, built, bound = _LIBRARIES[name]
     builds, loads = [], []
 
     def build(source):
@@ -955,15 +981,17 @@ def test_load_library_builds_and_loads_once_under_a_race(monkeypatch):
     def cdll(path):
         loads.append(path)
         return _FakeLib()
-    monkeypatch.setattr(scan_ops, "_lib", None)
-    monkeypatch.setattr(scan_ops, "build_library", build)
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(kernels, "build_library", build)
     monkeypatch.setattr(ctypes, "CDLL", cdll)
-    libs = _race(scan_ops.load_library)
-    assert sorted(builds) == sorted(scan_ops.FAST_SOURCES)
-    assert loads == ["libtuun_scan_fake.so"]
+    for tile in ("_scan_tile", "_scratch_words", "_deep_tile", "_df_tile"):
+        monkeypatch.setattr(scan_ops, tile, 0)
+    libs = _race(load)
+    assert sorted(builds) == sorted(built)
+    assert loads == [f"libtuun_{source.stem}_fake.so"]
     assert all(lib is libs[0] for lib in libs)
-    assert scan_ops._scan_tile == 4096
-    assert scan_ops._deep_tile == 1024
+    assert kernels._libs == {source: libs[0]}
+    assert bound()
 
 
 def test_scratch_made_once_under_a_race(monkeypatch):
@@ -986,3 +1014,66 @@ def test_scratch_made_once_under_a_race(monkeypatch):
     affine = _race(lambda: scan_ops.affine_scratch(0, 7, 3, alloc=alloc))
     assert len(made) == 1 and all(e[0] is made[0] for e in affine)
     assert scan_ops._affine_retired == []
+
+
+# -- the scans under torch.func.vmap -----------------------------------------
+
+
+def _vmap_case(entry):
+    """(rows form's name, operands, in_dims) of a 5-voice batch for one
+    single-voice entry point; h0 (where there is one) is shared."""
+    g = torch.Generator().manual_seed(len(entry))
+    B, n = 5, 300
+
+    def feedback(J):
+        a = 0.05 * torch.randn(B, n, J, generator=g)
+        live = torch.rand(B, n, generator=g) < 0.9
+        return (a, torch.randn(B, n, generator=g), live,
+                torch.randn(J, generator=g)), (0, 0, 0, None)
+    if entry in ("prefix_sum_f32", "prefix_max_f32"):
+        return (entry.replace("_f32", "_rows_f32"),
+                (torch.randn(B, n, generator=g),), (0,))
+    if entry == "df_prefix_sum_f32":
+        xh = torch.randn(B, n, generator=g)
+        return "df_prefix_sum_rows_f32", (xh, 1e-8 * xh), (0, 0)
+    if entry == "affine_scan_f32":
+        return ("affine_scan_rows_f32", *feedback(2))
+    if entry == "affine_scan_deep_f32":
+        return ("affine_scan_deep_rows_f32", *feedback(12))
+    return ("linear_recurrence_rows", *feedback(3))
+
+
+@pytest.mark.parametrize("entry", (
+    "prefix_sum_f32", "prefix_max_f32", "affine_scan_f32",
+    "affine_scan_deep_f32", "linear_recurrence", "df_prefix_sum_f32"))
+def test_vmap_calls_the_rows_form_once_and_registers_no_op(monkeypatch,
+                                                           entry):
+    """torch.func.vmap of each single-voice scan hands the whole batch to
+    its rows form in one call (kernels.vmapped: an operand vmap does not
+    batch is expanded to contiguous rows), with every warning an error
+    (no loop over the voices), and registers no torch.library op."""
+    import warnings
+    rows_name, args, in_dims = _vmap_case(entry)
+    rows_fn = getattr(scan_ops, rows_name)
+    calls = []
+
+    def counted(*xs):
+        calls.append(tuple(x.shape for x in xs))
+        assert all(x.is_contiguous() for x in xs)
+        return rows_fn(*xs)
+    monkeypatch.setattr(scan_ops, rows_name, counted)
+    ops = set(torch._C._dispatch_get_all_op_names())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = torch.func.vmap(getattr(scan_ops, entry),
+                              in_dims=in_dims)(*args)
+    B = args[0].shape[0]
+    laid = [x if d == 0 else x.expand(B, *x.shape).contiguous()
+            for x, d in zip(args, in_dims)]
+    assert calls == [tuple(x.shape for x in laid)]
+    want = rows_fn(*laid)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    assert set(torch._C._dispatch_get_all_op_names()) == ops
+    assert not [n for n in ops if n.startswith("tuun_tpu_torch::")]

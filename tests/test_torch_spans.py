@@ -26,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from test_torch_stream import ModelStep, fin_const
 from tuun_tpu_torch import ir, spans
 from tuun_tpu_torch import tracker as T
-from tuun_tpu_torch.engine import scan_ops
+from tuun_tpu_torch.engine import kernels, scan_ops
 from tuun_tpu_torch.ids import WaveformId
 from tuun_tpu_torch.player import build_top_level_waveform
 from tuun_tpu_torch.tools import profile as profile_tool
@@ -233,7 +233,7 @@ class RecordingModelStep(ModelStep):
 
     def capture(self):
         self.fn(self.static_params, self.static_states, self.scalars)
-        with scan_ops.graph_scope(self._scratch_owner, record=True) as rec:
+        with kernels.graph_scope(self._scratch_owner, record=True) as rec:
             self._out_spec, self._packed, self._layout = self._body()
         self._graph = "model"
         self.scan_calls = tuple(rec)
@@ -277,9 +277,9 @@ def test_profile_census_counts_the_operators_under_a_span():
             with spans.span("tracker.pervoice_render"):
                 block()
 
-    plain = profile_tool.block_census(torch, scan_ops, block,
+    plain = profile_tool.block_census(torch, kernels, block,
                                       torch.device(CPU))
-    inner = profile_tool.block_census(torch, scan_ops, spanned,
+    inner = profile_tool.block_census(torch, kernels, spanned,
                                       torch.device(CPU))
     assert plain["events"] == inner["events"] >= 4
     assert plain["top"] == inner["top"]
@@ -298,10 +298,10 @@ def test_scan_calls_mark_their_shapes():
     assert got == {"scan.prefix_sum_rows_f32:3x40": 2,
                    "scan.prefix_max_f32:1x40": 1,
                    "scan.affine_scan_f32:1x40:J2": 1}
-    with scan_ops.graph_scope(object(), record=True) as rec:
+    with kernels.graph_scope(object(), record=True) as rec:
         scan_ops.prefix_sum_rows_f32(x)
     assert rec == [("prefix_sum_rows_f32", 3, 40, None)]
-    assert scan_ops.call_marker(("linear_recurrence_f64", 1, 7, 12)) == \
+    assert kernels.call_marker(("linear_recurrence_f64", 1, 7, 12)) == \
         "scan.linear_recurrence_f64:1x7:J12"
     np.testing.assert_array_equal(scan_ops.prefix_sum_rows_f32(x)[:, -1],
                                   np.full(3, 40.0))

@@ -563,12 +563,12 @@ def test_phase12_corpus_reads_a_reference_only_when_given(tmp_path):
 
 def test_kernel_symbols_name_the_sources_kernels():
     """profile's census and chip_smoke's one-launch check find the
-    hand-written kernels by scan_ops.KERNEL_SYMBOLS: one entry for each
+    hand-written kernels by kernels.KERNEL_SYMBOLS: one entry for each
     counted wrapper, each a __global__ function of csrc/."""
-    from tuun_tpu_torch.engine import scan_ops
-    assert set(scan_ops.KERNEL_SYMBOLS) == set(scan_ops.launches)
+    from tuun_tpu_torch.engine import kernels
+    assert set(kernels.KERNEL_SYMBOLS) == set(kernels.launches)
     src = "".join(p.read_text() for p in (
-        scan_ops.SOURCE, scan_ops.EXACT_SOURCE, scan_ops.LANES_SOURCE))
+        kernels.SOURCE, kernels.EXACT_SOURCE, kernels.LANES_SOURCE))
     defined = set(re.findall(
         r"__global__ void (?:__launch_bounds__\(\w+\)\s+)?(\w+)\(", src))
-    assert set(scan_ops.KERNEL_SYMBOLS.values()) <= defined, defined
+    assert set(kernels.KERNEL_SYMBOLS.values()) <= defined, defined

@@ -30,17 +30,17 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
     clones those buffers (one launch per dtype) and returns views of the
     clones, so nothing it returns is overwritten by a later replay.
   * Capture.  The warm-up (one eager run on the static inputs, which
-    fills every lazy cache of the render: timeline layouts, the scans'
-    custom ops, their scratch) and the capture run on a stream of their
-    own, inside scan_ops.graph_scope: the scans use scratch of this step's
+    fills every lazy cache of the render: timeline layouts, the kernel
+    libraries, the scans' scratch) and the capture run on a stream of their
+    own, inside kernels.graph_scope: the scans use scratch of this step's
     own, which no other call, warm-up or replay shares, freed when the step
     is closed or collected.  One capture runs at a time in the process,
     with capture_error_mode="thread_local", so that another thread may serve
     blocks on the card meanwhile.  A kernel launch recorded by the capture
     (a scan's or an interval gate's) is counted at every replay
-    (scan_ops.count_launches), and the shapes of
+    (kernels.count_launches), and the shapes of
     the scan calls it recorded (`scan_calls`) are marked on the profiler's
-    clock at every replay under a session (scan_ops.mark_calls).  The
+    clock at every replay under a session (kernels.mark_calls).  The
     capture also counts the device operations it adds to the graph by the
     engine node class whose render enqueued them (`node_ops`, NodeOps),
     marked at every replay under a session as
@@ -67,7 +67,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from .. import spans
-from . import scan_ops
+from . import kernels, scan_ops
 from .graph import Node, Params, counting_shared
 
 _capture_lock = threading.Lock()
@@ -343,7 +343,7 @@ class GraphStep:
         self._layout: List = []
         self._out_spec = None
         self.launches: Dict[str, int] = {}
-        self.scan_calls: Tuple[scan_ops.Call, ...] = ()
+        self.scan_calls: Tuple[kernels.Call, ...] = ()
         # Device operations of one replay by engine node class (NodeOps),
         # and the node renders that shared subtrees saved in it.
         self.node_ops: Dict[str, int] = {}
@@ -389,7 +389,7 @@ class GraphStep:
             stream = torch.cuda.Stream(self.device)
             stream.wait_event(self._built)
             with torch.cuda.stream(stream):
-                with scan_ops.graph_scope(self._scratch_owner):
+                with kernels.graph_scope(self._scratch_owner):
                     self.fn(self.static_params, self.static_states,
                             self.scalars)
                 graph = torch.cuda.CUDAGraph()
@@ -416,12 +416,12 @@ class GraphStep:
                    ) -> Iterator[NodeOps]:
         """Records what the capture inside it enqueues, for the replays:
         the scans' calls and the hand-written kernels' launches
-        (scan_ops.graph_scope: `scan_calls`, `launches`) and, inside the
+        (kernels.graph_scope: `scan_calls`, `launches`) and, inside the
         NodeOps it yields (over `nodes`, the operations captured so far),
         the device operations by engine node class (`node_ops`), and
         the node renders that shared subtrees saved (`shared_renders`)."""
         counter = NodeOps(nodes)
-        with scan_ops.graph_scope(self._scratch_owner,
+        with kernels.graph_scope(self._scratch_owner,
                                   record=True) as recorded, \
                 counting_shared() as saved:
             yield counter
@@ -433,11 +433,11 @@ class GraphStep:
     def mark(self) -> None:
         """Under a profiler session, marks what one replay enqueues on
         the profiler's clock: each scan call's shape
-        (scan_ops.mark_calls), each engine node class's operations,
+        (kernels.mark_calls), each engine node class's operations,
         `tuun.engine.ops.<Class>:<n>`, and the node renders shared
         subtrees saved, `tuun.engine.shared:<n>`."""
         if spans.traced():
-            scan_ops.mark_calls(self.scan_calls)
+            kernels.mark_calls(self.scan_calls)
             for cls, n in sorted(self.node_ops.items()):
                 spans.mark(f"engine.ops.{cls}:{n}")
             spans.mark(f"engine.shared:{self.shared_renders}")
@@ -481,7 +481,7 @@ class GraphStep:
                 self.scalars.copy_(host, non_blocking=True)
                 self._scalars_host = scalars
             self._replay()
-            scan_ops.count_launches(self.launches)
+            kernels.count_launches(self.launches)
             self.mark()
             out = unflatten(self._out_spec, _views(
                 {dt: b.clone() for dt, b in self._packed.items()},

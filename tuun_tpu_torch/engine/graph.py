@@ -52,8 +52,9 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     line) become gathers at clamped indices.
   * Voice groups (batched_render_fn) run the same render under
     torch.func.vmap, as the JAX engine vmaps it: every op of the render
-    has a batching rule, the scans' is their voices x lanes kernels
-    (scan_ops.py), and nothing in a render reads a tensor on the host.
+    has a batching rule, the scans' and the gates' is their voices x
+    lanes kernels (kernels.vmapped), and nothing in a render reads a
+    tensor on the host.
   * Interval gates.  The JAX engine writes each node's gate as
     where((idx >= s) & (idx < e), a, b) and XLA fuses the mask into what
     reads it; eager PyTorch runs it as four full-width kernels (two
@@ -61,8 +62,9 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     `_gate` and `_mask` launch one hand-written kernel instead
     (lane_ops.py, csrc/lanes.cu) that tests the interval in the thread
     and selects in the same pass; under vmap it hands the kernel each
-    operand's voice axis as a row stride, so nothing shared is expanded.
-    On the CPU both are the plain expression.
+    operand's voice axis as a row stride, so nothing shared is copied.
+    On the CPU lane_ops runs the same operands through its plain
+    version, the expression itself.
   * The BIGF sentinel (2e9) stays only as NO_EDGE, the running-max value
     of lanes without a reset edge: exact in f32 and below every lane.
   * Division by a constant divides by a 0-dim tensor on the operand's
@@ -349,17 +351,13 @@ class Ctx:
 
 def _mask(ctx: Ctx, s, e):
     """Lanes of [s, e): on the card one kernel (lane_ops.py)."""
-    if ctx.idx.is_cuda:
-        return lane_ops.interval_mask(ctx.idx, s, e)
-    return (ctx.idx >= s) & (ctx.idx < e)
+    return lane_ops.interval_mask(ctx.idx, s, e)
 
 
 def _gate(ctx: Ctx, s, e, a, b):
     """torch.where(_mask(ctx, s, e), a, b): on the card one kernel that
     tests the interval in the thread and selects in the same pass."""
-    if ctx.idx.is_cuda:
-        return lane_ops.interval_gate(ctx.idx, s, e, a, b)
-    return torch.where(_mask(ctx, s, e), a, b)
+    return lane_ops.interval_gate(ctx.idx, s, e, a, b)
 
 
 def _ceil_target(c, sample_rate: int):

@@ -16,12 +16,13 @@ version on the card.
 
 Operands: s and e are ints or int64 0-dim tensors; a and b are floats
 or float32 tensors of shape () or [n] (the output is float32 [n]).
-Under torch.func.vmap (a voice group's render) each helper unwraps its
-operands at the vmap level, as a batching rule does, and hands the
-kernel each operand's batch dimension as a row stride: the output is
-[voices, n] in one launch, and an operand vmap does not batch is read
-by every row, never expanded.
-Launches are counted in scan_ops.launches under `interval_gate` and
+Under torch.func.vmap (a voice group's render) each entry point hands
+the batch to its rows form (`interval_gate_rows`, `interval_mask_rows`)
+through kernels.vmapped, which leaves each operand in place with the
+voice axis first: the kernel reads each operand's row stride, so the
+output is [voices, n] in one launch, and an operand vmap does not batch
+is read by every row (row stride 0), never copied.
+Launches are counted in kernels.launches under `interval_gate` and
 `interval_mask` (a captured graph's at every replay); neither records a
 scan marker.
 """
@@ -32,9 +33,8 @@ import ctypes
 from typing import Optional, Tuple, Union
 
 import torch
-from torch._C import _functorch
 
-from . import scan_ops
+from . import kernels
 
 GATE = "interval_gate"
 MASK = "interval_mask"
@@ -50,31 +50,23 @@ Bound = Tuple[Optional[torch.Tensor], int, int]
 # (values or None for the immediate, row stride, lane mode, immediate)
 Operand = Tuple[Optional[torch.Tensor], int, int, float]
 
-_lib = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_float)
+    lib.tuun_interval_gate_rows_f32.argtypes = [
+        p, i64, i64, p, i64, i64, p, i64, i64,
+        p, i64, i32, f, p, i64, i32, f, p]
+    lib.tuun_interval_gate_rows_f32.restype = i32
+    lib.tuun_interval_mask_rows.argtypes = [
+        p, i64, i64, p, i64, i64, p, i64, i64, p]
+    lib.tuun_interval_mask_rows.restype = i32
 
 
 def load_library() -> ctypes.CDLL:
     """csrc/lanes.cu's library, built (beside the scans', at once) and
     loaded on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with scan_ops._first_use:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(scan_ops.build_libraries(
-            scan_ops.FAST_SOURCES)[1]))
-        p, i64, i32, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_float)
-        lib.tuun_interval_gate_rows_f32.argtypes = [
-            p, i64, i64, p, i64, i64, p, i64, i64,
-            p, i64, i32, f, p, i64, i32, f, p]
-        lib.tuun_interval_gate_rows_f32.restype = i32
-        lib.tuun_interval_mask_rows.argtypes = [
-            p, i64, i64, p, i64, i64, p, i64, i64, p]
-        lib.tuun_interval_mask_rows.restype = i32
-        _lib = lib
-        return lib
+    return kernels.library(kernels.LANES_SOURCE, _bind)
 
 
 # ---------------------------------------------------------------------------
@@ -90,32 +82,31 @@ def _check(x: torch.Tensor, dtype, device: torch.device, what: str) -> None:
                          f"{x.device}")
 
 
-def _bound(x: Scalar, bdim: Optional[int], device: torch.device,
+def _bound(x: Scalar, rows: bool, device: torch.device,
            what: str) -> Bound:
-    """An interval end as the kernel reads it: one int64 a row."""
+    """An interval end as the kernel reads it: one int64 a row.  With
+    rows, x holds one a voice at its row stride; else every row shares
+    it."""
     if not isinstance(x, torch.Tensor):
         return None, 0, int(x)
     _check(x, torch.int64, device, what)
-    if bdim is not None:
-        x = x.movedim(bdim, 0)
-    if x.dim() != (0 if bdim is None else 1):
+    if x.dim() != int(rows):
         raise ValueError(f"{what}: expected one end a voice, got shape "
                          f"{tuple(x.shape)}")
-    return x, 0 if bdim is None else x.stride(0), 0
+    return x, x.stride(0) if rows else 0, 0
 
 
-def _operand(x: Scalar, bdim: Optional[int], n: int, device: torch.device,
+def _operand(x: Scalar, rows: bool, n: int, device: torch.device,
              what: str) -> Operand:
     """A select operand as the kernel reads it: an immediate, one value a
-    row, or n lanes a row, with the row stride that vmap's batch
-    dimension gives (0 for an operand every row shares)."""
+    row, or n lanes a row, with its row stride.  With rows, x has the
+    voice axis first (row stride 0 where every row shares it); else every
+    row shares x."""
     if not isinstance(x, torch.Tensor):
         return None, 0, ROW, float(x)
     _check(x, torch.float32, device, what)
-    if bdim is not None:
-        x = x.movedim(bdim, 0)
-    lanes = x.shape[1:] if bdim is not None else x.shape
-    rs = x.stride(0) if bdim is not None else 0
+    lanes = x.shape[1:] if rows else x.shape
+    rs = x.stride(0) if rows else 0
     if lanes == ():
         return x, rs, ROW, 0.0
     if lanes != (n,):
@@ -124,8 +115,10 @@ def _operand(x: Scalar, bdim: Optional[int], n: int, device: torch.device,
     if n > 1 and x.stride(-1) == 0:  # an expanded value: one a row
         return x, rs, ROW, 0.0
     if n > 1 and x.stride(-1) != 1:
-        x = x.contiguous()
-        rs = n if bdim is not None else 0
+        if rs == 0:  # one row that every row reads: copied once
+            x = (x[0] if rows else x).contiguous()
+        else:
+            x, rs = x.contiguous(), n
     vec = x.data_ptr() % 16 == 0 and rs % 4 == 0
     return x, rs, LANES_VEC if vec else LANES, 0.0
 
@@ -178,8 +171,7 @@ def _gate_rows(rows: int, n: int, s: Bound, e: Bound, a: Operand,
         out.data_ptr(), rows, n, *_bound_args(s), *_bound_args(e),
         *_operand_args(a), *_operand_args(b),
         torch._C._cuda_getCurrentRawStream(dev))
-    scan_ops._check(status, GATE)
-    scan_ops._launched(GATE)
+    kernels.launched(GATE, status)
     return out
 
 
@@ -192,8 +184,7 @@ def _mask_rows(rows: int, n: int, s: Bound, e: Bound, device: torch.device,
     status = load_library().tuun_interval_mask_rows(
         out.data_ptr(), rows, n, *_bound_args(s), *_bound_args(e),
         torch._C._cuda_getCurrentRawStream(dev))
-    scan_ops._check(status, MASK)
-    scan_ops._launched(MASK)
+    kernels.launched(MASK, status)
     return out
 
 
@@ -212,55 +203,54 @@ def _operand_args(o: Operand) -> Tuple:
 # ---------------------------------------------------------------------------
 
 
-def _unbatched(xs) -> Optional[Tuple[int, int, list]]:
-    """Under torch.func.vmap: (the vmap level, the voices, each operand as
-    (its value below the level, its voice axis or None)), what a batching
-    rule receives; None where vmap batches none of them.  A custom op's
-    dispatch in its place took ~2.5x this path's host time a call
-    (PERF.md)."""
-    if not any(isinstance(x, torch.Tensor) and scan_ops._is_batched(x)
-               for x in xs):
-        return None
-    level = _functorch.maybe_current_level()
-    args = [_functorch._unwrap_batched(x, level)
-            if isinstance(x, torch.Tensor) else (x, None) for x in xs]
-    dims = [(x, d) for x, d in args if d is not None]
-    if not dims:
-        raise ValueError("interval gates: an operand is batched by an "
-                         "outer vmap only (nested vmap is not supported)")
-    x, d = dims[0]
-    return level, x.shape[d], args
+def interval_gate_rows(idx: torch.Tensor, s: Scalar, e: Scalar, a: Scalar,
+                       b: Scalar) -> torch.Tensor:
+    """interval_gate of [rows, n] lanes in one launch: idx [rows, n] (its
+    shape and device are read), s and e ints or int64 [rows], a and b
+    floats or float32 [rows] or [rows, n]; each tensor with the voice
+    axis first, at any row stride (0: one value every row reads).
+    float32 [rows, n]."""
+    rows, n = idx.shape
+    dev = idx.device
+    return _gate_rows(rows, n, _bound(s, True, dev, "s"),
+                      _bound(e, True, dev, "e"),
+                      _operand(a, True, n, dev, "a"),
+                      _operand(b, True, n, dev, "b"), dev, (rows, n))
 
 
 def interval_gate(idx: torch.Tensor, s: Scalar, e: Scalar, a: Scalar,
                   b: Scalar) -> torch.Tensor:
     """torch.where((idx >= s) & (idx < e), a, b) for a block's lane index
-    idx = torch.arange(n): float32 [n], or [voices, n] under vmap (one
-    launch; an operand vmap does not batch is read by every row)."""
+    idx = torch.arange(n): float32 [n], or [voices, n] under vmap
+    (interval_gate_rows, one launch)."""
+    out = kernels.vmapped(interval_gate_rows, (idx, s, e, a, b),
+                          contiguous=False)
+    if out is not None:
+        return out
     n, dev = idx.shape[-1], idx.device
-    batched = _unbatched((s, e, a, b))
-    if batched is None:
-        return _gate_rows(1, n, _bound(s, None, dev, "s"),
-                          _bound(e, None, dev, "e"),
-                          _operand(a, None, n, dev, "a"),
-                          _operand(b, None, n, dev, "b"), dev, (n,))
-    level, rows, ((s, ds), (e, de), (a, da), (b, db)) = batched
-    out = _gate_rows(rows, n, _bound(s, ds, dev, "s"),
-                     _bound(e, de, dev, "e"),
-                     _operand(a, da, n, dev, "a"),
-                     _operand(b, db, n, dev, "b"), dev, (rows, n))
-    return _functorch._add_batch_dim(out, 0, level)
+    return _gate_rows(1, n, _bound(s, False, dev, "s"),
+                      _bound(e, False, dev, "e"),
+                      _operand(a, False, n, dev, "a"),
+                      _operand(b, False, n, dev, "b"), dev, (n,))
+
+
+def interval_mask_rows(idx: torch.Tensor, s: Scalar, e: Scalar
+                       ) -> torch.Tensor:
+    """interval_mask of [rows, n] lanes in one launch, its operands as
+    interval_gate_rows': bool [rows, n]."""
+    rows, n = idx.shape
+    dev = idx.device
+    return _mask_rows(rows, n, _bound(s, True, dev, "s"),
+                      _bound(e, True, dev, "e"), dev, (rows, n))
 
 
 def interval_mask(idx: torch.Tensor, s: Scalar, e: Scalar) -> torch.Tensor:
     """(idx >= s) & (idx < e) for a block's lane index idx =
-    torch.arange(n): bool [n], or [voices, n] under vmap (one launch)."""
+    torch.arange(n): bool [n], or [voices, n] under vmap
+    (interval_mask_rows, one launch)."""
+    out = kernels.vmapped(interval_mask_rows, (idx, s, e), contiguous=False)
+    if out is not None:
+        return out
     n, dev = idx.shape[-1], idx.device
-    batched = _unbatched((s, e))
-    if batched is None:
-        return _mask_rows(1, n, _bound(s, None, dev, "s"),
-                          _bound(e, None, dev, "e"), dev, (n,))
-    level, rows, ((s, ds), (e, de)) = batched
-    out = _mask_rows(rows, n, _bound(s, ds, dev, "s"),
-                     _bound(e, de, dev, "e"), dev, (rows, n))
-    return _functorch._add_batch_dim(out, 0, level)
+    return _mask_rows(1, n, _bound(s, False, dev, "s"),
+                      _bound(e, False, dev, "e"), dev, (n,))

@@ -12,19 +12,9 @@ dispatches on the device of its input:
     scans) or csrc/exact.cu (the recurrence and the df prefix sum), or
     raises.  Nothing falls back to the plain version.
 
-Each source builds with nvcc into its own library in `_build/` at the
-first CUDA call that needs it, keyed by a hash of the source and flags,
-and binds through ctypes (`build_libraries` runs their nvcc at once; the
-first use of csrc/scan.cu or of csrc/lanes.cu, lane_ops.py's interval
-gates, builds both).  Each entry point counts its kernel launches in
-`launches` (reset with `reset_launches`), the table of every hand-written
-kernel's launches (lane_ops.py's too), so a run can show which kernels
-its path reached.
-Each also records its call's shape as (entry, rows, lanes, J), J None
-for the scans that take none: a capture keeps the calls it recorded
-(graph_scope), and an eager call under a profiler session marks itself
-`tuun.scan.<entry>:<rows>x<lanes>[:J<J>]` (spans.py), so a trace names
-the shapes its kernels ran at.
+kernels.py builds and loads the libraries, counts each launch in its
+`launches` table under the entry point's name and records each call's
+shape (entry, rows, lanes, J) for the `tuun.scan.*` markers.
 
 Each kernel is one launch per call: a single-pass scan with decoupled
 look-back, in a fixed grouping, so a call gives the same bits every
@@ -57,12 +47,11 @@ before capturing it there, so that its scratch exists outside the
 capture: a call that would allocate scratch while the stream captures
 raises.  A graph keeps the scratch of the stream it was captured on, so
 replays of graphs captured on one stream must not overlap one another
-or calls on that stream.  Inside `graph_scope(owner)` a thread's scans
-take scratch of their own, keyed by the owner too (engine/capture.py
-gives each captured graph its own, so that no warm-up, call or replay
-elsewhere shares it; `release_scratch(owner)` frees it with the graph),
-and a scan that a CUDA graph captures records its launch in the scope
-instead of counting it: the graph's replays count it (`count_launches`).
+or calls on that stream.  Inside `kernels.graph_scope(owner)` a thread's
+scans take scratch of their own, keyed by the owner too
+(engine/capture.py gives each captured graph its own, so that no
+warm-up, call or replay elsewhere shares it; `release_scratch(owner)`
+frees it with the graph).
 
 Unlike the TPU kernels, these take any length from 1 to 2^31 - 1 (no
 multiple-of-128 or 2^21 limit), the affine scan any J from 1 to MAX_J = 8
@@ -76,44 +65,24 @@ Each scan also has a voices x lanes form (`*_rows_f32`) for a voice
 group: [B, N] rows (the affine scan: a [B, N, J], ff and live [B, N], h0
 [B, J]) scanned in one launch, tiles never crossing a row, row r with the
 bits of a single call on it.  The library exports only the rows form:
-a single-voice entry point launches it on one row.  Under torch.func.vmap (the tracker's group
-render) a single-voice entry point receives batched tensors; it then
-calls a custom op whose batching rule hands the whole [B, ...] batch to
-the rows form, as jax.vmap of a pallas_call adds a grid axis, so a group
-never falls back to a loop over voices.
+a single-voice entry point launches it on one row, and under
+torch.func.vmap (the tracker's group render) hands the whole [B, ...]
+batch to it (kernels.vmapped), its operands as contiguous rows.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
-from .. import spans
+from . import kernels
+# The launch table, read here by the benchmark harness: the same dict as
+# kernels.launches.
+from .kernels import launches  # noqa: F401
 
-PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PKG_DIR / "csrc" / "scan.cu"
-EXACT_SOURCE = PKG_DIR / "csrc" / "exact.cu"
-# The interval gates (lane_ops.py): every render on the card runs them.
-LANES_SOURCE = PKG_DIR / "csrc" / "lanes.cu"
-BUILD_DIR = PKG_DIR / "_build"
-# No --use_fast_math: it would swap in approximate division and
-# transcendentals (see the FMA and sinf notes in ROADMAP.md queue 3).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Sources built as parts at once, then linked, where the source names the
-# macro: (macro, its values).  csrc/exact.cu's chain-form instances take
-# most of its build.
-SOURCE_PARTS = {"exact.cu": ("TUUN_EXACT_PART", (1, 2, 3))}
 MAX_J = 8
 # The deep affine scan takes MAX_J < J <= MAX_DEEP_J.
 MAX_DEEP_J = 16
@@ -121,27 +90,6 @@ MAX_N = 2 ** 31 - 1
 # The linear recurrence takes any feedback depth up to this.
 MAX_RECURRENCE_J = 4096
 
-# Each wrapper's count key and the device kernel it launches (the
-# __global__ function of csrc/scan.cu or exact.cu, as a profiler names it).
-KERNEL_SYMBOLS: Dict[str, str] = {
-    "prefix_sum_f32": "scan_single_pass",
-    "prefix_max_f32": "scan_single_pass",
-    "affine_scan_f32": "affine_scan_pass",
-    "prefix_sum_rows_f32": "scan_single_pass",
-    "prefix_max_rows_f32": "scan_single_pass",
-    "affine_scan_rows_f32": "affine_scan_pass",
-    "affine_scan_deep_f32": "affine_deep_pass",
-    "affine_scan_deep_rows_f32": "affine_deep_pass",
-    "linear_recurrence_f32": "linear_recurrence",
-    "linear_recurrence_f64": "linear_recurrence",
-    "linear_recurrence_rows_f32": "linear_recurrence",
-    "linear_recurrence_rows_f64": "linear_recurrence",
-    "df_prefix_sum_f32": "df_prefix_sum",
-    "df_prefix_sum_rows_f32": "df_prefix_sum",
-    # csrc/lanes.cu's (lane_ops.py): no scan, so no tuun.scan.* marker.
-    "interval_gate": "interval_gate_kernel",
-    "interval_mask": "interval_mask_kernel"}
-launches: Dict[str, int] = {k: 0 for k in KERNEL_SYMBOLS}
 # The df prefix sum's first scratch covers this many lanes; a longer scan
 # grows it, as the affine scan's does.
 DF_SCRATCH_MIN_LANES = 1 << 22
@@ -155,8 +103,6 @@ AFFINE_FANS = (16, 32, 64)
 # The deep affine scan's, likewise (1.4 MB at 1024-lane tiles).
 DEEP_SCRATCH_MIN_LANES = 1 << 20
 
-_lib = None
-_exact_lib = None
 # Lanes a df prefix-sum tile at DF_SCRATCH_MIN_LANES, read from the library
 # once: it sizes the first scratch.
 _df_tile = 0
@@ -177,96 +123,10 @@ _df_scratch: Dict[Tuple, Tuple[torch.Tensor, int]] = {}
 # use it), and an owner's until the owner releases it.
 _affine_retired: List[torch.Tensor] = []
 _owner_retired: Dict[Any, List[torch.Tensor]] = {}
-# Per thread: the graph_scope's owner and, while a graph captures, the
-# calls its scans recorded.
-_tls = threading.local()
-# Held for the first load of the library and for each scratch creation
-# (never by a launch that finds its buffer): threads at first use (the
-# audio thread, the prewarm, the bake and capture workers) would each
-# build or allocate, and a launch could take the pointer of a buffer that
-# the table then drops.
-_first_use = threading.RLock()
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
-def _launched(entry: str) -> None:
-    # A capture's launches are its recording's (graph_scope).
-    rec = getattr(_tls, "recording", None)
-    if rec is None:
-        launches[entry] += 1
-    else:
-        rec.launches[entry] += 1
-
-
-def count_launches(recorded: Dict[str, int]) -> None:
-    """Counts the launches that a replay of a captured graph makes."""
-    for k, c in recorded.items():
-        launches[k] += c
-
-
-# A scan call's shape: (entry, rows, lanes, J or None).
-Call = Tuple[str, int, int, Optional[int]]
-
-
-class Recording(List[Call]):
-    """What a capture recorded: its scan calls, in order, and the
-    launches of every kernel of `launches`' table by entry."""
-
-    def __init__(self):
-        super().__init__()
-        self.launches: collections.Counter = collections.Counter()
-
-
-def call_marker(call: Call) -> str:
-    """The marker's name of a scan call, after "tuun."."""
-    entry, rows, lanes, J = call
-    return f"scan.{entry}:{rows}x{lanes}" + ("" if J is None else f":J{J}")
-
-
-def mark_calls(calls: Sequence[Call]) -> None:
-    """One marker per call while a profiler session runs (a captured
-    step's calls, at its dispatch)."""
-    if calls and spans.traced():
-        for call in calls:
-            spans.mark(call_marker(call))
-
-
-def _called(entry: str, rows: int, lanes: int,
-            J: Optional[int] = None) -> None:
-    """Records a call: in the capture's recording while a graph captures,
-    else as a marker under a session."""
-    rec = getattr(_tls, "recording", None)
-    if rec is not None:
-        rec.append((entry, rows, lanes, J))
-    elif spans.traced():
-        spans.mark(call_marker((entry, rows, lanes, J)))
-
-
-@contextlib.contextmanager
-def graph_scope(owner, record: bool = False) -> Iterator[Recording]:
-    """While active on this thread, the scans use scratch of `owner`'s
-    own; with record=True (a capture) the scans append their calls to the
-    yielded Recording instead of marking them, and every counted kernel
-    adds its launches to the Recording's instead of to `launches`: each
-    launch a captured graph holds is one at every replay."""
-    if getattr(_tls, "owner", None) is not None:
-        raise RuntimeError("graph_scope does not nest")
-    recorded = Recording()
-    _tls.owner = owner
-    _tls.recording = recorded if record else None
-    try:
-        yield recorded
-    finally:
-        _tls.owner = None
-        _tls.recording = None
 
 
 def _scratch_key(device: int, stream: int) -> Tuple:
-    owner = getattr(_tls, "owner", None)
+    owner = kernels.scope_owner()
     return (device, stream) if owner is None else (device, stream, owner)
 
 
@@ -274,7 +134,7 @@ def release_scratch(owner) -> None:
     """Frees every scratch buffer of `owner` (its graph is gone).  The
     tables hold `owner` in their keys until then: an owner that may be
     dropped passes a token of its own and releases with a finalizer."""
-    with _first_use:
+    with kernels.first_use:
         for table in (_scratch, _affine_scratch, _deep_scratch,
                       _df_scratch):
             for key in [k for k in table if len(k) == 3 and k[2] is owner]:
@@ -282,153 +142,77 @@ def release_scratch(owner) -> None:
         _owner_retired.pop(owner, None)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): the scan "
-                           "kernels build with nvcc")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build_library(source: Path = SOURCE) -> Path:
-    """Compiles `source` (csrc/scan.cu by default) unless a build of this
-    exact source exists; a source of SOURCE_PARTS as its parts at once,
-    each an object, then links them."""
-    src = source.read_bytes()
-    parts = SOURCE_PARTS.get(source.name)
-    if parts is not None and parts[0].encode() not in src:
-        parts = None
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            + repr(parts).encode()).hexdigest()
-    lib = BUILD_DIR / f"libtuun_{source.stem}_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}"
-                        f".tmp")
-
-    def nvcc(argv):
-        proc = subprocess.run([_nvcc(), *argv], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    if parts is None:
-        nvcc([*NVCC_FLAGS, "-o", str(tmp), str(source)])
-    else:
-        from concurrent.futures import ThreadPoolExecutor
-        macro, values = parts
-        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-        objs = [tmp.with_name(f"{tmp.name}.{v}.o") for v in values]
-        with ThreadPoolExecutor(len(values)) as pool:
-            list(pool.map(lambda v, o: nvcc(
-                [*compile_flags, f"-D{macro}={v}", "-c", "-o", str(o),
-                 str(source)]), values, objs))
-        nvcc([*NVCC_FLAGS, "-o", str(tmp), *map(str, objs)])
-        for o in objs:
-            o.unlink()
-    os.replace(tmp, lib)  # atomic: concurrent builders converge
-    return lib
-
-
-def build_libraries(sources: Sequence[Path] = (SOURCE, EXACT_SOURCE,
-                                                LANES_SOURCE)
-                    ) -> List[Path]:
-    """Builds the kernel sources at once, one nvcc each (every one by
-    default)."""
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(len(sources)) as pool:
-        return list(pool.map(build_library, sources))
-
-
-# Every fast render on the card needs both: the first use of either
-# builds them at once.
-FAST_SOURCES = (SOURCE, LANES_SOURCE)
+def _bind(lib: ctypes.CDLL) -> None:
+    """csrc/scan.cu's argtypes, its constants checked against this
+    module's and its tiles read."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("tuun_scan_tile", "tuun_affine_tile", "tuun_affine_max_j",
+                 "tuun_affine_deep_tile", "tuun_affine_deep_max_j"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.tuun_scan_scratch_words.argtypes = []
+    lib.tuun_scan_scratch_words.restype = i64
+    for name in ("tuun_affine_scratch_words",
+                 "tuun_affine_deep_scratch_words"):
+        getattr(lib, name).argtypes = [i64]
+        getattr(lib, name).restype = i64
+    for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
+        getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
+        getattr(lib, name).restype = i32
+    lib.tuun_affine_slots.argtypes = [i64, i32]
+    lib.tuun_affine_slots.restype = i64
+    lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [
+        i64, i64, i64, i32, i32, p]
+    lib.tuun_affine_scan_rows_f32.restype = i32
+    lib.tuun_affine_scan_deep_rows_f32.argtypes = [p] * 7 + [
+        i64, i64, i64, i32, p]
+    lib.tuun_affine_scan_deep_rows_f32.restype = i32
+    if lib.tuun_affine_max_j() != MAX_J:
+        raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
+    if lib.tuun_affine_deep_max_j() != MAX_DEEP_J:
+        raise RuntimeError("scan.cu and scan_ops.MAX_DEEP_J disagree")
+    if lib.tuun_affine_tile() != AFFINE_TILE or any(
+            lib.tuun_affine_slots(n, fan) != affine_slots(n, fan)
+            for n in (1, 4097, 1 << 21) for fan in AFFINE_FANS):
+        raise RuntimeError("scan.cu and scan_ops.affine_slots disagree")
+    global _scan_tile, _scratch_words, _deep_tile
+    _scan_tile = lib.tuun_scan_tile()
+    _scratch_words = lib.tuun_scan_scratch_words()
+    _deep_tile = lib.tuun_affine_deep_tile()
 
 
 def load_library() -> ctypes.CDLL:
-    """The scan library, built and loaded on first use (once, whichever
-    threads get here first)."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _first_use:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build_libraries(FAST_SOURCES)[0]))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("tuun_scan_tile", "tuun_affine_tile",
-                     "tuun_affine_max_j", "tuun_affine_deep_tile",
-                     "tuun_affine_deep_max_j"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i32
-        lib.tuun_scan_scratch_words.argtypes = []
-        lib.tuun_scan_scratch_words.restype = i64
-        for name in ("tuun_affine_scratch_words",
-                     "tuun_affine_deep_scratch_words"):
-            getattr(lib, name).argtypes = [i64]
-            getattr(lib, name).restype = i64
-        for name in ("tuun_prefix_sum_rows_f32", "tuun_prefix_max_rows_f32"):
-            getattr(lib, name).argtypes = [p, p, p, i64, i64, p]
-            getattr(lib, name).restype = i32
-        lib.tuun_affine_slots.argtypes = [i64, i32]
-        lib.tuun_affine_slots.restype = i64
-        lib.tuun_affine_scan_rows_f32.argtypes = [p] * 7 + [
-            i64, i64, i64, i32, i32, p]
-        lib.tuun_affine_scan_rows_f32.restype = i32
-        lib.tuun_affine_scan_deep_rows_f32.argtypes = [p] * 7 + [
-            i64, i64, i64, i32, p]
-        lib.tuun_affine_scan_deep_rows_f32.restype = i32
-        if lib.tuun_affine_max_j() != MAX_J:
-            raise RuntimeError("scan.cu and scan_ops.MAX_J disagree")
-        if lib.tuun_affine_deep_max_j() != MAX_DEEP_J:
-            raise RuntimeError("scan.cu and scan_ops.MAX_DEEP_J disagree")
-        if lib.tuun_affine_tile() != AFFINE_TILE or any(
-                lib.tuun_affine_slots(n, fan) != affine_slots(n, fan)
-                for n in (1, 4097, 1 << 21) for fan in AFFINE_FANS):
-            raise RuntimeError("scan.cu and scan_ops.affine_slots disagree")
-        global _scan_tile, _scratch_words, _deep_tile
-        _scan_tile = lib.tuun_scan_tile()
-        _scratch_words = lib.tuun_scan_scratch_words()
-        _deep_tile = lib.tuun_affine_deep_tile()
-        _lib = lib
-        return lib
+    """The scan library (csrc/scan.cu), built and loaded on first use."""
+    return kernels.library(kernels.SOURCE, _bind)
+
+
+def _bind_exact(lib: ctypes.CDLL) -> None:
+    """csrc/exact.cu's argtypes, its depth checked and its df tile
+    read."""
+    global _df_tile
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.tuun_recurrence_max_j.argtypes = []
+    lib.tuun_recurrence_max_j.restype = i32
+    lib.tuun_df_tile.argtypes = [i64]
+    lib.tuun_df_tile.restype = i32
+    lib.tuun_df_scratch_words.argtypes = [i64]
+    lib.tuun_df_scratch_words.restype = i64
+    for name in ("tuun_linear_recurrence_rows_f32",
+                 "tuun_linear_recurrence_rows_f64"):
+        getattr(lib, name).argtypes = [p] * 6 + [i64, i64, i32, p]
+        getattr(lib, name).restype = i32
+    lib.tuun_df_prefix_sum_rows_f32.argtypes = [p] * 5 + [i64, i64, i64, p]
+    lib.tuun_df_prefix_sum_rows_f32.restype = i32
+    if lib.tuun_recurrence_max_j() != MAX_RECURRENCE_J:
+        raise RuntimeError("exact.cu and scan_ops.MAX_RECURRENCE_J "
+                           "disagree")
+    _df_tile = lib.tuun_df_tile(DF_SCRATCH_MIN_LANES)
 
 
 def load_exact_library() -> ctypes.CDLL:
     """The exact precisions' library (csrc/exact.cu), built and loaded on
     first use."""
-    global _exact_lib, _df_tile
-    if _exact_lib is not None:
-        return _exact_lib
-    with _first_use:
-        if _exact_lib is not None:
-            return _exact_lib
-        lib = ctypes.CDLL(str(build_library(EXACT_SOURCE)))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.tuun_recurrence_max_j.argtypes = []
-        lib.tuun_recurrence_max_j.restype = i32
-        lib.tuun_df_tile.argtypes = [i64]
-        lib.tuun_df_tile.restype = i32
-        lib.tuun_df_scratch_words.argtypes = [i64]
-        lib.tuun_df_scratch_words.restype = i64
-        for name in ("tuun_linear_recurrence_rows_f32",
-                     "tuun_linear_recurrence_rows_f64"):
-            getattr(lib, name).argtypes = [p] * 6 + [i64, i64, i32, p]
-            getattr(lib, name).restype = i32
-        lib.tuun_df_prefix_sum_rows_f32.argtypes = [p] * 5 + [i64, i64, i64,
-                                                              p]
-        lib.tuun_df_prefix_sum_rows_f32.restype = i32
-        if lib.tuun_recurrence_max_j() != MAX_RECURRENCE_J:
-            raise RuntimeError("exact.cu and scan_ops.MAX_RECURRENCE_J "
-                               "disagree")
-        _df_tile = lib.tuun_df_tile(DF_SCRATCH_MIN_LANES)
-        _exact_lib = lib
-        return lib
-
-
-def _check(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+    return kernels.library(kernels.EXACT_SOURCE, _bind_exact)
 
 
 def _check_vector(x: torch.Tensor, name: str, dims: int = 1) -> None:
@@ -491,7 +275,7 @@ def prefix_scratch(device: int, stream: int,
     key = _scratch_key(device, stream)
     buf = _scratch.get(key)
     if buf is None:
-        with _first_use:
+        with kernels.first_use:
             buf = _scratch.get(key)
             if buf is None:
                 buf = _scratch[key] = alloc(device)
@@ -513,8 +297,7 @@ def _prefix_launch(fn, entry: str, x: torch.Tensor) -> torch.Tensor:
                          f"prefix scratch's tiles")
     out = torch.empty_like(x)
     status = fn(x.data_ptr(), out.data_ptr(), scratch, rows, n, stream)
-    _check(status, entry)
-    _launched(entry)
+    kernels.launched(entry, status)
     return out
 
 
@@ -530,10 +313,11 @@ def prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
     tile's own roundings, the carry's tree, and one rounding per anchor
     passed).  The grouping does not depend on timing, so every call
     gives the same bits."""
-    if _is_batched(x):
-        return _vmap_op("prefix_sum")(x)
+    out = kernels.vmapped(prefix_sum_rows_f32, (x,))
+    if out is not None:
+        return out
     _check_vector(x, "prefix_sum_f32")
-    _called("prefix_sum_f32", 1, x.shape[0])
+    kernels.called("prefix_sum_f32", 1, x.shape[0])
     if x.is_cpu:
         return prefix_sum_ref(x)
     return _prefix_launch(load_library().tuun_prefix_sum_rows_f32,
@@ -543,10 +327,11 @@ def prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
 def prefix_max_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive running max of a 1-D float32 tensor, bit-identical to
     torch.cummax(x, 0).values (NaN propagates; ties take the later lane)."""
-    if _is_batched(x):
-        return _vmap_op("prefix_max")(x)
+    out = kernels.vmapped(prefix_max_rows_f32, (x,))
+    if out is not None:
+        return out
     _check_vector(x, "prefix_max_f32")
-    _called("prefix_max_f32", 1, x.shape[0])
+    kernels.called("prefix_max_f32", 1, x.shape[0])
     if x.is_cpu:
         return prefix_max_ref(x)
     return _prefix_launch(load_library().tuun_prefix_max_rows_f32,
@@ -557,7 +342,7 @@ def prefix_sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
     """prefix_sum_f32 of each row of a float32 [B, N] tensor, in one
     launch; row r has the bits of prefix_sum_f32(x[r])."""
     _check_vector(x, "prefix_sum_rows_f32", dims=2)
-    _called("prefix_sum_rows_f32", *x.shape)
+    kernels.called("prefix_sum_rows_f32", *x.shape)
     if x.is_cpu:
         return prefix_sum_ref(x)
     return _prefix_launch(load_library().tuun_prefix_sum_rows_f32,
@@ -568,7 +353,7 @@ def prefix_max_rows_f32(x: torch.Tensor) -> torch.Tensor:
     """prefix_max_f32 of each row of a float32 [B, N] tensor, in one
     launch: bit-identical to torch.cummax(x, -1).values."""
     _check_vector(x, "prefix_max_rows_f32", dims=2)
-    _called("prefix_max_rows_f32", *x.shape)
+    kernels.called("prefix_max_rows_f32", *x.shape)
     if x.is_cpu:
         return prefix_max_ref(x)
     return _prefix_launch(load_library().tuun_prefix_max_rows_f32,
@@ -745,7 +530,7 @@ def _grown_scratch(table, device: int, stream: int, tiles: int,
     entry = table.get(key)
     if entry is not None and entry[1] >= tiles:
         return entry
-    with _first_use:
+    with kernels.first_use:
         entry = table.get(key)
         if entry is not None and entry[1] >= tiles:
             return entry
@@ -778,11 +563,11 @@ def affine_scan_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     composed maps in a fixed grouping (a tree of look-back records), and
     runs the recurrence itself over each quarter segment: every call
     gives the same bits."""
-    if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
-            or _is_batched(h0):
-        return _vmap_op("affine_scan")(a_rows, ff, live, h0)
+    out = kernels.vmapped(affine_scan_rows_f32, (a_rows, ff, live, h0))
+    if out is not None:
+        return out
     _check_affine(a_rows, ff, live, h0)
-    _called("affine_scan_f32", 1, *a_rows.shape)
+    kernels.called("affine_scan_f32", 1, *a_rows.shape)
     if ff.is_cpu:
         return affine_y_ref(a_rows, ff, live, h0)
     return _affine_launch(a_rows, ff, live, h0, 1, "affine_scan_f32")
@@ -795,7 +580,7 @@ def affine_scan_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     J], ff f32[B, N], live bool[B, N], h0 f32[B, J] -> (y f32[B, N],
     hist f32[B, J]); row r has the bits of a single call on row r."""
     _check_affine_rows(a_rows, ff, live, h0)
-    _called("affine_scan_rows_f32", *a_rows.shape)
+    kernels.called("affine_scan_rows_f32", *a_rows.shape)
     if ff.is_cpu:
         return affine_y_ref(a_rows, ff, live, h0)
     return _affine_launch(a_rows, ff, live, h0, ff.shape[0],
@@ -841,11 +626,12 @@ def affine_scan_deep_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     memory, carries the history across tiles by a look-back in a fixed
     grouping, and runs the recurrence itself over each segment: every
     call gives the same bits."""
-    if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
-            or _is_batched(h0):
-        return _vmap_op("affine_scan_deep")(a_rows, ff, live, h0)
+    out = kernels.vmapped(affine_scan_deep_rows_f32,
+                          (a_rows, ff, live, h0))
+    if out is not None:
+        return out
     _check_affine(a_rows, ff, live, h0, "affine_scan_deep_f32", _DEEP_DEPTHS)
-    _called("affine_scan_deep_f32", 1, *a_rows.shape)
+    kernels.called("affine_scan_deep_f32", 1, *a_rows.shape)
     if ff.is_cpu:
         return _deep_cpu(a_rows, ff, live, h0)
     return _deep_launch(a_rows, ff, live, h0, 1, "affine_scan_deep_f32")
@@ -860,7 +646,7 @@ def affine_scan_deep_rows_f32(a_rows: torch.Tensor, ff: torch.Tensor,
     row r."""
     _check_affine_rows(a_rows, ff, live, h0, "affine_scan_deep_rows_f32",
                        _DEEP_DEPTHS)
-    _called("affine_scan_deep_rows_f32", *a_rows.shape)
+    kernels.called("affine_scan_deep_rows_f32", *a_rows.shape)
     if ff.is_cpu:
         return _deep_cpu(a_rows, ff, live, h0)
     return _deep_launch(a_rows, ff, live, h0, ff.shape[0],
@@ -906,8 +692,7 @@ def _launch_affine(kernel, stream: int, scratch, cap: int, a_rows, ff,
     status = kernel(a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(),
                     h0.data_ptr(), y.data_ptr(), hist.data_ptr(), sp, cap,
                     rows, n, J, *geometry, stream)
-    _check(status, entry)
-    _launched(entry)
+    kernels.launched(entry, status)
     return y, hist
 
 
@@ -1003,11 +788,11 @@ def linear_recurrence(a_rows: torch.Tensor, ff: torch.Tensor,
     The CUDA kernel (tuun_linear_recurrence_rows_{f32,f64}) runs the
     chain in the plain version's op order, every product and difference
     rounded on its own: the same bits as linear_recurrence_ref."""
-    if _is_batched(ff) or _is_batched(a_rows) or _is_batched(live) \
-            or _is_batched(h0):
-        return _vmap_op("linear_recurrence")(a_rows, ff, live, h0)
+    out = kernels.vmapped(linear_recurrence_rows, (a_rows, ff, live, h0))
+    if out is not None:
+        return out
     _check_recurrence(a_rows, ff, live, h0, rows=False)
-    _called(f"linear_recurrence_{_suffix(ff.dtype)}", 1, *a_rows.shape)
+    kernels.called(f"linear_recurrence_{_suffix(ff.dtype)}", 1, *a_rows.shape)
     if ff.is_cpu:
         return linear_recurrence_ref(a_rows, ff, live, h0)
     return _recurrence_launch(a_rows, ff, live, h0, 1,
@@ -1021,7 +806,8 @@ def linear_recurrence_rows(a_rows: torch.Tensor, ff: torch.Tensor,
     and live [B, N], h0 [B, J] -> (y [B, N], hist [B, J]); row r has the
     bits of a single call on row r."""
     _check_recurrence(a_rows, ff, live, h0, rows=True)
-    _called(f"linear_recurrence_rows_{_suffix(ff.dtype)}", *a_rows.shape)
+    kernels.called(f"linear_recurrence_rows_{_suffix(ff.dtype)}",
+                   *a_rows.shape)
     if ff.is_cpu:
         return linear_recurrence_ref(a_rows, ff, live, h0)
     return _recurrence_launch(a_rows, ff, live, h0, ff.shape[0],
@@ -1040,8 +826,7 @@ def _recurrence_launch(a_rows, ff, live, h0, rows: int, entry: str):
     status = fn(a_rows.data_ptr(), ff.data_ptr(), live.data_ptr(),
                 h0.data_ptr(), y.data_ptr(), hist.data_ptr(), rows, n, J,
                 stream)
-    _check(status, entry)
-    _launched(entry)
+    kernels.launched(entry, status)
     return y, hist
 
 
@@ -1085,10 +870,11 @@ def df_prefix_sum_f32(xh: torch.Tensor, xl: torch.Tensor
     gives the same bits.  df_add is not associative, so those bits differ
     from the plain doubling scan's (and XLA's) in the last compensated
     bits; each holds f64-class accuracy against the float64 cumsum."""
-    if _is_batched(xh) or _is_batched(xl):
-        return _vmap_op("df_prefix_sum")(xh, xl)
+    out = kernels.vmapped(df_prefix_sum_rows_f32, (xh, xl))
+    if out is not None:
+        return out
     _check_df(xh, xl, 1, "df_prefix_sum_f32")
-    _called("df_prefix_sum_f32", 1, xh.shape[0])
+    kernels.called("df_prefix_sum_f32", 1, xh.shape[0])
     if xh.is_cpu:
         return df_prefix_sum_ref(xh, xl)
     return _df_launch(xh, xl, 1, "df_prefix_sum_f32")
@@ -1099,7 +885,7 @@ def df_prefix_sum_rows_f32(xh: torch.Tensor, xl: torch.Tensor
     """df_prefix_sum_f32 of each row of [B, N] float32 pairs in one
     launch; row r has the bits of a single call on row r."""
     _check_df(xh, xl, 2, "df_prefix_sum_rows_f32")
-    _called("df_prefix_sum_rows_f32", *xh.shape)
+    kernels.called("df_prefix_sum_rows_f32", *xh.shape)
     if xh.is_cpu:
         return df_prefix_sum_ref(xh, xl)
     return _df_launch(xh, xl, xh.shape[0], "df_prefix_sum_rows_f32")
@@ -1133,108 +919,5 @@ def _df_launch(xh, xl, rows: int, entry: str):
     status = lib.tuun_df_prefix_sum_rows_f32(
         xh.data_ptr(), xl.data_ptr(), oh.data_ptr(), ol.data_ptr(), sp, cap,
         rows, n, stream)
-    _check(status, entry)
-    _launched(entry)
+    kernels.launched(entry, status)
     return oh, ol
-
-
-# ---------------------------------------------------------------------------
-# Batching rules: the scans under torch.func.vmap
-# ---------------------------------------------------------------------------
-
-
-def _is_batched(x: torch.Tensor) -> bool:
-    """Whether x is a tensor that torch.func.vmap is batching."""
-    return torch._C._functorch.is_batchedtensor(x)
-
-
-def _rows(x: torch.Tensor, bdim, batch: int) -> torch.Tensor:
-    """The vmapped operand as contiguous rows with the voice axis first
-    (an operand vmap does not batch is the same for every voice)."""
-    if bdim is None:
-        return x.expand(batch, *x.shape).contiguous()
-    return x.movedim(bdim, 0).contiguous()
-
-
-# Custom ops with a vmap rule, made at the first batched call (the CPU
-# tests import this module many times over; none registers at import),
-# under a lock: a CUDA graph's warm-up may make the first call on a
-# worker thread while another thread makes its own.
-_vmap_ops: Dict[str, Any] = {}
-_vmap_lock = threading.Lock()
-
-
-def _vmap_op(kind: str):
-    op = _vmap_ops.get(kind)
-    if op is not None:
-        return op
-    with _vmap_lock:
-        op = _vmap_ops.get(kind)
-        if op is None:
-            op = _vmap_ops[kind] = _make_vmap_op(kind)
-    return op
-
-
-def _make_vmap_op(kind: str):
-    lib = torch.library
-    # Annotations name module-level types: custom_op reads them as
-    # strings (from __future__ import annotations).
-    if kind == "linear_recurrence":
-        @lib.custom_op("tuun_tpu_torch::linear_recurrence", mutates_args=())
-        def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
-               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-            y, hist = linear_recurrence(a_rows, ff, live, h0)
-            return y, hist
-
-        def rule(info, dims, a_rows, ff, live, h0):
-            args = [_rows(x, d, info.batch_size)
-                    for x, d in zip((a_rows, ff, live, h0), dims)]
-            return linear_recurrence_rows(*args), (0, 0)
-    elif kind == "df_prefix_sum":
-        @lib.custom_op("tuun_tpu_torch::df_prefix_sum_f32", mutates_args=())
-        def op(xh: torch.Tensor, xl: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-            oh, ol = df_prefix_sum_f32(xh, xl)
-            return oh, ol
-
-        def rule(info, dims, xh, xl):
-            return df_prefix_sum_rows_f32(
-                _rows(xh, dims[0], info.batch_size),
-                _rows(xl, dims[1], info.batch_size)), (0, 0)
-    elif kind == "affine_scan_deep":
-        @lib.custom_op("tuun_tpu_torch::affine_scan_deep_f32",
-                       mutates_args=())
-        def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
-               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-            y, hist = affine_scan_deep_f32(a_rows, ff, live, h0)
-            return y, hist
-
-        def rule(info, dims, a_rows, ff, live, h0):
-            args = [_rows(x, d, info.batch_size)
-                    for x, d in zip((a_rows, ff, live, h0), dims)]
-            return affine_scan_deep_rows_f32(*args), (0, 0)
-    elif kind == "affine_scan":
-        @lib.custom_op("tuun_tpu_torch::affine_scan_f32", mutates_args=())
-        def op(a_rows: torch.Tensor, ff: torch.Tensor, live: torch.Tensor,
-               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-            y, hist = affine_scan_f32(a_rows, ff, live, h0)
-            return y, hist
-
-        def rule(info, dims, a_rows, ff, live, h0):
-            args = [_rows(x, d, info.batch_size)
-                    for x, d in zip((a_rows, ff, live, h0), dims)]
-            return affine_scan_rows_f32(*args), (0, 0)
-    else:
-        single = {"prefix_sum": prefix_sum_f32,
-                  "prefix_max": prefix_max_f32}[kind]
-        rows_fn = {"prefix_sum": prefix_sum_rows_f32,
-                   "prefix_max": prefix_max_rows_f32}[kind]
-
-        @lib.custom_op(f"tuun_tpu_torch::{kind}_f32", mutates_args=())
-        def op(x: torch.Tensor) -> torch.Tensor:
-            return single(x)
-
-        def rule(info, dims, x):
-            return rows_fn(_rows(x, dims[0], info.batch_size)), 0
-    op.register_vmap(rule)
-    return op

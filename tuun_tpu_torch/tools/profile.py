@@ -17,7 +17,7 @@ Prints, for the block render of the expression (on the card unless
   * one block's launch structure, the analogue of the HLO census: the
     device events it ran (kernels, copies, sets; on the CPU the top-level
     operators) and the six most frequent names; the hand-written kernels
-    it launched, by their wrappers' counts (engine/scan_ops.py), beside
+    it launched, by their wrappers' counts (engine/kernels.py), beside
     the number of those kernels the profiler saw; the device's busy time
     against the block's wall time under the profiler.
 The census is taken in a second profiler session after a warm one: a
@@ -53,7 +53,7 @@ def _sync(torch, device) -> None:
         torch.cuda.synchronize(device)
 
 
-def block_census(torch, scan_ops, block, device) -> dict:
+def block_census(torch, kernels, block, device) -> dict:
     """One call of block() under torch.profiler, after a warm session:
     the device events (or outermost CPU aten operators) and their most
     frequent names (short_name), the wrappers' launches, the hand-written
@@ -64,13 +64,13 @@ def block_census(torch, scan_ops, block, device) -> dict:
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     for _ in range(2):  # the first session warms the profiler
-        before = dict(scan_ops.launches)
+        before = dict(kernels.launches)
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             block()
             _sync(torch, device)
             wall = time.perf_counter() - t0
-    launched = {k: c - before[k] for k, c in scan_ops.launches.items()
+    launched = {k: c - before[k] for k, c in kernels.launches.items()
                 if c != before[k]}
     events = prof.events()
     if cuda:
@@ -90,7 +90,7 @@ def block_census(torch, scan_ops, block, device) -> dict:
             busy += b - max(a, end)
             end = b
     names = collections.Counter(short_name(e.name) for e in work)
-    symbols = set(scan_ops.KERNEL_SYMBOLS.values())
+    symbols = set(kernels.KERNEL_SYMBOLS.values())
     seen = sum(c for name, c in names.items()
                if any(k in name for k in symbols))
     return {"events": len(work),
@@ -114,7 +114,7 @@ def main(argv=None) -> int:
     import torch
 
     from .. import optimizer
-    from ..engine import scan_ops
+    from ..engine import kernels
     from ..engine.graph import CompiledVoice, EngineConfig
     from ..evaluator import Evaluator
     from ..expr import ESeq, EWaveform
@@ -162,7 +162,7 @@ def main(argv=None) -> int:
 
     def block():
         box[0] = fn(P, box[0], s, e)[2]
-    c = block_census(torch, scan_ops, block, device)
+    c = block_census(torch, kernels, block, device)
     what = "device events" if device.type == "cuda" else "cpu operators"
     print(f"{what}: {c['events']}/block  top: {json.dumps(c['top'])}")
     print(f"hand-written kernels: {json.dumps(c['launched'])}  "
