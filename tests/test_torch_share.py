@@ -83,14 +83,16 @@ def _fast(sr=SR, **kw):
 
 
 def _renders(monkeypatch):
-    """Counts each engine node class's renders (a CShared's are left out:
-    its own copy's render is counted where it runs)."""
+    """Counts each engine node class's renders (a CShared's and a
+    CFold's are left out: the render of the subtree each wraps is counted
+    where it runs)."""
     counts = {}
     todo = [graph.Node]
     while todo:
         cls = todo.pop()
         todo += cls.__subclasses__()
-        if "render" not in cls.__dict__ or cls is graph.CShared:
+        if "render" not in cls.__dict__ or cls in (graph.CShared,
+                                                   graph.CFold):
             continue
 
         def counted(self, *args, _f=cls.__dict__["render"], _n=cls.__name__):

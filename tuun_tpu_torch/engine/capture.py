@@ -44,10 +44,12 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
     capture also counts the device operations it adds to the graph by the
     engine node class whose render enqueued them (`node_ops`, NodeOps),
     marked at every replay under a session as
-    `tuun.engine.ops.<Class>:<n>` (`GraphStep.mark`), and the node
-    renders that shared subtrees saved (`shared_renders`, graph.CShared),
-    marked as `tuun.engine.shared:<n>`.  The counts run only inside a
-    capture.
+    `tuun.engine.ops.<Class>:<n>` (`GraphStep.mark`), the node renders
+    that shared subtrees saved (`shared_renders`, graph.CShared), marked
+    as `tuun.engine.shared:<n>`, and those that settled subtrees saved
+    (`folded_renders`, graph.CFold), marked as `tuun.engine.folded:<n>`;
+    a node class whose every node sits in a settled subtree keeps an
+    entry of 0 in `node_ops`.  The counts run only inside a capture.
   * A call replays on the caller's current stream, under the step's own
     lock (a window's prefetch worker and the serve thread both call it),
     inside the span `tuun.engine.replay` (spans.py).
@@ -68,7 +70,7 @@ import torch
 
 from .. import spans
 from . import kernels, scan_ops
-from .graph import Node, Params, counting_shared
+from .graph import Node, Params, counting_folded, counting_shared
 
 _capture_lock = threading.Lock()
 
@@ -345,9 +347,11 @@ class GraphStep:
         self.launches: Dict[str, int] = {}
         self.scan_calls: Tuple[kernels.Call, ...] = ()
         # Device operations of one replay by engine node class (NodeOps),
-        # and the node renders that shared subtrees saved in it.
+        # and the node renders that shared and settled subtrees saved in
+        # it.
         self.node_ops: Dict[str, int] = {}
         self.shared_renders = 0
+        self.folded_renders = 0
         self._lock = threading.Lock()
         self._done = None  # an event after the last call's work
         self.capture_seconds: Optional[float] = None
@@ -418,29 +422,37 @@ class GraphStep:
         the scans' calls and the hand-written kernels' launches
         (kernels.graph_scope: `scan_calls`, `launches`) and, inside the
         NodeOps it yields (over `nodes`, the operations captured so far),
-        the device operations by engine node class (`node_ops`), and
-        the node renders that shared subtrees saved (`shared_renders`)."""
+        the device operations by engine node class (`node_ops`, with 0
+        for a class that only settled subtrees hold), and the node
+        renders that shared and settled subtrees saved
+        (`shared_renders`, `folded_renders`)."""
         counter = NodeOps(nodes)
         with kernels.graph_scope(self._scratch_owner,
                                   record=True) as recorded, \
-                counting_shared() as saved:
+                counting_shared() as saved, counting_folded() as folded:
             yield counter
         self.scan_calls = tuple(recorded)
         self.launches = dict(recorded.launches)
         self.node_ops = dict(counter.counts)
+        if self.node_ops:
+            for cls in folded[1]:
+                self.node_ops.setdefault(cls, 0)
         self.shared_renders = saved[0]
+        self.folded_renders = folded[0]
 
     def mark(self) -> None:
         """Under a profiler session, marks what one replay enqueues on
         the profiler's clock: each scan call's shape
         (kernels.mark_calls), each engine node class's operations,
-        `tuun.engine.ops.<Class>:<n>`, and the node renders shared
-        subtrees saved, `tuun.engine.shared:<n>`."""
+        `tuun.engine.ops.<Class>:<n>`, and the node renders shared and
+        settled subtrees saved, `tuun.engine.shared:<n>` and
+        `tuun.engine.folded:<n>`."""
         if spans.traced():
             kernels.mark_calls(self.scan_calls)
             for cls, n in sorted(self.node_ops.items()):
                 spans.mark(f"engine.ops.{cls}:{n}")
             spans.mark(f"engine.shared:{self.shared_renders}")
+            spans.mark(f"engine.folded:{self.folded_renders}")
 
     def _replay(self) -> None:
         self._graph.replay()

@@ -87,6 +87,16 @@ Decisions where the JAX engine's form was a fact of XLA or the TPU:
     (share_plan): an occurrence proven identical to, and equally ranged
     with, an earlier one is a CShared, and one render enqueues each such
     class once.
+  * Folded subtrees.  XLA folds constants only where they are constants
+    of the program; an envelope that has reached its sustain level is a
+    constant of the voice's position, which no compiler sees.  The fold
+    plan (fold_plan) proves on the host, by float32 interval arithmetic
+    over the render's own ops, from which local sample a subtree yields
+    one value, and the compiler wraps it in a CFold.  A render asked for
+    in its settled form (the tracker asks once every voice of a group is
+    past that sample) returns such a subtree as one value a row instead
+    of its lanes, and each parent that reads it does what the lanes
+    would have given it, bit for bit.
   * Exact-mode IIR feedback (both exact precisions) runs the linear
     recurrence kernel (a lax.scan in JAX), in float32 as the JAX engine
     and the oracle run it; exact_df's phase prefix sum runs the df prefix
@@ -100,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import struct
 import threading
 import weakref
 from dataclasses import dataclass
@@ -325,7 +336,8 @@ class Ctx:
     """Per-render context for one block of n lanes."""
 
     def __init__(self, n: int, device, allow_captures: bool = True,
-                 lits: Optional[Tuple[int, ...]] = None):
+                 lits: Optional[Tuple[int, ...]] = None,
+                 settled: bool = False):
         if not 1 <= n <= MAX_BLOCK:
             raise ValueError(f"block of {n} lanes outside [1, {MAX_BLOCK}]")
         self.n = n
@@ -342,6 +354,10 @@ class Ctx:
         # Share class -> the (y, v, w, state') its first member rendered
         # in this render (CShared); one root render per Ctx.
         self.shared: Dict[int, Tuple] = {}
+        # The settled form: every CFold returns its one value a row (the
+        # caller has checked that each voice is past its fold plan's
+        # local sample).
+        self.settled = settled
 
     @property
     def fidx(self) -> torch.Tensor:
@@ -358,6 +374,13 @@ def _gate(ctx: Ctx, s, e, a, b):
     """torch.where(_mask(ctx, s, e), a, b): on the card one kernel that
     tests the interval in the thread and selects in the same pass."""
     return lane_ops.interval_gate(ctx.idx, s, e, a, b)
+
+
+def _raw(y):
+    """An operand's samples as its parent reads them past the operand's
+    valid end.  A settled operand (a CFold's one value a row) is infinite,
+    and its lanes are 0 past [s, e)."""
+    return 0.0 if y.dim() == 0 else y
 
 
 def _ceil_target(c, sample_rate: int):
@@ -642,6 +665,10 @@ class CBinary(Node):
                 return _len_mask(li, _apply_op(op, ya, yb), v), v
             self.reloc = reloc
 
+        # b's valid end is always the e it is given (the result's is then
+        # a's): a settled a's raw lanes past the result are then 0.
+        self.b_inf = _infinite(b)
+
     def init(self, P):
         return (self.a.init(P), self.b.init(P))
 
@@ -651,16 +678,22 @@ class CBinary(Node):
         merge = self.op == ir.Operator.MERGE
         eb = e if merge else va
         yb, vb, wb, sb = self.b.render(P, sb, s, eb, ctx)
+        raw_a = ya
+        if ya.dim() == 0:
+            # a settled (one value a row, valid to e): its raw lanes hold
+            # that value on [s, e) and 0 past it, read past v only where
+            # b may end first.
+            raw_a = 0.0 if merge or self.b_inf else _gate(ctx, s, e, ya, 0.0)
         if merge:
             v = torch.maximum(va, vb)
             # [va, v) of the shared buffer is zero-filled before the op, so
             # a's overrun writes vanish inside the result but survive
             # beyond it (generator.rs:543,560-566).
-            a_z = torch.where(ctx.idx < va, ya, 0.0)
-            y = _gate(ctx, s, v, a_z + yb, ya)
+            a_z = ya if ya.dim() == 0 else torch.where(ctx.idx < va, ya, 0.0)
+            y = _gate(ctx, s, v, a_z + yb, raw_a)
         else:
             v = torch.minimum(va, vb)
-            y = _gate(ctx, s, v, _apply_op(self.op, ya, yb), ya)
+            y = _gate(ctx, s, v, _apply_op(self.op, ya, yb), raw_a)
         return y, v, torch.maximum(wa, v), (sa, sb)
 
     def advance(self, P, st, s, e, ctx):
@@ -790,7 +823,7 @@ class CSine(Node):
             ph, pl = df32.df_add(ph, pl, ah, al)
             ph, pl = df32.df_add(ph, pl, yp, torch.zeros_like(yp))
             ph, pl = df32.df_mod_tau(ph, pl)
-            y = _gate(ctx, s, vf, df32.df_sin(ph, pl), yf)
+            y = _gate(ctx, s, vf, df32.df_sin(ph, pl), _raw(yf))
             nh, nl = df32.df_add(ah, al, ch[-1], cl[-1])
             nh, nl = df32.df_mod_tau(nh, nl)
             return y, vp, torch.maximum(wf, vf), ((nh, nl), sf, sp)
@@ -801,7 +834,7 @@ class CSine(Node):
         # Sine overwrites the frequency's buffer up to the frequency's
         # returned length; beyond that the frequency's own overrun writes
         # remain (shared-buffer semantics).
-        y = _gate(ctx, s, vf, y, yf)
+        y = _gate(ctx, s, vf, y, _raw(yf))
         acc = torch.remainder(acc + inc.sum(), TAU)
         return y, vp, torch.maximum(wf, vf), (acc, sf, sp)
 
@@ -1546,7 +1579,7 @@ class CAlt(Node):
         yn, vn, wn, stn = self.neg.render(P, stn, s, vt, ctx)
         # Branches are read raw to the trigger's length; beyond it the
         # trigger's own raw writes remain.
-        y = _gate(ctx, s, vt, torch.where(yt >= 0.0, yp, yn), yt)
+        y = _gate(ctx, s, vt, torch.where(yt >= 0.0, yp, yn), _raw(yt))
         return y, vt, torch.maximum(wt, vt), (stt, stp, stn)
 
     def advance(self, P, st, s, e, ctx):
@@ -1594,11 +1627,14 @@ class CShared(CWrap):
     samples live no longer than the last member that reads them.
     `size` is the node renders a member that returns a stored result
     saves (counted where counting_shared() is active).  Every other
-    path (advance, reloc, state reconstruction) goes to the copy."""
+    path (advance, reloc, state reconstruction) goes to the copy.  A
+    later member that finds nothing stored (in a settled render, where
+    its class's first member folded and it did not) renders its copy."""
 
-    def __init__(self, cfg, inner: Node, cls: int, size: int, last: bool):
+    def __init__(self, cfg, inner: Node, cls: int, size: int, last: bool,
+                 first: bool):
         super().__init__(cfg, inner)
-        self.cls, self.size, self.last = cls, size, last
+        self.cls, self.size, self.last, self.first = cls, size, last, first
         self.static_len = inner.static_len
         self.has_capture = inner.has_capture
 
@@ -1606,31 +1642,109 @@ class CShared(CWrap):
         out = ctx.shared.pop(self.cls, None) if self.last \
             else ctx.shared.get(self.cls)
         if out is not None:
-            tally = getattr(_SHARED_TALLY, "box", None)
-            if tally is not None:
-                tally[0] += self.size
+            _tally("shared", self.size)
             return out
         out = self.inner.render(P, st, s, e, ctx)
+        if not self.first:
+            _tally("folded", -self.size)  # the fold saved this much less
         if not self.last:
             ctx.shared[self.cls] = out
         return out
 
 
-_SHARED_TALLY = threading.local()
+class CFold(CWrap):
+    """A subtree the fold plan proved settled (fold_plan): from a local
+    sample on, which the plan's `decisions` fix for each voice's
+    constants (CompiledVoice.settled_from), it yields one value, and
+    `value(P)` computes that value by the ops its lanes would take, on
+    one value a row.  In a settled render (Ctx.settled) it returns that
+    value, valid to e, and advances its state as its render would: every
+    Time position inside by e - s (they all hold the voice's position,
+    the plan's edges being the root's range).  Its parent reads the value
+    as the lanes it stands for.  Otherwise it renders its subtree.
+
+    `size` is the node renders a settled render saves, `shared` the
+    renders the shared members inside would have saved, and `classes`
+    the engine node classes inside (counted where counting_folded() and
+    counting_shared() are active)."""
+
+    def __init__(self, cfg, inner: Node, value: Callable,
+                 decisions: Tuple[Tuple["CAlt", bool], ...]):
+        super().__init__(cfg, inner)
+        self.value, self.decisions = value, decisions
+        self.static_len = inner.static_len
+        self.times: List[Tuple[int, ...]] = []  # state paths of Time pos
+        self.consts: List[int] = []  # constant indices the proofs read
+        self.classes = set()
+        self.size = self.shared = 0
+        self._survey(inner, (), True)
+
+    def _survey(self, node, path, live):
+        """Adds the subtree at `node` (its state at `path`); `live`: the
+        unfolded render renders it (no shared member returns it)."""
+        if isinstance(node, CShared) and not node.first:
+            if live:
+                self.shared += node.size
+            live = False
+        if isinstance(node, CWrap):
+            if live and type(node) is CWrap:
+                self.size += 1  # a marker renders
+            return self._survey(node.inner, path, live)
+        self.size += live
+        self.classes.add(type(node).__name__)
+        if isinstance(node, CConst):
+            self.consts.append(node.index)
+        elif isinstance(node, CTime):
+            self.times.append(path + (0,))
+        for i, child in enumerate(_fold_children(node)):
+            self._survey(child, path + (i,), live)
+
+    def render(self, P, st, s, e, ctx):
+        if not ctx.settled:
+            return self.inner.render(P, st, s, e, ctx)
+        _tally("shared", self.shared)
+        _tally("folded", self.size, self.classes)
+        if self.times:
+            pos = _path_get(st, self.times[0]) + (e - s).clamp(min=0)
+            for path in self.times:
+                st = _path_set(st, path, pos)
+        return self.value(P), e, e, st
+
+
+_TALLY = threading.local()
+
+
+def _tally(name: str, n: int, classes=()) -> None:
+    box = getattr(_TALLY, name, None)
+    if box is not None:
+        box[0] += n
+        box[1].update(classes)
 
 
 @contextlib.contextmanager
-def counting_shared():
-    """Yields a one-element list that counts, while the block runs, the
-    node renders that shared results saved on this thread (each stored
-    result a CShared returned counts its `size`)."""
-    box = [0]
-    prev = getattr(_SHARED_TALLY, "box", None)
-    _SHARED_TALLY.box = box
+def _counting(name: str):
+    box = [0, set()]
+    prev = getattr(_TALLY, name, None)
+    setattr(_TALLY, name, box)
     try:
         yield box
     finally:
-        _SHARED_TALLY.box = prev
+        setattr(_TALLY, name, prev)
+
+
+def counting_shared():
+    """Yields a list whose [0] counts, while the block runs, the node
+    renders that shared results saved on this thread (each stored result
+    a CShared returned counts its `size`, and a settled CFold the shared
+    members inside it)."""
+    return _counting("shared")
+
+
+def counting_folded():
+    """Yields [renders, classes]: the node renders that settled CFolds
+    saved on this thread while the block runs, and the engine node
+    classes inside them."""
+    return _counting("folded")
 
 
 def _apply_op(op, a, b):
@@ -1680,6 +1794,243 @@ def _compile_params(compiler: "Compiler") -> Params:
     return Params(torch.from_numpy(
         np.asarray(compiler.const_values, np.float32).reshape(-1)), (),
         torch.zeros((), dtype=I64))
+
+
+# ---------------------------------------------------------------------------
+# The fold plan: subtrees settled from a local sample on
+# ---------------------------------------------------------------------------
+#
+# A subtree of Const, Time, arithmetic and Alt nodes on the edges that
+# pass the voice root's range (every Time in it then holds the voice's own
+# position) is settled from local sample T when it yields one value at
+# every local sample t >= T.  The proof is float32 interval arithmetic
+# over the ops exactly as the render performs them: each is monotone in
+# each operand and rounds monotonically, so its values over a box of
+# operands lie between its values at the box's corners, computed here as
+# the render computes them.  An Alt is decided where its trigger's
+# interval lies wholly >= 0 or wholly < 0, and then yields its branch.
+# Local samples are bounded by _LOCAL_END, so every interval is finite
+# unless an op overflows; a bound that is not finite proves nothing.
+
+_LOCAL_END = 2 ** 62  # past every local sample a voice renders
+_SETTLE_BY = 2 ** 61  # a fold must settle by this local sample
+_FOLD_OPS = (ir.Operator.ADD, ir.Operator.SUBTRACT, ir.Operator.MULTIPLY,
+             ir.Operator.DIVIDE, ir.Operator.MERGE)
+_F32 = struct.Struct("f")
+Interval = Optional[Tuple[float, float]]
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32 (to nearest, ties to even; inf past its
+    range).  Each op below takes float32 operands in float64 and rounds
+    once: float64 holds more than twice float32's digits, so that is the
+    float32 op's own rounding."""
+    try:
+        return _F32.unpack(_F32.pack(x))[0]
+    except OverflowError:
+        return math.copysign(math.inf, x)
+
+
+def _infinite(node: Node) -> bool:
+    """Whether `node`'s valid end is always the e it is given (Const,
+    Time, Noise, an NCO sine over an infinite phase, arithmetic over two
+    infinite operands, an Alt over an infinite trigger, a marker over an
+    infinite inner): share_plan's "provably infinite", on compiled
+    nodes."""
+    while isinstance(node, CWrap):
+        node = node.inner
+    if isinstance(node, (CConst, CTime, CNoise)):
+        return True
+    if isinstance(node, CSine):
+        return node.nco and _infinite(node.phase)
+    if isinstance(node, CBinary):
+        return _infinite(node.a) and _infinite(node.b)
+    if isinstance(node, CAlt):
+        return _infinite(node.trigger)
+    return False
+
+
+def _fold_children(node: Node) -> Tuple[Node, ...]:
+    """A foldable node's children, in the order of its state tuple."""
+    if isinstance(node, CBinary):
+        return (node.a, node.b)
+    if isinstance(node, CAlt):
+        return (node.trigger, node.pos, node.neg)
+    return ()
+
+
+def _foldable(node: Node) -> bool:
+    """Whether every node of the subtree is a Const, a Time, arithmetic
+    of _FOLD_OPS, an Alt or a marker: nodes whose valid end is always e,
+    whose lanes are 0 past [s, e), and whose advance leaves the state
+    their render leaves."""
+    while isinstance(node, CWrap):
+        if node.capture_stem is not None:
+            return False
+        node = node.inner
+    if isinstance(node, (CConst, CTime)):
+        return True
+    if isinstance(node, CBinary) and node.op not in _FOLD_OPS:
+        return False
+    if isinstance(node, (CBinary, CAlt)):
+        return all(_foldable(c) for c in _fold_children(node))
+    return False
+
+
+def _interval(node: Node, consts, t0: int, sr: int) -> Interval:
+    """[lo, hi] of the float32 values a foldable `node` takes at every
+    local sample in [t0, _LOCAL_END], as its render computes them; None
+    where not finite or not known."""
+    while isinstance(node, CWrap):
+        node = node.inner
+    out: Interval = None
+    if isinstance(node, CConst):
+        c = float(consts[node.index])
+        out = (c, c)
+    elif isinstance(node, CTime):
+        # _div(local.to(f32), sr): the int64 -> float32 cast, then the
+        # float32 division, both monotone in the local sample.
+        sr32 = float(np.float32(sr))
+        out = tuple(_f32(float(np.int64(t).astype(np.float32)) / sr32)
+                    for t in (t0, _LOCAL_END))
+    elif isinstance(node, CBinary):
+        a = _interval(node.a, consts, t0, sr)
+        b = _interval(node.b, consts, t0, sr)
+        if a is None or b is None:
+            return None
+        op = node.op
+        if op in (ir.Operator.ADD, ir.Operator.MERGE):
+            out = (_f32(a[0] + b[0]), _f32(a[1] + b[1]))
+        elif op == ir.Operator.SUBTRACT:
+            out = (_f32(a[0] - b[1]), _f32(a[1] - b[0]))
+        elif op == ir.Operator.MULTIPLY or (
+                op == ir.Operator.DIVIDE and (b[0] > 0.0 or b[1] < 0.0)):
+            corners = [_f32(x * y if op == ir.Operator.MULTIPLY else x / y)
+                       for x in a for y in b]
+            out = (min(corners), max(corners))
+    elif isinstance(node, CAlt):
+        t = _interval(node.trigger, consts, t0, sr)
+        p = _interval(node.pos, consts, t0, sr)
+        n = _interval(node.neg, consts, t0, sr)
+        if t is not None and t[0] >= 0.0:
+            out = p
+        elif t is not None and t[1] < 0.0:
+            out = n
+        elif p is not None and n is not None:
+            out = (min(p[0], n[0]), max(p[1], n[1]))
+    if out is None or not (math.isfinite(out[0]) and math.isfinite(out[1])):
+        return None
+    return out
+
+
+def _decided(alt: "CAlt", positive: bool, consts, t0: int, sr: int) -> bool:
+    """Whether `alt`'s trigger is >= 0 (positive) or < 0 at every local
+    sample from t0 on, in every lane."""
+    t = _interval(alt.trigger, consts, t0, sr)
+    return t is not None and (t[0] >= 0.0 if positive else t[1] < 0.0)
+
+
+def _settled(node: Node, consts, t0: int, sr: int):
+    """(value, decisions) where the foldable `node` yields one value at
+    every local sample from t0 on with these constants: `value(P)` the
+    ops of its lanes on one value a row, `decisions` each (Alt, its
+    trigger >= 0) on the way.  Settled: a Const; arithmetic over two
+    settled operands; an Alt whose trigger is decided, over the settled
+    branch it picks; a marker over a settled inner.  Else None."""
+    while isinstance(node, CWrap):
+        node = node.inner
+    if isinstance(node, CConst):
+        i = node.index
+        return (lambda P: P.consts[i]), ()
+    if isinstance(node, CBinary):
+        a = _settled(node.a, consts, t0, sr)
+        b = _settled(node.b, consts, t0, sr)
+        if a is None or b is None:
+            return None
+        op, (fa, da), (fb, db) = node.op, a, b
+        return (lambda P: _apply_op(op, fa(P), fb(P))), da + db
+    if isinstance(node, CAlt):
+        for positive, branch in ((True, node.pos), (False, node.neg)):
+            if _decided(node, positive, consts, t0, sr):
+                got = _settled(branch, consts, t0, sr)
+                if got is None:
+                    return None
+                return got[0], ((node, positive),) + got[1]
+    return None
+
+
+def settle_sample(fold: "CFold", consts, sr: int) -> Optional[int]:
+    """The least local sample from which `fold`'s decisions hold with
+    these constants (their proofs are monotone in it: a later start is a
+    narrower interval), or None where they do not hold by _SETTLE_BY."""
+    def holds(t):
+        return all(_decided(alt, positive, consts, t, sr)
+                   for alt, positive in fold.decisions)
+    if not fold.decisions:
+        return 0  # constants alone
+    if not holds(_SETTLE_BY):
+        return None
+    lo, hi = -1, _SETTLE_BY
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if holds(mid):
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def fold_plan(root: Node, consts, sr: int) -> Tuple[Node, Tuple["CFold",
+                                                                ...]]:
+    """Wraps in a CFold each largest foldable subtree that settles with
+    these constants (the compiled voice's own) and whose parent reads it
+    only as lanes, on the edges that pass the voice root's range; returns
+    the root (itself a CFold where the whole voice settles) and the
+    CFolds in pre-order.
+
+    The edges, as share_plan's: CBinary's a, and b when the op is MERGE
+    or a is provably infinite; CAlt's trigger, and pos and neg when the
+    trigger is provably infinite; an NCO CSine's phase; a non-NCO
+    CSine's frequency, and its phase when the frequency is provably
+    infinite; a marker's inner.  A capture, a later member of a share
+    class (it renders nothing of its own) and every other edge stop it.
+    Every parent above reads a settled operand (one value a row) as the
+    lanes it stands for, but a POWER: pow is not exactly rounded, so its
+    operands stay lanes, as the render that folds nothing gives them."""
+    folds: List[CFold] = []
+
+    def visit(node: Node, reads: bool) -> Node:
+        if reads and _foldable(node):
+            got = _settled(node, consts, _SETTLE_BY, sr)
+            if got is not None:
+                folds.append(CFold(node.cfg, node, *got))
+                return folds[-1]
+        if isinstance(node, CShared) and not node.first:
+            return node
+        if isinstance(node, CWrap):
+            if node.capture_stem is None:
+                node.inner = visit(node.inner, reads)
+        elif isinstance(node, CBinary):
+            reads = node.op != ir.Operator.POWER
+            node.a = visit(node.a, reads)
+            if node.op == ir.Operator.MERGE or _infinite(node.a):
+                node.b = visit(node.b, reads)
+        elif isinstance(node, CAlt):
+            node.trigger = visit(node.trigger, True)
+            if _infinite(node.trigger):
+                node.pos = visit(node.pos, True)
+                node.neg = visit(node.neg, True)
+        elif isinstance(node, CSine):
+            if node.nco:
+                node.phase = visit(node.phase, True)
+            else:
+                node.freq = visit(node.freq, True)
+                if _infinite(node.freq):
+                    node.phase = visit(node.phase, True)
+        return node
+
+    root = visit(root, True)
+    return root, tuple(folds)
 
 
 # ---------------------------------------------------------------------------
@@ -1833,11 +2184,14 @@ def reconstruct_state(node: Node, P, lits, r: int, adv: int = 0):
 class Compiler:
     def __init__(self, cfg: EngineConfig, plan: "SharePlan" = ()):
         self.cfg = cfg
-        # uid -> (share class, size, last member) of each occurrence
-        # that compiles to a CShared (share_plan): members render in uid
-        # order.
-        last = {cls: uid for uid, cls, _ in plan}
-        self.share = {uid: (cls, size, last[cls] == uid)
+        # uid -> (share class, size, last member, first member) of each
+        # occurrence that compiles to a CShared (share_plan): members
+        # render in uid order.
+        first, last = {}, {}
+        for uid, cls, _ in plan:
+            first.setdefault(cls, uid)
+            last[cls] = uid
+        self.share = {uid: (cls, size, last[cls] == uid, first[cls] == uid)
                       for uid, cls, size in plan}
         self.const_values: List[np.float32] = []
         self.fixed_values: List[np.ndarray] = []
@@ -1999,7 +2353,13 @@ class CompiledVoice:
     moves, per-voice frequencies) share one compiled voice when they
     also share its sharing plan (`plan`: share_plan(w, cfg) by default;
     () renders every occurrence, for states not proven equal across
-    a class, as a modify's splice leaves them)."""
+    a class, as a modify's splice leaves them).
+
+    Its fold plan (fold_plan, `folds`) is read from `w`'s own constants;
+    each voice's constants say from which local sample it holds for that
+    voice (settled_from), and from there on a render may be asked for in
+    its settled form (render_fn's and batched_render_fn's `settled`):
+    the same bits, the folds' values one a row."""
 
     def __init__(self, w: ir.Waveform, cfg: EngineConfig,
                  plan: Optional[SharePlan] = None):
@@ -2017,7 +2377,12 @@ class CompiledVoice:
             else:
                 self.shared_renders += size
         compiler = Compiler(cfg, self.plan)
-        self.root = compiler.compile(w)
+        self.root, self.folds = fold_plan(compiler.compile(w),
+                                          compiler.const_values,
+                                          cfg.sample_rate)
+        # Node renders a settled root render saves beyond the shared ones.
+        self.folded_renders = sum(f.size for f in self.folds)
+        self._settle_memo: Dict[Tuple, Optional[int]] = {}
         self.capture_stems = compiler.captures
         # A relocatable root is a pure function of the absolute sample
         # index: its length composes symbolically (symbolic_len), its
@@ -2075,6 +2440,30 @@ class CompiledVoice:
         self._symlen_cache[lits] = out
         return out
 
+    def settled_from(self, P) -> Optional[int]:
+        """The local sample from which every fold of the plan holds for
+        P's constants (its host mirror), found by bisection over the local
+        sample and memoized by the constants each fold reads; None where
+        one never does, or the plan has no fold."""
+        if not self.folds:
+            return None
+        consts = _host_params(P).consts.numpy()
+        if len(self._settle_memo) > 4096:
+            self._settle_memo.clear()
+        out = 0
+        for i, fold in enumerate(self.folds):
+            if not fold.decisions:
+                continue  # constants alone: settled from 0
+            key = (i, consts[fold.consts].tobytes())
+            t = self._settle_memo.get(key, -1)
+            if t == -1:
+                t = self._settle_memo[key] = settle_sample(
+                    fold, consts, self.cfg.sample_rate)
+            if t is None:
+                return None
+            out = max(out, t)
+        return out
+
     # -- params ---------------------------------------------------------
 
     def params(self, seed: int = 0) -> Params:
@@ -2129,8 +2518,8 @@ class CompiledVoice:
 
     # -- rendering ------------------------------------------------------
 
-    def _render_impl(self, n, fast, lits, P, state, s, e):
-        ctx = Ctx(n, P.device, lits=lits)
+    def _render_impl(self, n, fast, lits, settled, P, state, s, e):
+        ctx = Ctx(n, P.device, lits=lits, settled=settled)
         if fast:
             # A pure function of the absolute sample index: no state
             # threading, no per-node interval bookkeeping, and the valid
@@ -2169,13 +2558,14 @@ class CompiledVoice:
 
     def render_fn(self, n: int, fast: Optional[bool] = None,
                   lits: Optional[Tuple[int, ...]] = None,
-                  P=None) -> Callable:
+                  P=None, settled: bool = False) -> Callable:
         """fn(P, state, s, e) -> (y[n], valid_end, state', captures) with
         s and e int64 scalars on P's device.  fast=None takes the
         config's default path; a voice that is no longer a pure function
-        of the absolute index passes fast=False."""
+        of the absolute index passes fast=False.  settled=True: the
+        settled form, for a voice at or past settled_from(P) at s."""
         fast, lits = self._resolve_fast(fast, P, lits)
-        return partial(self._render_impl, n, fast, lits)
+        return partial(self._render_impl, n, fast, lits, settled)
 
     def note_fn(self, sizes: Tuple[int, ...], n: Optional[int] = None,
                 fast: Optional[bool] = None,
@@ -2200,8 +2590,8 @@ class CompiledVoice:
             for _ in range(passes):
                 st = self.init(P)
                 for m in sizes:
-                    y, v, st, _ = self._render_impl(n, fast, lits, P, st, s,
-                                                    ends[m])
+                    y, v, st, _ = self._render_impl(n, fast, lits, False,
+                                                    P, st, s, ends[m])
                 acc = y if acc is None else acc + y
             return (acc if passes > 1 else y), v, st
         return impl
@@ -2215,7 +2605,8 @@ class CompiledVoice:
 
     def batched_render_fn(self, n: int, fast: Optional[bool] = None,
                           lits: Optional[Tuple[int, ...]] = None,
-                          mix: bool = True) -> Callable:
+                          mix: bool = True, settled: bool = False
+                          ) -> Callable:
         """fn(bP, bstate, starts, e) -> (mix[n], v[B], bstate', caps): one
         render of a whole voice group (tuun_tpu graph.py:2446-2470).
         _render_impl runs under torch.func.vmap over (params, state,
@@ -2224,9 +2615,10 @@ class CompiledVoice:
         x lanes kernels, one launch per call site for the whole group.
         The voices must share `lits` (the tracker groups by them); on the
         fast path without them, each voice evaluates its own Fin cutoffs
-        on the device, as render_fn does without P."""
+        on the device, as render_fn does without P.  settled=True: the
+        settled form, for voices each at or past its settled_from."""
         fast, lits = self._resolve_fast(fast, None, lits)
-        render = partial(self._render_impl, n, fast, lits)
+        render = partial(self._render_impl, n, fast, lits, settled)
 
         def one(consts, fixeds, seed, state, s, e, host=None):
             return render(Params(consts, fixeds, seed, host=host), state, s, e)

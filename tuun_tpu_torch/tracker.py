@@ -337,6 +337,10 @@ class Voice:
     ended: bool = False
     # Bumped on every change of `state`, in place (a fused replay) or not.
     gen: int = 0
+    # The absolute sample from which the voice renders in its settled
+    # form (CompiledVoice.settled_from past its start), or None: never
+    # (no fold, the fast path, a splice).
+    settle_at: Optional[int] = None
     # Deferred-sync queues: (valid_end, s, e) device scalars, capture
     # dicts and (rms, peak) pairs awaiting the next sync point.
     _pending_v: List = field(default_factory=list)
@@ -445,6 +449,13 @@ def _set_state(m, state) -> None:
     m.gen += 1
 
 
+def _settled(member, fast: bool, block_start: int) -> bool:
+    """Whether a lone voice or a group renders in its settled form from
+    block_start on (never on the fast path, which renders no node)."""
+    return not fast and member.settle_at is not None \
+        and block_start >= member.settle_at
+
+
 class VoiceGroup:
     """Same-structure voices rendered as one call (tuun_tpu/tracker.py:302-
     519).
@@ -477,6 +488,9 @@ class VoiceGroup:
             self.bparams = None  # the shards hold them
             self.bstate = self.shards.stack_states([v.state for v in voices])
         self.gen = 0
+        # Every voice settled from this sample on (None: some never).
+        ends = [v.settle_at for v in voices]
+        self.settle_at = None if None in ends else max(ends)
         # (valid_end[B], caps, levels, starts, e) per deferred render (e:
         # the render's extent, block_size or K*n for a window).
         self._pending: List = []
@@ -766,6 +780,9 @@ class Tracker:
                 # rest: the twins of a share class may then hold unequal
                 # states, so the spliced voice shares nothing.
                 compiled = self.cache.get(new_w, self.cfg, plan=())
+                # and folds nothing: the fresh subtree's Time nodes stand
+                # at other positions than the voice's.
+                voice.settle_at = None
                 old_compiled = voice.compiled
                 needs_replay = voice.fast or old_compiled._has_timeline
                 if old_compiled._has_timeline or compiled._has_timeline:
@@ -858,6 +875,10 @@ class Tracker:
             voice = Voice(p.id, p.waveform, compiled, params, state, p.start,
                           list(p.marks), fast=fast, lits=lits,
                           host_seed=self._seed_counter)
+            # The fold plan's local sample, like the lits read on the host
+            # from the params.
+            settled = None if fast else compiled.settled_from(params)
+            voice.settle_at = None if settled is None else p.start + settled
         # Exact retirement: the symbolic length of a relocatable
         # structure, else the oracle's length() (generator.rs:787-862).
         with span("tracker.length", phases):
@@ -967,7 +988,11 @@ class Tracker:
         """The identity of the current voice set's structure for the
         fused step, or None when fusing does not apply (meshed groups
         keep their own renders; a lone member saves no dispatch, unless
-        lookahead windows can engage)."""
+        lookahead windows can engage).  Each member's part ends with
+        whether it renders in its settled form from the next block on
+        (one comparison a member): a set's key changes once as its
+        members settle, and its settled steps are captured beside the
+        others."""
         if any(g.mesh is not None for g in self._groups):
             return None
         members = len(self._singles) + len(self._groups)
@@ -975,38 +1000,45 @@ class Tracker:
             return None
         if members < 2 and self._lookahead() <= 1:
             return None
+        block_start = self.now
         parts = []
         for v in self._singles:
             fast, lits = v.compiled._resolve_fast(v.fast, v.params, v.lits)
-            parts.append(("s", id(v.compiled), fast, lits))
+            parts.append(("s", id(v.compiled), fast, lits,
+                          _settled(v, fast, block_start)))
         for g in self._groups:
             fast, lits = self._group_fast_lits(g)
-            parts.append(("g", id(g.compiled), fast, lits, len(g.voices)))
+            parts.append(("g", id(g.compiled), fast, lits, len(g.voices),
+                          _settled(g, fast, block_start)))
         return (n, self.report_levels, tuple(parts))
 
-    def _member_impls(self, n: int):
+    def _member_impls(self, n: int, key):
         """Each member's render of n lanes with its slice of the scalars
-        vector [e, starts...]: (kind, render, first, end)."""
+        vector [e, starts...], in the form its part of `key` says:
+        (kind, render, first, end)."""
         impls = []
         i = 1
+        settled = iter(part[-1] for part in key[2])
         for v in self._singles:
             fast, lits = v.compiled._resolve_fast(v.fast, v.params, v.lits)
-            impls.append(("s", v.compiled.render_fn(n, fast, lits), i, i + 1))
+            impls.append(("s", v.compiled.render_fn(
+                n, fast, lits, settled=next(settled)), i, i + 1))
             i += 1
         for g in self._groups:
             fast, lits = self._group_fast_lits(g)
             B = len(g.voices)
             impls.append(("g", g.compiled.batched_render_fn(
-                n, fast=fast, lits=lits, mix=False), i, i + B))
+                n, fast=fast, lits=lits, mix=False, settled=next(settled)),
+                i, i + B))
             i += B
         return impls
 
-    def _build_fused_step(self, n: int):
+    def _build_fused_step(self, n: int, key):
         """One step rendering every current member (lone voices, then
         groups under torch.func.vmap, as batched_render_fn does) and
         mixing in member order on the device, so its bits are the
         per-voice path's (tuun_tpu/tracker.py:989-1036)."""
-        impls = self._member_impls(n)
+        impls = self._member_impls(n, key)
         levels = self.report_levels
 
         def step(params, states, sc):
@@ -1103,8 +1135,8 @@ class Tracker:
         self._retired_steps = keep
 
     def _fused_fn(self, key, n: int, scalars) -> Optional[Any]:
-        return self._async_compiled(key, lambda: self._build_fused_step(n),
-                                    True, scalars)
+        return self._async_compiled(
+            key, lambda: self._build_fused_step(n, key), True, scalars)
 
     def _block_scalars(self, n: int, block_start: int) -> Tuple[int, ...]:
         """[e, every member's start offset] of a block."""
@@ -1185,14 +1217,14 @@ class Tracker:
         return self.lookahead if self.lookahead is not None \
             else self.sync_interval
 
-    def _build_window_step(self, n: int, K: int):
+    def _build_window_step(self, n: int, K: int, key):
         """One render of K*n lanes per member, not K renders: the engine
         renders any block size (block-size invariance is a tested
         contract), so the window multiplies the work per launch instead
         of the launches (tuun_tpu/tracker.py:1170-1233).  scalars[0] is
         the runtime extent e0: K*n for a full window, k*n when an
         interrupt replays k served sub-blocks."""
-        impls = self._member_impls(n * K)
+        impls = self._member_impls(n * K, key)
         levels = self.report_levels
 
         def win(params, states, sc):
@@ -1221,8 +1253,8 @@ class Tracker:
     def _window_fn(self, key, n: int, K: int, scalars) -> Optional[Any]:
         """The K-block window step; its graph never changes its inputs."""
         return self._async_compiled(
-            ("win", key, K), lambda: self._build_window_step(n, K), False,
-            scalars)
+            ("win", key, K), lambda: self._build_window_step(n, K, key),
+            False, scalars)
 
     def _window_scalars(self, e0: int) -> Tuple[int, ...]:
         return (e0,) + (0,) * (len(self._singles)
