@@ -121,3 +121,76 @@ def test_scan_rows_roofline_reads_nothing_it_cannot_attribute(marker):
     markers = [(f"tuun.scan.prefix_sum_rows_f32:{ROWS}x{LANES}", 50.0,
                 50.0, SERVE), (marker, 60.0, 60.0, SERVE)]
     assert _read("scan.rows_roofline", _run(markers, device)) is None
+
+
+# -- the exact_df cell's readers ---------------------------------------------
+
+DF_KERNEL = "void df_prefix_sum<512, 8, true>(float const*, float const*)"
+DF_ROWS = f"tuun.scan.df_prefix_sum_rows_f32:{ROWS}x{LANES}"
+
+
+def _df32_markers(ats, n):
+    return [(f"tuun.engine.df32:{n}", at, at, SERVE) for at in ats]
+
+
+@pytest.mark.parametrize("windows", [4, 5])
+def test_df32_ops_reads_the_mean_over_the_replays(windows):
+    """Four windows marked at their submit, or five where one window was
+    replayed inline: one window's operations over its 16 blocks; markers
+    outside the slice count nothing."""
+    host = _df32_markers([100.0 + 150 * i for i in range(windows)], 440)
+    host += _df32_markers([1500.0], 999)
+    host += [("tuun.engine.ops.CSine:480", 100.0, 100.0, SERVE)]
+    assert _read("engine.df32_ops_per_block.offline", _run(host)) == \
+        440 / 16
+
+
+def test_df32_ops_reads_zero_and_nothing():
+    """A fast step marks 0 and reads 0; a program without the marker
+    (the parent's) or a run without a trace reads nothing."""
+    zero = _run(_df32_markers([100.0, 300.0], 0))
+    assert _read("engine.df32_ops_per_block.offline", zero) == 0
+    bare = _run([("tuun.engine.ops.CSine:72", 100.0, 100.0, SERVE)])
+    assert _read("engine.df32_ops_per_block.offline", bare) is None
+    untraced = _run([])
+    untraced.trace = None
+    assert _read("engine.df32_ops_per_block.offline", untraced) is None
+
+
+@pytest.mark.parametrize("windows", [4, 5])
+def test_df_sum_rows_roofline_counts_each_call_at_its_marked_shape(windows):
+    """Three calls a window (the three sines' phases), each 16 bytes a
+    lane at the markers' shape, over the kernel's device time; a window
+    rendered inline adds its calls and its time alike."""
+    calls = 3 * windows
+    device = [(DF_KERNEL, 100.0 + 2000 * i, 1700.0 + 2000 * i)
+              for i in range(calls)]
+    device += [("elementwise_kernel", 0.0, 90.0), (SCAN, 0.0, 50.0)]
+    hi = 2000.0 * calls + 100
+    markers = [(DF_ROWS, 50.0 + 2000 * i, 50.0 + 2000 * i, SERVE)
+               for i in range(calls)]
+    run = _run(markers, device + [(DF_KERNEL, hi + 10, hi + 900)],
+               (0.0, hi))
+    # 4 GiB a call in 1.6 ms each
+    want = 100 * 16 * ROWS * LANES / 3.35e12 / 1.6e-3
+    got = _read("df_sum_rows_roofline", run)
+    assert got == pytest.approx(want) and 0 < got < 100
+
+
+@pytest.mark.parametrize("markers", [
+    [],                                                     # the parent's
+    [DF_ROWS, f"tuun.scan.df_prefix_sum_rows_f32:{ROWS}x65536"],  # shapes
+    [DF_ROWS, f"tuun.scan.df_prefix_sum_f32:1x{LANES}"],    # same kernel
+    [f"tuun.scan.df_prefix_sum_f32:1x{LANES}"],             # one row alone
+])
+def test_df_sum_rows_roofline_reads_nothing_it_cannot_attribute(markers):
+    device = [(DF_KERNEL, 100.0, 1700.0)]
+    host = [(m, 50.0 + i, 50.0 + i, SERVE) for i, m in enumerate(markers)]
+    host += [(f"tuun.scan.prefix_sum_rows_f32:{ROWS}x{LANES}", 60.0, 60.0,
+              SERVE)]
+    assert _read("df_sum_rows_roofline", _run(host, device)) is None
+
+
+def test_df_sum_rows_roofline_reads_nothing_without_a_kernel_event():
+    run = _run([(DF_ROWS, 50.0, 50.0, SERVE)], [(SCAN, 100.0, 200.0)])
+    assert _read("df_sum_rows_roofline", run) is None

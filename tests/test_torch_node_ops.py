@@ -6,8 +6,9 @@ readers of them (portbench/metrics/engine.*_ops_per_block.offline.py).
 On the CPU a step is a model of a CUDA graph capture (the captured body
 recorded as GraphStep records it, then rerun at each replay), on the
 benchmark's own configurations at a small size: the vibrato (three
-sines, no envelope) and the PM piano (four sines, two min/max
-envelopes of time ramps)."""
+sines, no envelope), in fast mode and in exact_df (its phases in
+double-single arithmetic, counted apart as `GraphStep.df32_ops`), and the
+PM piano (four sines, two min/max envelopes of time ramps)."""
 
 import collections
 import sys
@@ -22,7 +23,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from tuun_tpu_torch import spans
 from tuun_tpu_torch import tracker as T
-from tuun_tpu_torch.engine import capture
+from tuun_tpu_torch.engine import capture, df32
 from tuun_tpu_torch.engine.capture import GraphStep
 from tuun_tpu_torch.evaluator import Evaluator
 
@@ -54,6 +55,7 @@ class AllOps(TorchDispatchMode):
         self.n = 0
         self.attribute = attribute
         self.by_class = collections.Counter()
+        self.in_df32 = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -62,7 +64,18 @@ class AllOps(TorchDispatchMode):
             self.n += 1
             if self.attribute:
                 self.by_class[_innermost_node()] += 1
+                self.in_df32 += _inside_df32()
         return out
+
+
+def _inside_df32():
+    """Whether a function of engine/df32.py is on the stack."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_code.co_filename == df32.__file__:
+            return True
+        frame = frame.f_back
+    return False
 
 
 def _innermost_node():
@@ -107,7 +120,7 @@ def _tracker(config, blocks=4 * K):
     cfg = harness.load_json(PORTBENCH / "configs" / f"{config}.json")
     voices = harness.draw_voices(cfg, VOICES, 4000000021)
     ev = Evaluator(SR, 90, harness.ROOT / "tuun_tpu_torch" / "stdlib" / "v0")
-    t = T.Tracker(SR, BLOCK, precision="fast", device="cpu",
+    t = T.Tracker(SR, BLOCK, precision=cfg["precision"], device="cpu",
                   sync_interval=K)
     t.fuse_blocking = True
     for i, w in enumerate(harness.compile_voices(cfg, voices, ev)):
@@ -124,11 +137,14 @@ def _window(t):
     return wins[0]
 
 
-@pytest.mark.parametrize("config", ["fm_vibrato", "pm_piano", "saw_lpf"])
+@pytest.mark.parametrize("config", ["fm_vibrato", "pm_piano", "saw_lpf",
+                                    "fm_vibrato_exact_df"])
 def test_per_class_counts_add_up_to_every_operation(counted, config):
     """The per-class counts add up to every operation the step's body
     enqueues, and each class's count is what an attribution of each
-    operator to the innermost node on the stack gives."""
+    operator to the innermost node on the stack gives; the double-single
+    count is what the operators dispatched with a df32 function on the
+    stack give."""
     t = _tracker(config)
     try:
         step = _window(t)
@@ -138,8 +154,71 @@ def test_per_class_counts_add_up_to_every_operation(counted, config):
         assert sum(step.node_ops.values()) == everything.n > 0
         assert step.node_ops == dict(everything.by_class)
         assert step.node_ops[capture.OTHER] > 0  # the mix and the packing
+        assert step.df32_ops == everything.in_df32
     finally:
         t.close()
+
+
+@pytest.mark.parametrize("config,df", [("fm_vibrato_exact_df", True),
+                                       ("fm_vibrato", False),
+                                       ("pm_piano", False)])
+def test_df32_count_leaves_the_class_counts_as_they_were(counted, config,
+                                                         df, monkeypatch):
+    """The exact_df vibrato's step counts operations inside the
+    double-single helpers, all of them under CSine (its three sines'
+    phases); the fast steps count none.  A capture that watches no df32
+    function counts every class as the one that watches them."""
+    t = _tracker(config)
+    try:
+        step = _window(t)
+        if df:
+            assert 0 < step.df32_ops <= step.node_ops["CSine"]
+        else:
+            assert step.df32_ops == 0
+        with_df = dict(step.node_ops)
+    finally:
+        t.close()
+    monkeypatch.setattr(capture, "_df32_codes", set)
+    t = _tracker(config)
+    try:
+        step = _window(t)
+        assert step.node_ops == with_df and step.df32_ops == 0
+    finally:
+        t.close()
+
+
+def test_df32_helpers_count_once_at_their_outermost_call():
+    """A helper's operations count once, however deep the helpers nest
+    (df_mod_tau calls df_mul and df_add, which call two_prod and
+    two_sum), and a node's render counts them as its own too."""
+    grown = [0]
+
+    class Sine(capture.Node):
+        def render(self):
+            x = torch.ones(3)
+            with AllOps() as ops:
+                hi, lo = df32.df_mod_tau(x * 7.0, x * 1e-9)
+                df32.df_sin(hi, lo)
+            grown[0] += ops.n
+            grown[0] += 2  # the render's own operations
+
+    with capture.NodeOps(lambda: grown[0]) as count:
+        Sine(None).render()
+    assert count.counts == {"Sine": grown[0]}
+    assert count.df32 == 0  # the growth came after the helpers returned
+    assert _tools_free()
+
+    with AllOps() as ops, capture.NodeOps(lambda: ops.n) as count:
+        x = torch.ones(3)
+        h, l = x * 7.0, x * 1e-9
+        before = ops.n
+        hi, lo = df32.df_mod_tau(h, l)
+        df32.df_sin(hi, lo)
+        inside = ops.n - before
+        h + l  # outside every helper
+    assert count.df32 == inside > 0
+    assert count.counts == {capture.OTHER: ops.n}
+    assert _tools_free()
 
 
 def test_fm_counts_its_sines_and_no_envelope(counted):
@@ -274,6 +353,29 @@ def test_replays_under_a_session_mark_one_marker_per_class(counted):
         # every class once, with the capture's count
         assert got and set(got) == set(want)
         assert len(set(got.values())) == 1
+    finally:
+        t.close()
+
+
+@pytest.mark.parametrize("config", ["fm_vibrato_exact_df", "pm_piano"])
+def test_replays_mark_the_df32_count_beside_the_classes(counted, config):
+    """Each window handed to the prefetch, or replayed inline, marks
+    `tuun.engine.df32:<n>` once with the capture's count: 0 in a fast
+    step, not nothing."""
+    t = _tracker(config)
+    try:
+        step = _window(t)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(2 * K):
+                t.render_block()
+                if t._prefetch is not None:
+                    assert t._prefetch["done"].wait(10)
+        names = [e.name for e in prof.events()]
+        df = [n for n in names if n.startswith("tuun.engine.df32:")]
+        assert df and set(df) == {f"tuun.engine.df32:{step.df32_ops}"}
+        assert len(df) == names.count(f"{MARKER}CSine:"
+                                      f"{step.node_ops['CSine']}")
+        assert (step.df32_ops > 0) == (config == "fm_vibrato_exact_df")
     finally:
         t.close()
 

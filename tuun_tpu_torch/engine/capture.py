@@ -49,7 +49,12 @@ torch.cuda.CUDAGraph over static input buffers, and each call replays it:
     as `tuun.engine.shared:<n>`, and those that settled subtrees saved
     (`folded_renders`, graph.CFold), marked as `tuun.engine.folded:<n>`;
     a node class whose every node sits in a settled subtree keeps an
-    entry of 0 in `node_ops`.  The counts run only inside a capture.
+    entry of 0 in `node_ops`.  Apart from the classes, it counts the
+    operations enqueued inside the double-single helpers (`df32_ops`:
+    df32.py's public functions, each outermost call's growth), which
+    still count under the node that called them, marked as
+    `tuun.engine.df32:<n>`, 0 in a step with none.  The counts run only
+    inside a capture.
   * A call replays on the caller's current stream, under the step's own
     lock (a window's prefetch worker and the serve thread both call it),
     inside the span `tuun.engine.replay` (spans.py).
@@ -69,7 +74,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from .. import spans
-from . import kernels, scan_ops
+from . import df32, kernels, scan_ops
 from .graph import Node, Params, counting_folded, counting_shared
 
 _capture_lock = threading.Lock()
@@ -116,6 +121,13 @@ def captured_nodes(stream: int) -> Optional[int]:
     return n.value
 
 
+def _df32_codes() -> set:
+    """The code objects of df32.py's public functions."""
+    return {fn.__code__ for name, fn in vars(df32).items()
+            if not name.startswith("_") and callable(fn)
+            and getattr(fn, "__module__", None) == df32.__name__}
+
+
 def _render_classes() -> Dict[Any, str]:
     """Each engine node class's `render` code object, and the class's
     name."""
@@ -134,17 +146,22 @@ class NodeOps:
     there by the engine node class whose render enqueued them: a node's
     count is what `nodes()` (the operations enqueued so far) grew by
     while its render ran, less its children's renders; what grew outside
-    every render is OTHER's.  The renders' starts and returns come from
-    sys.monitoring events set on the `render` code objects alone, so no
-    other call pays for them and no call makes this thread wait for the
-    interpreter lock; renders on other threads are passed over.  Nothing
-    is counted where `nodes()` reads None or no monitoring tool id is
-    free."""
+    every render is OTHER's.  `df32` counts apart what grew inside the
+    outermost calls of df32.py's public functions (the double-single
+    arithmetic), which count under their node as well.  The renders' and
+    the helpers' starts and returns come from sys.monitoring events set
+    on those code objects alone, so no other call pays for them and no
+    call makes this thread wait for the interpreter lock; calls on other
+    threads are passed over.  Nothing is counted where `nodes()` reads
+    None or no monitoring tool id is free."""
 
     def __init__(self, nodes: Callable[[], Optional[int]]):
         self.nodes = nodes
         self.counts: collections.Counter = collections.Counter()
+        self.df32 = 0
         self._stack: List[list] = []
+        self._df_depth = 0
+        self._df_start = 0
         self._tool: Optional[int] = None
         self._lost = False  # a reading of None after the start
 
@@ -155,12 +172,24 @@ class NodeOps:
             return 0
         return n
 
-    def _start_render(self, code, offset) -> None:
-        if threading.get_ident() == self._thread:
+    def _on_start(self, code, offset) -> None:
+        if threading.get_ident() != self._thread:
+            return
+        if code in self._df_codes:
+            if not self._df_depth:
+                self._df_start = self._now()
+            self._df_depth += 1
+        else:
             self._stack.append([self._codes[code], self._now(), 0])
 
-    def _return_render(self, code, offset, value) -> None:
-        if threading.get_ident() == self._thread and self._stack:
+    def _on_return(self, code, offset, value) -> None:
+        if threading.get_ident() != self._thread:
+            return
+        if code in self._df_codes:
+            self._df_depth -= 1
+            if not self._df_depth:
+                self.df32 += self._now() - self._df_start
+        elif self._stack:
             cls, start, inner = self._stack.pop()
             grown = self._now() - start
             if grown != inner:  # a render that only returned a stored
@@ -180,11 +209,12 @@ class NodeOps:
             return self
         self._tool, self._thread = free[0], threading.get_ident()
         self._codes = _render_classes()
+        self._df_codes = _df32_codes()
         mon.register_callback(self._tool, mon.events.PY_START,
-                              self._start_render)
+                              self._on_start)
         mon.register_callback(self._tool, mon.events.PY_RETURN,
-                              self._return_render)
-        for code in self._codes:
+                              self._on_return)
+        for code in (*self._codes, *self._df_codes):
             mon.set_local_events(self._tool, code, mon.events.PY_START
                                  | mon.events.PY_RETURN)
         return self
@@ -193,7 +223,7 @@ class NodeOps:
         if self._tool is None:
             return False
         mon = sys.monitoring
-        for code in self._codes:
+        for code in (*self._codes, *self._df_codes):
             mon.set_local_events(self._tool, code, 0)
         mon.register_callback(self._tool, mon.events.PY_START, None)
         mon.register_callback(self._tool, mon.events.PY_RETURN, None)
@@ -202,6 +232,7 @@ class NodeOps:
         inside = sum(self.counts.values())
         if self._lost:
             self.counts.clear()
+            self.df32 = 0
         elif end - self._start > inside:
             self.counts[OTHER] += end - self._start - inside
         return False
@@ -350,6 +381,8 @@ class GraphStep:
         # and the node renders that shared and settled subtrees saved in
         # it.
         self.node_ops: Dict[str, int] = {}
+        # Those of them enqueued inside the double-single helpers.
+        self.df32_ops = 0
         self.shared_renders = 0
         self.folded_renders = 0
         self._lock = threading.Lock()
@@ -423,9 +456,10 @@ class GraphStep:
         (kernels.graph_scope: `scan_calls`, `launches`) and, inside the
         NodeOps it yields (over `nodes`, the operations captured so far),
         the device operations by engine node class (`node_ops`, with 0
-        for a class that only settled subtrees hold), and the node
-        renders that shared and settled subtrees saved
-        (`shared_renders`, `folded_renders`)."""
+        for a class that only settled subtrees hold) and those inside
+        the double-single helpers (`df32_ops`), and the node renders that
+        shared and settled subtrees saved (`shared_renders`,
+        `folded_renders`)."""
         counter = NodeOps(nodes)
         with kernels.graph_scope(self._scratch_owner,
                                   record=True) as recorded, \
@@ -434,6 +468,7 @@ class GraphStep:
         self.scan_calls = tuple(recorded)
         self.launches = dict(recorded.launches)
         self.node_ops = dict(counter.counts)
+        self.df32_ops = counter.df32
         if self.node_ops:
             for cls in folded[1]:
                 self.node_ops.setdefault(cls, 0)
@@ -444,13 +479,16 @@ class GraphStep:
         """Under a profiler session, marks what one replay enqueues on
         the profiler's clock: each scan call's shape
         (kernels.mark_calls), each engine node class's operations,
-        `tuun.engine.ops.<Class>:<n>`, and the node renders shared and
-        settled subtrees saved, `tuun.engine.shared:<n>` and
-        `tuun.engine.folded:<n>`."""
+        `tuun.engine.ops.<Class>:<n>`, and beside them those inside the
+        double-single helpers, `tuun.engine.df32:<n>`, and the node
+        renders shared and settled subtrees saved,
+        `tuun.engine.shared:<n>` and `tuun.engine.folded:<n>`."""
         if spans.traced():
             kernels.mark_calls(self.scan_calls)
             for cls, n in sorted(self.node_ops.items()):
                 spans.mark(f"engine.ops.{cls}:{n}")
+            if self.node_ops:
+                spans.mark(f"engine.df32:{self.df32_ops}")
             spans.mark(f"engine.shared:{self.shared_renders}")
             spans.mark(f"engine.folded:{self.folded_renders}")
 
